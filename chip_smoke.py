@@ -23,6 +23,27 @@ Phases, each of which asserts; any failure exits non-zero:
    stand-in each and the HBM bound
 7. where a round's time goes: host sampling, device kernel time and
    launches per round (torch.profiler), the device's busy share
+8. K3 ``flash_attention`` against its plain version on the card: the
+   serving prefill's shape (B 4, S 1024, H 40, KV 8, hd 128) in bf16 and
+   f32, a sliding window, MHA at hd 64, non-causal, a ragged length.
+   Kernel against plain version throughout: 2e-5 in f32; 2e-2 in bf16, and
+   also 1e-2 in relative norm
+9. K4 ``flash_decode`` against its plain version: the decode step's shape
+   (B 4, H 40, KV 8, 1,056 slots, hd 128) in bf16 and f32, a part-filled
+   cache with -1 slots, a wrapped ring buffer with a window
+10. the serving path at full size: Qwen2.5-14B from its published config
+    (48 layers, bf16, random weights from seed 0) through
+    ``repro_torch.launch.serve``: prefill of 4 x 1,024 tokens, then 32
+    greedy decode steps; K3 must serve 48 launches in prefill and K4 48 per
+    decode step; logits finite
+11. card against host: the same model at full width with 2 layers in f32,
+    1 x 256 prompt tokens and 8 decode steps, on the card and on
+    ``device="cpu"``; logits within 1e-4, greedy tokens identical
+12. K3 and K4 times at the serving path's own inputs (recorded in an
+    untimed rerun of [10]'s request) beside their plain versions,
+    ``scaled_dot_product_attention`` and the bound
+13. where a decode step's time goes (torch.profiler), the device's busy
+    share
 
 It ends with the kernels as one JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -49,7 +70,16 @@ from repro_torch.data.synthetic import make_movielens_like  # noqa: E402
 from repro_torch.federated.plan import (RoundPlan, RowSparseTransport,  # noqa: E402
                                         ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_torch)
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.layers import cache_slot_positions  # noqa: E402
 from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
                                               rowsparse_scatter_torch)
 from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
@@ -61,7 +91,10 @@ from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+OPS_PER_S = {torch.float32: F32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14-15
+BF16_REL_TOL = 1e-2            # ||got - want|| / ||want|| for bf16 comparisons
 SEED = 0
 N_CLIENTS = 6040               # MovieLens-1M users: the heat total N
 DEV = torch.device("cuda")
@@ -124,11 +157,19 @@ def cohort(rng, k: int, r: int, v: int, d: int, dtype, all_pad: int = 0,
 
 
 def compare(name, got, want, dtype) -> float:
+    """Max abs error of ``got`` against ``want``, held to ``TOL``; bf16 is
+    also held to ``BF16_REL_TOL`` in relative norm, since its element bound
+    is loose against small outputs."""
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     tol = TOL[dtype]
     check(torch.allclose(got, want, rtol=tol, atol=tol),
           f"{name}: kernel disagrees with its plain version (max abs err {err})")
+    if dtype == torch.bfloat16 and got.numel():
+        rel = float(torch.linalg.vector_norm((got - want).float())
+                    / torch.linalg.vector_norm(want.float()).clamp(min=1e-30))
+        check(rel <= BF16_REL_TOL, f"{name}: relative error {rel} > {BF16_REL_TOL}")
+        print(f"    {name}: bf16 relative error {rel:.3g}")
     return err
 
 
@@ -400,6 +441,296 @@ def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
     ]
 
 
+
+# ---------------------------------------------------------------------------
+# The serving path: K3, K4 and Qwen2.5-14B
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2_5_14b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+HOST_PROMPT, HOST_GEN, HOST_TOL = 256, 8, 1e-4
+
+
+def normal(rng, shape, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(DEV, dtype)
+
+
+def phase_k3(rng) -> float:
+    """K3 against its plain version, case by case (tolerance by dtype)."""
+    cases = [("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, torch.bfloat16),
+             ("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, torch.float32),
+             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, torch.bfloat16),
+             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, torch.float32),
+             ("mha-hd64", 2, 512, 512, 16, 16, 64, True, 0, torch.float32),
+             ("non-causal", 1, 512, 512, 40, 8, 128, False, 0, torch.float32),
+             ("ragged", 2, 1000, 1000, 40, 8, 128, True, 0, torch.bfloat16),
+             ("ragged", 1, 200, 333, 8, 2, 128, False, 0, torch.float32)]
+    worst = 0.0
+    for name, b, sq, sk, h, kv, hd, causal, window, dtype in cases:
+        q, k, v = (normal(rng, (b, sq, h, hd), dtype), normal(rng, (b, sk, kv, hd), dtype),
+                   normal(rng, (b, sk, kv, hd), dtype))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        err = compare(f"flash_attention[{name}]", got.float(), want.float(), dtype)
+        worst = max(worst, err)
+        print(f"  K3 {name:10s} {str(dtype):14s} B={b} Sq={sq} Sk={sk} H={h} KV={kv} "
+              f"hd={hd} causal={causal} window={window} max_abs_err={err:.3g}")
+    return worst
+
+
+def phase_k4(rng) -> float:
+    """K4 against its plain version: full, part-filled and ring caches."""
+    b, h, kv, hd = 4, 40, 8, 128
+    s = SERVE_PROMPT + SERVE_GEN
+    full = cache_slot_positions(s, s, False, DEV)
+    part = cache_slot_positions(700, s, False, DEV)
+    ring = cache_slot_positions(1300, 512, True, DEV)
+    cases = [("decode", s, full, s - 1, 0, torch.bfloat16),
+             ("decode", s, full, s - 1, 0, torch.float32),
+             ("part-filled", s, part, 699, 0, torch.bfloat16),
+             ("part-filled", s, part, 699, 0, torch.float32),
+             ("ring", 512, ring, 1299, 512, torch.bfloat16),
+             ("ring", 512, ring, 1299, 512, torch.float32),
+             ("ring-window", 512, ring, 1299, 200, torch.float32)]
+    worst = 0.0
+    for name, slots, kpos, qpos, window, dtype in cases:
+        q = normal(rng, (b, h, hd), dtype)
+        kc, vc = normal(rng, (b, kv, slots, hd), dtype), normal(rng, (b, kv, slots, hd), dtype)
+        got = flash_decode(q, kc, vc, kpos, qpos, window=window)
+        want = flash_decode_torch(q, kc, vc, kpos, qpos, window=window)
+        err = compare(f"flash_decode[{name}]", got.float(), want.float(), dtype)
+        worst = max(worst, err)
+        print(f"  K4 {name:11s} {str(dtype):14s} B={b} H={h} KV={kv} S={slots} hd={hd} "
+              f"q_position={qpos} window={window} valid={int((kpos >= 0).sum())} "
+              f"max_abs_err={err:.3g}")
+    return worst
+
+
+def capture_attention_inputs(cfg, params) -> dict:
+    """One K3 (first prefill layer) and one K4 (last layer of the last
+    decode step) input set, recorded, as copies, in an untimed run of the
+    same request as [10]'s (same weights and prompt seed). The kernels are
+    reached through ``layers``' module names, which this run wraps."""
+    captured = {}
+    copy = lambda args: tuple(a.clone() if torch.is_tensor(a) else a for a in args)  # noqa: E731
+
+    def capture_k3(*args, **kw):
+        captured.setdefault("k3", (copy(args), kw))
+        return flash_attention(*args, **kw)
+
+    def capture_k4(*args, **kw):
+        captured["k4"] = (copy(args), kw)
+        return flash_decode(*args, **kw)
+
+    layers_mod.flash_attention, layers_mod.flash_decode = capture_k3, capture_k4
+    try:
+        serve_mod.serve(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                        device=DEV, seed=SEED, params=params)
+    finally:
+        layers_mod.flash_attention, layers_mod.flash_decode = flash_attention, flash_decode
+    return captured
+
+
+def phase_serve() -> tuple:
+    """Qwen2.5-14B at its published size through ``launch.serve``. Returns
+    the run's summary, its parameters, and one K3 and one K4 input set of
+    the same request (``capture_attention_inputs``)."""
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    # one warm-up request at the same shapes (cuBLAS handles, lazy module
+    # loading), so that the timed request is a steady one
+    serve_mod.serve(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=2, device=DEV,
+                    seed=SEED, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                          device=DEV, seed=SEED, params=params)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    nl = cfg.num_layers
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+          f"prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * SERVE_GEN},
+          f"decode launches {res.launches_decode}, want {nl} of K4 per step")
+    check(launches == {"flash_attention": nl, "flash_decode": nl * SERVE_GEN},
+          f"serving run launches {launches}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits), "non-finite logits")
+    check(all(lg.shape == (SERVE_BATCH, cfg.vocab_size) for lg in res.logits),
+          "logits shape")
+    out = {"params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
+           "peak_gb": peak / 1e9, "launches": launches}
+    print(f"  {cfg.name}: {nl} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"params ({cfg.dtype}), random init from seed {SEED} in {init_s:.1f} s")
+    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT}: {res.prefill_ms:.1f} ms; decode "
+          f"{SERVE_GEN} steps: {res.decode_ms_per_token:.2f} ms/token, "
+          f"{res.tok_per_s:.1f} tok/s; peak memory {peak / 1e9:.2f} GB")
+    print(f"  launches: prefill {res.launches_prefill}, decode {res.launches_decode}")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    return out, params, capture_attention_inputs(cfg, params)
+
+
+def phase_serve_card_vs_host() -> dict:
+    """The serving path at full width, 2 layers, f32, on the card and on
+    the host from the same weights: logits within HOST_TOL, same tokens."""
+    cfg = get_config(SERVE_ARCH).replace(num_layers=2, dtype="float32")
+    card = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    host = transformer.make_params(cfg, device="cpu",
+                                   state={k: v.cpu() for k, v in card.state_dict().items()})
+    kw = dict(batch=1, prompt=HOST_PROMPT, gen=HOST_GEN, seed=SEED)
+    rc = serve_mod.serve(cfg, device=DEV, params=card, **kw)
+    t0 = time.perf_counter()
+    rh = serve_mod.serve(cfg, device="cpu", params=host, **kw)
+    host_s = time.perf_counter() - t0
+    check(rc.launches_prefill["flash_attention"] == cfg.num_layers, "card run missed K3")
+    check(rh.launches_prefill["flash_attention"] == 0, "host run launched a kernel")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+    check(all(torch.allclose(a.cpu(), b, rtol=HOST_TOL, atol=HOST_TOL)
+              for a, b in zip(rc.logits, rh.logits)),
+          f"card and host logits differ by {err}")
+    check(torch.equal(rc.tokens.cpu(), rh.tokens), "card and host greedy tokens differ")
+    print(f"  2 layers x d_model {cfg.d_model} f32, prompt {HOST_PROMPT}, {HOST_GEN} steps: "
+          f"max |logit diff| {err:.3g} (tolerance {HOST_TOL}); tokens identical "
+          f"{rc.tokens[0].tolist()}; host run {host_s:.1f} s")
+    del card, host
+    return {"max_logit_diff": err}
+
+
+def attention_bound(b, sq, h, kv, hd, keys, pairs, dtype, extra_bytes=0) -> tuple:
+    """Least time for attention: q and o (sq rows), k and v (``keys`` rows)
+    and ``extra_bytes`` moved once, and two products of 2 * hd flops for
+    each of ``pairs`` valid (query, key) pairs per (batch, head)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * 2 * b * hd * (sq * h + keys * kv) + extra_bytes
+    ops = 4 * b * h * hd * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_timing(captured, launches: dict, err_k3: float,
+                           err_k4: float) -> list:
+    """K3 and K4 at the serving path's own inputs: kernel, plain version,
+    ``scaled_dot_product_attention`` on the same inputs (laid out and GQA
+    heads repeated outside the timed call) and the bound."""
+    import torch.nn.functional as F
+
+    (q, k, v), kw3 = captured["k3"]
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    window = kw3.get("window", 0)
+    want = flash_attention_torch(q, k, v, **kw3)
+    err_k3 = max(err_k3, compare("flash_attention[serving prefill]",
+                                 flash_attention(q, k, v, **kw3).float(), want.float(),
+                                 q.dtype))
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    k3 = lambda: flash_attention(q, k, v, **kw3)                       # noqa: E731
+    k3_plain = lambda: flash_attention_torch(q, k, v, **kw3)           # noqa: E731
+    k3_lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    p1, m1, m2, p2 = (cuda_ms(k3_plain, 5, 1), cuda_ms(k3, 20), cuda_ms(k3, 20),
+                      cuda_ms(k3_plain, 5, 1))
+    lib3 = cuda_ms(k3_lib, 20)
+    check(window == 0, "the serving model has no window")
+    b3, by3 = attention_bound(b, sq, h, kvh, hd, sk, sq * (sq + 1) // 2, q.dtype)
+
+    (q4, kc, vc, kpos, qpos), kw4 = captured["k4"]
+    valid = (kpos >= 0) & (kpos <= qpos)
+    n_valid = int(valid.sum())
+    err_k4 = max(err_k4, compare("flash_decode[serving step]",
+                                 flash_decode(q4, kc, vc, kpos, qpos, **kw4).float(),
+                                 flash_decode_torch(q4, kc, vc, kpos, qpos, **kw4).float(),
+                                 q4.dtype))
+    g = q4.shape[1] // kc.shape[1]
+    q4t = q4[:, :, None]
+    kct, vct = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
+    mask = valid[None, None, None]
+    k4 = lambda: flash_decode(q4, kc, vc, kpos, qpos, **kw4)           # noqa: E731
+    k4_plain = lambda: flash_decode_torch(q4, kc, vc, kpos, qpos, **kw4)  # noqa: E731
+    k4_lib = lambda: F.scaled_dot_product_attention(q4t, kct, vct, attn_mask=mask)  # noqa: E731
+    o1, n1, n2, o2 = cuda_ms(k4_plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(k4_plain)
+    lib4 = cuda_ms(k4_lib)
+    hk = kc.shape[1]
+    b4, by4 = attention_bound(q4.shape[0], 1, q4.shape[1], hk, hd, n_valid, n_valid,
+                              q4.dtype, extra_bytes=4 * kpos.numel())
+    print(f"  K3 flash_attention B={b} S={sq} H={h} KV={kvh} hd={hd} {q.dtype} causal: "
+          f"kernel {m1:.4f}/{m2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms, "
+          f"bound {b3:.5f} ms ({by3})")
+    print(f"  K4 flash_decode B={q4.shape[0]} H={q4.shape[1]} KV={hk} S={kc.shape[2]} "
+          f"valid={n_valid} {q4.dtype}: kernel {n1:.4f}/{n2:.4f} ms, plain "
+          f"{o1:.4f}/{o2:.4f} ms, SDPA {lib4:.4f} ms, bound {b4:.5f} ms ({by4})")
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:100",
+         "launches": launches["flash_attention"], "max_abs_err": err_k3,
+         "ms": min(m1, m2), "plain_ms": min(p1, p2), "bound_ms": b3,
+         "bound_by": by3, "library_ms": lib3},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:88",
+         "launches": launches["flash_decode"], "max_abs_err": err_k4,
+         "ms": min(n1, n2), "plain_ms": min(o1, o2), "bound_ms": b4,
+         "bound_by": by4, "library_ms": lib4},
+    ]
+
+
+def phase_decode_profile(params, steady_ms: float) -> dict:
+    """Where one decode step's time goes at the serving shape: device time
+    by op over 5 warm steps (torch.profiler) against the unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(SERVE_ARCH)
+    api = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 1),
+                         dtype=torch.int32).to(DEV)
+    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
+    logits, cache = api.prefill(params, {"tokens": toks}, cache)
+    for _ in range(3):
+        logits, cache = api.decode_step(params, cache, {"tokens": logits.argmax(-1).int()})
+    n = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            logits, cache = api.decode_step(params, cache,
+                                            {"tokens": logits.argmax(-1).int()})
+        torch.cuda.synchronize()
+    by_name, ops = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_ms = sum(by_name.values()) / n / 1e3
+    k4_ms = sum(t for name, t in by_name.items() if "split_kernel" in name
+                or "merge_kernel" in name) / n / 1e3
+    # cuBLAS's kernels: nvjet_* on Hopper, *gemm*/*gemv* elsewhere
+    gemm_ms = sum(t for name, t in by_name.items()
+                  if any(w in name.lower() for w in ("nvjet", "gemm", "gemv"))) / n / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    out = {"steady_ms_per_step": steady_ms, "device_ms_per_step": device_ms,
+           "device_ops_per_step": ops / n, "k4_ms_per_step": k4_ms,
+           "matmul_ms_per_step": gemm_ms,
+           "busy_share": device_ms / steady_ms if steady_ms else None,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"  decode step: {steady_ms:.2f} ms steady (host clock, [10]); device busy "
+          f"{device_ms:.3f} ms ({device_ms / steady_ms * 100:.1f}%), {ops / n:.0f} device "
+          f"ops per step; matmuls {gemm_ms:.3f} ms, K4 {k4_ms:.4f} ms; weight-read bound "
+          f"{out['weight_read_bound_ms']:.3f} ms ({weight_bytes / 1e9:.2f} GB)")
+    for name, t in top:
+        print(f"    {t / n / 1e3:.4f} ms/step  {name[:90]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -443,6 +774,19 @@ def main() -> int:
 
     print("[7] where a fedsubavg round's time goes")
     phase_profile(ds, runs["fedsubavg"]["steady_ms_per_round"])
+
+    print("[8] K3 flash_attention vs plain version")
+    err_k3 = phase_k3(rng)
+    print("[9] K4 flash_decode vs plain version")
+    err_k4 = phase_k4(rng)
+    print(f"[10] serving path: {SERVE_ARCH} at its published size")
+    served, params, captured = phase_serve()
+    print("[11] card vs host, 2 layers at full width, f32")
+    phase_serve_card_vs_host()
+    print("[12] K3 and K4 times at the serving path's inputs")
+    kernels += phase_attention_timing(captured, served["launches"], err_k3, err_k4)
+    print("[13] where a decode step's time goes")
+    phase_decode_profile(params, served["decode_ms_per_token"])
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,20 +1,28 @@
 """Parameter conversion from the JAX package's layout.
 
 The JAX package keeps parameters as nested trees of boxed arrays. Given the
-unboxed values as numpy arrays, ``params_from_jax`` returns the port's flat
-parameter dict (nested keys joined with ".") on ``device`` and the logical
-axes of the model the tree belongs to. The JAX package is not imported: the
-caller hands over plain numpy arrays.
+unboxed values as numpy arrays, ``params_from_jax`` returns them in the
+port's form on ``device``:
+
+- the LR tree: the port's flat parameter dict (nested keys joined with ".")
+  and its logical axes;
+- the dense transformer's tree (``repro.models.transformer.make_params``,
+  layers stacked on a leading L axis): the port's ``Transformer`` module,
+  one entry of its ``layers`` per slice of L, and its logical axes.
+
+The JAX package is not imported: the caller hands over plain numpy arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.recsys import LR_AXES
+from repro_torch.models.transformer import make_params
 
 #: logical axes per model, keyed by the model's parameter names
 _MODEL_AXES = {frozenset(LR_AXES): LR_AXES}
@@ -31,10 +39,41 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(np_tree: Mapping, device=None) -> Tuple[Dict[str, torch.Tensor],
-                                                            Dict[str, Tuple]]:
-    """``(params, axes)`` for a JAX parameter tree given as numpy arrays."""
+def _is_transformer(flat: Mapping[str, np.ndarray]) -> bool:
+    return "embedding" in flat and "layers.attn.wq.w" in flat
+
+
+def _unstack_layers(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``layers.attn.wq.w`` (L, ...) -> ``layers.{i}.attn.wq.w``; bf16
+    arrays (numpy's ``ml_dtypes`` type, which torch does not read) widen to
+    f32 exactly and narrow back to the model's dtype on load."""
+    state = {}
+    for name, arr in flat.items():
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        if name.startswith("layers."):
+            for i in range(arr.shape[0]):
+                state[f"layers.{i}.{name[len('layers.'):]}"] = arr[i].copy()
+        else:
+            state[name] = arr.copy()
+    return state
+
+
+def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = None
+                    ) -> Tuple[object, Dict[str, Tuple]]:
+    """``(params, axes)`` for a JAX parameter tree given as numpy arrays.
+    The transformer's tree needs its ``cfg``; ``params`` is then the model."""
     flat = _flatten(np_tree)
+    if _is_transformer(flat):
+        if cfg is None:
+            raise ValueError("params_from_jax: the transformer's tree needs its "
+                             "ModelConfig (cfg=...)")
+        state = _unstack_layers(flat)
+        model = make_params(cfg, device=device, state=state)
+        if set(state) != set(model.axes):
+            raise ValueError(f"params_from_jax: the tree does not fit {cfg.name}: "
+                             f"{sorted(set(state) ^ set(model.axes))}")
+        return model, dict(model.axes)
     axes = _MODEL_AXES.get(frozenset(flat))
     if axes is None:
         raise ValueError(f"no ported model has parameters {sorted(flat)}")

@@ -31,6 +31,11 @@ SIGNATURES = {
                      (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
     "rowsparse_scatter": ("rowsparse_scatter_launch",
                           (_P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P)),
+    "flash_attention": ("flash_attention_launch",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
+    "flash_decode": ("flash_decode_launch",
+                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+                      _P)),
 }
 
 

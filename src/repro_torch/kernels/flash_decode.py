@@ -1,0 +1,119 @@
+"""K4: single-token flash decode against a (possibly ring-buffer) KV cache.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_decode.py:flash_decode``.
+The CUDA source is ``csrc/flash_decode.cu``: a split-K pass in which one
+block per (batch, KV head, cache slice) reads each slot once for all the
+query heads that share it, then a log-sum-exp merge of the slices. It is
+bound by the bytes of the cache on the H100; the source note says what the
+design does about it. The kernel keeps p in f32 for the PV product (the
+plain version rounds the normalised p to the cache's dtype, as the reference
+does), and returns zeros for a (batch, head) with no valid slot (the plain
+version: the mean of V); the source note says why.
+
+``flash_decode`` launches the kernel for CUDA tensors and runs
+``flash_decode_torch``, the plain PyTorch version, for CPU tensors only. It
+never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+#: head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+#: blocks the wrapper aims for when it cuts the cache into slices (a few per
+#: SM on the H100's 132), and the fewest slots a slice gets
+TARGET_BLOCKS = 264
+MIN_SLICE = 64
+
+
+def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_positions: torch.Tensor, q_position: int, *,
+                       window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: ``repro/models/layers.py::decode_attention``.
+
+    q ``(B, H, hd)``; caches ``(B, KV, S, hd)``; k_positions ``(S,)`` the
+    absolute position in each slot (-1 if empty). A slot is valid iff
+    ``0 <= kpos <= q_position`` and, with a window, ``kpos > q_position -
+    window``. Scores ``q.k / sqrt(hd)`` in f32, softmax, p cast to the
+    cache's dtype; returns ``(B, H, hd)`` in the cache's dtype.
+    """
+    b, h, hd = q.shape
+    kvh = k_cache.shape[1]
+    qh = q.reshape(b, kvh, h // kvh, hd).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qh, k_cache.float())
+    s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=s.device))
+    valid = (k_positions >= 0) & (k_positions <= q_position)
+    if window > 0:
+        valid &= k_positions > q_position - window
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgs,bksd->bkgd", p.float(), v_cache.float()).to(v_cache.dtype)
+    return o.reshape(b, h, hd)
+
+
+def split_plan(b: int, kvh: int, groups: int, s: int) -> tuple:
+    """(number of slices, slots per slice) the wrapper cuts the cache into."""
+    base = b * kvh * -(-groups // 8)
+    nsplit = max(1, min(-(-s // MIN_SLICE), -(-TARGET_BLOCKS // base)))
+    chunk = -(-s // nsplit)
+    return -(-s // chunk), chunk
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_positions: torch.Tensor, q_position: int, *,
+                 window: int = 0) -> torch.Tensor:
+    """One query token per (batch, head) against the cache; see
+    ``flash_decode_torch`` for the contract. ``q_position`` is a host int.
+    CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return flash_decode_torch(q, k_cache, v_cache, k_positions, q_position,
+                                  window=window)
+    dev = q.device
+    if not q.is_cuda or any(t.device != dev for t in (k_cache, v_cache, k_positions)):
+        raise ValueError("flash_decode: q, the caches and k_positions must lie on one "
+                         "CUDA device")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"flash_decode: want q (B, H, hd) and caches (B, KV, S, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    b, h, hd = q.shape
+    _, kvh, s, _ = k_cache.shape
+    if k_cache.shape[0] != b or k_cache.shape[3] != hd or h % kvh \
+            or k_positions.shape != (s,):
+        raise ValueError(f"flash_decode: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} and k_positions "
+                         f"{tuple(k_positions.shape)} do not fit")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"flash_decode: q and the caches must share f32 or bf16, got "
+                        f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if k_positions.dtype != torch.int32:
+        raise TypeError(f"flash_decode: k_positions must be int32, got "
+                        f"{k_positions.dtype}")
+    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, k_positions)):
+        raise ValueError("flash_decode: q, the caches and k_positions must be contiguous")
+    out = torch.empty_like(q)
+    if out.numel() == 0 or s == 0:
+        return out.zero_()
+    nsplit, chunk = split_plan(b, kvh, h // kvh, s)
+    part = torch.empty((b, h, nsplit, hd + 2), dtype=torch.float32, device=dev)
+    sqrt_hd = float(np.sqrt(np.float32(hd)))           # the reference's f32 sqrt(hd)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.launcher("flash_decode")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_positions.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, kvh, s, hd, int(q_position),
+            int(window), nsplit, chunk, sqrt_hd, part.data_ptr(), out.data_ptr(), stream)
+    _build.check("flash_decode", err)
+    flash_decode.launches += 1
+    return out
+
+
+#: kernel launches so far (one per call that reached the card)
+flash_decode.launches = 0
