@@ -24,13 +24,17 @@ Phases, each of which asserts; any failure exits non-zero:
 7. where a round's time goes: host sampling, device kernel time and
    launches per round (torch.profiler), the device's busy share
 8. K3 ``flash_attention`` against its plain version on the card: the
-   serving prefill's shape (B 4, S 1024, H 40, KV 8, hd 128) in bf16 and
-   f32, a sliding window, MHA at hd 64, non-causal, a ragged length.
+   serving prefill's shape (B 4, S 1024, H 40, KV 8, hd 128) in bf16 (the
+   tensor-core kernel) and f32 (the CUDA-core kernel), a sliding window,
+   bf16 at every other head dim (16, 32, 64), MHA at hd 64, non-causal,
+   ragged lengths, a continuation (Sq not a multiple of 128, Sk > Sq,
+   q_offset > 0) and a window whose edge falls inside a 128-row tile.
    Kernel against plain version throughout: 2e-5 in f32; 2e-2 in bf16, and
    also 1e-2 in relative norm
 9. K4 ``flash_decode`` against its plain version: the decode step's shape
    (B 4, H 40, KV 8, 1,056 slots, hd 128) in bf16 and f32, a part-filled
-   cache with -1 slots, a wrapped ring buffer with a window
+   cache with -1 slots, a wrapped ring buffer with a window, and an empty
+   row (every position above ``q_position``: the mean of V)
 10. the serving path at full size: Qwen2.5-14B from its published config
     (48 layers, bf16, random weights from seed 0) through
     ``repro_torch.launch.serve``: prefill of 4 x 1,024 tokens, then 32
@@ -41,9 +45,13 @@ Phases, each of which asserts; any failure exits non-zero:
     ``device="cpu"``; logits within 1e-4, greedy tokens identical
 12. K3 and K4 times at the serving path's own inputs (recorded in an
     untimed rerun of [10]'s request) beside their plain versions,
-    ``scaled_dot_product_attention`` and the bound
-13. where a decode step's time goes (torch.profiler), the device's busy
-    share
+    ``scaled_dot_product_attention`` and the bound, with the achieved
+    TFLOP/s (K3) and TB/s (K4)
+13. where a decode step's time goes (torch.profiler), K4's split pass per
+    launch, the device's busy share
+14. where a prefill's time goes (torch.profiler over one prefill of
+    4 x 1,024 tokens): device time by op, K3's total over its 48 launches,
+    the matmuls' total, the device's busy share
 
 It ends with the kernels as one JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -330,7 +338,6 @@ def phase_profile(ds, steady_ms: float) -> dict:
     """Where one fedsubavg round's time goes: host sampling, device kernel
     time and launches per round (torch.profiler over 5 warm rounds), and the
     device's busy share of the unprofiled steady round time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tr = make_trainer(ds, "fedsubavg", DEV)
@@ -346,11 +353,7 @@ def phase_profile(ds, steady_ms: float) -> dict:
         for _ in range(n):
             tr.run_round()
         torch.cuda.synchronize()
-    by_name, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            launches += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name, launches = device_times(prof)
     device_ms = sum(by_name.values()) / n / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"host_sampling_ms_per_round": sample_ms,
@@ -449,6 +452,8 @@ def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
 SERVE_ARCH = "qwen2_5_14b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
 HOST_PROMPT, HOST_GEN, HOST_TOL = 256, 8, 1e-4
+K3_TARGET_MS = 0.25            # bf16 K3 at the serving prefill, per launch
+K4_SPLIT_TARGET_US = 19.0      # K4's split pass inside the decode step, per launch
 
 
 def normal(rng, shape, dtype):
@@ -456,25 +461,35 @@ def normal(rng, shape, dtype):
 
 
 def phase_k3(rng) -> float:
-    """K3 against its plain version, case by case (tolerance by dtype)."""
-    cases = [("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, torch.bfloat16),
-             ("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, torch.float32),
-             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, torch.bfloat16),
-             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, torch.float32),
-             ("mha-hd64", 2, 512, 512, 16, 16, 64, True, 0, torch.float32),
-             ("non-causal", 1, 512, 512, 40, 8, 128, False, 0, torch.float32),
-             ("ragged", 2, 1000, 1000, 40, 8, 128, True, 0, torch.bfloat16),
-             ("ragged", 1, 200, 333, 8, 2, 128, False, 0, torch.float32)]
+    """K3 against its plain version, case by case (tolerance by dtype). The
+    bf16 cases run the tensor-core kernel, the f32 ones the CUDA-core one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, 0, bf),
+             ("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, 0, f32),
+             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, 0, bf),
+             ("window", 2, 1024, 1024, 40, 8, 128, True, 300, 0, f32),
+             ("hd16", 2, 512, 512, 16, 4, 16, True, 0, 0, bf),
+             ("hd32", 2, 512, 512, 16, 4, 32, True, 0, 0, bf),
+             ("hd64", 2, 512, 512, 16, 4, 64, True, 0, 0, bf),
+             ("mha-hd64", 2, 512, 512, 16, 16, 64, True, 0, 0, f32),
+             ("non-causal", 1, 512, 512, 40, 8, 128, False, 0, 0, bf),
+             ("non-causal", 1, 512, 512, 40, 8, 128, False, 0, 0, f32),
+             ("ragged", 2, 1000, 1000, 40, 8, 128, True, 0, 0, bf),
+             ("ragged", 1, 200, 333, 8, 2, 128, False, 0, 0, f32),
+             ("continue", 2, 200, 333, 8, 2, 128, True, 0, 133, bf),
+             ("window-in", 2, 512, 512, 8, 2, 128, True, 70, 0, bf)]
     worst = 0.0
-    for name, b, sq, sk, h, kv, hd, causal, window, dtype in cases:
+    for name, b, sq, sk, h, kv, hd, causal, window, off, dtype in cases:
         q, k, v = (normal(rng, (b, sq, h, hd), dtype), normal(rng, (b, sk, kv, hd), dtype),
                    normal(rng, (b, sk, kv, hd), dtype))
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_torch(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_torch(q, k, v, **kw)
         err = compare(f"flash_attention[{name}]", got.float(), want.float(), dtype)
         worst = max(worst, err)
         print(f"  K3 {name:10s} {str(dtype):14s} B={b} Sq={sq} Sk={sk} H={h} KV={kv} "
-              f"hd={hd} causal={causal} window={window} max_abs_err={err:.3g}")
+              f"hd={hd} causal={causal} window={window} q_offset={off} "
+              f"max_abs_err={err:.3g}")
     return worst
 
 
@@ -491,7 +506,10 @@ def phase_k4(rng) -> float:
              ("part-filled", s, part, 699, 0, torch.float32),
              ("ring", 512, ring, 1299, 512, torch.bfloat16),
              ("ring", 512, ring, 1299, 512, torch.float32),
-             ("ring-window", 512, ring, 1299, 200, torch.float32)]
+             ("ring-window", 512, ring, 1299, 200, torch.float32),
+             # every position above q_position: no valid slot, the mean of V
+             ("empty", s, full, -5, 0, torch.bfloat16),
+             ("empty", s, full, -5, 0, torch.float32)]
     worst = 0.0
     for name, slots, kpos, qpos, window, dtype in cases:
         q = normal(rng, (b, h, hd), dtype)
@@ -501,7 +519,8 @@ def phase_k4(rng) -> float:
         err = compare(f"flash_decode[{name}]", got.float(), want.float(), dtype)
         worst = max(worst, err)
         print(f"  K4 {name:11s} {str(dtype):14s} B={b} H={h} KV={kv} S={slots} hd={hd} "
-              f"q_position={qpos} window={window} valid={int((kpos >= 0).sum())} "
+              f"q_position={qpos} window={window} "
+              f"valid={int(((kpos >= 0) & (kpos <= qpos)).sum())} "
               f"max_abs_err={err:.3g}")
     return worst
 
@@ -603,13 +622,19 @@ def phase_serve_card_vs_host() -> dict:
     return {"max_logit_diff": err}
 
 
-def attention_bound(b, sq, h, kv, hd, keys, pairs, dtype, extra_bytes=0) -> tuple:
-    """Least time for attention: q and o (sq rows), k and v (``keys`` rows)
-    and ``extra_bytes`` moved once, and two products of 2 * hd flops for
-    each of ``pairs`` valid (query, key) pairs per (batch, head)."""
+def attention_work(b, sq, h, kv, hd, keys, pairs, dtype, extra_bytes=0) -> tuple:
+    """(bytes, flops) attention must move and do: q and o (sq rows), k and v
+    (``keys`` rows) and ``extra_bytes`` moved once, and two products of
+    2 * hd flops for each of ``pairs`` valid (query, key) pairs per (batch,
+    head)."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esize * 2 * b * hd * (sq * h + keys * kv) + extra_bytes
-    ops = 4 * b * h * hd * pairs
+    return (esize * 2 * b * hd * (sq * h + keys * kv) + extra_bytes,
+            4 * b * h * hd * pairs)
+
+
+def attention_bound(nbytes, ops, dtype) -> tuple:
+    """Least time for that work: the larger of bytes at the HBM rate and
+    flops at the dtype's peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -639,7 +664,8 @@ def phase_attention_timing(captured, launches: dict, err_k3: float,
                       cuda_ms(k3_plain, 5, 1))
     lib3 = cuda_ms(k3_lib, 20)
     check(window == 0, "the serving model has no window")
-    b3, by3 = attention_bound(b, sq, h, kvh, hd, sk, sq * (sq + 1) // 2, q.dtype)
+    bytes3, ops3 = attention_work(b, sq, h, kvh, hd, sk, sq * (sq + 1) // 2, q.dtype)
+    b3, by3 = attention_bound(bytes3, ops3, q.dtype)
 
     (q4, kc, vc, kpos, qpos), kw4 = captured["k4"]
     valid = (kpos >= 0) & (kpos <= qpos)
@@ -658,14 +684,21 @@ def phase_attention_timing(captured, launches: dict, err_k3: float,
     o1, n1, n2, o2 = cuda_ms(k4_plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(k4_plain)
     lib4 = cuda_ms(k4_lib)
     hk = kc.shape[1]
-    b4, by4 = attention_bound(q4.shape[0], 1, q4.shape[1], hk, hd, n_valid, n_valid,
-                              q4.dtype, extra_bytes=4 * kpos.numel())
+    bytes4, ops4 = attention_work(q4.shape[0], 1, q4.shape[1], hk, hd, n_valid, n_valid,
+                                  q4.dtype, extra_bytes=4 * kpos.numel())
+    b4, by4 = attention_bound(bytes4, ops4, q4.dtype)
+    ms3, ms4 = min(m1, m2), min(n1, n2)
     print(f"  K3 flash_attention B={b} S={sq} H={h} KV={kvh} hd={hd} {q.dtype} causal: "
-          f"kernel {m1:.4f}/{m2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms, "
-          f"bound {b3:.5f} ms ({by3})")
+          f"kernel {m1:.4f}/{m2:.4f} ms ({ops3 / ms3 / 1e9:.1f} TFLOP/s), plain "
+          f"{p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms ({ops3 / lib3 / 1e9:.1f} TFLOP/s), "
+          f"bound {b3:.5f} ms ({by3}; {OPS_PER_S[q.dtype] / 1e12:.0f} TFLOP/s)")
     print(f"  K4 flash_decode B={q4.shape[0]} H={q4.shape[1]} KV={hk} S={kc.shape[2]} "
-          f"valid={n_valid} {q4.dtype}: kernel {n1:.4f}/{n2:.4f} ms, plain "
-          f"{o1:.4f}/{o2:.4f} ms, SDPA {lib4:.4f} ms, bound {b4:.5f} ms ({by4})")
+          f"valid={n_valid} {q4.dtype}: kernel {n1:.4f}/{n2:.4f} ms "
+          f"({bytes4 / ms4 / 1e9:.2f} TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA "
+          f"{lib4:.4f} ms ({bytes4 / lib4 / 1e9:.2f} TB/s), bound {b4:.5f} ms ({by4}; "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    check(ms3 <= K3_TARGET_MS, f"K3 at the serving prefill: {ms3:.4f} ms > the "
+          f"{K3_TARGET_MS} ms target")
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -685,7 +718,6 @@ def phase_attention_timing(captured, launches: dict, err_k3: float,
 def phase_decode_profile(params, steady_ms: float) -> dict:
     """Where one decode step's time goes at the serving shape: device time
     by op over 5 warm steps (torch.profiler) against the unprofiled step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = get_config(SERVE_ARCH)
@@ -704,30 +736,87 @@ def phase_decode_profile(params, steady_ms: float) -> dict:
             logits, cache = api.decode_step(params, cache,
                                             {"tokens": logits.argmax(-1).int()})
         torch.cuda.synchronize()
-    by_name, ops = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ops += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name, ops = device_times(prof)
     device_ms = sum(by_name.values()) / n / 1e3
+    split_us = [t for name, t in by_name.items() if "split_kernel" in name]
     k4_ms = sum(t for name, t in by_name.items() if "split_kernel" in name
                 or "merge_kernel" in name) / n / 1e3
-    # cuBLAS's kernels: nvjet_* on Hopper, *gemm*/*gemv* elsewhere
-    gemm_ms = sum(t for name, t in by_name.items()
-                  if any(w in name.lower() for w in ("nvjet", "gemm", "gemv"))) / n / 1e3
+    split_us_per_launch = sum(split_us) / (n * cfg.num_layers)
+    gemm_ms = matmul_us(by_name) / n / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     out = {"steady_ms_per_step": steady_ms, "device_ms_per_step": device_ms,
            "device_ops_per_step": ops / n, "k4_ms_per_step": k4_ms,
+           "k4_split_us_per_launch": split_us_per_launch,
            "matmul_ms_per_step": gemm_ms,
            "busy_share": device_ms / steady_ms if steady_ms else None,
            "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
     print(f"  decode step: {steady_ms:.2f} ms steady (host clock, [10]); device busy "
           f"{device_ms:.3f} ms ({device_ms / steady_ms * 100:.1f}%), {ops / n:.0f} device "
-          f"ops per step; matmuls {gemm_ms:.3f} ms, K4 {k4_ms:.4f} ms; weight-read bound "
+          f"ops per step; matmuls {gemm_ms:.3f} ms, K4 {k4_ms:.4f} ms (split pass "
+          f"{split_us_per_launch:.2f} us per launch); weight-read bound "
           f"{out['weight_read_bound_ms']:.3f} ms ({weight_bytes / 1e9:.2f} GB)")
     for name, t in top:
         print(f"    {t / n / 1e3:.4f} ms/step  {name[:90]}")
+    check(split_us_per_launch <= K4_SPLIT_TARGET_US, f"K4's split pass in the decode "
+          f"step: {split_us_per_launch:.2f} us > the {K4_SPLIT_TARGET_US} us target")
+    return out
+
+
+def device_times(prof) -> tuple:
+    """Device microseconds by kernel name, and the number of device ops, of
+    a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    by_name, ops = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return by_name, ops
+
+
+def matmul_us(by_name: dict) -> float:
+    # cuBLAS's kernels: nvjet_* on Hopper, *gemm*/*gemv* elsewhere
+    return sum(t for name, t in by_name.items()
+               if any(w in name.lower() for w in ("nvjet", "gemm", "gemv")))
+
+
+def phase_prefill_profile(params, prefill_ms: float) -> dict:
+    """Where one prefill's time goes at the serving shape: device time by op
+    over one warm prefill of 4 x 1,024 tokens (torch.profiler), K3's total
+    over its launches, the matmuls', against the unprofiled prefill of [10]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(SERVE_ARCH)
+    api = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32).to(DEV)
+    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
+    api.prefill(params, {"tokens": toks}, cache)       # warm
+    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        api.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+    by_name, ops = device_times(prof)
+    device_ms = sum(by_name.values()) / 1e3
+    k3 = [t for name, t in by_name.items() if "attention_kernel" in name]
+    k3_ms = sum(k3) / 1e3
+    gemm_ms = matmul_us(by_name) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = {"prefill_ms": prefill_ms, "device_ms": device_ms, "device_ops": ops,
+           "k3_ms": k3_ms, "k3_ms_per_launch": k3_ms / cfg.num_layers,
+           "matmul_ms": gemm_ms, "other_ms": device_ms - k3_ms - gemm_ms,
+           "busy_share": device_ms / prefill_ms if prefill_ms else None}
+    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT}: {prefill_ms:.1f} ms (host clock, [10]); "
+          f"device busy {device_ms:.2f} ms ({device_ms / prefill_ms * 100:.1f}%), {ops} "
+          f"device ops; matmuls {gemm_ms:.2f} ms, K3 {k3_ms:.3f} ms "
+          f"({k3_ms / cfg.num_layers * 1e3:.1f} us x {cfg.num_layers}), the rest "
+          f"{out['other_ms']:.2f} ms")
+    for name, t in top:
+        print(f"    {t / 1e3:.4f} ms  {name[:90]}")
     return out
 
 
@@ -745,7 +834,7 @@ def main() -> int:
     print(f"[1] kernels built in {built.seconds:.1f} s into {built.directory}")
     for name, log in built.logs.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error")):
                 print(f"    {name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
@@ -787,6 +876,8 @@ def main() -> int:
     kernels += phase_attention_timing(captured, served["launches"], err_k3, err_k4)
     print("[13] where a decode step's time goes")
     phase_decode_profile(params, served["decode_ms_per_token"])
+    print("[14] where a prefill's time goes")
+    phase_prefill_profile(params, served["prefill_ms"])
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

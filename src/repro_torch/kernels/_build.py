@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take device
-pointers, sizes and a stream, and return ``cudaGetLastError()``. On first use
-every source is compiled for ``sm_90a`` into its own shared library under
-``build/repro_torch_kernels/<hash>/`` at the repository root, the hash
-covering the sources and the flags. All ``nvcc`` processes start together.
+pointers, sizes and a stream, and return ``cudaGetLastError()``. Every
+library links ``libcuda`` (``-lcuda``) for ``cuTensorMapEncodeTiled``,
+which encodes the TMA descriptors of the tensor-core kernels of K3 and K4.
+On first use every source is compiled for ``sm_90a`` into its own shared
+library under ``build/repro_torch_kernels/<hash>/`` at the repository root,
+the hash covering the sources and the flags. All ``nvcc`` processes start together.
 Nothing is built or imported at module import time.
 """
 from __future__ import annotations
@@ -22,20 +24,21 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: argument types of every launcher, by source name
+_ATTENTION = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
+#: argument types of every launcher, by source name and symbol
 SIGNATURES = {
-    "union_segsum": ("union_segsum_launch",
-                     (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
-    "rowsparse_scatter": ("rowsparse_scatter_launch",
-                          (_P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P)),
-    "flash_attention": ("flash_attention_launch",
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
-    "flash_decode": ("flash_decode_launch",
+    "union_segsum": {"union_segsum_launch":
+                     (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)},
+    "rowsparse_scatter": {"rowsparse_scatter_launch":
+                          (_P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P)},
+    "flash_attention": {"flash_attention_bf16_launch": _ATTENTION,
+                        "flash_attention_f32_launch": _ATTENTION},
+    "flash_decode": {"flash_decode_launch":
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
-                      _P)),
+                      _P)},
 }
 
 
@@ -49,7 +52,7 @@ class BuildReport:
     logs: Dict[str, str] = field(default_factory=dict)
 
 
-_launchers: Dict[str, ctypes._CFuncPtr] = {}
+_launchers: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -101,16 +104,19 @@ def build() -> BuildReport:
     return report
 
 
-def launcher(name: str):
-    """The ``extern "C"`` launcher of ``csrc/<name>.cu``, built on first use."""
-    fn = _launchers.get(name)
+def launcher(name: str, symbol: str | None = None):
+    """The ``extern "C"`` launcher ``symbol`` of ``csrc/<name>.cu`` (its only
+    one when not given), built on first use."""
+    symbols = SIGNATURES[name]
+    if symbol is None:
+        (symbol,) = symbols
+    fn = _launchers.get((name, symbol))
     if fn is None:
         path = build().directory / f"{name}.so"
-        symbol, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = symbols[symbol]
         fn.restype = ctypes.c_int
-        _launchers[name] = fn
+        _launchers[(name, symbol)] = fn
     return fn
 
 

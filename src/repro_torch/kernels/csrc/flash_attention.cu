@@ -5,11 +5,10 @@
 // That kernel runs the grid (B*H, q blocks, k blocks) with the k-block axis in
 // order and carries the running max m, sum l and accumulator acc in VMEM
 // scratch from one grid step to the next. A GPU grid has no order, so here
-// one block owns one (batch, head, 64-row query tile) and walks the key tiles
+// one block owns one (batch, head, query tile) and walks the key tiles
 // itself, keeping m, l and acc in registers:
 //
-//   load the Q tile (64 x hd) into shared memory, converted to f32
-//   for each 64-key tile between the window's lower edge and the causal
+//   for each key tile between the window's lower edge and the causal
 //   diagonal (tiles that are masked for every row are never read):
 //     S = Q K^T * scale (f32), masked where kpos >= Sk, kpos > qpos (causal)
 //         or kpos <= qpos - window
@@ -21,86 +20,681 @@
 // own (repro/models/layers.py::_chunk_scan), so a tile in which a row has no
 // valid key yet is wiped by the next correction exactly as there; with bf16
 // inputs p is rounded to bf16 before the PV product, as the reference does.
-// Query head h reads KV head h / (H / KV) through the pointer arithmetic: K
-// and V are never repeated. Ragged Sq and Sk are masked in the kernel (the
-// TPU kernel asserts block-aligned lengths).
+// Query head h reads KV head h / (H / KV): K and V are never repeated.
+// Ragged Sq and Sk are masked in the kernel (the TPU kernel asserts
+// block-aligned lengths).
 //
 // Bound on the H100: operations. At the serving prefill (B 4, S 1024, H 40,
-// KV 8, hd 128, bf16, causal) the product needs ~4.3e10 flops against ~101 MB
-// of q, k, v and o. This first version does its products as f32 FMAs on the
-// CUDA cores (no tensor cores, so f32 inputs keep full f32 accuracy): each of
-// the 256 threads owns a 4 x 4 block of S and a 4 x (hd/16) block of acc,
-// shared-memory rows are padded by one word against bank conflicts, and K
-// and V take turns in one buffer so that two blocks fit on an SM. Moving the
-// products to wgmma with TMA-fed tiles is later work.
+// KV 8, hd 128, bf16, causal) the two products need ~4.3e10 flops against
+// ~101 MB of q, k, v and o: 0.044 ms at the 989 TFLOP/s bf16 tensor-core
+// rate. The launcher dispatches by dtype to one of two kernels:
+//
+// bf16: tensor cores (attention_kernel). A work item is one (query head,
+// batch, 128-row query tile), numbered with the longest causal tiles first.
+// The grid is persistent, one block of three warpgroups per SM walking items
+// with a stride of the grid, so that the loads of a block's next item run
+// under the end of its current one (a block per item left each block's
+// first loads and last stores bare). Warpgroup 0 is the producer: it gives
+// up registers (setmaxnreg 24) and one thread issues TMA loads: Q into one
+// of two buffers per item, K and V tiles of 128 keys into two-stage rings in
+// shared memory, each guarded by mbarriers (full: bytes arrived; empty: both
+// consumers are done; K's stage is freed as soon as its S product is, V's
+// after its PV product). Warpgroups 1 and 2 take 240 registers each and own
+// 64 query rows apiece: S = Q K^T is hd/16 wgmma.m64n128k16 with both
+// operands in shared memory; the softmax runs on the f32 accumulator
+// fragment; p is rounded to bf16 in registers and fed as the A operand of
+// hd-wide wgmmas (m64n{hd}k16) with V from shared memory. The exponentials
+// and the rest of the softmax would otherwise leave the tensor cores idle,
+// so they overlap the products twice over: within a warpgroup, the PV
+// product of tile i-1 runs while the softmax of tile i does (the S product
+// of tile i is issued just before it), and between the two warpgroups,
+// named barriers make them take turns to issue, so one's softmax can run
+// under the other's products. Masks are computed only on tiles that cross
+// the diagonal, the window edge or Sk. At hd 128 shared memory holds 2 x 32
+// KB of Q and 2 x 2 x 32 KB of K and V (193 KB of the 227).
+// Where the trouble lies, and what handles it:
+//   1. TMA descriptors (flash_attention_bf16_launch): cuTensorMapEncodeTiled
+//      lives in libcuda (linked with -lcuda). One rank-4 map (hd, heads, S, B)
+//      per tensor per call, since the pointers change per layer, passed as
+//      __grid_constant__ CUtensorMap. A box is (min(hd, 64), 1, 128, 1): under
+//      the 128-byte swizzle a box row is at most 128 bytes, so hd 128 takes
+//      two boxes per tile (hd 32 and 16 use the 64- and 32-byte swizzles of
+//      their row widths). TMA zero-fills rows past S; the position masks
+//      still decide validity.
+//   2. wgmma descriptors under the swizzle (smem_desc): the layout is the
+//      one TMA wrote, rows of `kSwizzle` bytes, 8-row groups kSwizzle * 8
+//      apart (SBO). A k-step of 16 elements inside a swizzle atom moves the
+//      start address by 32 bytes; the next 64-column box is a whole
+//      (rows x 128 B) block further on. Buffers are 1024-byte aligned.
+//   3. V as the B operand (pv step): V is [key][d], N contiguous, so it is
+//      MN-major; the wgmma's transpose-B flag reads it as it lies. Its LBO is
+//      the stride between 64-column boxes, its SBO the stride of 8 keys.
+//   4. P from registers: the f32 accumulator of the S product, packed pair
+//      by pair into bf16x2, is the A-register fragment of the PV product
+//      (registers 8j..8j+7 of S are the four A registers of k-step j).
+//   5. Registers: a consumer thread holds S (64 f32), O (hd/2 f32) and the
+//      previous tile's P (32 bf16x2) at once; the build's -Xptxas -v lines
+//      report spills. The P registers feed a wgmma that runs after the
+//      instruction that issued it, so they are fenced (fence_regs) until the
+//      wgmma_wait that ends it, lest the compiler reuse them.
+//
+// f32: CUDA cores (attention_kernel_f32). TF32 tensor cores keep about three
+// decimal digits and cannot meet the 2e-5 the f32 comparisons hold, so f32
+// stays on f32 FMAs: one block per (batch, head, 64-row query tile), each
+// of its 256 threads owning a 4 x 4 block of S and a 4 x (hd/16) block of
+// acc, shared-memory rows padded by one word against bank conflicts, K and
+// V taking turns in one buffer.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads: ty picks rows, tx columns
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p in the dtype of V, as the reference's p.astype(v.dtype)
-__device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
+// ---------------------------------------------------------------------------
+// bf16: wgmma and TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;              // query rows per block, 64 per consumer
+constexpr int kBN = 128;              // keys per tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kTurn0 = 1, kTurn1 = 2; // named barriers: whose turn to issue wgmmas
+constexpr int kThreads = 384;         // producer warpgroup + two consumers
+constexpr int kConsumerThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tile {
+  static constexpr int kSwizzle = HD * 2 >= 128 ? 128 : HD * 2;  // bytes per row
+  static constexpr int kBox = kSwizzle / 2;                        // elements per box row
+  static constexpr int kBoxes = HD / kBox;
+  static constexpr int kQBytes = kBM * HD * 2;
+  static constexpr int kKVBytes = kBN * HD * 2;
+  // descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  static constexpr int kTiles = 2 * kQBytes + 2 * kStages * kKVBytes;
+  // tiles, 1024 bytes of alignment slack, the mbarriers
+  static constexpr int kSmem = kTiles + 1024 + 8 * (4 + 4 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (all in 16-byte units) and the swizzle layout type
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator or operand registers across a
+// wgmma, which reads and writes them asynchronously
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+// named barriers between the two consumer warpgroups (id 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "n"(kConsumerThreads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "n"(kConsumerThreads) : "memory");
+}
+
+// D (64 x 128, f32) += A (64 x 16, smem) * B (16 x 128, smem); B K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, f32) += A (64 x 16, registers) * B (16 x 16, smem); B MN-major
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, smem); B MN-major
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem); B MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem); B MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_n16(o, a, db, 1);
+  else if constexpr (HD == 32) wgmma_rs_n32(o, a, db, 1);
+  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db, 1);
+  else wgmma_rs_n128(o, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One work item is a (query head, batch, 128-row query tile); items are
+// numbered with the longest causal tiles first. The grid is persistent: one
+// block per SM walks items blockIdx.x, + gridDim.x, ..., so that the loads
+// of its next item overlap the end of the current one.
+struct Item {
+  int head, b, m0, kt_begin, n_tiles;
+};
+
+__device__ __forceinline__ Item item_at(int k, int n_m, int b_count, int h, int sq, int sk,
+                                        int causal, int window, int q_offset) {
+  Item it;
+  const int per_m = h * b_count;
+  it.m0 = (n_m - 1 - k / per_m) * kBM;
+  it.b = (k % per_m) / h;
+  it.head = k % h;
+  // key tiles the item needs: up to the causal diagonal of its last real
+  // row, from the window's lower edge of its first row
+  const int nk = (sk + kBN - 1) / kBN;
+  int kt_end = nk;
+  if (causal) kt_end = min(nk, (q_offset + min(it.m0 + kBM, sq) - 1) / kBN + 1);
+  it.kt_begin = 0;
+  if (window > 0) {
+    const int lo = q_offset + it.m0 - window + 1;
+    it.kt_begin = lo > 0 ? lo / kBN : 0;
+  }
+  it.n_tiles = max(kt_end - it.kt_begin, 0);
+  return it;
 }
 
 template <int HD>
-constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBQ * (kBK + 1);
+__global__ void __launch_bounds__(kThreads, 1)
+attention_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 int b_count, int sq, int sk, int h, int kvh, float scale, int causal,
+                 int window, int q_offset, int n_m) {
+  using C = Tile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // Q (two buffers: the next item's loads while this one runs), then the K
+  // and V rings, then the mbarriers
+  auto q_tile = [&](int qb) { return base + qb * C::kQBytes; };
+  auto k_tile = [&](int s) { return base + 2 * C::kQBytes + s * C::kKVBytes; };
+  auto v_tile = [&](int s) { return base + 2 * C::kQBytes + (kStages + s) * C::kKVBytes; };
+  const uint32_t bars = base + C::kTiles;
+  auto full_q = [&](int qb) { return bars + 8 * qb; };
+  auto empty_q = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto full_k = [&](int s) { return bars + 8 * (4 + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (4 + kStages + s); };
+  auto full_v = [&](int s) { return bars + 8 * (4 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (4 + 3 * kStages + s); };
+  const int n_items = n_m * b_count * h;
+  const int groups = h / kvh;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(full_q(qb), 1);
+      mbar_init(empty_q(qb), kConsumerThreads);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(empty_k(s), kConsumerThreads);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      int g = 0;   // key tiles loaded so far by this block
+      for (int k = blockIdx.x, j = 0; k < n_items; k += gridDim.x, ++j) {
+        const Item it = item_at(k, n_m, b_count, h, sq, sk, causal, window, q_offset);
+        const int qb = j % 2, kv_head = it.head / groups;
+        mbar_wait(empty_q(qb), ((j / 2) & 1) ^ 1);   // the first round passes
+        mbar_expect_tx(full_q(qb), C::kQBytes);
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load_4d(q_tile(qb) + c * kBM * C::kSwizzle, &tm_q, full_q(qb), c * C::kBox,
+                      it.head, it.m0, it.b);
+        for (int i = 0; i < it.n_tiles; ++i, ++g) {
+          const int s = g % kStages, parity = ((g / kStages) & 1) ^ 1;
+          const int k0 = (it.kt_begin + i) * kBN;
+          mbar_wait(empty_k(s), parity);
+          mbar_expect_tx(full_k(s), C::kKVBytes);
+          for (int c = 0; c < C::kBoxes; ++c)
+            tma_load_4d(k_tile(s) + c * kBN * C::kSwizzle, &tm_k, full_k(s), c * C::kBox,
+                        kv_head, k0, it.b);
+          mbar_wait(empty_v(s), parity);
+          mbar_expect_tx(full_v(s), C::kKVBytes);
+          for (int c = 0; c < C::kBoxes; ++c)
+            tma_load_4d(v_tile(s) + c * kBN * C::kSwizzle, &tm_v, full_v(s), c * C::kBox,
+                        kv_head, k0, it.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = tid - 128;
+    const int cw = t / 128, warp = (t % 128) / 32, lane = t % 32;
+    const int my_turn = cw == 0 ? kTurn0 : kTurn1, next_turn = cw == 0 ? kTurn1 : kTurn0;
+    const int64_t q_row = static_cast<int64_t>(h) * HD;
+    float acc[HD / 2], m[2], l[2], corr[2];
+    float sc[64];                  // S of the current tile, then its p
+    uint32_t pa[kBN / 16][4];      // p of the previous tile, the PV product's A
+    int row0, qpos[2], wg_first, wg_last, kt_begin;
+    uint32_t qa;
+
+    auto issue_s = [&](int s) {    // sc = Q K_s^T
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk * 16 / C::kBox) * kBM * C::kSwizzle + (kk * 16 % C::kBox) * 2;
+        wgmma_ss_n128(sc, smem_desc(qa + off, 16, 8 * C::kSwizzle, C::kLayout),
+                      smem_desc(k_tile(s) + off, 16, 8 * C::kSwizzle, C::kLayout), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int s) {   // acc += P V_s
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_pv<HD>(acc, pa[kk],
+                     smem_desc(v_tile(s) + kk * 16 * C::kSwizzle, kBN * C::kSwizzle,
+                               8 * C::kSwizzle, C::kLayout));
+      wgmma_commit();
+    };
+    // the online softmax of the item's tile i on sc, in place: sc becomes p
+    auto softmax = [&](int i) {
+      const int k0 = (kt_begin + i) * kBN;
+      // scale, and mask only where the tile crosses Sk, the diagonal or the
+      // window edge of this warpgroup's rows
+      const bool masked = k0 + kBN > sk || (causal && k0 + kBN - 1 > wg_first) ||
+                          (window > 0 && k0 <= wg_last - window);
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        float x = sc[j] * scale;
+        if (masked) {
+          const int kpos = k0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+          const int qp = qpos[(j % 4) / 2];
+          bool ok = kpos < sk;
+          if (causal) ok = ok && kpos <= qp;
+          if (window > 0) ok = ok && kpos > qp - window;
+          x = ok ? x : kNegInf;
+        }
+        sc[j] = x;
+      }
+      // a row lives in the 4 lanes of a quad
+      float mx[2] = {m[0], m[1]}, rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 64; ++j) mx[(j % 4) / 2] = fmaxf(mx[(j % 4) / 2], sc[j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        sc[j] = exp2f((sc[j] - m[(j % 4) / 2]) * kLog2e);
+        rsum[(j % 4) / 2] += sc[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rsum[r];
+    };
+    // p in bf16 pairs: S registers 8kk..8kk+7 are the A registers of k-step kk
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) acc[j] *= corr[(j % 4) / 2];
+    };
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = 0u;
+
+    // the two warpgroups take turns to issue their products (named
+    // barriers), warpgroup 0 first, so that one's softmax runs under the
+    // other's products; warpgroup 0 takes up the one turn left at the end
+    if (cw == 1) named_arrive(kTurn0);
+    int g = 0;   // key tiles consumed so far by this block
+    for (int k = blockIdx.x, jt = 0; k < n_items; k += gridDim.x, ++jt) {
+      const Item it = item_at(k, n_m, b_count, h, sq, sk, causal, window, q_offset);
+      const int qb = jt % 2, n = it.n_tiles;
+      // this thread's accumulator rows: row0 and row0 + 8
+      row0 = it.m0 + cw * 64 + warp * 16 + lane / 4;
+      qpos[0] = q_offset + row0;
+      qpos[1] = qpos[0] + 8;
+      wg_first = q_offset + it.m0 + cw * 64;
+      wg_last = wg_first + 63;
+      kt_begin = it.kt_begin;
+      qa = q_tile(qb) + cw * 64 * C::kSwizzle;   // this warpgroup's Q rows
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+      mbar_wait(full_q(qb), (jt / 2) & 1);
+      if (n > 0) {
+        // tile 0: its S product alone
+        mbar_wait(full_k(g % kStages), (g / kStages) & 1);
+        named_sync(my_turn);
+        wgmma_fence();
+        issue_s(g % kStages);
+        named_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(empty_k(g % kStages));
+        softmax(0);
+        pack_p();
+        // tile i: S_i, and acc += P_{i-1} V_{i-1} behind it; the softmax of
+        // S_i runs while the PV product is on the tensor cores
+        for (int i = 1; i < n; ++i) {
+          const int gi = g + i, s = gi % kStages, sp = (gi - 1) % kStages;
+          mbar_wait(full_k(s), (gi / kStages) & 1);
+          mbar_wait(full_v(sp), ((gi - 1) / kStages) & 1);
+          rescale();
+          named_sync(my_turn);
+          fence_regs(acc);
+          wgmma_fence();
+          issue_s(s);
+          issue_pv(sp);
+          named_arrive(next_turn);
+          wgmma_wait<1>();   // S_i is done
+          fence_regs(sc);
+          mbar_arrive(empty_k(s));
+          softmax(i);
+          wgmma_wait<0>();   // so is P_{i-1} V_{i-1}
+          fence_regs(acc);
+          fence_regs(pa);
+          mbar_arrive(empty_v(sp));
+          pack_p();
+        }
+        // the last tile's PV product
+        const int sp = (g + n - 1) % kStages;
+        mbar_wait(full_v(sp), ((g + n - 1) / kStages) & 1);
+        rescale();
+        named_sync(my_turn);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_pv(sp);
+        named_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        mbar_arrive(empty_v(sp));
+      }
+      mbar_arrive(empty_q(qb));   // every S product of the item is done
+      g += n;
+
+      // out = acc / max(l, 1e-30): the row sum is spread over the quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = fmaxf(l[r], 1e-30f);
+      }
+      __nv_bfloat16* ob = o + (static_cast<int64_t>(it.b) * sq * h + it.head) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 2; j += 2) {
+        const int r = (j % 4) / 2, row = row0 + 8 * r;
+        const int col = 8 * (j / 4) + 2 * (lane % 4);
+        if (row < sq)
+          *reinterpret_cast<uint32_t*>(ob + row * q_row + col) =
+              pack_bf16(acc[j] / l[r], acc[j + 1] / l[r]);
+      }
+    }
+    if (cw == 0) named_sync(kTurn0);   // warpgroup 1's last hand-over
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                       int h, int kvh, float scale, int causal, int window,
-                       int q_offset) {
-  constexpr int QS = HD + 1;   // padded row stride of the Q and K/V tiles
-  constexpr int PS = kBK + 1;  // padded row stride of the P tile
-  constexpr int DJ = HD / 16;  // accumulator columns per thread
+// rank-4 map over (hd, heads, seq, batch) with a (box, 1, 128, 1) box
+template <int HD>
+bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch) {
+  using C = Tile<HD>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(heads) * HD * 2,
+                                 static_cast<cuuint64_t>(seq) * heads * HD * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::kBox), 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = C::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : C::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                const_cast<void*>(ptr), dims, strides, box, elem,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int sq,
+                int sk, int h, int kvh, float scale, int causal, int window, int q_offset,
+                cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode<HD>(&tq, q, h, sq, b) || !encode<HD>(&tk, k, kvh, sk, b) ||
+      !encode<HD>(&tv, v, kvh, sk, b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = attention_kernel<HD>;
+  const int bytes = Tile<HD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block per SM (or per item, if fewer)
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const int n_m = (sq + kBM - 1) / kBM;
+  const int blocks = n_m * b * h < sms ? n_m * b * h : sms;
+  kernel<<<blocks, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                              b, sq, sk, h, kvh, scale, causal, window,
+                                              q_offset, n_m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kF32BQ = 64;        // query rows per block
+constexpr int kF32BK = 64;        // keys per tile
+constexpr int kF32Threads = 256;  // 16 x 16 threads: ty picks rows, tx columns
+
+template <int HD>
+constexpr int f32_smem_floats() {
+  return kF32BQ * (HD + 1) + kF32BK * (HD + 1) + kF32BQ * (kF32BK + 1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
+                     int h, int kvh, float scale, int causal, int window, int q_offset) {
+  constexpr int QS = HD + 1;      // padded row stride of the Q and K/V tiles
+  constexpr int PS = kF32BK + 1;  // padded row stride of the P tile
+  constexpr int DJ = HD / 16;     // accumulator columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;               // kBQ x QS
-  float* kvs = qs + kBQ * QS;     // kBK x QS: K, then V, of the current tile
-  float* ps = kvs + kBK * QS;     // kBQ x PS
+  float* qs = smem;                  // kF32BQ x QS
+  float* kvs = qs + kF32BQ * QS;     // kF32BK x QS: K, then V, of the current tile
+  float* ps = kvs + kF32BK * QS;     // kF32BQ x PS
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kBQ, head = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kF32BQ, head = blockIdx.y, b = blockIdx.z;
   const int kv_head = head / (h / kvh);
   const int64_t q_row = static_cast<int64_t>(h) * HD;     // stride between positions
   const int64_t k_row = static_cast<int64_t>(kvh) * HD;
-  const T* qb = q + (static_cast<int64_t>(b) * sq * h + head) * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  T* ob = o + (static_cast<int64_t>(b) * sq * h + head) * HD;
+  const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * HD;
+  const float* kb = k + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
+  const float* vb = v + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
+  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * HD;
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
+  for (int i = tid; i < kF32BQ * HD; i += kF32Threads) {
     const int r = i / HD, d = i % HD, s = q0 + r;
-    qs[r * QS + d] = s < sq ? to_f32(qb[s * q_row + d]) : 0.f;
+    qs[r * QS + d] = s < sq ? qb[s * q_row + d] : 0.f;
   }
 
-  // key tiles this block needs: up to the causal diagonal of its last real
-  // row, from the window's lower edge of its first row
-  const int nk = (sk + kBK - 1) / kBK;
+  const int nk = (sk + kF32BK - 1) / kF32BK;
   int kt_end = nk;
-  if (causal) {
-    const int q_last = q_offset + min(q0 + kBQ, sq) - 1;
-    kt_end = min(nk, q_last / kBK + 1);
-  }
+  if (causal) kt_end = min(nk, (q_offset + min(q0 + kF32BQ, sq) - 1) / kF32BK + 1);
   int kt_begin = 0;
   if (window > 0) {
     const int lo = q_offset + q0 - window + 1;
-    kt_begin = lo > 0 ? lo / kBK : 0;
+    kt_begin = lo > 0 ? lo / kF32BK : 0;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -115,11 +709,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * kF32BK;
     __syncthreads();  // the previous tile's V and P reads are done
-    for (int i = tid; i < kBK * HD; i += kThreads) {
+    for (int i = tid; i < kF32BK * HD; i += kF32Threads) {
       const int r = i / HD, d = i % HD, s = k0 + r;
-      kvs[r * QS + d] = s < sk ? to_f32(kb[s * k_row + d]) : 0.f;
+      kvs[r * QS + d] = s < sk ? kb[s * k_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -164,7 +758,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = round_like(p, vb);
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -176,14 +770,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // every K read is done: V takes the buffer
-    for (int i = tid; i < kBK * HD; i += kThreads) {
+    for (int i = tid; i < kF32BK * HD; i += kF32Threads) {
       const int r = i / HD, d = i % HD, s2 = k0 + r;
-      kvs[r * QS + d] = s2 < sk ? to_f32(vb[s2 * k_row + d]) : 0.f;
+      kvs[r * QS + d] = s2 < sk ? vb[s2 * k_row + d] : 0.f;
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
+    for (int c = 0; c < kF32BK; ++c) {
       float pv[4], vv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * PS + c];
@@ -202,54 +796,65 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (s >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store(ob + s * q_row + tx + 16 * j, acc[i][j] * inv);
+    for (int j = 0; j < DJ; ++j) ob[s * q_row + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
-           int sk, int h, int kvh, float scale, int causal, int window,
-           int q_offset, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * sizeof(float);
-  auto kernel = flash_attention_kernel<T, HD>;
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int sq,
+               int sk, int h, int kvh, float scale, int causal, int window, int q_offset,
+               cudaStream_t stream) {
+  constexpr int bytes = f32_smem_floats<HD>() * sizeof(float);
+  auto kernel = attention_kernel_f32<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, h, kvh, scale, causal, window, q_offset);
+  const dim3 grid((sq + kF32BQ - 1) / kF32BQ, h, b);
+  kernel<<<grid, kF32Threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kvh, scale, causal,
+      window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int h, int kvh, float scale, int causal, int window,
-             int q_offset, cudaStream_t s) {
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int,
+                       int, float, int, int, int, cudaStream_t);
+
+Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return l16;
+    case 32: return l32;
+    case 64: return l64;
+    case 128: return l128;
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-// q, o (b, sq, h, hd); k, v (b, sk, kvh, hd); all contiguous, f32 or bf16
-// (is_bf16 != 0), h a multiple of kvh, hd in {16, 32, 64, 128}. Query row i
-// sits at position q_offset + i, key j at position j. window <= 0 means no
-// window. Returns the CUDA error of the launch, 0 if none.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int is_bf16, int b, int sq, int sk,
-                                      int h, int kvh, int hd, float scale,
-                                      int causal, int window, int q_offset,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, b, sq, sk, h, kvh, scale, causal,
-                                   window, q_offset, s);
-  return dispatch<float>(hd, q, k, v, o, b, sq, sk, h, kvh, scale, causal, window,
-                         q_offset, s);
+// q, o (b, sq, h, hd); k, v (b, sk, kvh, hd); all contiguous, h a multiple of
+// kvh, hd in {16, 32, 64, 128}. Query row i sits at position q_offset + i,
+// key j at position j. window <= 0 means no window. Each returns the CUDA
+// error of its launch, 0 if none.
+
+// bf16 inputs, 16-byte aligned: the tensor-core kernel
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                           void* o, int b, int sq, int sk, int h, int kvh,
+                                           int hd, float scale, int causal, int window,
+                                           int q_offset, void* stream) {
+  Launch fn = pick(hd, launch_bf16<16>, launch_bf16<32>, launch_bf16<64>, launch_bf16<128>);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset,
+            static_cast<cudaStream_t>(stream));
+}
+
+// f32 inputs: the CUDA-core kernel
+extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
+                                          void* o, int b, int sq, int sk, int h, int kvh,
+                                          int hd, float scale, int causal, int window,
+                                          int q_offset, void* stream) {
+  Launch fn = pick(hd, launch_f32<16>, launch_f32<32>, launch_f32<64>, launch_f32<128>);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset,
+            static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,17 @@
 """K3: causal GQA flash attention with an optional sliding window (forward).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:flash_attention``.
-The CUDA source is ``csrc/flash_attention.cu``: one block per (batch, head,
-64-row query tile) walks the key tiles between the window's lower edge and
+The CUDA source is ``csrc/flash_attention.cu``: for each (head, batch,
+query tile) a block walks the key tiles between the window's lower edge and
 the causal diagonal with an online softmax in registers. It is bound by
-operations on the H100; the source note says what the design does about it.
+operations on the H100. The wrapper dispatches by dtype (``kernel_symbol``):
+bf16 runs the tensor-core kernel (``wgmma`` products on TMA-loaded tiles in
+mbarrier-guarded rings, a producer warpgroup and two consumers, one
+persistent block per SM); f32 runs the CUDA-core kernel, since TF32 tensor
+cores cannot meet the 2e-5 that f32 is held to. This is a dispatch by dtype, not a fallback: a failed build or
+launch of either raises. The source note says what each design does.
 
-``flash_attention`` launches the kernel for CUDA tensors and runs
+``flash_attention`` launches a kernel for CUDA tensors and runs
 ``flash_attention_torch``, the plain PyTorch version, for CPU tensors only.
 It never falls back from one to the other.
 """
@@ -18,8 +23,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
+#: the launcher of each dtype in ``csrc/flash_attention.cu``
+KERNELS = {torch.bfloat16: "flash_attention_bf16_launch",
+           torch.float32: "flash_attention_f32_launch"}
 
 
 def _scale(hd: int) -> float:
@@ -81,6 +89,14 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def kernel_symbol(dtype: torch.dtype) -> str:
+    """The launcher that serves ``dtype``: tensor cores for bf16, CUDA cores
+    for f32."""
+    if dtype not in KERNELS:
+        raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, got {dtype}")
+    return KERNELS[dtype]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     query_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
@@ -92,8 +108,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, query_chunk=query_chunk,
                                      kv_chunk=kv_chunk)
-    if not q.is_cuda or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B, Sq, H, hd) and k, v (B, Sk, KV, "
                          f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -104,21 +118,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    symbol = kernel_symbol(q.dtype)
+    if not q.is_cuda or k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _build.launcher("flash_attention")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, sq, sk, h, kvh, hd, _scale(hd),
-            int(causal), int(window), int(q_offset), stream)
+        err = _build.launcher("flash_attention", symbol)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh,
+            hd, _scale(hd), int(causal), int(window), int(q_offset), stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -2,13 +2,16 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_decode.py:flash_decode``.
 The CUDA source is ``csrc/flash_decode.cu``: a split-K pass in which one
-block per (batch, KV head, cache slice) reads each slot once for all the
-query heads that share it, then a log-sum-exp merge of the slices. It is
-bound by the bytes of the cache on the H100; the source note says what the
-design does about it. The kernel keeps p in f32 for the PV product (the
-plain version rounds the normalised p to the cache's dtype, as the reference
-does), and returns zeros for a (batch, head) with no valid slot (the plain
-version: the mean of V); the source note says why.
+block per (batch, KV head, cache slice) streams the slice's tiles of 64
+slots into shared memory with bulk copies, skipping tiles with no valid
+slot, and scores them for all the query heads that share the KV head; then
+a log-sum-exp merge of the slices. It is bound by the bytes of the cache on
+the H100; the source note says what the design does about it. The split
+pass's arithmetic goes by dtype: bf16 on the tensor cores (``mma.sync``,
+p rounded to bf16 for the PV product, as ``decode_attention`` rounds its
+p), f32 on the CUDA cores (p kept in f32, as the TPU kernel keeps it). A
+(batch, head) with no valid slot gets the mean of V over all slots, as both
+references give it.
 
 ``flash_decode`` launches the kernel for CUDA tensors and runs
 ``flash_decode_torch``, the plain PyTorch version, for CPU tensors only. It
@@ -24,10 +27,11 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head dims the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-#: blocks the wrapper aims for when it cuts the cache into slices (a few per
-#: SM on the H100's 132), and the fewest slots a slice gets
+#: slots per tile of the split pass (``kTile`` in the CUDA source)
+TILE = 64
+#: blocks the wrapper aims for when it cuts the cache into slices: two per
+#: SM of the H100's 132, each with all its tiles in flight
 TARGET_BLOCKS = 264
-MIN_SLICE = 64
 
 
 def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -56,10 +60,15 @@ def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
 
 
 def split_plan(b: int, kvh: int, groups: int, s: int) -> tuple:
-    """(number of slices, slots per slice) the wrapper cuts the cache into."""
+    """(number of slices, slots per slice) the wrapper cuts the cache into.
+
+    Slices are whole tiles, as few per slice as gives about
+    ``TARGET_BLOCKS`` blocks of (batch, KV head, group of up to 8 query
+    heads, slice)."""
     base = b * kvh * -(-groups // 8)
-    nsplit = max(1, min(-(-s // MIN_SLICE), -(-TARGET_BLOCKS // base)))
-    chunk = -(-s // nsplit)
+    tiles = -(-s // TILE)
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // base)))
+    chunk = -(-tiles // want) * TILE
     return -(-s // chunk), chunk
 
 
@@ -98,6 +107,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                         f"{k_positions.dtype}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, k_positions)):
         raise ValueError("flash_decode: q, the caches and k_positions must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode: the caches must be 16-byte aligned (bulk copies)")
     out = torch.empty_like(q)
     if out.numel() == 0 or s == 0:
         return out.zero_()

@@ -15,8 +15,8 @@ from repro.kernels import ops as j_ops
 from repro.models import layers as j_layers
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode, split_plan
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, kernel_symbol
+from repro_torch.kernels.flash_decode import TARGET_BLOCKS, TILE, flash_decode, split_plan
 from repro_torch.models import layers
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)     # tests/test_kernels.py:14-15
@@ -145,6 +145,68 @@ def test_flash_decode_split_plan_covers_the_cache(b, kvh, groups, s):
     """The wrapper's slices cover every slot once, none empty."""
     nsplit, chunk = split_plan(b, kvh, groups, s)
     assert nsplit >= 1 and (nsplit - 1) * chunk < s <= nsplit * chunk
+
+
+@pytest.mark.parametrize("s,want", [(1056, (9, 128)), (512, (8, 64))])
+def test_flash_decode_split_plan_at_the_serving_shape(s, want):
+    """Qwen2.5-14B's decode step (B 4, KV 8, 5 query heads per KV head):
+    the 1,056-slot cache of the serving run and a 512-slot ring. Slices are
+    whole 64-slot tiles, none empty, and the blocks reach ``TARGET_BLOCKS``
+    (or one tile per slice, when the cache has fewer) while fitting one wave
+    of three blocks per SM on the H100's 132."""
+    b, kvh, groups = 4, 8, 5
+    nsplit, chunk = split_plan(b, kvh, groups, s)
+    assert (nsplit, chunk) == want
+    assert chunk % TILE == 0
+    assert (nsplit - 1) * chunk < s <= nsplit * chunk
+    blocks = nsplit * b * kvh
+    tiles = -(-s // TILE)
+    assert min(TARGET_BLOCKS, tiles * b * kvh) <= blocks <= 3 * 132
+
+
+def test_flash_attention_dispatches_by_dtype():
+    """bf16 runs the tensor-core kernel, f32 the CUDA-core one; nothing else
+    has a kernel."""
+    assert kernel_symbol(torch.bfloat16) == "flash_attention_bf16_launch"
+    assert kernel_symbol(torch.float32) == "flash_attention_f32_launch"
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        kernel_symbol(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wrapper_errors_on_meta_tensors(dtype):
+    """Off the host the wrapper checks its inputs before it looks for a card:
+    an unsupported head dim raises for both dtypes, a supported one reaches
+    the device check."""
+    assert 48 not in HEAD_DIMS
+    q = torch.empty((1, 64, 4, 48), device="meta", dtype=dtype)
+    k = torch.empty((1, 64, 2, 48), device="meta", dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, k, k)
+    q = torch.empty((1, 64, 4, 64), device="meta", dtype=dtype)
+    k = torch.empty((1, 64, 2, 64), device="meta", dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        flash_attention(q.to(torch.float16), k.to(torch.float16), k.to(torch.float16))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_decode_no_valid_slot_matches_pallas(rng, dtype):
+    """Every slot's position lies above ``q_position``: the TPU kernel scores
+    every slot -1e30, so each gets p = 1 and the row is the mean of V over
+    all slots. The plain version (the kernel's yardstick on the card) gives
+    the same."""
+    b, h, kv, hd, s = 2, 8, 4, 32, 256
+    jk, tk = _both(rng.normal(0, 1, (b, kv, s, hd)), dtype)
+    jv, tv = _both(rng.normal(0, 1, (b, kv, s, hd)), dtype)
+    jq, tq = _both(rng.normal(0, 1, (b, h, hd)), dtype)
+    kpos = np.arange(s, dtype=np.int32) + 10
+    want = j_ops.flash_decode(jq, jk, jv, jnp.asarray(kpos), 5, blk_s=64)
+    got = flash_decode(tq, tk, tv, torch.from_numpy(kpos), 5)
+    _close(got, want, DTYPES[dtype][2])
+    mean = tv.float().mean(dim=2).repeat_interleave(h // kv, dim=1)
+    _close(got, mean.numpy(), DTYPES[dtype][2])
 
 
 def test_wrappers_raise_off_the_host_without_a_card():
