@@ -9,9 +9,13 @@ Phases, each of which asserts; any failure exits non-zero:
    off for matmuls and cuDNN (both stated here: every comparison below is in
    full float32), build the CUDA kernels from ``src/repro_torch/kernels/csrc``
 2. K1 ``union_segsum`` against its plain PyTorch version on the card, at
-   the trainer's shapes and a wide shape, f32 and bf16, with and without
-   heat, ids >= V, all-pad clients and an overflowing union
-3. K2 ``rowsparse_scatter`` against its plain version on the card
+   the trainer's shapes, a wide shape, D = 18 and 25 (DIN's and the LSTM's
+   widths), a hot cohort (one id in each of 1,000 clients) and the heavy
+   shape (V = 2^22, 1,000 clients x 512 rows, D = 18), f32 and bf16, with
+   and without heat, ids >= V, all-pad clients, an overflowing union, and
+   two calls back to back on one V
+3. K2 ``rowsparse_scatter`` against its plain version on the card, on the
+   same kinds of cases
 4. the main path at full width: LR FedSubAvg on MovieLens-1M-sized data
    (6,040 clients, 3,706 movies, ~1.0M ratings, V = 37,069 features),
    K = 100 clients per round, fedsubavg, fedavg and fedsubavg with top-16
@@ -19,10 +23,14 @@ Phases, each of which asserts; any failure exits non-zero:
    serve every round. K2's own path (``aggregate_rowsparse_dense``) follows
 5. card against host: the same trainer for 5 rounds on ``device="cpu"``
    (the plain versions); losses and final parameters within 1e-5
-6. kernel times (CUDA events) beside their plain versions, one PyTorch
-   stand-in each and the HBM bound
+6. K1 and K2 times (CUDA events) at the trainer's round and at the heavy
+   shape (f32 and bf16) beside their plain versions, one PyTorch stand-in
+   each and the HBM bound, with device ops and device time per call
+   (torch.profiler: one op each), K1's scratch bytes, and the redesign's
+   targets marked met or missed
 7. where a round's time goes: host sampling, device kernel time and
-   launches per round (torch.profiler), the device's busy share
+   launches per round (torch.profiler), K1 in the round, the device's busy
+   share
 8. K3 ``flash_attention`` against its plain version on the card: the
    serving prefill's shape (B 4, S 1024, H 40, KV 8, hd 128) in bf16 (the
    tensor-core kernel) and f32 (the CUDA-core kernel), a sliding window,
@@ -79,7 +87,7 @@ from repro_torch.federated.plan import (RoundPlan, RowSparseTransport,  # noqa: 
                                         ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, _rows  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_torch)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch  # noqa: E402
@@ -96,6 +104,7 @@ from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params  # noqa
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
 from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
+from tools.aggregation_times import N_CLIENTS, SHAPES, cohort, cuda_ms  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -104,7 +113,6 @@ OPS_PER_S = {torch.float32: F32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14-15
 BF16_REL_TOL = 1e-2            # ||got - want|| / ||want|| for bf16 comparisons
 SEED = 0
-N_CLIENTS = 6040               # MovieLens-1M users: the heat total N
 DEV = torch.device("cuda")
 
 
@@ -117,51 +125,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device milliseconds per call, by CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cohort(rng, k: int, r: int, v: int, d: int, dtype, all_pad: int = 0,
-           out_of_range: float = 0.0):
-    """A cohort of per-client sorted unique ids (-1 padded) with hot ids
-    shared across clients, its rows, and heat counts.
-
-    Heat is consistent with the cohort, as a real n_m is: an id that c of
-    the k sampled clients touch has heat about c * N / k (plus noise), so
-    the correction ``N / n_m`` is large only on ids few rows sum into. (With
-    heat unrelated to the cohort, a hot id could sum many rows that cancel
-    and then be scaled by hundreds, and the f32 sum order that the atomics
-    change would show far above the tolerance.)
-    """
-    hot = max(v // 50, 16)
-    ids = np.full((k, r), -1, np.int32)
-    for i in range(all_pad, k):
-        n = int(rng.integers(r // 2, r + 1))
-        pick = np.concatenate([rng.integers(0, hot, n // 2),
-                               rng.integers(0, v, n - n // 2)])
-        u = np.unique(pick)
-        ids[i, :len(u)] = u
-    touched = np.bincount(ids[ids >= 0], minlength=v)
-    heat = (touched * (N_CLIENTS / k) + rng.integers(0, 60, v)).astype(np.float32)
-    if out_of_range:
-        hit = (ids >= 0) & (rng.random(ids.shape) < out_of_range)
-        ids[hit] = v + rng.integers(0, 1000, int(hit.sum()))
-    rows = rng.normal(size=(k, r, d)).astype(np.float32) * (ids >= 0)[..., None]
-    return (torch.from_numpy(ids).to(DEV),
-            torch.from_numpy(rows).to(DEV, dtype),
-            torch.from_numpy(heat).to(DEV))
 
 
 def compare(name, got, want, dtype) -> float:
@@ -182,48 +145,96 @@ def compare(name, got, want, dtype) -> float:
 
 
 def phase_k1(rng) -> float:
-    v, k, r = 37_069, 100, 128
+    v, k, r, _ = SHAPES["trainer"]
+    hv, hk, hr, hd = SHAPES["heavy"]
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        cases.append(("main", v, k, r, 1, dtype, {}, True, None))
-        cases.append(("wide", 262_144, 16, 2_048, 16, dtype, {}, True, None))
+        cases += [("main", v, k, r, 1, dtype, {}, True, None),
+                  ("wide", 262_144, 16, 2_048, 16, dtype, {}, True, None),
+                  ("D=18", v, k, r, 18, dtype, {}, True, None),
+                  ("D=25", v, k, r, 25, dtype, {}, True, None),
+                  ("hot", v, 1000, r, 18, dtype, {"hot": 7}, True, None),
+                  ("heavy", hv, hk, hr, hd, dtype, {}, True, None)]
     cases += [
         ("no-heat", v, k, r, 1, torch.float32, {}, False, None),
         ("ids>=V", v, k, r, 1, torch.float32, {"out_of_range": 0.05}, True, None),
+        ("ids>=V", v, k, r, 25, torch.float32, {"out_of_range": 0.05}, True, None),
         ("all-pad", v, k, r, 1, torch.float32, {"all_pad": 10}, True, None),
         ("overflow", v, k, r, 1, torch.float32, {}, True, "half"),
+        ("overflow", v, k, r, 18, torch.bfloat16, {}, True, "half"),
     ]
     worst = 0.0
     for name, vv, kk, rr, d, dtype, kw, with_heat, cap in cases:
-        ids, rows, heat = cohort(rng, kk, rr, vv, d, dtype, **kw)
+        ids, rows, heat = cohort(rng, kk, rr, vv, d, dtype, DEV, **kw)
         heat = heat if with_heat else None
         union = int(torch.unique(ids[(ids >= 0) & (ids < vv)]).numel())
         c = union // 2 if cap == "half" else min(vv, kk * rr)
-        args = (ids, rows, heat, float(N_CLIENTS), c, vv)
-        got_ids, got_rows = union_segsum(*args, scale=1.0 / kk)
-        want_ids, want_rows = union_segsum_torch(*args, scale=1.0 / kk)
-        torch.cuda.synchronize()
-        check(torch.equal(got_ids, want_ids), f"union_segsum[{name}]: ids differ")
-        check(int((got_ids >= 0).sum()) == min(union, c),
-              f"union_segsum[{name}]: union size")
-        err = compare(f"union_segsum[{name}]", got_rows, want_rows, dtype)
+        err = check_k1(f"union_segsum[{name}]", (ids, rows, heat, float(N_CLIENTS), c, vv),
+                       1.0 / kk, union)
         worst = max(worst, err)
         print(f"  K1 {name:8s} {str(dtype):14s} V={vv} T={kk * rr} D={d} cap={c} "
               f"union={union} max_abs_err={err:.3g}")
+    # back to back on one V: a large union, then a small one into the same
+    # capacity; each is held to its plain version after both have run
+    first = cohort(rng, k, r, v, 18, torch.float32, DEV)
+    second = cohort(rng, 8, 16, v, 18, torch.float32, DEV)
+    cap = k * r
+    outs = [union_segsum(*c, float(N_CLIENTS), cap, v, scale=0.5) for c in (first, second)]
+    for i, (c, (got_ids, got_rows)) in enumerate(zip((first, second), outs)):
+        want_ids, want_rows = union_segsum_torch(*c, float(N_CLIENTS), cap, v, scale=0.5)
+        torch.cuda.synchronize()
+        check(torch.equal(got_ids, want_ids), f"union_segsum[back-to-back {i}]: ids differ")
+        err = compare(f"union_segsum[back-to-back {i}]", got_rows, want_rows, torch.float32)
+        worst = max(worst, err)
+        print(f"  K1 back-to-back call {i}: V={v} T={c[0].numel()} D=18 cap={cap} "
+              f"union={int((want_ids >= 0).sum())} max_abs_err={err:.3g}")
     return worst
 
 
+def check_k1(name, args, scale, union) -> float:
+    """One K1 call against its plain version: ids exact, the union's size,
+    rows within tolerance."""
+    got_ids, got_rows = union_segsum(*args, scale=scale)
+    want_ids, want_rows = union_segsum_torch(*args, scale=scale)
+    torch.cuda.synchronize()
+    check(torch.equal(got_ids, want_ids), f"{name}: ids differ")
+    check(int((got_ids >= 0).sum()) == min(union, args[4]), f"{name}: union size")
+    return compare(name, got_rows, want_rows, args[1].dtype)
+
+
 def phase_k2(rng) -> float:
+    v, k, r, _ = SHAPES["trainer"]
+    hv, hk, hr, hd = SHAPES["heavy"]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("main", v, k, r, 1, dtype, {}),
+                  ("wide", 65_536, 16, 2_048, 16, dtype, {}),
+                  ("D=18", v, k, r, 18, dtype, {}),
+                  ("D=25", v, k, r, 25, dtype, {}),
+                  ("hot", v, 1000, r, 18, dtype, {"hot": 7}),
+                  ("heavy", hv, hk, hr, hd, dtype, {})]
+    cases += [("ids>=V", v, k, r, 25, torch.float32, {"out_of_range": 0.05}),
+              ("all-pad", v, k, r, 18, torch.float32, {"all_pad": 10})]
     worst = 0.0
-    for v, k, r, d in ((37_069, 100, 128, 1), (65_536, 16, 2_048, 16)):
-        for dtype in (torch.float32, torch.bfloat16):
-            ids, rows, heat = cohort(rng, k, r, v, d, dtype)
-            args = (ids.reshape(-1), rows.reshape(k * r, d), heat, float(N_CLIENTS), v)
-            got = rowsparse_scatter(*args, scale=1.0 / k)
-            want = rowsparse_scatter_torch(*args, scale=1.0 / k)
-            err = compare("rowsparse_scatter", got, want, dtype)
-            worst = max(worst, err)
-            print(f"  K2 {str(dtype):14s} V={v} T={k * r} D={d} max_abs_err={err:.3g}")
+    for name, vv, kk, rr, d, dtype, kw in cases:
+        ids, rows, heat = cohort(rng, kk, rr, vv, d, dtype, DEV, **kw)
+        args = (ids.reshape(-1), rows.reshape(kk * rr, d), heat, float(N_CLIENTS), vv)
+        got = rowsparse_scatter(*args, scale=1.0 / kk)
+        want = rowsparse_scatter_torch(*args, scale=1.0 / kk)
+        err = compare(f"rowsparse_scatter[{name}]", got, want, dtype)
+        worst = max(worst, err)
+        del got, want
+        print(f"  K2 {name:8s} {str(dtype):14s} V={vv} T={kk * rr} D={d} max_abs_err={err:.3g}")
+    # back to back on one V, each held to its plain version after both ran
+    calls = [cohort(rng, kk, rr, v, 18, torch.float32, DEV) for kk, rr in ((k, r), (8, 16))]
+    args = [(i.reshape(-1), w.reshape(i.numel(), 18), h, float(N_CLIENTS), v)
+            for i, w, h in calls]
+    outs = [rowsparse_scatter(*a, scale=0.5) for a in args]
+    for i, (a, got) in enumerate(zip(args, outs)):
+        err = compare(f"rowsparse_scatter[back-to-back {i}]", got,
+                      rowsparse_scatter_torch(*a, scale=0.5), torch.float32)
+        worst = max(worst, err)
+        print(f"  K2 back-to-back call {i}: V={v} T={a[0].numel()} D=18 max_abs_err={err:.3g}")
     return worst
 
 
@@ -367,6 +378,9 @@ def phase_profile(ds, steady_ms: float) -> dict:
           f"{device_ms:.3f} ms busy ({(out['device_busy_share'] or 0) * 100:.1f}%)")
     for name, ms in out["top_device_ops_ms_per_round"]:
         print(f"    {ms:.4f} ms/round  {name}")
+    k1 = {name: us for name, us in by_name.items() if "union_segsum_kernel" in name}
+    check(len(k1) == 1, f"K1 in the round: {sorted(k1)}")
+    print(f"    K1 in the round: {sum(k1.values()) / n / 1e3:.4f} ms/round  {next(iter(k1))[:90]}")
     return out
 
 
@@ -375,74 +389,156 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
-                 err_k2: float) -> list:
+#: targets of the kernels' redesign: ms per call at the trainer's round, and
+#: the least share of the bound at the heavy shape
+K1_TARGET_MS, K1_TARGET_SHARE = 0.03, 0.25
+K2_TARGET_MS, K2_TARGET_SHARE = 0.02, 0.50
+
+
+def k1_library(flat_ids, flat_rows, heat, total, scale):
+    """One PyTorch route to K1's function: ``torch.unique`` + ``index_add_``
+    + the factor (the -1 pad is a union entry here; it is a yardstick only)."""
+    u, inv = torch.unique(flat_ids, sorted=True, return_inverse=True)
+    out = torch.zeros((u.numel(), flat_rows.shape[1]), device=DEV).index_add_(
+        0, inv, flat_rows.float())
+    h = heat[u.clamp(min=0)]
+    f = torch.where(h > 0, total / h.clamp(min=1.0), 0.0) * scale
+    return u, out * torch.where(u >= 0, f, 0.0)[:, None]
+
+
+def k2_library(flat_ids, flat_rows, heat, total, v, scale):
+    """One PyTorch route to K2's function: ``index_add_`` + the factor."""
+    keep = flat_ids >= 0
+    out = torch.zeros((v, flat_rows.shape[1]), device=DEV).index_add_(
+        0, flat_ids.clamp(min=0).long(), flat_rows.float() * keep[:, None])
+    f = torch.where(heat > 0, total / heat.clamp(min=1.0), 0.0)
+    return out * f[:, None] * scale
+
+
+def profile_calls(fn, n: int = 5) -> tuple:
+    """Device ops and device milliseconds per call of ``fn``, and the device
+    ops' names (torch.profiler over ``n`` warm calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name, ops = device_times(prof)
+    return ops / n, sum(by_name.values()) / n / 1e3, sorted(by_name)
+
+
+def time_k1_k2(k1_args, scale: float, label: str) -> dict:
+    """K1 and K2 on one cohort: kernel, plain version and library call by
+    CUDA events in turns (plain / kernel / kernel / plain), the bound, and
+    device ops and device time per call from the profiler."""
     ids, rows, heat, total, cap, v = k1_args
     flat_ids, flat_rows = ids.reshape(-1), rows.reshape(ids.numel(), -1)
     t, d = flat_rows.shape
-    k = 100
-    scale = 1.0 / k
-    # the main path's own round, kernel against plain version once more
-    union_ids, want_rows = union_segsum_torch(*k1_args, scale=scale)
-    got_ids, got_rows = union_segsum(*k1_args, scale=scale)
-    check(torch.equal(got_ids, union_ids), "union_segsum[trainer round]: ids differ")
-    err_k1 = max(err_k1, compare("union_segsum[trainer round]", got_rows,
-                                 want_rows, flat_rows.dtype))
-    n_union = int((union_ids >= 0).sum())
     esize = flat_rows.element_size()
-
-    def k1_library():
-        u, inv = torch.unique(flat_ids, sorted=True, return_inverse=True)
-        out = torch.zeros((u.numel(), d), device=DEV).index_add_(0, inv, flat_rows)
-        h = heat[u.clamp(min=0)]
-        f = torch.where(h > 0, total / h.clamp(min=1.0), 0.0) * scale
-        return u, out * torch.where(u >= 0, f, 0.0)[:, None]
-
-    def k2_library():
-        keep = flat_ids >= 0
-        out = torch.zeros((v, d), device=DEV).index_add_(
-            0, flat_ids.clamp(min=0).long(), flat_rows * keep[:, None])
-        f = torch.where(heat > 0, total / heat.clamp(min=1.0), 0.0)
-        return out * f[:, None] * scale
-
-    k1 = lambda: union_segsum(*k1_args, scale=scale)               # noqa: E731
-    k1_plain = lambda: union_segsum_torch(*k1_args, scale=scale)   # noqa: E731
-    k2 = lambda: rowsparse_scatter(flat_ids, flat_rows, heat, total, v, scale=scale)  # noqa: E731
-    k2_plain = lambda: rowsparse_scatter_torch(flat_ids, flat_rows, heat, total, v,  # noqa: E731
-                                               scale=scale)
-    # in turns, plain / kernel / kernel / plain, so drift cannot favour one
-    p1, m1, m2, p2 = cuda_ms(k1_plain), cuda_ms(k1), cuda_ms(k1), cuda_ms(k1_plain)
-    lib1 = cuda_ms(k1_library)
-    q1, n1, n2, q2 = cuda_ms(k2_plain), cuda_ms(k2), cuda_ms(k2), cuda_ms(k2_plain)
-    lib2 = cuda_ms(k2_library)
+    n_union = int(torch.unique(flat_ids[(flat_ids >= 0) & (flat_ids < v)]).numel())
+    fns = {
+        "k1": (lambda: union_segsum(*k1_args, scale=scale),
+               lambda: union_segsum_torch(*k1_args, scale=scale),
+               lambda: k1_library(flat_ids, flat_rows, heat, total, scale)),
+        "k2": (lambda: rowsparse_scatter(flat_ids, flat_rows, heat, total, v, scale=scale),
+               lambda: rowsparse_scatter_torch(flat_ids, flat_rows, heat, total, v,
+                                               scale=scale),
+               lambda: k2_library(flat_ids, flat_rows, heat, total, v, scale)),
+    }
     # least bytes each function must move: ids and rows read once, heat at
     # the union's rows, outputs written once; ops: one add per row element
     # and one scale per output element
-    b1, by1 = bound(4 * t + esize * t * d + 4 * n_union + 4 * cap + 4 * cap * d,
-                    t * d + cap * d)
-    b2, by2 = bound(4 * t + esize * t * d + 4 * n_union + 4 * v * d,
-                    t * d + 2 * v * d)
-    print(f"  K1 union_segsum  V={v} T={t} D={d} cap={cap} union={n_union}: "
-          f"kernel {m1:.4f}/{m2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-          f"unique+index_add {lib1:.4f} ms, bound {b1:.5f} ms ({by1})")
-    print(f"  K2 rowsparse_scatter V={v} T={t} D={d}: kernel {n1:.4f}/{n2:.4f} ms, "
-          f"plain {q1:.4f}/{q2:.4f} ms, index_add {lib2:.4f} ms, "
-          f"bound {b2:.5f} ms ({by2})")
-    return [
-        {"name": "union_segsum", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/union_segsum.cu",
-         "replaces": "src/repro/kernels/union_segsum.py:170",
-         "launches": launches_k1, "max_abs_err": err_k1,
-         "ms": min(m1, m2), "plain_ms": min(p1, p2), "bound_ms": b1,
-         "bound_by": by1, "library_ms": lib1},
-        {"name": "rowsparse_scatter", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/rowsparse_scatter.cu",
-         "replaces": "src/repro/kernels/heat_scatter.py:138",
-         "launches": launches_k2, "max_abs_err": err_k2,
-         "ms": min(n1, n2), "plain_ms": min(q1, q2), "bound_ms": b2,
-         "bound_by": by2, "library_ms": lib2},
-    ]
+    bounds = {"k1": bound(4 * t + esize * t * d + 4 * n_union + 4 * cap + 4 * cap * d,
+                          t * d + cap * d),
+              "k2": bound(4 * t + esize * t * d + 4 * n_union + 4 * v * d,
+                          t * d + 2 * v * d)}
+    out = {"shape": f"V={v} T={t} D={d} cap={cap} union={n_union} "
+                    f"{str(flat_rows.dtype).replace('torch.', '')}"}
+    for key, (kernel, plain, library) in fns.items():
+        p1, m1, m2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+        lib = cuda_ms(library)
+        ops, dev_ms, names = profile_calls(kernel)
+        b, by = bounds[key]
+        out[key] = {"ms": min(m1, m2), "plain_ms": min(p1, p2), "library_ms": lib,
+                    "bound_ms": b, "bound_by": by, "share": b / min(m1, m2),
+                    "device_ops_per_call": ops, "device_ms_per_call": dev_ms}
+        print(f"  {key.upper()} {label} {out['shape']}: kernel {m1:.4f}/{m2:.4f} ms "
+              f"({b / min(m1, m2) * 100:.1f}% of the bound), plain {p1:.4f}/{p2:.4f} ms, "
+              f"library {lib:.4f} ms, bound {b:.5f} ms ({by}); profiler: {ops:g} device "
+              f"ops, {dev_ms:.4f} ms of device time per call ({', '.join(names)[:120]})")
+        check(ops == 1, f"{key.upper()} {label}: {ops} device ops per call, want one")
+    return out
 
+
+def k1_scratch_bytes(k1_args, scale: float) -> tuple:
+    """Device bytes one K1 call requests beyond its two outputs (the peak of
+    the caching allocator's requested bytes, which a reused cached block
+    does not inflate; out_ids and the scratch share one allocation, with
+    up to 4 bytes of alignment between them), and what the launch plan says
+    it needs."""
+    ids, rows, heat, total, cap, v = k1_args
+    flat_rows = rows.reshape(ids.numel(), -1)
+    t, d = flat_rows.shape
+    bf16 = rows.dtype == torch.bfloat16
+    vec = _rows.vector_width(d, flat_rows.data_ptr(), flat_rows.element_size())
+    plan = _rows.union_plan(t, d, v, cap, vec, _rows.max_blocks("union_segsum", DEV, bf16, vec))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out_ids, out_rows = union_segsum(*k1_args, scale=scale)
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    return peak - base - 4 * out_ids.numel() - 4 * out_rows.numel(), plan
+
+
+def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
+                 err_k2: float, rng) -> list:
+    ids, rows, heat, total, cap, v = k1_args
+    k = 100
+    # the main path's own round, kernel against plain version once more
+    union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    err_k1 = max(err_k1, check_k1("union_segsum[trainer round]", k1_args, 1.0 / k, union))
+    res = {"trainer": time_k1_k2(k1_args, 1.0 / k, "trainer round")}
+    hv, hk, hr, hd = SHAPES["heavy"]
+    for dtype in (torch.float32, torch.bfloat16):
+        hids, hrows, hheat = cohort(rng, hk, hr, hv, hd, dtype, DEV)
+        args = (hids, hrows, hheat, float(N_CLIENTS), min(hv, hk * hr), hv)
+        res[str(dtype)] = time_k1_k2(args, 1.0 / hk, "heavy")
+        extra, plan = k1_scratch_bytes(args, 1.0 / hk)
+        print(f"  K1 heavy {dtype}: {extra} bytes requested beyond the outputs (plan "
+              f"{plan.scratch_bytes}: {plan.words} words and {plan.blocks} blocks; V/4 = "
+              f"{hv / 4:.0f}, a V-sized int32 array {4 * hv})")
+        check(extra <= plan.scratch_bytes + 4, f"K1 heavy: {extra} bytes of scratch")
+        del hids, hrows, hheat, args
+    tr, hf, hb = res["trainer"], res[str(torch.float32)], res[str(torch.bfloat16)]
+    for key, ms_target, share_target in (("k1", K1_TARGET_MS, K1_TARGET_SHARE),
+                                         ("k2", K2_TARGET_MS, K2_TARGET_SHARE)):
+        met = lambda ok: "met" if ok else "missed"  # noqa: E731
+        print(f"  {key.upper()} targets: trainer round {tr[key]['ms']:.4f} ms vs "
+              f"<= {ms_target} ms: {met(tr[key]['ms'] <= ms_target)}; heavy f32 "
+              f"{hf[key]['share'] * 100:.1f}% / bf16 {hb[key]['share'] * 100:.1f}% of "
+              f"the bound vs >= {share_target * 100:.0f}%: "
+              f"{met(min(hf[key]['share'], hb[key]['share']) >= share_target)}")
+
+    def entry(key, name, source, replaces, launches, err):
+        heavy = {"shape": hf["shape"].rsplit(" ", 1)[0]}
+        for tag, r in (("f32", hf), ("bf16", hb)):
+            heavy[tag] = {f: r[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "device_ops_per_call")}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": tr[key]["ms"],
+                "plain_ms": tr[key]["plain_ms"], "bound_ms": tr[key]["bound_ms"],
+                "bound_by": tr[key]["bound_by"], "library_ms": tr[key]["library_ms"],
+                "device_ops_per_call": tr[key]["device_ops_per_call"], "heavy": heavy}
+
+    return [entry("k1", "union_segsum", "src/repro_torch/kernels/csrc/union_segsum.cu",
+                  "src/repro/kernels/union_segsum.py:170", launches_k1, err_k1),
+            entry("k2", "rowsparse_scatter",
+                  "src/repro_torch/kernels/csrc/rowsparse_scatter.cu",
+                  "src/repro/kernels/heat_scatter.py:138", launches_k2, err_k2)]
 
 
 # ---------------------------------------------------------------------------
@@ -859,7 +955,7 @@ def main() -> int:
 
     print("[6] kernel times")
     kernels = phase_timing(k1_args, launches_k1, launches_k2, err_k1,
-                           max(err_k2, err_k2_path))
+                           max(err_k2, err_k2_path), rng)
 
     print("[7] where a fedsubavg round's time goes")
     phase_profile(ds, runs["fedsubavg"]["steady_ms_per_round"])

@@ -1,13 +1,15 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take device
-pointers, sizes and a stream, and return ``cudaGetLastError()``. Every
+pointers, sizes and a stream, and return the launch's CUDA error; K1 and K2
+also expose an occupancy query and share ``csrc/rowsum.cuh``. Every
 library links ``libcuda`` (``-lcuda``) for ``cuTensorMapEncodeTiled``,
 which encodes the TMA descriptors of the tensor-core kernels of K3 and K4.
 On first use every source is compiled for ``sm_90a`` into its own shared
 library under ``build/repro_torch_kernels/<hash>/`` at the repository root,
-the hash covering the sources and the flags. All ``nvcc`` processes start together.
-Nothing is built or imported at module import time.
+the hash covering the sources, the headers and the flags. All ``nvcc``
+processes start together. Nothing is built or imported at module import
+time.
 """
 from __future__ import annotations
 
@@ -31,9 +33,11 @@ _ATTENTION = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
 #: argument types of every launcher, by source name and symbol
 SIGNATURES = {
     "union_segsum": {"union_segsum_launch":
-                     (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)},
+                     (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P),
+                     "union_segsum_max_blocks": (_I, _I)},
     "rowsparse_scatter": {"rowsparse_scatter_launch":
-                          (_P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P)},
+                          (_P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+                          "rowsparse_scatter_max_blocks": (_I, _I)},
     "flash_attention": {"flash_attention_bf16_launch": _ATTENTION,
                         "flash_attention_f32_launch": _ATTENTION},
     "flash_decode": {"flash_decode_launch":
@@ -68,7 +72,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):    # sources and the headers they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -2,10 +2,13 @@
 
 Replaces the TPU kernel ``src/repro/kernels/heat_scatter.py:rowsparse_scatter``
 (``heat_scatter`` is its ``scale=1`` case). The CUDA source is
-``csrc/rowsparse_scatter.cu``: atomic f32 scatter-add of the rows into a
-zeroed ``(V, D)`` output, then the heat epilogue over the V rows. It is
-bound by bytes on the H100 (ids and rows read once, the dense output written
-once); the source note says what the design does about it.
+``csrc/rowsparse_scatter.cu``: one cooperative launch that zeroes the
+``(V, D)`` output in 16-byte stores and, after a grid-wide barrier, adds
+each row times its id's factor into it with vector atomics. The output is
+allocated with ``torch.empty`` and written once, with no fill before the
+launch and no scale pass after it. It is bound by bytes on the H100 (ids
+and rows read once, the dense output written once); the source note says
+what the design does about it.
 
 ``rowsparse_scatter`` launches the kernel for CUDA tensors and runs
 ``rowsparse_scatter_torch``, the plain PyTorch version, for CPU tensors
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _rows
 
 
 def rowsparse_scatter_torch(ids: torch.Tensor, rows: torch.Tensor,
@@ -46,9 +49,10 @@ def rowsparse_scatter(ids: torch.Tensor, rows: torch.Tensor, heat: torch.Tensor,
     """Fused scatter-add + correction; see ``rowsparse_scatter_torch`` for
     the contract. CUDA tensors launch the kernel, CPU tensors run the plain
     version."""
-    if ids.device.type == "cpu":
+    dev = ids.device
+    if dev.type == "cpu":
         return rowsparse_scatter_torch(ids, rows, heat, total, vocab, scale=scale)
-    if not ids.is_cuda or rows.device != ids.device or heat.device != ids.device:
+    if dev.type != "cuda" or rows.device != dev or heat.device != dev:
         raise ValueError("rowsparse_scatter: ids, rows and heat must lie on "
                          "one CUDA device")
     if ids.dim() != 1 or rows.dim() != 2 or rows.shape[0] != ids.shape[0]:
@@ -61,16 +65,18 @@ def rowsparse_scatter(ids: torch.Tensor, rows: torch.Tensor, heat: torch.Tensor,
     if heat.dtype != torch.float32 or heat.shape != (vocab,):
         raise ValueError("rowsparse_scatter: heat must be f32 (vocab,)")
     t, d = rows.shape
-    out = torch.zeros((vocab, d), dtype=torch.float32, device=ids.device)
-    if t == 0 or d == 0 or vocab == 0:
+    out = torch.empty((vocab, d), dtype=torch.float32, device=dev)
+    if d == 0 or vocab == 0:
         return out
     ids, rows, heat = ids.contiguous(), rows.contiguous(), heat.contiguous()
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = _build.launcher("rowsparse_scatter")(
-            ids.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.bfloat16),
-            heat.data_ptr(), float(total), float(scale), t, d, vocab,
-            out.data_ptr(), stream)
+    bf16 = rows.dtype == torch.bfloat16
+    vec = _rows.vector_width(d, rows.data_ptr(), rows.element_size())
+    plan = _rows.scatter_plan(t, d, vocab, vec,
+                              _rows.max_blocks("rowsparse_scatter", dev, bf16, vec))
+    err = _build.launcher("rowsparse_scatter", "rowsparse_scatter_launch")(
+        ids.data_ptr(), rows.data_ptr(), int(bf16), heat.data_ptr(), float(total),
+        float(scale), t, d, vocab, plan.vec, plan.team, plan.blocks, out.data_ptr(),
+        dev.index, _rows.raw_stream(dev))
     _build.check("rowsparse_scatter", err)
     rowsparse_scatter.launches += 1
     return out

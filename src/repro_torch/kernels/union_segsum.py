@@ -1,11 +1,14 @@
 """K1: fused union + segment-sum + FedSubAvg scaling (the sparse server step).
 
 Replaces the TPU kernel ``src/repro/kernels/union_segsum.py:union_segsum``.
-The CUDA source is ``csrc/union_segsum.cu``: a V-sized bitmap, a block
-prefix scan that ranks the marked ids, a compaction that writes the sorted
-union, an atomic segment-sum of the rows onto their union slots and a heat
-epilogue. It is bound by bytes on the H100 (ids, rows, the V-sized bitmap and
-scan, the output); the source note says what the design does about it.
+The CUDA source is ``csrc/union_segsum.cu``: one cooperative launch that
+zeroes its own scratch, marks the ids in a bit-packed union (one bit per
+table row, V/4 bytes with the words' rank offsets), ranks the words, writes
+the sorted union and segment-sums the rows, each times its id's factor,
+onto their union slots with vector atomics. One call is one device
+operation: the wrapper only allocates (``torch.empty``; out_ids and the
+scratch share one buffer) and the kernel writes every output element. The
+source note says what bounds it.
 
 ``union_segsum`` launches the kernel for CUDA tensors and runs
 ``union_segsum_torch``, the plain PyTorch version of the same function, for
@@ -13,13 +16,12 @@ CPU tensors only. It never falls back from one to the other.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-
-_SCAN_TILE = 4096   # bitmap entries per scan block (kScanTile in the source)
+from repro_torch.kernels import _build, _rows
 
 
 def _flatten(ids: torch.Tensor, rows: torch.Tensor):
@@ -75,45 +77,48 @@ def union_segsum(ids: torch.Tensor, rows: torch.Tensor,
     """Fused union + segment-sum + scaling; see ``union_segsum_torch`` for
     the contract. CUDA tensors launch the kernel, CPU tensors run the plain
     version."""
-    if ids.device.type == "cpu":
+    dev = ids.device
+    if dev.type == "cpu":
         return union_segsum_torch(ids, rows, heat, total, cap, num_rows,
                                   scale=scale)
-    flat_ids, flat_rows, trailing = _flatten(ids, rows)
-    if not flat_ids.is_cuda or flat_rows.device != flat_ids.device:
+    if dev.type != "cuda" or rows.device != dev:
         raise ValueError("union_segsum: ids and rows must lie on one CUDA device")
-    if flat_ids.dtype != torch.int32:
-        raise TypeError(f"union_segsum: ids must be int32, got {flat_ids.dtype}")
-    if flat_rows.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"union_segsum: rows must be f32 or bf16, got {flat_rows.dtype}")
-    if heat is not None and (heat.dtype != torch.float32
-                             or heat.device != flat_ids.device
+    if ids.dtype != torch.int32:
+        raise TypeError(f"union_segsum: ids must be int32, got {ids.dtype}")
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"union_segsum: rows must be f32 or bf16, got {rows.dtype}")
+    if rows.shape[:ids.dim()] != ids.shape:
+        raise ValueError(f"union_segsum: rows {tuple(rows.shape)} do not extend ids "
+                         f"{tuple(ids.shape)}")
+    if heat is not None and (heat.dtype != torch.float32 or heat.device != dev
                              or heat.shape != (num_rows,)):
         raise ValueError("union_segsum: heat must be f32 (num_rows,) on the ids' device")
-    t, d = flat_rows.shape
-    dev = flat_ids.device
-    out_ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    out_rows = torch.zeros((cap, d), dtype=torch.float32, device=dev)
-    if t == 0 or cap == 0 or d == 0:
-        return out_ids, out_rows.reshape((cap,) + trailing)
-    flat_ids = flat_ids.contiguous()
-    flat_rows = flat_rows.contiguous()
+    trailing = tuple(rows.shape[ids.dim():])
+    if cap == 0:
+        return (torch.empty((0,), dtype=torch.int32, device=dev),
+                torch.empty((0,) + trailing, dtype=torch.float32, device=dev))
+    t, d = ids.numel(), math.prod(trailing)
+    ids, rows = ids.contiguous(), rows.contiguous()
     heat = heat.contiguous() if heat is not None else None
-    bitmap = torch.zeros(num_rows, dtype=torch.int32, device=dev)
-    rank = torch.empty(num_rows, dtype=torch.int32, device=dev)
-    tile_sums = torch.empty(-(-num_rows // _SCAN_TILE), dtype=torch.int32,
-                            device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.launcher("union_segsum")(
-            flat_ids.data_ptr(), flat_rows.data_ptr(),
-            int(flat_rows.dtype == torch.bfloat16),
-            heat.data_ptr() if heat is not None else None,
-            float(total), float(scale), t, d, num_rows, cap,
-            bitmap.data_ptr(), rank.data_ptr(), tile_sums.data_ptr(),
-            out_ids.data_ptr(), out_rows.data_ptr(), stream)
+    bf16 = rows.dtype == torch.bfloat16
+    vec = _rows.vector_width(d, rows.data_ptr(), rows.element_size())
+    plan = _rows.union_plan(t, d, num_rows, cap, vec,
+                            _rows.max_blocks("union_segsum", dev, bf16, vec))
+    # out_rows, and one buffer for out_ids then the scratch (its uint2 words
+    # on an 8-byte boundary)
+    out_rows = torch.empty((cap,) + trailing, dtype=torch.float32, device=dev)
+    at_scratch = cap + cap % 2
+    buf = torch.empty(at_scratch + plan.scratch_ints, dtype=torch.int32, device=dev)
+    out_ids = buf[:cap]
+    ptr = buf.data_ptr()
+    err = _build.launcher("union_segsum", "union_segsum_launch")(
+        ids.data_ptr(), rows.data_ptr(), int(bf16),
+        heat.data_ptr() if heat is not None else None, float(total), float(scale), t, d,
+        num_rows, cap, plan.vec, plan.team, plan.blocks, ptr + 4 * at_scratch, ptr,
+        out_rows.data_ptr(), dev.index, _rows.raw_stream(dev))
     _build.check("union_segsum", err)
     union_segsum.launches += 1
-    return out_ids, out_rows.reshape((cap,) + trailing)
+    return out_ids, out_rows
 
 
 #: kernel launches so far (one per call that reached the card)

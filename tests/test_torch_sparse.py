@@ -32,6 +32,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.federated.client import (cohort_submodel_deltas,
                                           make_submodel_local_trainer)
 from repro_torch.federated.server import derive_sub_ids
+from repro_torch.kernels import _rows
 from repro_torch.kernels.heat_scatter import rowsparse_scatter, rowsparse_scatter_torch
 from repro_torch.kernels.ref import heat_scatter_ref
 from repro_torch.kernels.union_segsum import union_segsum, union_segsum_torch
@@ -59,6 +60,19 @@ def _random_cohort(rng, k, v, d, max_rows):
         n = int(rng.integers(1, max_rows + 1))
         ids[i, :n] = np.sort(rng.choice(v, size=n, replace=False))
         rows[i, :n] = rng.normal(size=(n, d))
+    return ids, rows
+
+
+def _hot_cohort(rng, k, v, d, max_rows, hot):
+    """Zipf-skewed supports (low ids are common) in which id ``hot`` is held
+    by every client, -1 padded."""
+    ids = np.full((k, max_rows), -1, np.int32)
+    rows = np.zeros((k, max_rows, d), np.float32)
+    for i in range(k):
+        pick = np.minimum(rng.zipf(1.5, size=int(rng.integers(1, max_rows))) - 1, v - 1)
+        u = np.unique(np.append(pick, hot))
+        ids[i, :len(u)] = u
+        rows[i, :len(u)] = rng.normal(size=(len(u), d))
     return ids, rows
 
 
@@ -201,6 +215,35 @@ def test_union_segsum_all_pad_clients_exact_cap_and_overflow(jax_kernel, rng,
     assert (lone_ids.numpy() == -1).all() and (lone_rows.numpy() == 0).all()
 
 
+@pytest.mark.parametrize("skew", ["uniform", "hot"])
+@pytest.mark.parametrize("d", [1, 18, 25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_union_segsum_plain_matches_jax_kernel_at_the_port_widths(jax_kernel, skew, d,
+                                                                  dtype):
+    """The widths the CUDA kernel branches on (LR 1, DIN 18, LSTM 25: vector
+    widths 1, 2, 1) and a cohort whose hot id every client holds."""
+    rng = np.random.default_rng(d)
+    k, v = 6, 96
+    ids, rows = (_random_cohort(rng, k, v, d, max_rows=24) if skew == "uniform"
+                 else _hot_cohort(rng, k, v, d, max_rows=24, hot=5))
+    if skew == "hot":
+        assert (ids == 5).any(axis=1).all()
+    heat = _heat_of(ids, v) * 4.0
+    total, scale, cap = 24.0, 1.0 / k, min(v, ids.size)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    j_rows = jnp.asarray(rows).astype(dtype)
+    t_rows = _t(rows).to(getattr(torch, dtype))
+    u_ids, u_rows = jax_kernel(jnp.asarray(ids), j_rows, jnp.asarray(heat), total, cap, v,
+                               scale=scale, v_blk=32, t_blk=48)
+    got_ids, got_rows = union_segsum_torch(_t(ids), t_rows, _t(heat), total, cap, v,
+                                           scale=scale)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(u_ids))
+    np.testing.assert_allclose(got_rows.numpy(), np.asarray(u_rows), **tol)
+    w_ids, w_rows = union_segsum(_t(ids), t_rows, _t(heat), total, cap, v, scale=scale)
+    np.testing.assert_array_equal(w_ids.numpy(), got_ids.numpy())
+    np.testing.assert_array_equal(w_rows.numpy(), got_rows.numpy())
+
+
 def test_union_segsum_drops_ids_outside_the_table(rng):
     """Ids >= V are dropped like pads (the kernel's contract); the union of
     the remaining ids is unchanged."""
@@ -255,6 +298,86 @@ def test_rowsparse_scatter_plain_matches_jax(rng, t, d, v, v_blk, t_blk, dtype):
         heat_scatter_ref(_t(ids), t_rows, _t(heat), 100.0, v).numpy(),
         np.asarray(j_ref.heat_scatter_ref(jnp.asarray(ids), j_rows,
                                           jnp.asarray(heat), 100.0, v)), **tol)
+
+
+@pytest.mark.parametrize("skew", ["uniform", "hot"])
+@pytest.mark.parametrize("d", [1, 18, 25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rowsparse_scatter_plain_matches_jax_at_the_port_widths(skew, d, dtype):
+    rng = np.random.default_rng(100 + d)
+    k, v = 6, 96
+    ids, rows = (_random_cohort(rng, k, v, d, max_rows=24) if skew == "uniform"
+                 else _hot_cohort(rng, k, v, d, max_rows=24, hot=5))
+    ids, rows = ids.reshape(-1), rows.reshape(-1, d)
+    heat = _heat_of(ids[None], v) * 4.0
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    j_rows = jnp.asarray(rows).astype(dtype)
+    t_rows = _t(rows).to(getattr(torch, dtype))
+    got = rowsparse_scatter_torch(_t(ids), t_rows, _t(heat), 24.0, v, scale=1.0 / k)
+    want_ref = j_ref.rowsparse_scatter_ref(jnp.asarray(ids), j_rows, jnp.asarray(heat),
+                                           24.0, v, scale=1.0 / k)
+    want_kernel = j_ops.rowsparse_scatter(jnp.asarray(ids), j_rows, jnp.asarray(heat),
+                                          24.0, v, scale=1.0 / k, v_blk=32, t_blk=48)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), **tol)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), **tol)
+    np.testing.assert_array_equal(
+        rowsparse_scatter(_t(ids), t_rows, _t(heat), 24.0, v, scale=1.0 / k).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("shape,t,d,v,cap,vec,team,blocks", [
+    # the LR trainer's round: V = 37,069, 100 clients x 128 rows, D = 1
+    ("trainer", 12_800, 1, 37_069, 12_800, 1, 1, 25),
+    # the aggregation-heavy shape: V = 2^22, 1,000 x 512 rows, DIN's D = 18
+    ("heavy", 512_000, 18, 1 << 22, 512_000, 2, 16, 396),
+    ("LSTM width", 12_800, 25, 37_069, 12_800, 1, 32, 396),
+    ("wide", 32_768, 16, 262_144, 32_768, 4, 4, 256),
+    ("empty", 0, 0, 0, 1, 4, 1, 1),
+])
+def test_k1_launch_plan(shape, t, d, v, cap, vec, team, blocks):
+    """Vector width, team and grid of K1 at the shapes the card runs, and a
+    scratch of one (bits, rank offset) pair per 32 table rows plus one int
+    per block: ~V/4 bytes, never a V-sized array."""
+    assert _rows.vector_width(d, 1 << 20, 4) == vec
+    plan = _rows.union_plan(t, d, v, cap, vec, max_blocks=3 * 132)
+    assert (plan.vec, plan.team, plan.blocks) == (vec, team, blocks)
+    assert plan.words == -(-v // 32)
+    assert plan.scratch_bytes == 8 * -(-v // 32) + 4 * plan.blocks
+    assert plan.scratch_bytes <= v / 4 + 8 + 4 * plan.blocks
+    if v:
+        assert plan.scratch_bytes < 4 * v      # less than one int32 per row
+
+
+@pytest.mark.parametrize("t,d,v,vec,team,blocks", [
+    (12_800, 1, 37_069, 1, 1, 25),            # the trainer's round
+    (512_000, 18, 1 << 22, 2, 16, 396),       # the heavy shape
+    (0, 18, 37_069, 2, 16, 326),              # no rows: the zero phase alone
+])
+def test_k2_launch_plan(t, d, v, vec, team, blocks):
+    plan = _rows.scatter_plan(t, d, v, vec, max_blocks=3 * 132)
+    assert (plan.vec, plan.team, plan.blocks, plan.scratch_ints) == (
+        vec, team, blocks, blocks)
+
+
+@pytest.mark.parametrize("d,ptr,esize,vec", [
+    (16, 0, 4, 4), (16, 8, 4, 2), (16, 4, 4, 1), (18, 0, 4, 2), (18, 2, 2, 1),
+    (8, 8, 2, 4), (25, 0, 4, 1), (1, 0, 2, 1),
+])
+def test_vector_width_follows_width_and_alignment(d, ptr, esize, vec):
+    assert _rows.vector_width(d, ptr, esize) == vec
+    assert _rows.team_size(d, vec) == min(32, 1 << (max(d // vec, 1) - 1).bit_length())
+
+
+def test_wrappers_never_fall_back_on_a_device_tensor():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused,
+    not handed to the plain version."""
+    ids = torch.zeros(4, dtype=torch.int32, device="meta")
+    rows = torch.zeros((4, 18), device="meta")
+    heat = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        union_segsum(ids, rows, heat, 1.0, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowsparse_scatter(ids, rows, heat, 1.0, 8)
 
 
 def test_aggregate_rowsparse_dense_union_matches_plain_k2(rng):

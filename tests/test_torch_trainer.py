@@ -173,6 +173,7 @@ _FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
-    for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"), *(ROOT / "tools").glob("*.py"),
+              ROOT / "chip_smoke.py"]))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not _FORBIDDEN.search((ROOT / path).read_text()), path
