@@ -60,13 +60,27 @@ Phases, each of which asserts; any failure exits non-zero:
 14. where a prefill's time goes (torch.profiler over one prefill of
     4 x 1,024 tokens): device time by op, K3's total over its 48 launches,
     the matmuls' total, the device's busy share
+15. DIN FedSubAvg at the width of the DIN paper's Amazon Electronics
+    (63,001 goods, ~9 samples per user; 2,000 of its 192,403 users, a cut
+    printed on a ``reduced:`` line; emb 18, hidden 36): fedsubavg and
+    fedavg, 20 rounds each, as in [4]; K1 (D = 18) must serve every round
+    once, and is held to its plain version on one round's inputs
+16. the same for the LSTM on Sent140-like data (1,000 clients, a
+    20,000-word vocabulary, 24 tokens; emb 25, hidden 100, two cells):
+    K1 at D = 25
+17. card against host: DIN and the LSTM on 200 clients, fedsubavg and
+    fedavg, 3 rounds each; losses and parameters within 1e-5
+18. where a DIN and an LSTM fedsubavg round's time goes, as [7], and K1's
+    times at each round's own inputs, as [6]
 
-It ends with the kernels as one JSON line, the card line and, last,
-``{"ok": true, "device": {...}}``.
+It ends with the kernels as one JSON line (K1's entry also carries its
+launches on the LR, DIN and LSTM paths and its times at the DIN and LSTM
+rounds), the card line and, last, ``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -82,7 +96,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.base import FedConfig  # noqa: E402
-from repro_torch.data.synthetic import make_movielens_like  # noqa: E402
+from repro_torch.data.synthetic import (make_amazon_like,  # noqa: E402
+                                        make_movielens_like, make_sent140_like)
 from repro_torch.federated.plan import (RoundPlan, RowSparseTransport,  # noqa: E402
                                         ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
@@ -100,7 +115,7 @@ from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
                                               rowsparse_scatter_torch)
 from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
                                               union_segsum_torch)
-from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
 from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
@@ -238,13 +253,50 @@ def phase_k2(rng) -> float:
     return worst
 
 
+#: [15]: the DIN paper's Amazon Electronics (Zhou et al., KDD 2018, Table 1:
+#: 192,403 users, 63,001 goods, 1,689,188 samples, ~9 per user)
+DIN_DATA = dict(num_clients=2000, num_items=63001, hist_len=10, mean_samples=9, seed=SEED)
+DIN_REDUCED = ("clients 192,403 -> 2,000 (the host generator loops per client over "
+               "a 63,001-long distribution); goods, samples per client and widths as "
+               "published")
+#: [16]: the repository's Sent140-like shape (24 tokens, ~30 samples per client)
+LSTM_DATA = dict(num_clients=1000, vocab=20000, seq_len=24, mean_samples=30, seed=SEED)
+LSTM_REDUCED = ("none against a published size: the repository gives none for its "
+                "Sent140-like data, so 1,000 clients and a 20,000-word vocabulary are "
+                "this script's choice; emb 25, hidden 100, two cells as in the repository")
+
+
+def paper_model(ds) -> tuple:
+    """``(make_params, loss_fn, predict_fn)`` of the paper's model for the
+    dataset's task, at the repository's widths (DIN: emb 18, hidden 36;
+    LSTM: emb 25, hidden 100, two cells). Random leaves are drawn on the
+    host from ``SEED`` and then moved, so the card and the host start alike."""
+    v = ds.num_features
+    if ds.task == "lr":
+        return (lambda device: recsys.make_lr_params(v, device), recsys.lr_loss,
+                lambda p, t: recsys.lr_logits(p, t["features"]))
+    make, loss, predict = {
+        "din": (recsys.make_din_params, recsys.din_loss,
+                lambda p, t: recsys.din_logits(p, t["hist"], t["target"])),
+        "lstm": (recsys.make_lstm_params, recsys.lstm_loss,
+                 lambda p, t: recsys.lstm_logits(p, t["tokens"],
+                                                 (t["tokens"] >= 0).float())),
+    }[ds.task]
+
+    def make_params(device):
+        params, axes = make(v, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        return {k: x.to(device) for k, x in params.items()}, axes
+
+    return make_params, loss, predict
+
+
 def make_trainer(ds, alg: str, device, plan=None) -> FederatedTrainer:
     cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100,
                     local_iters=5, local_batch=5, lr=0.5, algorithm=alg,
                     sparse=True, seed=SEED)
-    return FederatedTrainer(ds, lambda device: make_lr_params(ds.num_features, device),
-                            lr_loss, cfg, predict_fn=lambda p, t: lr_logits(p, t["features"]),
-                            plan=plan, device=device)
+    make_params, loss, predict = paper_model(ds)
+    return FederatedTrainer(ds, make_params, loss, cfg, predict_fn=predict, plan=plan,
+                            device=device)
 
 
 def drive(tr: FederatedTrainer, label: str) -> dict:
@@ -274,23 +326,30 @@ def drive(tr: FederatedTrainer, label: str) -> dict:
     return out
 
 
-def phase_main_path(ds) -> tuple:
-    """The trainer at full width. Returns the per-run summaries, the K1
-    launch count of the run and the K1 inputs of one fedsubavg round."""
-    captured = {}
-
+@contextlib.contextmanager
+def capture_k1(captured: dict):
+    """Record the inputs of the aggregation's K1 calls (the last one stays)
+    in ``captured``; the calls still launch K1."""
     def capture(*args, **kw):
         captured["args"], captured["kw"] = args, kw
         return union_segsum(*args, **kw)
 
+    aggregate_mod.union_segsum = capture
+    try:
+        yield
+    finally:
+        aggregate_mod.union_segsum = union_segsum
+
+
+def phase_main_path(ds) -> tuple:
+    """The trainer at full width. Returns the per-run summaries, the K1
+    launch count of the run and the K1 inputs of one fedsubavg round."""
+    captured = {}
     union_segsum.launches = 0
     rowsparse_scatter.launches = 0
     runs = {}
-    aggregate_mod.union_segsum = capture       # records the main path's inputs
-    try:
+    with capture_k1(captured):
         runs["fedsubavg"] = drive(make_trainer(ds, "fedsubavg", DEV), "fedsubavg")
-    finally:
-        aggregate_mod.union_segsum = union_segsum
     check(union_segsum.launches == 20, f"K1 served {union_segsum.launches}/20 rounds")
     runs["fedavg"] = drive(make_trainer(ds, "fedavg", DEV), "fedavg")
     check(union_segsum.launches == 40, f"K1 served {union_segsum.launches}/40 rounds")
@@ -301,6 +360,32 @@ def phase_main_path(ds) -> tuple:
     launches = union_segsum.launches
     check(launches == 60, f"K1 served {launches}/60 rounds")
     return runs, launches, captured
+
+
+def phase_deep_path(ds) -> tuple:
+    """[15] and [16]: DIN or the LSTM at the repository's widths through the
+    trainer, fedsubavg then fedavg, 20 rounds each; K1 must serve every
+    round once. K1 is then held to its plain version on the inputs of one
+    fedsubavg round (ids exact, f32 2e-5). Returns the runs, K1's launches
+    on this path, the captured inputs and K1's error on them."""
+    captured = {}
+    union_segsum.launches = 0
+    runs = {}
+    with capture_k1(captured):
+        runs["fedsubavg"] = drive(make_trainer(ds, "fedsubavg", DEV), f"{ds.task} fedsubavg")
+    check(union_segsum.launches == 20, f"K1 served {union_segsum.launches}/20 rounds")
+    runs["fedavg"] = drive(make_trainer(ds, "fedavg", DEV), f"{ds.task} fedavg")
+    launches = union_segsum.launches
+    check(launches == 40, f"K1 served {launches}/40 rounds")
+    print(f"  {ds.task}: AUC after 20 rounds fedsubavg {runs['fedsubavg']['auc']:.5f}, "
+          f"fedavg {runs['fedavg']['auc']:.5f}; K1 {launches} launches in 40 rounds")
+    args, scale = captured["args"], captured["kw"]["scale"]
+    ids, rows, v = args[0], args[1], args[5]
+    union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    err = check_k1(f"union_segsum[{ds.task} round]", args, scale, union)
+    print(f"  K1 at a {ds.task} fedsubavg round: V={v} T={ids.numel()} D={rows.shape[-1]} "
+          f"cap={args[4]} union={union} max_abs_err={err:.3g}")
+    return runs, launches, captured, err
 
 
 def phase_k2_path(k1_args) -> tuple:
@@ -324,12 +409,12 @@ def phase_k2_path(k1_args) -> tuple:
     return launches, err
 
 
-def phase_card_vs_host(ds) -> dict:
+def phase_card_vs_host(ds, rounds: int = 5) -> dict:
     out = {}
     for alg in ("fedsubavg", "fedavg"):
         card, host = make_trainer(ds, alg, DEV), make_trainer(ds, alg, "cpu")
-        lc = [card.run_round() for _ in range(5)]
-        lh = [host.run_round() for _ in range(5)]
+        lc = [card.run_round() for _ in range(rounds)]
+        lh = [host.run_round() for _ in range(rounds)]
         dl = max(abs(a - b) for a, b in zip(lc, lh))
         check(np.allclose(lc, lh, rtol=1e-5, atol=1e-5),
               f"{alg}: card and host losses differ by {dl}")
@@ -340,15 +425,16 @@ def phase_card_vs_host(ds) -> dict:
             check(torch.allclose(p.cpu(), q, rtol=1e-5, atol=1e-5),
                   f"{alg}: card and host '{name}' differ by {dp}")
         out[alg] = {"max_loss_diff": dl, "max_param_diff": dp}
-        print(f"  {alg}: 5 rounds card vs host: max |loss diff| {dl:.3g}, "
-              f"max |param diff| {dp:.3g}")
+        print(f"  {ds.task} {alg}: {rounds} rounds card vs host: max |loss diff| "
+              f"{dl:.3g}, max |param diff| {dp:.3g}")
     return out
 
 
-def phase_profile(ds, steady_ms: float) -> dict:
+def phase_profile(ds, steady_ms: float, n: int = 5) -> dict:
     """Where one fedsubavg round's time goes: host sampling, device kernel
-    time and launches per round (torch.profiler over 5 warm rounds), and the
-    device's busy share of the unprofiled steady round time."""
+    time and launches per round (torch.profiler over ``n`` warm rounds), and
+    the device's busy share of the unprofiled steady round time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tr = make_trainer(ds, "fedsubavg", DEV)
@@ -358,7 +444,6 @@ def phase_profile(ds, steady_ms: float) -> dict:
     for _ in range(5):
         tr._sample_sparse_cohort()
     sample_ms = (time.perf_counter() - t0) / 5 * 1e3
-    n = 5
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -373,14 +458,21 @@ def phase_profile(ds, steady_ms: float) -> dict:
            "steady_ms_per_round": steady_ms,
            "device_busy_share": device_ms / steady_ms if device_ms else None,
            "top_device_ops_ms_per_round": [(k[:90], v / n / 1e3) for k, v in top]}
-    print(f"  fedsubavg round: {steady_ms:.2f} ms steady; host sampling "
+    print(f"  {ds.task} fedsubavg round: {steady_ms:.2f} ms steady; host sampling "
           f"{sample_ms:.2f} ms; device ops {launches / n:.0f}/round, "
           f"{device_ms:.3f} ms busy ({(out['device_busy_share'] or 0) * 100:.1f}%)")
     for name, ms in out["top_device_ops_ms_per_round"]:
         print(f"    {ms:.4f} ms/round  {name}")
     k1 = {name: us for name, us in by_name.items() if "union_segsum_kernel" in name}
     check(len(k1) == 1, f"K1 in the round: {sorted(k1)}")
-    print(f"    K1 in the round: {sum(k1.values()) / n / 1e3:.4f} ms/round  {next(iter(k1))[:90]}")
+    # K1 launches once per round ([4], [15], [16]): its device ops per call
+    # are its kernels per round
+    k1_ops = sum(1 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "union_segsum_kernel" in e.name)
+    out["k1_device_ops_per_round"] = k1_ops / n
+    out["k1_device_ms_per_round"] = sum(k1.values()) / n / 1e3
+    print(f"    K1 in the round: {out['k1_device_ms_per_round']:.4f} ms/round in "
+          f"{k1_ops / n:g} device ops  {next(iter(k1))[:90]}")
     return out
 
 
@@ -430,10 +522,14 @@ def profile_calls(fn, n: int = 5) -> tuple:
     return ops / n, sum(by_name.values()) / n / 1e3, sorted(by_name)
 
 
-def time_k1_k2(k1_args, scale: float, label: str) -> dict:
+def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
+               profiled=None) -> dict:
     """K1 and K2 on one cohort: kernel, plain version and library call by
     CUDA events in turns (plain / kernel / kernel / plain), the bound, and
-    device ops and device time per call from the profiler."""
+    device ops and device time per call from the profiler. ``profiled``
+    gives those two by key where a round's profile has measured them
+    already (a short profile right after a round's was seen to record no
+    device events)."""
     ids, rows, heat, total, cap, v = k1_args
     flat_ids, flat_rows = ids.reshape(-1), rows.reshape(ids.numel(), -1)
     t, d = flat_rows.shape
@@ -457,10 +553,14 @@ def time_k1_k2(k1_args, scale: float, label: str) -> dict:
                           t * d + 2 * v * d)}
     out = {"shape": f"V={v} T={t} D={d} cap={cap} union={n_union} "
                     f"{str(flat_rows.dtype).replace('torch.', '')}"}
-    for key, (kernel, plain, library) in fns.items():
+    for key in keys:
+        kernel, plain, library = fns[key]
         p1, m1, m2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
         lib = cuda_ms(library)
-        ops, dev_ms, names = profile_calls(kernel)
+        if profiled is None:
+            ops, dev_ms, names = profile_calls(kernel)
+        else:
+            (ops, dev_ms), names = profiled[key], ["from the round's profile"]
         b, by = bounds[key]
         out[key] = {"ms": min(m1, m2), "plain_ms": min(p1, p2), "library_ms": lib,
                     "bound_ms": b, "bound_by": by, "share": b / min(m1, m2),
@@ -974,6 +1074,45 @@ def main() -> int:
     phase_decode_profile(params, served["decode_ms_per_token"])
     print("[14] where a prefill's time goes")
     phase_prefill_profile(params, served["prefill_ms"])
+    del params, captured
+
+    deep = {}
+    for n, make, kw, title, reduced in (
+            (15, make_amazon_like, DIN_DATA, "DIN FedSubAvg at Amazon Electronics' "
+             "63,001 goods (D = 18)", DIN_REDUCED),
+            (16, make_sent140_like, LSTM_DATA, "LSTM FedSubAvg on Sent140-like data "
+             "(D = 25)", LSTM_REDUCED)):
+        print(f"[{n}] {title}")
+        t0 = time.perf_counter()
+        ds = make(**kw)
+        print(f"  data: {ds.stats()} V={ds.num_features} "
+              f"({time.perf_counter() - t0:.1f} s to generate)")
+        print(f"  reduced: {reduced}")
+        deep[ds.task] = (ds,) + phase_deep_path(ds)
+        print(f"  [{n}] took {time.perf_counter() - t0:.1f} s")
+    check(deep["din"][0].num_features == 63_001, "DIN's V must be 63,001")
+
+    print("[17] card vs host, DIN and LSTM, 200 clients, 3 rounds")
+    t0 = time.perf_counter()
+    for make, kw in ((make_amazon_like, DIN_DATA), (make_sent140_like, LSTM_DATA)):
+        phase_card_vs_host(make(**{**kw, "num_clients": 200}), rounds=3)
+    print(f"  [17] took {time.perf_counter() - t0:.1f} s")
+
+    print("[18] where a DIN and an LSTM fedsubavg round's time goes; K1 at their rounds")
+    t0 = time.perf_counter()
+    k1 = kernels[0]
+    check(k1["name"] == "union_segsum", "the first kernel entry is K1's")
+    k1["launches_by_path"] = {"lr": launches_k1}
+    for task, (ds, runs, launches, cap, err) in deep.items():
+        prof = phase_profile(ds, runs["fedsubavg"]["steady_ms_per_round"],
+                             n=3 if task == "lstm" else 5)
+        timed = time_k1_k2(cap["args"], cap["kw"]["scale"], f"{task} round", keys=("k1",),
+                           profiled={"k1": (prof["k1_device_ops_per_round"],
+                                            prof["k1_device_ms_per_round"])})
+        k1[f"{task}_round"] = {"shape": timed["shape"], **timed["k1"]}
+        k1["launches_by_path"][task] = launches
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    print(f"  [18] took {time.perf_counter() - t0:.1f} s")
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,8 +4,9 @@ The JAX package keeps parameters as nested trees of boxed arrays. Given the
 unboxed values as numpy arrays, ``params_from_jax`` returns them in the
 port's form on ``device``:
 
-- the LR tree: the port's flat parameter dict (nested keys joined with ".")
-  and its logical axes;
+- the LR, DIN and LSTM trees: the port's flat parameter dict (nested keys
+  joined with ".", the LSTM's tuple of cells as ``cells.{i}``) and its
+  logical axes;
 - the dense transformer's tree (``repro.models.transformer.make_params``,
   layers stacked on a leading L axis): the port's ``Transformer`` module,
   one entry of its ``layers`` per slice of L, and its logical axes.
@@ -14,28 +15,37 @@ The JAX package is not imported: the caller hands over plain numpy arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.recsys import LR_AXES
+from repro_torch.models.recsys import DIN_AXES, LR_AXES, lstm_axes
 from repro_torch.models.transformer import make_params
 
-#: logical axes per model, keyed by the model's parameter names
-_MODEL_AXES = {frozenset(LR_AXES): LR_AXES}
+
+def _model_axes(names) -> Optional[Dict[str, Tuple]]:
+    """The logical axes of the recsys model with these parameter names."""
+    layers = sum(name.startswith("cells.") and name.endswith(".wx") for name in names)
+    for axes in (LR_AXES, DIN_AXES, lstm_axes(layers)):
+        if set(axes) == set(names):
+            return dict(axes)
+    return None
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested Mappings and tuples (the LSTM's cells) to dotted names."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, Sequence):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
     out = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, name + "."))
-        else:
-            out[name] = np.asarray(v)
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}."))
     return out
 
 
@@ -74,10 +84,10 @@ def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = 
             raise ValueError(f"params_from_jax: the tree does not fit {cfg.name}: "
                              f"{sorted(set(state) ^ set(model.axes))}")
         return model, dict(model.axes)
-    axes = _MODEL_AXES.get(frozenset(flat))
+    axes = _model_axes(flat)
     if axes is None:
         raise ValueError(f"no ported model has parameters {sorted(flat)}")
     dev = resolve_device(device)
     # a copy: the trainer updates its tables in place
     params = {k: torch.tensor(v, device=dev) for k, v in flat.items()}
-    return params, dict(axes)
+    return params, axes

@@ -7,9 +7,11 @@ submodel ids on the device, runs the plan's round step (local training,
 numpy stream is consumed in the same order as the JAX package's trainer, so
 the same seed draws the same cohorts.
 
-Ported: the sparse plans that ``FedConfig(sparse=True)`` resolves to. Dense
-plans, central SGD, the private heat estimators, weighted heat, telemetry
-and the async engine raise ``NotImplementedError`` (ROADMAP Queue 1).
+Ported: the sparse plans that ``FedConfig(sparse=True)`` resolves to, for
+the paper's three models (LR, LSTM and DIN, whose targets are feature ids
+beside its histories). Dense plans, central SGD, the private heat
+estimators, weighted heat, telemetry and the async engine raise
+``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -126,9 +128,13 @@ class FederatedTrainer:
     # ------------------------------------------------------------------
     def _resolve_trainer_plan(self, params, plan: Optional[RoundPlan]) -> RoundPlan:
         """Resolve FedConfig flags (or validate an explicit plan): which
-        leaves ride the sparse plane and whether submodel replicas can be
-        gathered."""
+        leaves ride the sparse plane, whether submodel replicas can be
+        gathered, and which batch leaves carry feature ids (DIN's targets
+        beside its histories)."""
         keys = (self.ds.feature_key,)
+        if self.ds.feature_key == "hist" and "target" in self.ds.client_data:
+            keys += ("target",)
+        self._feature_batch_keys = keys
         self._sparse_paths = [p for p, _ in sparse_table_paths(self._heat_spec)]
         table_rows = [int(params[p].shape[0]) for p in self._sparse_paths]
         gatherable = (bool(self._sparse_paths)
@@ -168,14 +174,15 @@ class FederatedTrainer:
                 for k, v in arrays.items()}
 
     def _sample_sparse_cohort(self):
-        """One round's host work: sample the cohort and stack its feature ids
-        ``(K, M)``."""
+        """One round's host work: sample the cohort and concatenate every
+        feature-carrying leaf into its ``(K, M)`` feature ids."""
         cfg = self.cfg
         ids = self.np_rng.choice(self.ds.num_clients, size=cfg.clients_per_round,
                                  replace=False)
         cohort = sample_cohort_batch(self.ds, ids, cfg.local_iters,
                                      cfg.local_batch, self.np_rng)
-        feats = np.asarray(cohort[self.ds.feature_key]).reshape(len(ids), -1)
+        feats = np.concatenate([np.asarray(cohort[k]).reshape(len(ids), -1)
+                                for k in self._feature_batch_keys], axis=1)
         return cohort, feats
 
     def _log_sparse_comm(self, valid_counts: np.ndarray, capacity: int):

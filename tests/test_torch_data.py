@@ -10,6 +10,7 @@ import jax.numpy as jnp
 from repro.configs import FedConfig as JFedConfig
 from repro.core.heat import heat_correction_factors as j_heat_factors
 from repro.data import make_movielens_like as j_movielens
+from repro.data import synthetic as j_synthetic
 from repro.data.batching import pooled_batches as j_pooled
 from repro.data.batching import sample_cohort_batch as j_sample
 from repro.federated.metrics import accuracy as j_accuracy
@@ -19,6 +20,7 @@ from repro.sparse.comm import round_comm_stats as j_round_comm
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.heat import heat_correction_factors
 from repro_torch.data.batching import pooled_batches, sample_cohort_batch
+from repro_torch.data import synthetic
 from repro_torch.data.synthetic import make_movielens_like
 from repro_torch.federated.metrics import accuracy, auc
 from repro_torch.sparse.comm import round_comm_stats
@@ -62,6 +64,68 @@ def test_sample_cohort_batch_bit_identical(datasets, seed):
         for key in want:
             np.testing.assert_array_equal(got[key], want[key])
             assert got[key].dtype == want[key].dtype
+
+
+# the DIN and LSTM generators at two seeds each, with and without the
+# defaults' other sizes
+DEEP_KW = [
+    ("make_sent140_like", dict(num_clients=12, vocab=300, seq_len=10, mean_samples=8)),
+    ("make_sent140_like", dict(num_clients=9, vocab=120, mean_samples=6, seed=5,
+                               zipf_a=1.3)),
+    ("make_amazon_like", dict(num_clients=12, num_items=400, mean_samples=9)),
+    ("make_amazon_like", dict(num_clients=10, num_items=150, hist_len=6, seed=3,
+                              emb_rank=4)),
+    ("make_alibaba_like", dict(num_clients=12, num_items=300)),
+    ("make_alibaba_like", dict(num_clients=8, num_items=90, seed=4)),
+]
+
+
+def _assert_datasets_identical(ref, port):
+    for field in ("name", "task", "num_clients", "num_features", "feature_key"):
+        assert getattr(port, field) == getattr(ref, field), field
+    for got, want in ((port.client_data, ref.client_data),
+                      (port.test_data, ref.test_data)):
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+            assert got[key].dtype == want[key].dtype, key
+    np.testing.assert_array_equal(port.sample_counts, ref.sample_counts)
+    np.testing.assert_array_equal(port.heat.counts, ref.heat.counts)
+    assert port.heat.total == ref.heat.total
+    assert port.stats() == ref.stats()
+
+
+@pytest.mark.parametrize("name,kw", DEEP_KW)
+def test_din_and_lstm_generators_bit_identical(name, kw):
+    ref = getattr(j_synthetic, name)(**kw)
+    port = getattr(synthetic, name)(**kw)
+    _assert_datasets_identical(ref, port)
+    if ref.task == "din":
+        # targets pad with 0, histories with -1; heat counts both
+        assert (port.client_data["target"] >= 0).all()
+        assert (port.client_data["hist"] == -1).any()
+
+
+def test_datasets_registry():
+    assert synthetic.DATASETS.keys() == j_synthetic.DATASETS.keys() - {"lm"}
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_sample_cohort_batch_din_bit_identical(seed):
+    kw = dict(num_clients=14, num_items=200, mean_samples=9)
+    ref, port = j_synthetic.make_amazon_like(**kw), synthetic.make_amazon_like(**kw)
+    rng_r, rng_p = np.random.default_rng(seed), np.random.default_rng(seed)
+    for _ in range(3):
+        ids = rng_r.choice(ref.num_clients, size=5, replace=False)
+        np.testing.assert_array_equal(
+            rng_p.choice(port.num_clients, size=5, replace=False), ids)
+        want = j_sample(ref, ids, 5, 5, rng_r)
+        got = sample_cohort_batch(port, ids, 5, 5, rng_p)
+        assert got.keys() == want.keys() == {"hist", "target", "label", "sample_mask"}
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+            assert got[key].dtype == want[key].dtype
+        assert got["target"].shape == (5, 5, 5)
 
 
 def test_pooled_batches_bit_identical(datasets):

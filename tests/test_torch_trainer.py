@@ -1,7 +1,10 @@
-"""Port parity, end to end: the LR FedSubAvg/FedAvg trainer of ``repro_torch``
-against the JAX package's trainer on the same seeds (per-round loss and final
-parameters within 1e-5, AUC within 1e-4: tied LR scores can swap ranks under
-last-ulp differences), plus the port's device rule and import hygiene."""
+"""Port parity, end to end: the FedSubAvg/FedAvg trainer of ``repro_torch``
+against the JAX package's trainer on the same seeds, for LR (per-round loss
+and final parameters within 1e-5, AUC within 1e-4: tied LR scores can swap
+ranks under last-ulp differences) and for DIN and LSTM from the reference's
+random initialisation (per-round loss, final parameters within 1e-5, comm
+bytes equal per round, DIN's targets among the sub-ids), plus the port's
+device rule and import hygiene."""
 import functools
 import pathlib
 import re
@@ -14,20 +17,26 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import FedConfig as JFedConfig
+from repro.data import make_amazon_like as j_amazon
 from repro.data import make_movielens_like as j_movielens
+from repro.data import make_sent140_like as j_sent140
 from repro.federated import FederatedTrainer as JTrainer
+from repro.federated.server import derive_sub_ids as j_derive_sub_ids
+from repro.models import recsys as j_recsys
 from repro.models.recsys import lr_logits as j_lr_logits
 from repro.models.recsys import lr_loss as j_lr_loss
 from repro.models.recsys import make_lr_params as j_make_lr_params
 from repro.sharding.logical import unbox
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.convert import params_from_jax
-from repro_torch.data.synthetic import make_movielens_like
+from repro_torch.convert import _flatten, params_from_jax
+from repro_torch.data.synthetic import (make_amazon_like, make_movielens_like,
+                                        make_sent140_like)
 from repro_torch.federated.plan import (CohortSharding, RoundPlan,
                                         RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal)
-from repro_torch.federated.server import FederatedTrainer
+from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
+from repro_torch.models import recsys
 from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -120,6 +129,79 @@ def test_trainer_binding_topk_first_round_matches(data, alg):
     # the next round's loss reads the parameters the first round produced
     assert abs(tt.run_round() - jt.run_round()) <= 1e-5
     assert tt.comm_summary() == jt.comm_summary()
+
+
+# DIN at tests/test_sparse.py's size; a small Sent140 with a narrow LSTM
+DEEP = {
+    "din": (j_amazon, make_amazon_like, dict(num_clients=30, num_items=60, mean_samples=12),
+            lambda v: functools.partial(j_recsys.make_din_params, v), j_recsys.din_loss,
+            recsys.din_loss),
+    "lstm": (j_sent140, make_sent140_like,
+             dict(num_clients=30, vocab=80, seq_len=8, mean_samples=10),
+             lambda v: functools.partial(j_recsys.make_lstm_params, v, emb_dim=8, hidden=12),
+             j_recsys.lstm_loss, recsys.lstm_loss),
+}
+DEEP_ROUNDS = 6
+
+
+@pytest.fixture(scope="module", params=sorted(DEEP))
+def deep(request):
+    j_make_ds, make_ds, kw, j_make, _, _ = DEEP[request.param]
+    ref, port = j_make_ds(**kw), make_ds(**kw)
+    j_make = j_make(ref.num_features)
+    # the JAX trainer draws its initialisation from PRNGKey(cfg.seed = 0)
+    init = jax.tree.map(np.asarray, unbox(j_make(rng=jax.random.PRNGKey(0))))
+    return request.param, ref, port, j_make, init
+
+
+def _deep_trainers(deep, alg):
+    model, ref, port, j_make, init = deep
+    _, _, _, _, j_loss, loss = DEEP[model]
+    kw = dict(num_clients=port.num_clients, clients_per_round=6, local_iters=5,
+              local_batch=5, lr=0.5, algorithm=alg, sparse=True)
+    jt = JTrainer(ref, j_make, j_loss, JFedConfig(**kw), telemetry=False)
+    tt = FederatedTrainer(port, functools.partial(params_from_jax, init), loss,
+                          FedConfig(**kw), device="cpu")
+    return jt, tt
+
+
+@pytest.mark.parametrize("alg", ["fedavg", "fedsubavg"])
+@pytest.mark.parametrize("entry", ["run_round", "run_rounds"])
+def test_din_and_lstm_trainers_match_jax(deep, alg, entry):
+    jt, tt = _deep_trainers(deep, alg)
+    if entry == "run_round":
+        want = [jt.run_round() for _ in range(DEEP_ROUNDS)]
+        got = [tt.run_round() for _ in range(DEEP_ROUNDS)]
+    else:
+        want, got = jt.run_rounds(DEEP_ROUNDS), tt.run_rounds(DEEP_ROUNDS)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert tt._last_capacity == jt._last_capacity
+    want = _flatten(jax.tree.map(np.asarray, unbox(jt.state.params)))
+    assert set(want) == set(tt.state.params)
+    for name, w in want.items():
+        np.testing.assert_allclose(tt.state.params[name].numpy(), w,
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    assert len(tt.comm_log) == len(jt.comm_log) == DEEP_ROUNDS
+    for g, w in zip(tt.comm_log, jt.comm_log):
+        assert g.as_dict() == w.as_dict()
+
+
+def test_cohort_feature_ids_match_jax(deep):
+    """The cohort's ``(K, M)`` feature ids and sub-ids are the reference's:
+    for DIN its histories and its targets, every target among the sub-ids."""
+    jt, tt = _deep_trainers(deep, "fedsubavg")
+    for _ in range(3):
+        (_, j_feats), (cohort, feats) = (jt._sample_sparse_cohort(),
+                                         tt._sample_sparse_cohort())
+        np.testing.assert_array_equal(feats, j_feats)
+        cap = 128
+        want = np.asarray(j_derive_sub_ids(jnp.asarray(j_feats), jt.ds.num_features, cap))
+        got = derive_sub_ids(torch.from_numpy(feats), tt.ds.num_features, cap).numpy()
+        np.testing.assert_array_equal(got, want)
+        if deep[0] == "din":
+            assert feats.shape[1] == cohort["hist"][0].size + cohort["target"][0].size
+            for c in range(feats.shape[0]):
+                assert np.isin(cohort["target"][c], got[c]).all()
 
 
 def test_explicit_plan_matches_config_flags(data):
