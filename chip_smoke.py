@@ -72,10 +72,28 @@ Phases, each of which asserts; any failure exits non-zero:
     fedavg, 3 rounds each; losses and parameters within 1e-5
 18. where a DIN and an LSTM fedsubavg round's time goes, as [7], and K1's
     times at each round's own inputs, as [6]
+19. the paper's Table 2 algorithms at [4]'s configuration, 20 rounds each
+    as in [4]: scaffold (``server_lr`` 1.0) and fedadam (0.03) on the
+    sparse plan, where K1 must serve every round (no heat, scale 1/K, held
+    to its plain version on one scaffold round's inputs); the same two and
+    fedsubavg on the dense plan and central SGD, where K1 must not launch.
+    Train loss falls and AUC > 0.5 in every run; their order is printed.
+    Where a round's time goes on each new path, as [7]
+20. private and weighted heat: fedsubavg on the sparse plan for 10 rounds
+    under randomized response, randomized response with weights and exact
+    heat with weights (K1 every round, losses finite); the heat's resolve
+    time on the host, its numpy peak (tracemalloc) and the process's peak
+    resident memory (getrusage)
+21. card against host: 3 rounds of sparse scaffold and fedadam, dense
+    fedsubavg, central and randomized-response fedsubavg on 200 clients of
+    [4]'s data; losses, parameters and optimizer slots within 1e-5
+22. the paper's Table 2 and Table 3 protocols (``tools/paper_tables.py``)
+    on the dense and the sparse plan, printed as tables
 
 It ends with the kernels as one JSON line (K1's entry also carries its
-launches on the LR, DIN and LSTM paths and its times at the DIN and LSTM
-rounds), the card line and, last, ``{"ok": true, "device": {...}}``.
+launches on the LR, DIN and LSTM paths and on the scaffold and fedadam
+paths, and its times at the DIN and LSTM rounds), the card line and, last,
+``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
@@ -83,10 +101,12 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
 import time
+import tracemalloc
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,6 +116,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.data.batching import pooled_batches  # noqa: E402
 from repro_torch.data.synthetic import (make_amazon_like,  # noqa: E402
                                         make_movielens_like, make_sent140_like)
 from repro_torch.federated.plan import (RoundPlan, RowSparseTransport,  # noqa: E402
@@ -120,6 +141,7 @@ from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
 from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
 from tools.aggregation_times import N_CLIENTS, SHAPES, cohort, cuda_ms  # noqa: E402
+from tools.paper_tables import DIN_DATA, print_tables, tables, task_bindings  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -254,8 +276,7 @@ def phase_k2(rng) -> float:
 
 
 #: [15]: the DIN paper's Amazon Electronics (Zhou et al., KDD 2018, Table 1:
-#: 192,403 users, 63,001 goods, 1,689,188 samples, ~9 per user)
-DIN_DATA = dict(num_clients=2000, num_items=63001, hist_len=10, mean_samples=9, seed=SEED)
+#: 192,403 users, 63,001 goods, 1,689,188 samples, ~9 per user): DIN_DATA
 DIN_REDUCED = ("clients 192,403 -> 2,000 (the host generator loops per client over "
                "a 63,001-long distribution); goods, samples per client and widths as "
                "published")
@@ -266,35 +287,15 @@ LSTM_REDUCED = ("none against a published size: the repository gives none for it
                 "this script's choice; emb 25, hidden 100, two cells as in the repository")
 
 
-def paper_model(ds) -> tuple:
-    """``(make_params, loss_fn, predict_fn)`` of the paper's model for the
-    dataset's task, at the repository's widths (DIN: emb 18, hidden 36;
-    LSTM: emb 25, hidden 100, two cells). Random leaves are drawn on the
-    host from ``SEED`` and then moved, so the card and the host start alike."""
-    v = ds.num_features
-    if ds.task == "lr":
-        return (lambda device: recsys.make_lr_params(v, device), recsys.lr_loss,
-                lambda p, t: recsys.lr_logits(p, t["features"]))
-    make, loss, predict = {
-        "din": (recsys.make_din_params, recsys.din_loss,
-                lambda p, t: recsys.din_logits(p, t["hist"], t["target"])),
-        "lstm": (recsys.make_lstm_params, recsys.lstm_loss,
-                 lambda p, t: recsys.lstm_logits(p, t["tokens"],
-                                                 (t["tokens"] >= 0).float())),
-    }[ds.task]
-
-    def make_params(device):
-        params, axes = make(v, device="cpu", generator=torch.Generator().manual_seed(SEED))
-        return {k: x.to(device) for k, x in params.items()}, axes
-
-    return make_params, loss, predict
-
-
-def make_trainer(ds, alg: str, device, plan=None) -> FederatedTrainer:
-    cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100,
-                    local_iters=5, local_batch=5, lr=0.5, algorithm=alg,
-                    sparse=True, seed=SEED)
-    make_params, loss, predict = paper_model(ds)
+def make_trainer(ds, alg: str, device, plan=None, **fed_kw) -> FederatedTrainer:
+    """The paper's model for the dataset's task at the repository's widths
+    (``tools/paper_tables.py::task_bindings``; random leaves drawn on the
+    host from ``SEED``, so the card and the host start alike), K = 100, on
+    the sparse plan unless ``fed_kw`` says otherwise."""
+    cfg = FedConfig(**{**dict(num_clients=ds.num_clients, clients_per_round=100,
+                              local_iters=5, local_batch=5, lr=0.5, algorithm=alg,
+                              sparse=True, seed=SEED), **fed_kw})
+    make_params, loss, predict = task_bindings(ds, SEED)
     return FederatedTrainer(ds, make_params, loss, cfg, predict_fn=predict, plan=plan,
                             device=device)
 
@@ -409,47 +410,149 @@ def phase_k2_path(k1_args) -> tuple:
     return launches, err
 
 
-def phase_card_vs_host(ds, rounds: int = 5) -> dict:
+def slots(state) -> tuple:
+    """The optimizer's slot dicts of a ServerState (none, one or two)."""
+    return (state.opt,) if isinstance(state.opt, dict) else tuple(state.opt)
+
+
+def phase_card_vs_host(ds, rounds: int = 5, cases=(("fedsubavg", "fedsubavg", {}),
+                                                    ("fedavg", "fedavg", {}))) -> dict:
+    """``rounds`` rounds of each ``(label, algorithm, FedConfig flags)`` on
+    the card and on the host: losses, parameters and optimizer slots within
+    1e-5."""
     out = {}
-    for alg in ("fedsubavg", "fedavg"):
-        card, host = make_trainer(ds, alg, DEV), make_trainer(ds, alg, "cpu")
+    for label, alg, kw in cases:
+        card, host = make_trainer(ds, alg, DEV, **kw), make_trainer(ds, alg, "cpu", **kw)
         lc = [card.run_round() for _ in range(rounds)]
         lh = [host.run_round() for _ in range(rounds)]
         dl = max(abs(a - b) for a, b in zip(lc, lh))
         check(np.allclose(lc, lh, rtol=1e-5, atol=1e-5),
-              f"{alg}: card and host losses differ by {dl}")
+              f"{label}: card and host losses differ by {dl}")
         dp = 0.0
-        for name, p in card.state.params.items():
-            q = host.state.params[name]
-            dp = max(dp, float((p.cpu() - q).abs().max()))
-            check(torch.allclose(p.cpu(), q, rtol=1e-5, atol=1e-5),
-                  f"{alg}: card and host '{name}' differ by {dp}")
-        out[alg] = {"max_loss_diff": dl, "max_param_diff": dp}
-        print(f"  {ds.task} {alg}: {rounds} rounds card vs host: max |loss diff| "
-              f"{dl:.3g}, max |param diff| {dp:.3g}")
+        card_trees = (card.state.params,) + slots(card.state)
+        host_trees = (host.state.params,) + slots(host.state)
+        check(len(card_trees) == len(host_trees), f"{label}: optimizer slots differ")
+        for ct, ht in zip(card_trees, host_trees):
+            for name, p in ct.items():
+                q = ht[name]
+                dp = max(dp, float((p.cpu() - q).abs().max()))
+                check(torch.allclose(p.cpu(), q, rtol=1e-5, atol=1e-5),
+                      f"{label}: card and host '{name}' differ by {dp}")
+        out[label] = {"max_loss_diff": dl, "max_param_diff": dp}
+        print(f"  {ds.task} {label}: {rounds} rounds card vs host: max |loss diff| "
+              f"{dl:.3g}, max |param or slot diff| {dp:.3g} "
+              f"({len(card_trees) - 1} slot dicts)")
     return out
 
 
-def phase_profile(ds, steady_ms: float, n: int = 5) -> dict:
-    """Where one fedsubavg round's time goes: host sampling, device kernel
-    time and launches per round (torch.profiler over ``n`` warm rounds), and
-    the device's busy share of the unprofiled steady round time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+#: [19]: the paper's Table 2 algorithms at [4]'s configuration, with the
+#: server step sizes of ``benchmarks/bench_table2.py``
+PROTOCOL_RUNS = (("scaffold sparse", "scaffold", dict(sparse=True, server_lr=1.0)),
+                 ("fedadam sparse", "fedadam", dict(sparse=True, server_lr=0.03)),
+                 ("scaffold dense", "scaffold", dict(sparse=False, server_lr=1.0)),
+                 ("fedadam dense", "fedadam", dict(sparse=False, server_lr=0.03)),
+                 ("fedsubavg dense", "fedsubavg", dict(sparse=False)),
+                 ("central", "central", dict(sparse=False)))
 
-    tr = make_trainer(ds, "fedsubavg", DEV)
+
+def phase_protocol_paths(ds) -> tuple:
+    """[19]: each run driven as in [4] with K1's count set to 0 just before
+    it and read just after: 20 launches on the sparse plan, none on the
+    dense plan or central. K1 is held to its plain version on the inputs of
+    one scaffold round (no heat, scale 1/K). Returns the runs, K1's launches
+    by run and its error there."""
+    runs, launches, captured = {}, {}, {}
+    for label, alg, kw in PROTOCOL_RUNS:
+        ctx = capture_k1(captured) if label == "scaffold sparse" else contextlib.nullcontext()
+        union_segsum.launches = 0
+        with ctx:
+            runs[label] = drive(make_trainer(ds, alg, DEV, **kw), label)
+        launches[label] = union_segsum.launches
+        want = 20 if kw["sparse"] else 0
+        check(launches[label] == want, f"{label}: K1 launched {launches[label]} times "
+              f"in 20 rounds, want {want}")
+    order = sorted(runs, key=lambda r: -runs[r]["auc"])
+    print("  AUC after 20 rounds (a finding, not asserted): "
+          + ", ".join(f"{r} {runs[r]['auc']:.5f}" for r in order))
+    print("  K1 launches: " + ", ".join(f"{r} {n}" for r, n in launches.items()))
+    args, scale = captured["args"], captured["kw"]["scale"]
+    ids, rows, v = args[0], args[1], args[5]
+    check(args[2] is None and scale == 1.0 / 100, "scaffold's K1 call: no heat, scale 1/K")
+    union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    err = check_k1("union_segsum[scaffold round]", args, scale, union)
+    print(f"  K1 at a scaffold round: V={v} T={ids.numel()} D={rows.shape[-1]} "
+          f"cap={args[4]} union={union} no heat max_abs_err={err:.3g}")
+    for label, alg, kw in PROTOCOL_RUNS:
+        if label != "scaffold dense":       # the dense plan's twin of fedadam's
+            phase_profile(ds, runs[label]["steady_ms_per_round"], label=label, alg=alg,
+                          **kw)
+    return runs, launches, err
+
+
+#: [20]: heat estimators on the sparse plan
+HEAT_RUNS = (("randomized response", dict(heat_estimator="randomized_response")),
+             ("randomized response, weighted", dict(heat_estimator="randomized_response",
+                                                    weighted=True)),
+             ("exact, weighted", dict(weighted=True)))
+
+
+def phase_private_heat(ds) -> dict:
+    """[20]: the heat's resolve on the host, timed, with its numpy peak
+    (tracemalloc, which numpy reports to) and the process's peak resident
+    memory after it (getrusage; a high-water mark of the whole run), then
+    10 fedsubavg rounds on the sparse plan with that heat (K1 once per
+    round, losses finite; their course and the AUC are printed)."""
+    out = {}
+    for label, kw in HEAT_RUNS:
+        cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100, seed=SEED, **kw)
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        heat = FederatedTrainer._resolve_heat(ds, cfg)
+        resolve_s = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        union_segsum.launches = 0
+        tr = make_trainer(ds, "fedsubavg", DEV, **kw)
+        check(np.array_equal(tr.heat.counts, heat.counts), f"{label}: heat differs")
+        losses = [tr.run_round() for _ in range(10)]
+        launches = union_segsum.launches
+        auc = tr.evaluate()
+        check(launches == 10, f"{label}: K1 launched {launches} times in 10 rounds")
+        # loss and AUC are findings here: weighted randomized response can
+        # clamp a cold row's estimate to 1 against weights ~165, a factor
+        # of up to W ~ 1.0M on that row's update
+        check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+        out[label] = {"resolve_s": resolve_s, "numpy_peak_bytes": peak,
+                      "maxrss_bytes": maxrss, "auc": auc, "losses": losses}
+        print(f"  {label}: heat resolved in {resolve_s:.2f} s on the host (traced), numpy "
+              f"peak {peak / 2**20:.1f} MiB, process peak RSS {maxrss / 2**30:.2f} GiB; "
+              f"total {heat.total:.0f}, min {heat.counts.min():.3f}, max "
+              f"{heat.counts.max():.1f}; 10 rounds loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, AUC {auc:.5f}, K1 {launches} launches")
+    return out
+
+
+def phase_profile(ds, steady_ms: float, n: int = 5, label: str = "fedsubavg",
+                  alg: str = "fedsubavg", **fed_kw) -> dict:
+    """Where one round's time goes: host sampling, device kernel time and
+    launches per round (torch.profiler over ``n`` warm rounds), and the
+    device's busy share of the unprofiled steady round time. K1 must be in
+    a sparse round, once."""
+    from torch.autograd import DeviceType
+
+    tr = make_trainer(ds, alg, DEV, **fed_kw)
     for _ in range(3):
         tr.run_round()
+    cfg = tr.cfg
+    sample = (tr._sample_sparse_cohort if tr.plan is not None else
+              lambda: pooled_batches(ds, cfg.local_iters,
+                                     cfg.local_batch * cfg.clients_per_round, tr.np_rng))
     t0 = time.perf_counter()
     for _ in range(5):
-        tr._sample_sparse_cohort()
+        sample()
     sample_ms = (time.perf_counter() - t0) / 5 * 1e3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            tr.run_round()
-        torch.cuda.synchronize()
-    by_name, launches = device_times(prof)
+    prof, by_name, launches = device_profile(lambda: [tr.run_round() for _ in range(n)])
     device_ms = sum(by_name.values()) / n / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"host_sampling_ms_per_round": sample_ms,
@@ -458,12 +561,15 @@ def phase_profile(ds, steady_ms: float, n: int = 5) -> dict:
            "steady_ms_per_round": steady_ms,
            "device_busy_share": device_ms / steady_ms if device_ms else None,
            "top_device_ops_ms_per_round": [(k[:90], v / n / 1e3) for k, v in top]}
-    print(f"  {ds.task} fedsubavg round: {steady_ms:.2f} ms steady; host sampling "
+    print(f"  {ds.task} {label} round: {steady_ms:.2f} ms steady; host sampling "
           f"{sample_ms:.2f} ms; device ops {launches / n:.0f}/round, "
           f"{device_ms:.3f} ms busy ({(out['device_busy_share'] or 0) * 100:.1f}%)")
     for name, ms in out["top_device_ops_ms_per_round"]:
         print(f"    {ms:.4f} ms/round  {name}")
     k1 = {name: us for name, us in by_name.items() if "union_segsum_kernel" in name}
+    if not tr._is_sparse:
+        check(not k1, f"K1 in a {label} round: {sorted(k1)}")
+        return out
     check(len(k1) == 1, f"K1 in the round: {sorted(k1)}")
     # K1 launches once per round ([4], [15], [16]): its device ops per call
     # are its kernels per round
@@ -507,18 +613,31 @@ def k2_library(flat_ids, flat_rows, heat, total, v, scale):
     return out * f[:, None] * scale
 
 
+def device_profile(fn, attempts: int = 3) -> tuple:
+    """``(prof, device us by kernel name, device ops)`` of torch.profiler
+    around ``fn()``. A trace that holds no device event at all is taken
+    again: a short profile right after another has been seen to come back
+    empty while the launch counters show the work ran, so an empty trace
+    is the profiler's miss, not a measurement."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name, ops = device_times(prof)
+        if ops:
+            break
+        print("    (the profiler recorded no device event: profiling again)")
+    return prof, by_name, ops
+
+
 def profile_calls(fn, n: int = 5) -> tuple:
     """Device ops and device milliseconds per call of ``fn``, and the device
     ops' names (torch.profiler over ``n`` warm calls)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_name, ops = device_times(prof)
+    _, by_name, ops = device_profile(lambda: [fn() for _ in range(n)])
     return ops / n, sum(by_name.values()) / n / 1e3, sorted(by_name)
 
 
@@ -1046,6 +1165,7 @@ def main() -> int:
     print(f"  data: {ds.stats()} V={ds.num_features} "
           f"({time.perf_counter() - t0:.1f} s)")
     check(ds.num_features == 37_069, "V must be 37,069")
+    lr_ds = ds
     runs, launches_k1, captured = phase_main_path(ds)
     k1_args = captured["args"]
     launches_k2, err_k2_path = phase_k2_path(k1_args)
@@ -1113,6 +1233,43 @@ def main() -> int:
         k1["launches_by_path"][task] = launches
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
     print(f"  [18] took {time.perf_counter() - t0:.1f} s")
+
+    print("[19] Table 2's algorithms at MovieLens-1M width: scaffold and fedadam "
+          "(sparse and dense), dense fedsubavg, central SGD")
+    t0 = time.perf_counter()
+    _, protocol_launches, err = phase_protocol_paths(lr_ds)
+    for label in ("scaffold sparse", "fedadam sparse"):
+        k1["launches_by_path"]["lr " + label] = protocol_launches[label]
+    k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    print(f"  [19] took {time.perf_counter() - t0:.1f} s")
+
+    print("[20] private and weighted heat at MovieLens-1M width, fedsubavg sparse")
+    t0 = time.perf_counter()
+    phase_private_heat(lr_ds)
+    print(f"  [20] took {time.perf_counter() - t0:.1f} s")
+
+    print("[21] card vs host, 200 clients, 3 rounds: scaffold and fedadam sparse, "
+          "fedsubavg dense, central, randomized-response fedsubavg")
+    t0 = time.perf_counter()
+    small = make_movielens_like(num_clients=200, num_items=3706, mean_samples=165,
+                                seed=SEED)
+    phase_card_vs_host(small, rounds=3, cases=(
+        ("scaffold sparse", "scaffold", dict(server_lr=1.0)),
+        ("fedadam sparse", "fedadam", dict(server_lr=0.03)),
+        ("fedsubavg dense", "fedsubavg", dict(sparse=False)),
+        ("central", "central", dict(sparse=False)),
+        ("fedsubavg randomized response", "fedsubavg",
+         dict(heat_estimator="randomized_response"))))
+    print(f"  [21] took {time.perf_counter() - t0:.1f} s")
+
+    print("[22] Table 2 and Table 3 through the port (tools/paper_tables.py)")
+    t0 = time.perf_counter()
+    for sparse in (False, True):
+        out = tables(sparse=sparse, device=DEV)
+        check(all(math.isfinite(r["best"]) for r in out["table2"] + out["table3"]),
+              "a table's best loss is not finite")
+        print_tables(out, sparse, card)
+    print(f"  [22] took {time.perf_counter() - t0:.1f} s")
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

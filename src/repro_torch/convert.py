@@ -11,6 +11,9 @@ port's form on ``device``:
   layers stacked on a leading L axis): the port's ``Transformer`` module,
   one entry of its ``layers`` per slice of L, and its logical axes.
 
+``server_state_from_jax`` carries a recsys trainer's whole ``ServerState``
+across: parameters, the server optimizer's slots and the round count.
+
 The JAX package is not imported: the caller hands over plain numpy arrays.
 """
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.algorithms import ServerState
 from repro_torch.models.recsys import DIN_AXES, LR_AXES, lstm_axes
 from repro_torch.models.transformer import make_params
 
@@ -91,3 +95,31 @@ def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = 
     # a copy: the trainer updates its tables in place
     params = {k: torch.tensor(v, device=dev) for k, v in flat.items()}
     return params, axes
+
+
+def server_state_from_jax(params_np: Mapping, opt_np, rounds,
+                          device=None) -> ServerState:
+    """The port's ``ServerState`` for a JAX recsys ``ServerState`` given as
+    numpy: ``opt_np`` is ``()`` (fedavg, fedprox, fedsubavg, central), a
+    tree like the parameters (scaffold's control delta) or a pair of them
+    (fedadam's ``(m, v)``); each slot tree becomes a flat dict keyed like
+    the parameters."""
+    params, _ = params_from_jax(params_np, device)
+    if not isinstance(params, dict):
+        raise ValueError("server_state_from_jax carries the recsys models' state")
+    dev = resolve_device(device)
+
+    def slots(tree) -> Dict[str, torch.Tensor]:
+        flat = _flatten(tree)
+        if set(flat) != set(params):
+            raise ValueError(f"optimizer slots {sorted(flat)} do not match the "
+                             f"parameters {sorted(params)}")
+        return {k: torch.tensor(v, device=dev) for k, v in flat.items()}
+
+    if isinstance(opt_np, Mapping):
+        opt = slots(opt_np)
+    elif len(opt_np) == 0:
+        opt = ()
+    else:
+        opt = tuple(slots(t) for t in opt_np)
+    return ServerState(params, opt, int(np.asarray(rounds)))

@@ -1,8 +1,9 @@
-"""Client-side local training (Algorithm 1 lines 12-18) on submodel replicas.
+"""Client-side local training (Algorithm 1 lines 12-18).
 
-A client downloads its submodel (the rows of each feature table at its
-sub-ids, plus the dense leaves), runs ``I`` iterations of mini-batch SGD and
-uploads the row-sparse delta. The K clients of a cohort run together under
+A client downloads the model, or only its submodel (the rows of each
+feature table at its sub-ids, plus the dense leaves), runs ``I`` iterations
+of mini-batch SGD and uploads the delta: dense for a full replica,
+row-sparse for a submodel. The K clients of a cohort run together under
 ``torch.func.vmap``; gradients come from ``torch.func.grad``.
 
 FedProx adds ``(mu/2) ||x - x_global||^2`` to the local objective.
@@ -46,6 +47,26 @@ def _local_sgd_delta(loss_fn: Callable, cfg, params0: Params,
         g = g_fn(p, {k: v[i] for k, v in batches.items()})
         p = {k: p[k] + g[k] * (-cfg.lr) for k in p}
     return {k: p[k] - params0[k] for k in p}
+
+
+def make_local_trainer(loss_fn: Callable, cfg,
+                       prox_mu: Optional[float] = None) -> Callable:
+    """Returns ``local_train(global_params, client_batches)``: I local steps
+    on a full dense replica, returning the dense delta. ``client_batches``
+    leaves are ``(I, B, ...)``."""
+
+    def local_train(global_params: Params, client_batches):
+        return _local_sgd_delta(loss_fn, cfg, global_params, client_batches,
+                                prox_mu=prox_mu)
+
+    return local_train
+
+
+def cohort_deltas(local_train: Callable, global_params: Params,
+                  cohort_batches: Dict[str, torch.Tensor]) -> Params:
+    """Dense local training over the cohort: leaves ``(K, I, B, ...)`` in,
+    per-client deltas ``(K, ...)`` out."""
+    return vmap(local_train, in_dims=(None, 0))(global_params, cohort_batches)
 
 
 def make_submodel_local_trainer(loss_fn: Callable, cfg,

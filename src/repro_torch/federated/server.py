@@ -1,17 +1,21 @@
 """Server orchestration of federated rounds (Algorithm 1, server process).
 
 ``FederatedTrainer`` runs the paper's protocol over a ``FederatedDataset``:
-each round it samples K clients with a numpy generator, derives their
-submodel ids on the device, runs the plan's round step (local training,
-``union_segsum`` aggregation, apply) and prices the round's bytes. The
-numpy stream is consumed in the same order as the JAX package's trainer, so
-the same seed draws the same cohorts.
+each round it samples K clients with a numpy generator, runs the plan's
+round step and, on the sparse plan, derives the clients' submodel ids on
+the device and prices the round's bytes. The numpy stream is consumed in the
+same order as the JAX package's trainer, so the same seed draws the same
+cohorts. CentralSGD (the paper's non-federated reference) shares the
+interface: ``algorithm="central"`` takes I plain SGD steps per round on
+pooled batches of ``local_batch * K`` samples.
 
-Ported: the sparse plans that ``FedConfig(sparse=True)`` resolves to, for
-the paper's three models (LR, LSTM and DIN, whose targets are feature ids
-beside its histories). Dense plans, central SGD, the private heat
-estimators, weighted heat, telemetry and the async engine raise
-``NotImplementedError`` (ROADMAP Queue 1).
+Ported: every server algorithm, on the sparse plan (``FedConfig(sparse=
+True)``, K1 ``union_segsum`` once per round) and the dense one (``sparse=
+False``, K dense replicas), for the paper's three models (LR, LSTM and DIN,
+whose targets are feature ids beside its histories), with heat exact, by
+secure aggregation or by randomized response, optionally weighted by the
+clients' sample counts. Telemetry and the async engine are not ported
+(ROADMAP Queue 1 items 6 and 7).
 """
 from __future__ import annotations
 
@@ -22,11 +26,13 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.func import grad_and_value
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.algorithms import make_server_algorithm
-from repro_torch.core.heat import HeatStats
+from repro_torch.core.algorithms import ServerState, make_server_algorithm
+from repro_torch.core.heat import (HeatStats, clamp_heat_estimate,
+                                   estimate_heat_randomized_response)
 from repro_torch.data.batching import pooled_batches, sample_cohort_batch
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.federated.metrics import accuracy, auc, comm_summary
@@ -94,9 +100,6 @@ class FederatedTrainer:
                  metric: str = "auc", rng_seed: int = 0,
                  plan: Optional[RoundPlan] = None, device=None):
         self.device = resolve_device(device)
-        if cfg.algorithm == "central":
-            raise NotImplementedError(
-                "central SGD is not ported yet (ROADMAP Queue 1, item 8)")
         self.ds = ds
         self.cfg = cfg
         self.loss_fn = loss_fn
@@ -117,13 +120,22 @@ class FederatedTrainer:
         self.comm_log: List[CommStats] = []
         self._rounds_run = 0
         self._last_capacity: Optional[int] = None
+        self._test_data = self._to_device(ds.test_data)
+        self.plan: Optional[RoundPlan] = None
+        self._is_sparse = False
+
+        if cfg.algorithm == "central":
+            if plan is not None:
+                raise ValueError("central training takes no RoundPlan")
+            self._central_step = self._make_central_step()
+            return
 
         self.plan = self._resolve_trainer_plan(params, plan)
+        self._is_sparse = self.plan.transport.sparse
         self._step = build_round_step(self.plan, loss_fn, axes, params, cfg,
                                       heat_counts=heat_counts,
-                                      total=self.heat.total)
+                                      total=self.heat.total, server_alg=self.alg)
         self._comm_meta = model_comm_meta(params, set(self._sparse_paths))
-        self._test_data = self._to_device(ds.test_data)
 
     # ------------------------------------------------------------------
     def _resolve_trainer_plan(self, params, plan: Optional[RoundPlan]) -> RoundPlan:
@@ -161,13 +173,43 @@ class FederatedTrainer:
 
     @staticmethod
     def _resolve_heat(ds: FederatedDataset, cfg: FedConfig) -> HeatStats:
-        """Exact heat (secure aggregation is exact by construction)."""
-        if cfg.heat_estimator == "randomized_response" or cfg.weighted:
-            raise NotImplementedError(
-                "randomized-response and weighted heat are not ported yet "
-                "(ROADMAP Queue 1, item 2)")
-        return HeatStats(counts=np.asarray(ds.heat.counts, np.float64),
-                         total=float(ds.heat.total), name="vocab")
+        """Heat under the configured estimator (App. F) and, when
+        ``weighted``, the App. D.4 weights (the clients' sample counts),
+        composed with it: weighted randomized response weights the noisy
+        reported bits; exact and secure aggregation (exact by construction,
+        so its counts are the exact ones) sum the involving clients'
+        weights. The randomized-response draw is ``default_rng(cfg.seed)``,
+        a generator apart from the trainer's cohort stream."""
+        key = ds.feature_key
+
+        def client_ids(c):
+            ids = ds.client_data[key][c].reshape(-1)
+            ids = ids[ids >= 0]
+            if key == "hist" and "target" in ds.client_data:
+                t = ds.client_data["target"][c].reshape(-1)
+                ids = np.concatenate([ids, t[t >= 0]])
+            return np.unique(ids)
+
+        w = ds.sample_counts.astype(np.float64) if cfg.weighted else None
+        if cfg.heat_estimator == "randomized_response":
+            ind = np.zeros((ds.num_clients, ds.num_features), bool)
+            for c in range(ds.num_clients):
+                ind[c, client_ids(c)] = True
+            est = estimate_heat_randomized_response(
+                ind, cfg.rr_flip_prob, np.random.default_rng(cfg.seed), weights=w)
+            total = float(ds.num_clients) if w is None else float(w.sum())
+            # into [1, total], not [0, total]: an estimate <= 0 would zero a
+            # hot row's update at the correction's counts > 0 gate
+            counts = clamp_heat_estimate(est, total)
+        elif cfg.weighted:
+            counts = np.zeros(ds.num_features)
+            for c in range(ds.num_clients):
+                counts[client_ids(c)] += w[c]
+            total = float(w.sum())
+        else:
+            counts, total = ds.heat.counts, ds.heat.total
+        return HeatStats(counts=np.asarray(counts, np.float64), total=float(total),
+                         name="vocab")
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -203,17 +245,56 @@ class FederatedTrainer:
         self._log_sparse_comm(valid_counts, capacity)
         return float(metrics["loss"])
 
+    def _run_dense_round(self) -> float:
+        cohort, feats = self._sample_sparse_cohort()
+        sub_ids = None
+        if isinstance(self.plan.local, SubmodelReplicatedLocal):
+            feats = torch.from_numpy(feats).to(self.device)
+            capacity = pow2_capacity(
+                int(count_sub_ids(feats, self.ds.num_features).max()))
+            sub_ids = derive_sub_ids(feats, self.ds.num_features, capacity)
+        self.state, metrics = self._step(self.state, self._to_device(cohort), sub_ids)
+        return float(metrics["loss"])
+
+    def _make_central_step(self) -> Callable:
+        """``(state, batches) -> (state, mean loss)``: one plain SGD step at
+        ``cfg.lr`` per pooled batch (leaves ``(I, B, ...)``)."""
+        g_fn = grad_and_value(self.loss_fn)
+        lr = self.cfg.lr
+
+        def central_step(state: ServerState, batches):
+            p, losses = state.params, []
+            for i in range(next(iter(batches.values())).shape[0]):
+                g, loss = g_fn(p, {k: v[i] for k, v in batches.items()})
+                p = {k: p[k] + g[k] * (-lr) for k in p}
+                losses.append(loss)
+            return ServerState(p, state.opt, state.rounds + 1), torch.stack(losses).mean()
+
+        return central_step
+
     def run_round(self) -> float:
+        cfg = self.cfg
         self._rounds_run += 1
-        return self._run_sparse_round()
+        if cfg.algorithm == "central":
+            batches = pooled_batches(self.ds, cfg.local_iters,
+                                     cfg.local_batch * cfg.clients_per_round,
+                                     self.np_rng)
+            self.state, loss = self._central_step(self.state, self._to_device(batches))
+            return float(loss)
+        if self._is_sparse:
+            return self._run_sparse_round()
+        return self._run_dense_round()
 
     def run_rounds(self, n: int) -> List[float]:
         """``n`` rounds with the JAX engine's semantics: all ``n`` cohorts are
         sampled up front (the same numpy stream as ``n`` ``run_round``
-        calls) and share one pow2 sub-id capacity. Returns the per-round
+        calls) and share one pow2 sub-id capacity. Central and dense
+        configurations run ``n`` ``run_round`` calls. Returns the per-round
         losses."""
         if n <= 0:
             return []
+        if not self._is_sparse:
+            return [self.run_round() for _ in range(n)]
         k = self.cfg.clients_per_round
         cohorts, feats = [], []
         for _ in range(n):

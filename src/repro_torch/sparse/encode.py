@@ -10,7 +10,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.sparse.rowsparse import RowSparse, remap_ids
+from repro_torch.sparse.rowsparse import RowSparse, is_rowsparse, remap_ids
 
 #: feature spaces the sparse plane encodes by default
 DEFAULT_SPARSE_SPACES = ("vocab",)
@@ -58,6 +58,13 @@ def submodel_delta_tree(delta: Dict[str, torch.Tensor],
         mask = valid.reshape(valid.shape + (1,) * (rows.dim() - ids.dim()))
         out[name] = RowSparse(ids, rows * mask.to(rows.dtype), n)
     return out
+
+
+def decode_delta_tree(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Densify every RowSparse leaf with ``RowSparse.to_dense`` (a plain
+    scatter-add, as the reference's densify at the server boundary)."""
+    return {name: leaf.to_dense() if is_rowsparse(leaf) else leaf
+            for name, leaf in tree.items()}
 
 
 def stacked_feature_ids(batch: Dict[str, torch.Tensor],

@@ -1,10 +1,13 @@
-"""Port parity, end to end: the FedSubAvg/FedAvg trainer of ``repro_torch``
-against the JAX package's trainer on the same seeds, for LR (per-round loss
-and final parameters within 1e-5, AUC within 1e-4: tied LR scores can swap
-ranks under last-ulp differences) and for DIN and LSTM from the reference's
-random initialisation (per-round loss, final parameters within 1e-5, comm
+"""Port parity, end to end: the trainer of ``repro_torch`` against the JAX
+package's trainer on the same seeds, for LR on the sparse plan (per-round
+loss and final parameters within 1e-5, AUC within 1e-4: tied LR scores can
+swap ranks under last-ulp differences) and for DIN and LSTM from the
+reference's random initialisation, stateful server optimizers included
+(per-round loss, final parameters and optimizer slots within 1e-5, comm
 bytes equal per round, DIN's targets among the sub-ids), plus the port's
-device rule and import hygiene."""
+device rule and import hygiene. The paper's Table 2 protocol (every
+algorithm on both plans, central SGD, the private heat estimators) is held
+in ``test_torch_protocol.py``."""
 import functools
 import pathlib
 import re
@@ -29,12 +32,12 @@ from repro.models.recsys import make_lr_params as j_make_lr_params
 from repro.sharding.logical import unbox
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.convert import _flatten, params_from_jax
+from repro_torch.convert import params_from_jax, server_state_from_jax
 from repro_torch.data.synthetic import (make_amazon_like, make_movielens_like,
                                         make_sent140_like)
-from repro_torch.federated.plan import (CohortSharding, RoundPlan,
-                                        RowSparseTransport, ServerUpdate,
-                                        SubmodelReplicatedLocal)
+from repro_torch.federated.plan import (CohortSharding, ReplicatedLocal,
+                                        RoundPlan, RowSparseTransport,
+                                        ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
 from repro_torch.models import recsys
 from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params
@@ -158,14 +161,15 @@ def _deep_trainers(deep, alg):
     model, ref, port, j_make, init = deep
     _, _, _, _, j_loss, loss = DEEP[model]
     kw = dict(num_clients=port.num_clients, clients_per_round=6, local_iters=5,
-              local_batch=5, lr=0.5, algorithm=alg, sparse=True)
+              local_batch=5, lr=0.5, algorithm=alg, sparse=True,
+              server_lr=0.03 if alg == "fedadam" else 1.0)
     jt = JTrainer(ref, j_make, j_loss, JFedConfig(**kw), telemetry=False)
     tt = FederatedTrainer(port, functools.partial(params_from_jax, init), loss,
                           FedConfig(**kw), device="cpu")
     return jt, tt
 
 
-@pytest.mark.parametrize("alg", ["fedavg", "fedsubavg"])
+@pytest.mark.parametrize("alg", ["fedavg", "fedsubavg", "fedadam"])
 @pytest.mark.parametrize("entry", ["run_round", "run_rounds"])
 def test_din_and_lstm_trainers_match_jax(deep, alg, entry):
     jt, tt = _deep_trainers(deep, alg)
@@ -176,11 +180,17 @@ def test_din_and_lstm_trainers_match_jax(deep, alg, entry):
         want, got = jt.run_rounds(DEEP_ROUNDS), tt.run_rounds(DEEP_ROUNDS)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert tt._last_capacity == jt._last_capacity
-    want = _flatten(jax.tree.map(np.asarray, unbox(jt.state.params)))
-    assert set(want) == set(tt.state.params)
-    for name, w in want.items():
-        np.testing.assert_allclose(tt.state.params[name].numpy(), w,
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    want = server_state_from_jax(jax.tree.map(np.asarray, unbox(jt.state.params)),
+                                 jax.tree.map(np.asarray, unbox(jt.state.opt)),
+                                 jt.state.rounds, device="cpu")
+    assert tt.state.rounds == want.rounds
+    slots = (want.opt,) if isinstance(want.opt, dict) else want.opt
+    got_slots = (tt.state.opt,) if isinstance(tt.state.opt, dict) else tt.state.opt
+    for w_tree, g_tree in zip((want.params,) + slots, (tt.state.params,) + got_slots):
+        assert set(w_tree) == set(g_tree)
+        for name, w in w_tree.items():
+            torch.testing.assert_close(g_tree[name], w, rtol=1e-5, atol=1e-5,
+                                       msg=name)
     assert len(tt.comm_log) == len(jt.comm_log) == DEEP_ROUNDS
     for g, w in zip(tt.comm_log, jt.comm_log):
         assert g.as_dict() == w.as_dict()
@@ -221,19 +231,20 @@ def test_explicit_plan_matches_config_flags(data):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sparse=False), dict(sparse_int8=True), dict(algorithm="fedadam"),
-    dict(algorithm="central"), dict(heat_estimator="randomized_response"),
+    dict(sparse_int8=True),
     dict(plan=dict(sharding=CohortSharding(mesh=None))),
     dict(plan=dict(debug_checks=True)),
+    dict(plan=dict(local=ReplicatedLocal())),
 ])
 def test_unported_paths_raise(data, kw):
     _, port, _ = data
     plan = kw.pop("plan", None)
     if plan is not None:
-        plan = RoundPlan(SubmodelReplicatedLocal(), RowSparseTransport(),
-                         ServerUpdate("fedsubavg"), **plan)
+        plan = RoundPlan(**{"local": SubmodelReplicatedLocal(),
+                            "transport": RowSparseTransport(),
+                            "server": ServerUpdate("fedsubavg"), **plan})
     cfg = FedConfig(**{**_cfg_kw("fedsubavg", 0), **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1, item \d"):
         FederatedTrainer(port, functools.partial(make_lr_params, port.num_features),
                          lr_loss, cfg, plan=plan, device="cpu")
 
