@@ -89,16 +89,47 @@ Phases, each of which asserts; any failure exits non-zero:
     [4]'s data; losses, parameters and optimizer slots within 1e-5
 22. the paper's Table 2 and Table 3 protocols (``tools/paper_tables.py``)
     on the dense and the sparse plan, printed as tables
+23. ``ReplicatedLocal x RowSparseTransport`` (``sparse_local="replicated"``:
+    K dense replicas, rows gathered from their deltas) through the trainer
+    at [4]'s configuration, fedsubavg and fedavg, 20 rounds each as in [4];
+    K1 must serve every round and is held to its plain version on one
+    round's inputs; losses against [4]'s submodel-replica runs of the same
+    seed (the same deltas on the touched rows); one round's profile, as [7]
+24. int8 rows (``sparse_int8=True``) through the trainer at [4]'s
+    configuration, alone and with top-16, on the submodel and the replicated
+    plan, 20 rounds each; K1 every round, loss falls, AUC > 0.5; uplink
+    bytes per round beside the f32 plans'; unbiased rounding on the card
+    (the mean of 256 dequantised draws against the rows, in standard errors)
+25. ``make_round_step`` on the LSTM at [16]'s width in its four modes,
+    fedsgd with 4 microbatches, an int8 ``FedSgdLocal`` plan and an int8
+    ``sparse_replicated`` plan, 3 steps each (K1 once per step on the two
+    ``sparse_replicated`` plans only, held to its plain version on an int8
+    step at D = 25); ``debug_checks``
+    on and off equal bit for bit, a planted unsorted ``sub_ids`` raises;
+    gather before backward with the table widened to V = 2^22: the step's
+    peak device memory stays below the parameters plus one (V, D) table
+26. card against host, 3 rounds on 200 clients of [4]'s data: the
+    replicated plan, int8 rows with the noise drawn on the host and copied
+    to the card (submodel and replicated), ``make_round_step``
+    fedsgd, sparse and int8 ``sparse_replicated`` (the noise from the
+    host) on the LSTM at 200 clients of [16]'s data; losses and
+    parameters within 1e-5, except the int8 plan's table, which is held
+    step by step instead (each step's int8 rounding and K1 on the card
+    against the host's, from the host's deltas, within 1e-5: a ulp of
+    difference between the two sides' deltas can move a rounding by one
+    quantum); Example 1's condition numbers (``core/preconditioner.py``)
 
 It ends with the kernels as one JSON line (K1's entry also carries its
-launches on the LR, DIN and LSTM paths and on the scaffold and fedadam
-paths, and its times at the DIN and LSTM rounds), the card line and, last,
+launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
+on the replicated and int8 paths and in ``make_round_step``, and its times
+at the DIN and LSTM rounds), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import resource
@@ -119,8 +150,16 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.data.batching import pooled_batches  # noqa: E402
 from repro_torch.data.synthetic import (make_amazon_like,  # noqa: E402
                                         make_movielens_like, make_sent140_like)
-from repro_torch.federated.plan import (RoundPlan, RowSparseTransport,  # noqa: E402
-                                        ServerUpdate, SubmodelReplicatedLocal)
+from repro_torch.core.preconditioner import (condition_number,  # noqa: E402
+                                             preconditioned_hessian)
+from repro_torch.data.batching import sample_cohort_batch  # noqa: E402
+from repro_torch.federated.plan import (FedSgdLocal, RoundPlan,  # noqa: E402
+                                        RowSparseTransport, ServerUpdate,
+                                        SubmodelReplicatedLocal, build_round_step,
+                                        resolve_plan)
+from repro_torch.federated.simulation import make_round_step  # noqa: E402
+from repro_torch.core.algorithms import ServerState  # noqa: E402
+from repro_torch.sparse import compress  # noqa: E402
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import _build, _rows  # noqa: E402
@@ -136,7 +175,7 @@ from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
                                               rowsparse_scatter_torch)
 from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
                                               union_segsum_torch)
-from repro_torch.models import recsys  # noqa: E402
+from repro_torch.federated import plan as plan_mod  # noqa: E402
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
 from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
@@ -319,7 +358,8 @@ def drive(tr: FederatedTrainer, label: str) -> dict:
            "steady_ms_per_round": statistics.median(ms[2:]),
            "run_ms_per_round": rec.wall_time * 1e3,
            "train_loss": rec.train_loss, "auc": rec.test_metric,
-           "capacity": tr._last_capacity}
+           "capacity": tr._last_capacity,
+           "comm": tr.comm_summary() if tr.comm_log else None}
     print(f"  {label}: per-round loss {[round(x, 5) for x in losses]}")
     print(f"  {label}: after 20 rounds train_loss={rec.train_loss:.5f} "
           f"auc={rec.test_metric:.5f}; ms/round run_round median "
@@ -613,31 +653,53 @@ def k2_library(flat_ids, flat_rows, heat, total, v, scale):
     return out * f[:, None] * scale
 
 
-def device_profile(fn, attempts: int = 3) -> tuple:
+#: the kernels whose wrappers count their launches, by the name of their one
+#: device op per launch ([6] checks that it is one)
+COUNTED_KERNELS = (("union_segsum_kernel", union_segsum),
+                   ("rowsparse_scatter_kernel", rowsparse_scatter))
+
+
+def device_profile(fn, attempts: int = 5, calls: int = 1) -> tuple:
     """``(prof, device us by kernel name, device ops)`` of torch.profiler
-    around ``fn()``. A trace that holds no device event at all is taken
-    again: a short profile right after another has been seen to come back
-    empty while the launch counters show the work ran, so an empty trace
-    is the profiler's miss, not a measurement."""
+    around ``fn()``, which makes ``calls`` identical calls with one kernel
+    sequence each, or, with ``calls=1``, one piece of work (rounds: their
+    device ops vary with the data, by a few in an LSTM round's 11,300).
+
+    Short profiles have come back empty, or one K1 event short of five
+    calls, while the launch counters showed the work ran: the first
+    kernels after the profiler starts can go unrecorded. So the host waits
+    50 ms inside the profile before ``fn()``, and a trace stands only if it
+    holds exactly as many K1 and K2 events as their launch counters rose by
+    (one device op per launch, [6]) and its device events split evenly over
+    the calls. A trace that fails is the profiler's miss, not a
+    measurement; if none stands after ``attempts``, the check fails."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         torch.cuda.synchronize()
+        before = [w.launches for _, w in COUNTED_KERNELS]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             fn()
             torch.cuda.synchronize()
         by_name, ops = device_times(prof)
-        if ops:
-            break
-        print("    (the profiler recorded no device event: profiling again)")
-    return prof, by_name, ops
+        counted = [(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                        and name in e.name), w.launches - b)
+                   for (name, w), b in zip(COUNTED_KERNELS, before)]
+        if ops > 0 and ops % calls == 0 and all(a == b for a, b in counted):
+            return prof, by_name, ops
+        print(f"    (the profiler recorded {ops} device events over {calls} calls, and "
+              f"K1/K2 events against launches {counted}: profiling again)")
+        time.sleep(0.2)
+    check(False, f"no profile stood after {attempts} attempts")
 
 
 def profile_calls(fn, n: int = 5) -> tuple:
     """Device ops and device milliseconds per call of ``fn``, and the device
     ops' names (torch.profiler over ``n`` warm calls)."""
     fn()
-    _, by_name, ops = device_profile(lambda: [fn() for _ in range(n)])
+    _, by_name, ops = device_profile(lambda: [fn() for _ in range(n)], calls=n)
     return ops / n, sum(by_name.values()) / n / 1e3, sorted(by_name)
 
 
@@ -1135,6 +1197,390 @@ def phase_prefill_profile(params, prefill_ms: float) -> dict:
     return out
 
 
+def phase_replicated(ds, submodel_runs) -> tuple:
+    """[23]: the replicated plan through the trainer, fedsubavg and fedavg,
+    each driven as in [4] with K1's count set to 0 just before it and read
+    just after (20 of 20). Its deltas on the touched rows are the submodel
+    plan's, so its losses are [4]'s but for the atomics' sum order in K1.
+    Returns the runs, K1's launches by run and K1's error on one round."""
+    runs, launches, captured = {}, {}, {}
+    for alg in ("fedsubavg", "fedavg"):
+        ctx = capture_k1(captured) if alg == "fedsubavg" else contextlib.nullcontext()
+        union_segsum.launches = 0
+        with ctx:
+            runs[alg] = drive(make_trainer(ds, alg, DEV, sparse_local="replicated"),
+                              f"{alg} replicated")
+        launches[alg] = union_segsum.launches
+        check(launches[alg] == 20, f"{alg} replicated: K1 served {launches[alg]}/20 rounds")
+        mine = runs[alg]["round_loss"] + [runs[alg]["train_loss"]]
+        theirs = submodel_runs[alg]["round_loss"] + [submodel_runs[alg]["train_loss"]]
+        diff = max(abs(a - b) for a, b in zip(mine, theirs))
+        print(f"  {alg}: replicated against [4]'s submodel replicas, 10 round losses and "
+              f"the train loss after 20: max |diff| {diff:.3g}; AUC "
+              f"{runs[alg]['auc']:.5f} against {submodel_runs[alg]['auc']:.5f}")
+        check(diff <= 1e-4, f"{alg}: replicated and submodel losses differ by {diff}")
+    args, scale = captured["args"], captured["kw"]["scale"]
+    ids, rows, v = args[0], args[1], args[5]
+    union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    err = check_k1("union_segsum[replicated round]", args, scale, union)
+    print(f"  K1 at a replicated fedsubavg round: V={v} T={ids.numel()} D={rows.shape[-1]} "
+          f"cap={args[4]} union={union} max_abs_err={err:.3g}")
+    phase_profile(ds, runs["fedsubavg"]["steady_ms_per_round"],
+                  label="fedsubavg replicated", sparse_local="replicated")
+    return runs, launches, err
+
+
+#: [24]: int8 rows on both replica plans, with and without top-16
+INT8_RUNS = (("int8", {}), ("int8 top-16", dict(sparse_topk=16)),
+             ("int8 replicated", dict(sparse_local="replicated")),
+             ("int8 top-16 replicated", dict(sparse_topk=16, sparse_local="replicated")))
+
+
+def int8_unbiased(rng, draws: int = 256) -> tuple:
+    """Unbiased rounding on the card: ``draws`` quantisations of one cohort's
+    rows (16 clients x 64 rows x D = 25, magnitudes over four decades) with
+    the port's own stream, dequantised and averaged. The rounding's variance
+    is ``s^2 p (1 - p) / draws`` per element, ``p`` the fractional part of
+    ``x / s``. Returns the z of the grand mean (every element's deviation
+    summed, over the summed standard error) and the largest z of one row's
+    summed deviation. (One element's z is no test: at p ~ 1e-5 a single
+    round-up in 256 draws is z ~ 20.)"""
+    k, r, d = 16, 64, 25
+    ids = torch.arange(r, dtype=torch.int32, device=DEV).repeat(k, 1)
+    rows = normal(rng, (k, r, d), torch.float32) * torch.from_numpy(
+        10.0 ** rng.uniform(-3, 1, (k, r, 1)).astype(np.float32)).to(DEV)
+    rs = RowSparse(ids, rows, r)
+    total = torch.zeros_like(rows)
+    for i in range(draws):
+        total += compress.dequantize_rows(compress.quantize_rows_int8(rs, (SEED, i, 0))).rows
+    mean = total / draws
+    scales = rows.abs().amax(-1, keepdim=True) / 127.0
+    frac = rows / scales - torch.floor(rows / scales)
+    se = scales * torch.sqrt(frac * (1 - frac) / draws)
+    dev, var = mean - rows, se * se
+    grand = float(dev.sum() / torch.sqrt(var.sum()))
+    return grand, float((dev.sum(-1).abs() / torch.sqrt(var.sum(-1))).max())
+
+
+def phase_int8(ds, f32_runs: dict, rng) -> tuple:
+    """[24]: each run driven as in [4], K1 counted per run (20 of 20). The
+    uplink bytes per round (``comm_summary``) beside the f32 plan's of the
+    same local step and top-k ([4], [23]); one int8 round's profile, as
+    [7]."""
+    runs, launches = {}, {}
+    for label, kw in INT8_RUNS:
+        union_segsum.launches = 0
+        runs[label] = drive(make_trainer(ds, "fedsubavg", DEV, sparse_int8=True, **kw), label)
+        launches[label] = union_segsum.launches
+        check(launches[label] == 20, f"{label}: K1 served {launches[label]}/20 rounds")
+        f32 = f32_runs[label.replace("int8", "f32")]["comm"]
+        mine = runs[label]["comm"]
+        print(f"  {label}: uplink {mine['bytes_up_sparse'] / mine['rounds'] / 1e3:.1f} kB "
+              f"per round against f32's {f32['bytes_up_sparse'] / f32['rounds'] / 1e3:.1f} "
+              f"kB (dense {mine['bytes_up_dense'] / mine['rounds'] / 1e6:.2f} MB); downlink "
+              f"{mine['bytes_down_sparse'] / mine['rounds'] / 1e3:.1f} kB; AUC "
+              f"{runs[label]['auc']:.5f}")
+    phase_profile(ds, runs["int8"]["steady_ms_per_round"], label="fedsubavg int8",
+                  sparse_int8=True)
+    grand, worst = int8_unbiased(rng)
+    print(f"  int8 unbiased on the card: 256 draws of 16 x 64 x 25 rows; grand-mean z "
+          f"{grand:.3f}, largest row z {worst:.3f}")
+    check(abs(grand) <= 4.0 and worst <= 5.0,
+          f"int8 rounding biased: grand z {grand}, row z {worst}")
+    return runs, launches
+
+
+def lstm_inputs(ds, rng, stacked: bool, k: int = 100, pooled: int = 500) -> dict:
+    """One step's batch on the card: a cohort ``(K, I, B, ...)`` of ``k``
+    clients, or a pooled ``(B, ...)`` batch of ``pooled`` samples, with the
+    heat as ``heat_vocab``."""
+    if stacked:
+        ids = rng.choice(ds.num_clients, size=k, replace=False)
+        batch = sample_cohort_batch(ds, ids, 5, 5, rng)
+    else:
+        batch = {key: v[0] for key, v in pooled_batches(ds, 1, pooled, rng).items()}
+    out = {key: torch.from_numpy(np.ascontiguousarray(v)).to(DEV) for key, v in batch.items()}
+    out["heat_vocab"] = torch.as_tensor(ds.heat.counts, dtype=torch.float32, device=DEV)
+    return out
+
+
+#: int8 rows on the paper's protocol: at D = 25 the rounding changes values,
+#: so K1 aggregates rows that went through int8 and back
+INT8_SUBMODEL = RoundPlan(SubmodelReplicatedLocal(), RowSparseTransport(int8=True),
+                          ServerUpdate("fedsubavg"))
+
+#: [25]: make_round_step's modes on the LSTM; K1 launches expected per step
+ROUND_STEP_MODES = (("fedsgd", "fedsgd", {}, False, 0),
+                    ("fedsgd 4 microbatches", "fedsgd", dict(microbatches=4), False, 0),
+                    ("sparse", "sparse", {}, False, 0),
+                    ("replicated", "replicated", {}, True, 0),
+                    ("sparse_replicated", "sparse_replicated", {}, True, 1),
+                    ("int8 FedSgdLocal", RoundPlan(FedSgdLocal(),
+                                                   RowSparseTransport(int8=True),
+                                                   ServerUpdate("fedsubavg")), {}, False, 0),
+                    ("int8 sparse_replicated", INT8_SUBMODEL, {}, True, 1))
+
+
+def phase_round_steps(ds) -> dict:
+    """[25]: 3 steps of each mode from the same initial parameters (the
+    sparse modes update their table in place, so each mode takes a copy);
+    loss finite, K1 counted per step, held to its plain version on the
+    int8 plan's last step, then a fourth step profiled (device ops and
+    device time, the busy share against the median host time of the
+    three). Then ``debug_checks``
+    on and off in ``sparse`` mode (no K1: its atomics' order would differ
+    between any two runs), a planted unsorted ``sub_ids``, and gather before
+    backward at V = 2^22."""
+    make_params, loss_fn, _ = task_bindings(ds, SEED)
+    params0, axes = make_params(DEV)
+    base = dict(num_clients=ds.num_clients, clients_per_round=100, local_iters=5,
+                local_batch=5, lr=0.5, seed=SEED)
+    out = {"launches": {}}
+    for label, mode, kw, stacked, want in ROUND_STEP_MODES:
+        rng = np.random.default_rng(SEED + 5)
+        step = make_round_step(loss_fn, params0, axes, FedConfig(**base, **kw), mode=mode)
+        params = {k: v.clone() for k, v in params0.items()}
+        losses, ms, per_step, captured = [], [], [], {}
+        ctx = capture_k1(captured) if mode is INT8_SUBMODEL else contextlib.nullcontext()
+        with ctx:
+            for _ in range(3):
+                batch = lstm_inputs(ds, rng, stacked)
+                torch.cuda.synchronize()
+                union_segsum.launches = 0
+                t0 = time.perf_counter()
+                params, metrics = step(params, batch)
+                losses.append(float(metrics["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(union_segsum.launches)
+        launches = sum(per_step)
+        out["launches"][label] = launches
+        check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+        check(per_step == [want] * 3, f"{label}: K1 launched {per_step} times in the 3 "
+              f"steps, want {want} each")
+        if captured:
+            args, scale = captured["args"], captured["kw"]["scale"]
+            ids, rows, v = args[0], args[1], args[5]
+            union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+            err = check_k1(f"union_segsum[{label} step]", args, scale, union)
+            out["k1_err"] = err
+            print(f"  K1 at an {label} step: V={v} T={ids.numel()} D={rows.shape[-1]} "
+                  f"cap={args[4]} union={union} max_abs_err={err:.3g}")
+        extra = (f", sub_rows {int(metrics['sub_rows'])}, density "
+                 f"{float(metrics['density']):.5f}" if "sub_rows" in metrics else "")
+        batch = lstm_inputs(ds, rng, stacked)
+        _, by_name, ops = device_profile(lambda: step(params, batch))
+        dev_ms = sum(by_name.values()) / 1e3
+        print(f"  {label}: losses {[round(x, 5) for x in losses]}, ms per step "
+              f"{[round(x, 1) for x in ms]}, K1 {launches}{extra}; one step profiled: "
+              f"{ops} device ops, {dev_ms:.3f} ms of device work "
+              f"({dev_ms / statistics.median(ms) * 100:.1f}% busy)")
+
+    cfg = FedConfig(**base)
+    plain_plan = resolve_plan("sparse", cfg)
+    results = []
+    # deterministic kernels for the embedding's gradient (an accumulating
+    # scatter), so that two runs may be held to each other bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plan in (plain_plan, dataclasses.replace(plain_plan, debug_checks=True)):
+            rng = np.random.default_rng(SEED + 6)
+            step = make_round_step(loss_fn, params0, axes, cfg, mode=plan)
+            params = {k: v.clone() for k, v in params0.items()}
+            losses = []
+            for _ in range(3):
+                params, metrics = step(params, lstm_inputs(ds, rng, False))
+                losses.append(float(metrics["loss"]))
+            results.append((losses, params))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l1, p1), (l2, p2) = results
+    same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+    print(f"  debug_checks on and off, sparse mode, 3 steps: equal bit for bit: {same}")
+    check(same, "debug_checks changed the sparse step's losses or parameters")
+    step = build_round_step(dataclasses.replace(plain_plan, debug_checks=True), loss_fn,
+                            axes, params0, cfg)
+    bad = torch.full((64,), -1, dtype=torch.int32, device=DEV)
+    bad[:2] = torch.tensor([9, 3])
+    try:
+        step(ServerState({k: v.clone() for k, v in params0.items()}, (), 0),
+             lstm_inputs(ds, np.random.default_rng(0), False), bad)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"  planted unsorted sub_ids: {raised}")
+    check(raised is not None and "ascending" in raised, "unsorted sub_ids did not raise")
+
+    # gather before backward: the LSTM's table widened to the heavy shape's V
+    v_heavy, d = SHAPES["heavy"][0], params0["embedding"].shape[1]
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    wide = {k: v.clone() for k, v in params0.items()}
+    wide["embedding"] = torch.zeros((v_heavy, d), device=DEV)
+    wide["embedding"][:ds.num_features] = params0["embedding"]
+    param_bytes = sum(p.numel() * p.element_size() for p in wide.values())
+    table_bytes = v_heavy * d * 4
+    batch = lstm_inputs(ds, np.random.default_rng(SEED + 7), False)
+    batch["heat_vocab"] = torch.cat([batch["heat_vocab"], torch.zeros(
+        v_heavy - ds.num_features, device=DEV)])
+    step = make_round_step(loss_fn, wide, axes, cfg, mode="sparse")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wide, metrics = step(wide, batch)
+    loss = float(metrics["loss"])
+    heavy_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    print(f"  gather before backward at V = {v_heavy}, D = {d}: peak {peak / 2**20:.1f} MiB "
+          f"above the earlier phases' tensors, against the parameters "
+          f"{param_bytes / 2**20:.1f} MiB + one (V, D) f32 table {table_bytes / 2**20:.1f} "
+          f"MiB; loss {loss:.5f}, {heavy_ms:.1f} ms, sub_rows {int(metrics['sub_rows'])}")
+    check(math.isfinite(loss) and peak < param_bytes + table_bytes,
+          f"gather before backward: peak {peak} bytes >= {param_bytes + table_bytes}")
+    out["heavy"] = {"peak_bytes": peak, "param_bytes": param_bytes,
+                    "table_bytes": table_bytes, "ms": heavy_ms}
+    return out
+
+
+def to_device(x, device):
+    """``x`` with every tensor, RowSparse leaf included, on ``device``."""
+    if isinstance(x, RowSparse):
+        return RowSparse(x.ids.to(device), x.rows.to(device), x.num_rows)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device) for v in x)
+    return x.to(device) if torch.is_tensor(x) else x
+
+
+@contextlib.contextmanager
+def capture_int8_stage(captured: dict):
+    """Record the arguments of the round plan's compression and cohort
+    aggregation, step by step, in ``captured``; the calls run."""
+    real_compress, real_aggregate = (plan_mod.compress_delta_tree,
+                                     plan_mod.sparse_cohort_aggregate)
+
+    def compress_(*args, **kw):
+        captured.setdefault("compress", []).append((args, kw))
+        return real_compress(*args, **kw)
+
+    def aggregate_(*args, **kw):
+        captured.setdefault("aggregate", []).append((args, kw))
+        return real_aggregate(*args, **kw)
+
+    plan_mod.compress_delta_tree, plan_mod.sparse_cohort_aggregate = compress_, aggregate_
+    try:
+        yield
+    finally:
+        plan_mod.compress_delta_tree = real_compress
+        plan_mod.sparse_cohort_aggregate = real_aggregate
+
+
+def int8_stage_card_vs_host(captured: dict) -> float:
+    """Each step's int8 rounding and cohort aggregation, on the card (K1)
+    and on the host (the plain union), from the host step's client deltas
+    and the host's noise: union ids exact, every aggregated leaf within
+    1e-5. Returns the largest difference."""
+    diff = 0.0
+    for step_args in zip(captured["compress"], captured["aggregate"]):
+        out = []
+        for device in (DEV, torch.device("cpu")):
+            (cargs, ckw), (aargs, akw) = to_device(step_args, device)
+            out.append(aggregate_mod.sparse_cohort_aggregate(
+                compress.compress_delta_tree(*cargs, **ckw), *aargs[1:], **akw))
+        card, host = out
+        for name, h in host.items():
+            c = card[name]
+            if isinstance(h, RowSparse):
+                check(torch.equal(c.ids.cpu(), h.ids),
+                      f"int8 stage '{name}': union ids differ")
+                c, h = c.rows, h.rows
+            diff = max(diff, float((c.cpu() - h).abs().max()))
+            check(torch.allclose(c.cpu(), h, rtol=1e-5, atol=1e-5),
+                  f"int8 stage '{name}': card and host differ by {diff}")
+    return diff
+
+
+def phase_new_card_vs_host(lr_small, lstm_small) -> None:
+    """[26]: the replicated plan and int8 rows through the trainer (the
+    noise drawn by the port's own stream on the host and copied to the
+    card, so both see the same uniforms), then make_round_step fedsgd and
+    sparse and the int8 submodel plan on the LSTM (D = 25, where the
+    rounding changes values and K1 sums them; the noise from the host as
+    above; its table held step by step, see the module's docstring), 3
+    steps card against host, then Example 1. No case
+    has a binding top-k: LR's tied rows would be broken by last-ulp sums
+    differently on each side (ROADMAP Queue 3)."""
+    phase_card_vs_host(lr_small, rounds=3, cases=(
+        ("fedsubavg replicated", "fedsubavg", dict(sparse_local="replicated")),))
+    host_uniform = compress.int8_uniform
+    compress.int8_uniform = (lambda shape, seed, rounds, leaf, device:
+                             host_uniform(shape, seed, rounds, leaf, "cpu").to(device))
+    try:
+        phase_card_vs_host(lr_small, rounds=3, cases=(
+            ("fedsubavg int8", "fedsubavg", dict(sparse_int8=True)),
+            ("fedsubavg int8 replicated", "fedsubavg",
+             dict(sparse_int8=True, sparse_local="replicated"))))
+    finally:
+        compress.int8_uniform = host_uniform
+
+    make_params, loss_fn, _ = task_bindings(lstm_small, SEED)
+    cfg = FedConfig(num_clients=lstm_small.num_clients, clients_per_round=100,
+                    local_iters=5, local_batch=5, lr=0.5, seed=SEED)
+    for label, mode, stacked in (("fedsgd", "fedsgd", False), ("sparse", "sparse", False),
+                                 ("int8 sparse_replicated", INT8_SUBMODEL, True)):
+        runs, captured = [], {}
+        compress.int8_uniform = (lambda shape, seed, rounds, leaf, device:
+                                 host_uniform(shape, seed, rounds, leaf, "cpu").to(device))
+        try:
+            for device in (DEV, torch.device("cpu")):
+                params, axes = make_params(device)
+                step = make_round_step(loss_fn, params, axes, cfg, mode=mode)
+                rng, losses = np.random.default_rng(SEED + 8), []
+                ctx = (capture_int8_stage(captured) if device.type == "cpu"
+                       else contextlib.nullcontext())
+                with ctx:
+                    for _ in range(3):
+                        batch = {k: v.to(device)
+                                 for k, v in lstm_inputs(lstm_small, rng, stacked).items()}
+                        params, metrics = step(params, batch)
+                        losses.append(float(metrics["loss"]))
+                runs.append((losses, params))
+            stage = int8_stage_card_vs_host(captured) if "compress" in captured else None
+        finally:
+            compress.int8_uniform = host_uniform
+        (lc, pc), (lh, ph) = runs
+        dl = max(abs(a - b) for a, b in zip(lc, lh))
+        diffs = {k: (pc[k].cpu() - ph[k]).abs() for k in pc}
+        print(f"  lstm make_round_step {label}: 3 steps card vs host: max |loss diff| "
+              f"{dl:.3g}, max |param diff| by leaf "
+              + ", ".join(f"{k} {float(d.max()):.3g}" for k, d in diffs.items()))
+        # int8 tables are held stage by stage: the card's and the host's
+        # local deltas differ in the last ulp, and a ulp near a rounding
+        # boundary moves floor(x / s + u) by one quantum, s = max|row| / 127
+        held = {k for k in pc if not (mode is INT8_SUBMODEL and axes[k][:1] == ("vocab",))}
+        if stage is not None:
+            table = [(k, int((d > 1e-5).sum()), d.numel()) for k, d in diffs.items()
+                     if k not in held]
+            print(f"    int8 rounding and K1 of each step, card against host from the "
+                  f"host's deltas: max |diff| {stage:.3g}; table elements off by more "
+                  f"than 1e-5 after 3 steps (the rounding's flips): {table}")
+        check(dl <= 1e-5 and all(torch.allclose(pc[k].cpu(), ph[k], rtol=1e-5, atol=1e-5)
+                                 for k in held), f"lstm {label}: card and host differ")
+
+    n = 100                      # examples/example1_illconditioning.py
+    counts = np.array([1.0, float(n)])
+    kappas = []
+    for device in (DEV, torch.device("cpu")):
+        h = torch.diag(torch.tensor([2.0 / n, 2.0], device=device))
+        kappas.append((condition_number(h),
+                       condition_number(preconditioned_hessian(h, counts, float(n)))))
+    (kc, kc_hat), (kh, kh_hat) = kappas
+    print(f"  Example 1: kappa(H) card {kc:.6f} host {kh:.6f}; kappa(D^1/2 H D^1/2) card "
+          f"{kc_hat:.6f} host {kh_hat:.6f}")
+    check(abs(kc - kh) <= 1e-5 * kh and abs(kc_hat - kh_hat) <= 1e-5 * kh_hat
+          and abs(kc - n) <= 1e-3 * n, "Example 1's condition numbers differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1167,6 +1613,7 @@ def main() -> int:
     check(ds.num_features == 37_069, "V must be 37,069")
     lr_ds = ds
     runs, launches_k1, captured = phase_main_path(ds)
+    lr_runs = runs
     k1_args = captured["args"]
     launches_k2, err_k2_path = phase_k2_path(k1_args)
 
@@ -1270,6 +1717,42 @@ def main() -> int:
               "a table's best loss is not finite")
         print_tables(out, sparse, card)
     print(f"  [22] took {time.perf_counter() - t0:.1f} s")
+
+    print("[23] ReplicatedLocal x RowSparseTransport through the trainer at MovieLens-1M "
+          "width")
+    t0 = time.perf_counter()
+    rep_runs, rep_launches, err = phase_replicated(lr_ds, lr_runs)
+    for alg, n in rep_launches.items():
+        k1["launches_by_path"][f"lr replicated {alg}"] = n
+    k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    print(f"  [23] took {time.perf_counter() - t0:.1f} s")
+
+    print("[24] int8 rows through the trainer at MovieLens-1M width")
+    t0 = time.perf_counter()
+    f32_runs = {"f32": lr_runs["fedsubavg"], "f32 top-16": lr_runs["fedsubavg_top16"],
+                "f32 replicated": rep_runs["fedsubavg"]}
+    f32_runs["f32 top-16 replicated"] = drive(
+        make_trainer(lr_ds, "fedsubavg", DEV, sparse_topk=16, sparse_local="replicated"),
+        "f32 top-16 replicated")
+    _, int8_launches = phase_int8(lr_ds, f32_runs, rng)
+    for label, n in int8_launches.items():
+        k1["launches_by_path"][f"lr {label}"] = n
+    print(f"  [24] took {time.perf_counter() - t0:.1f} s")
+
+    print("[25] make_round_step on the LSTM at [16]'s width: four modes, microbatches, "
+          "int8, debug checks, gather before backward at V = 2^22")
+    t0 = time.perf_counter()
+    steps = phase_round_steps(deep["lstm"][0])
+    for label in ("sparse_replicated", "int8 sparse_replicated"):
+        k1["launches_by_path"][f"lstm make_round_step {label}"] = steps["launches"][label]
+    k1["max_abs_err"] = max(k1["max_abs_err"], steps["k1_err"])
+    print(f"  [25] took {time.perf_counter() - t0:.1f} s")
+
+    print("[26] card vs host, 200 clients, 3 rounds: replicated, int8, make_round_step; "
+          "Example 1")
+    t0 = time.perf_counter()
+    phase_new_card_vs_host(small, make_sent140_like(**{**LSTM_DATA, "num_clients": 200}))
+    print(f"  [26] took {time.perf_counter() - t0:.1f} s")
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

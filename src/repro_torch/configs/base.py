@@ -179,7 +179,7 @@ class FedConfig:
     # --- sparse submodel update plane (repro_torch.sparse) ---
     sparse: bool = False             # row-sparse client deltas + sparse server agg
     sparse_topk: int = 0             # >0: per-client top-k row sparsification
-    sparse_int8: bool = False        # int8 row payloads (not ported yet)
+    sparse_int8: bool = False        # int8 stochastic-rounding row payloads
     # "sparse_replicated": each client's replica is its gathered submodel;
     # "replicated": K dense replicas; "auto": sparse_replicated whenever the
     # model's axis-0 feature tables span the dataset's id space
@@ -226,7 +226,7 @@ def _module(name: str):
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}); "
-            "see ROADMAP.md Queue 1 item 12")
+            "see ROADMAP.md Queue 1 item 9")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -10,12 +10,14 @@ interface: ``algorithm="central"`` takes I plain SGD steps per round on
 pooled batches of ``local_batch * K`` samples.
 
 Ported: every server algorithm, on the sparse plan (``FedConfig(sparse=
-True)``, K1 ``union_segsum`` once per round) and the dense one (``sparse=
-False``, K dense replicas), for the paper's three models (LR, LSTM and DIN,
-whose targets are feature ids beside its histories), with heat exact, by
-secure aggregation or by randomized response, optionally weighted by the
-clients' sample counts. Telemetry and the async engine are not ported
-(ROADMAP Queue 1 items 6 and 7).
+True)``, K1 ``union_segsum`` once per round, with submodel replicas or with
+K dense replicas, ``sparse_local="replicated"``, optionally top-k and int8
+rows) and the dense one (``sparse=False``, K dense replicas), for the
+paper's three models (LR, LSTM and DIN, whose targets are feature ids
+beside its histories), with heat exact, by secure aggregation or by
+randomized response, optionally weighted by the clients' sample counts.
+Telemetry and the async engine are not ported (ROADMAP Queue 1 items 6 and
+7).
 """
 from __future__ import annotations
 
@@ -92,13 +94,16 @@ class FederatedTrainer:
     batch)`` and ``predict_fn(params, test_data)`` take dicts of tensors on
     the trainer's device (the test split is moved there once).
     ``device=None`` means ``"cuda"`` and raises without a card.
+    ``telemetry=True`` raises: round telemetry is not ported (ROADMAP
+    Queue 1 item 6).
     """
 
     def __init__(self, ds: FederatedDataset, make_params: Callable,
                  loss_fn: Callable, cfg: FedConfig,
                  predict_fn: Optional[Callable] = None,
                  metric: str = "auc", rng_seed: int = 0,
-                 plan: Optional[RoundPlan] = None, device=None):
+                 plan: Optional[RoundPlan] = None, device=None,
+                 telemetry: bool = False):
         self.device = resolve_device(device)
         self.ds = ds
         self.cfg = cfg
@@ -134,7 +139,8 @@ class FederatedTrainer:
         self._is_sparse = self.plan.transport.sparse
         self._step = build_round_step(self.plan, loss_fn, axes, params, cfg,
                                       heat_counts=heat_counts,
-                                      total=self.heat.total, server_alg=self.alg)
+                                      total=self.heat.total, server_alg=self.alg,
+                                      telemetry=telemetry)
         self._comm_meta = model_comm_meta(params, set(self._sparse_paths))
 
     # ------------------------------------------------------------------
@@ -230,7 +236,8 @@ class FederatedTrainer:
     def _log_sparse_comm(self, valid_counts: np.ndarray, capacity: int):
         self.comm_log.append(self.plan.transport.round_comm(
             self._rounds_run, self._comm_meta, valid_counts,
-            self.ds.num_features, capacity=capacity, submodel_downlink=True,
+            self.ds.num_features, capacity=capacity,
+            submodel_downlink=isinstance(self.plan.local, SubmodelReplicatedLocal),
             local_iters=self.cfg.local_iters))
 
     def _run_sparse_round(self) -> float:

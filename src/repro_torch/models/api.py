@@ -10,7 +10,7 @@ the same way:
     decode_step(params, cache, batch)      -> (logits, cache)
 
 Only the dense family is ported; ``loss`` (training) comes with the LLM
-training slice (ROADMAP Queue 1 item 12).
+training slice (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ class ModelApi:
 def build_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 12)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
 
     def init(generator=None, device=None):
         return T.make_params(cfg, generator, device)

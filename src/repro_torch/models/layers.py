@@ -9,7 +9,7 @@ reference's keys. On CUDA tensors ``mea_attention`` launches K3
 versions, which repeat the reference's arithmetic.
 
 Not ported yet: ``moe``, ``apply_mrope`` and ``sinusoidal_positions``
-(ROADMAP Queue 1 item 12).
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ its sharding constraints go (one card).
 Serving only: ``prefill`` and ``decode_step`` run under ``torch.no_grad``
 and write the KV cache in place. MoE, M-RoPE, patch embeddings and the
 training loss (``loss_fn``, ``chunked_xent``) are not ported yet (ROADMAP
-Queue 1 item 12).
+Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """
     if cfg.family != "dense" or cfg.is_moe or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (ROADMAP Queue 1 item 12)")
+            f"{cfg.name}: only the dense family is ported (ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     if generator is None and state is None:
         generator = torch.Generator(device=dev).manual_seed(0)

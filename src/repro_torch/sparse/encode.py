@@ -1,16 +1,32 @@
-"""Submodel replicas: gather a client's rows, remap its batch, repackage its
-delta as row-sparse.
+"""Encoders onto the sparse plane, and submodel replicas.
 
-Parameters are flat dicts, so a table is named by its key (the JAX package's
-tree paths and ``tree_leaf_at`` become plain dict lookups).
+Two paths onto the sparse plane:
+
+``encode_delta_tree``
+    Post-hoc: a dense delta (or a per-client stack of deltas) already
+    exists; gather the rows its support lives on. Exact whenever the ids
+    cover the delta's support, as they do for lookup tables.
+``submodel_value_and_grad``
+    Gather before backward: the table is swapped for its gathered ``(R, D)``
+    rows and the batch's ids are remapped to row slots before autodiff, so
+    no ``(V, D)`` gradient is ever built.
+
+Submodel replicas gather a client's rows, remap its batch and repackage its
+delta as row-sparse. Parameters are flat dicts, so a table is named by its
+key (the JAX package's tree paths and ``tree_leaf_at`` become plain dict
+lookups).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.func import grad_and_value, vmap
 
-from repro_torch.sparse.rowsparse import RowSparse, is_rowsparse, remap_ids
+from repro_torch.core.aggregate import HeatSpec
+from repro_torch.sparse.rowsparse import (RowSparse, is_rowsparse, remap_ids,
+                                          unique_ids_padded)
 
 #: feature spaces the sparse plane encodes by default
 DEFAULT_SPARSE_SPACES = ("vocab",)
@@ -20,6 +36,84 @@ def sparse_eligible(space: Optional[Tuple[str, int]],
                     spaces: Sequence[str] = DEFAULT_SPARSE_SPACES) -> bool:
     """A leaf rides the sparse plane iff it is feature-keyed on axis 0."""
     return space is not None and space[0] in spaces and space[1] == 0
+
+
+def encode_delta_tree(delta: Dict[str, torch.Tensor], heat_spec: HeatSpec,
+                      ids: torch.Tensor,
+                      spaces: Sequence[str] = DEFAULT_SPARSE_SPACES) -> Dict:
+    """Replace the eligible feature-keyed leaves of ``delta`` with RowSparse.
+
+    ``delta`` is one update (leaves ``(V, ...)``, ``ids`` ``(R,)``) or a
+    per-client stack (leaves ``(K, V, ...)``, ``ids`` ``(K, R)``). Dense
+    leaves pass through unchanged.
+    """
+    def enc(leaf):
+        if ids.dim() == 1:
+            return RowSparse.from_dense(leaf, ids)
+        rows = vmap(lambda d, i: RowSparse.from_dense(d, i).rows)(leaf, ids)
+        return RowSparse(ids.to(torch.int32), rows, leaf.shape[1])
+
+    return {name: enc(leaf) if sparse_eligible(heat_spec.leaf_spaces.get(name), spaces)
+            else leaf for name, leaf in delta.items()}
+
+
+def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
+                            batch: Dict[str, torch.Tensor], table: str,
+                            feature_keys: Sequence[str], ids: torch.Tensor):
+    """Loss and gradients with the table ``table`` never densified.
+
+    ``ids`` is the sorted, -1-padded union of the batch's feature ids. The
+    table is gathered at ``ids`` outside the differentiated function, every
+    ``batch[k]`` for k in ``feature_keys`` is remapped to row slots, and
+    autodiff runs over the gathered ``(R, ...)`` rows and the other leaves
+    apart: the table itself is not an argument, so only the row gradient
+    exists. Returns ``(loss, grads)`` with a ``RowSparse`` at ``table``.
+    """
+    num_rows = params[table].shape[0]
+    rows0 = params[table][torch.clamp(ids, min=0).long()]
+    sub_batch = dict(batch)
+    for k in feature_keys:
+        sub_batch[k] = remap_ids(batch[k], ids)
+    rest = {name: p for name, p in params.items() if name != table}
+
+    def joint_loss(rows, p):
+        return loss_fn({**p, table: rows}, sub_batch)
+
+    (row_grad, rest_grad), loss = grad_and_value(joint_loss, argnums=(0, 1))(rows0, rest)
+    valid = (ids >= 0).reshape((-1,) + (1,) * (row_grad.dim() - 1))
+    grads = dict(rest_grad)
+    grads[table] = RowSparse(ids.to(torch.int32), row_grad * valid.to(row_grad.dtype),
+                             num_rows)
+    return loss, {name: grads[name] for name in params}
+
+
+def flat_feature_ids(batch: Dict[str, torch.Tensor],
+                     feature_keys: Sequence[str]) -> torch.Tensor:
+    """Every feature id of the batch as one flat vector (padding ids kept)."""
+    return torch.cat([batch[k].reshape(-1) for k in feature_keys])
+
+
+def batch_union_ids(batch: Dict[str, torch.Tensor], feature_keys: Sequence[str],
+                    capacity: int) -> torch.Tensor:
+    """Union of the batch's feature ids across keys, padded to ``capacity``."""
+    return unique_ids_padded(flat_feature_ids(batch, feature_keys), capacity)
+
+
+def pin_labels(data: Dict[str, torch.Tensor], feature_key: str = "tokens") -> Dict:
+    """Pin next-token targets to the original feature ids before a remap.
+
+    When ``"labels"`` is absent and the feature leaf has a sequence axis,
+    the labels are its ids shifted left along the last axis and zero-padded,
+    so ``(B, S)`` and ``(K, I, B, S)`` batches give the same labels for the
+    same sequences. No-op otherwise. The recsys losses read ``"label"``, not
+    ``"labels"``, so this changes nothing they compute.
+    """
+    if "labels" in data or feature_key not in data:
+        return data
+    tokens = data[feature_key]
+    if tokens.dim() < 2:
+        return data
+    return {**data, "labels": F.pad(tokens[..., 1:], (0, 1))}
 
 
 def gather_submodel_tree(params: Dict[str, torch.Tensor],

@@ -79,9 +79,9 @@ def test_configs_match_the_reference():
                    (j_get_smoke_config(ARCH), get_smoke_config(ARCH))):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.param_counts() == tc.param_counts()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         get_config("mixtral_8x22b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         build_model(get_smoke_config(ARCH).replace(family="moe"))
 
 

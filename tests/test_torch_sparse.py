@@ -1,7 +1,8 @@
 """Port parity, sparse plane and kernels: id helpers, the plain versions of
 K1 (``union_segsum``) and K2 (``rowsparse_scatter``) against the JAX
 package's interpret-mode kernels and oracles, the union backends, top-k, the
-apply, and the submodel client delta. Inputs are made by numpy from a seed
+apply, the submodel client delta, the int8 row quantiser (bit for bit under
+the JAX package's own uniforms), the encoders and gather-before-backward. Inputs are made by numpy from a seed
 and fed to both packages. The CUDA kernels themselves run only on the card
 (``chip_smoke.py``); here every wrapper gets CPU tensors."""
 import numpy as np
@@ -26,6 +27,11 @@ from repro.sparse import count_unique_ids as j_count_unique
 from repro.sparse import remap_ids as j_remap
 from repro.sparse import topk_rows as j_topk_rows
 from repro.sparse import unique_ids_padded as j_unique
+from repro.core.aggregate import HeatSpec as JHeatSpec
+from repro.models import recsys as j_recsys
+from repro.sharding.logical import unbox
+from repro.sparse import compress as j_compress
+from repro.sparse import encode as j_encode
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax
@@ -40,6 +46,10 @@ from repro_torch.models.recsys import lr_loss
 from repro_torch.sparse.aggregate import (aggregate_rowsparse,
                                           aggregate_rowsparse_dense,
                                           apply_rowsparse)
+from repro_torch.core.aggregate import HeatSpec
+from repro_torch.models import recsys
+from repro_torch.sparse import compress
+from repro_torch.sparse import encode
 from repro_torch.sparse.compress import topk_rows
 from repro_torch.sparse.rowsparse import (RowSparse, count_unique_ids, remap_ids,
                                           unique_ids_padded)
@@ -459,3 +469,235 @@ def test_submodel_client_delta_matches(rng, init, alg):
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got["b"].numpy(), np.asarray(want["b"]),
                                rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# int8 rows, top-k trees, the encoders, gather before backward
+# ---------------------------------------------------------------------------
+
+
+def _jax_key(seed, rounds, leaf=None):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), rounds)
+    return key if leaf is None else jax.random.fold_in(key, leaf)
+
+
+@pytest.fixture
+def jax_uniforms(monkeypatch):
+    """The port's int8 noise replaced by the JAX package's own draws on the
+    same ``(seed, rounds, leaf)`` keys."""
+    def uniform(shape, seed, rounds, leaf_index, device):
+        u = jax.random.uniform(_jax_key(seed, rounds, leaf_index), shape)
+        return torch.from_numpy(np.array(u)).to(device)
+
+    monkeypatch.setattr(compress, "int8_uniform", uniform)
+
+
+def _rows_cohort(rng, lead, r, d, v=50):
+    ids = np.full(lead + (r,), -1, np.int32)
+    rows = np.zeros(lead + (r, d), np.float32)
+    for idx in np.ndindex(*lead):
+        n = int(rng.integers(1, r + 1))
+        ids[idx][:n] = np.sort(rng.choice(v, size=n, replace=False))
+        rows[idx][:n] = rng.normal(size=(n, d)) * rng.choice([1e-3, 1.0, 30.0])
+        rows[idx][0] = 0.0                      # an all-zero real row: scale 1
+    return ids, rows
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("d", [1, 6, 25])
+def test_int8_quantize_matches_jax_bit_for_bit(jax_uniforms, lead, d):
+    rng = np.random.default_rng(d)
+    ids, rows = _rows_cohort(rng, lead, 9, d)
+    want = j_compress.quantize_rows_int8(
+        JRowSparse(jnp.asarray(ids), jnp.asarray(rows), 50), _jax_key(7, 3, 2))
+    got = compress.quantize_rows_int8(RowSparse(_t(ids), _t(rows), 50), (7, 3, 2))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    assert got.q.dtype == torch.int8 and got.num_rows == 50
+    np.testing.assert_array_equal(compress.dequantize_rows(got).rows.numpy(),
+                                  np.asarray(j_compress.dequantize_rows(want).rows))
+
+
+def test_quantize_tree_int8_draws_per_leaf(jax_uniforms):
+    """Each leaf draws its own stream (the JAX package's ``fold_in(key,
+    leaf)``): two tables with equal rows round independently."""
+    rng = np.random.default_rng(0)
+    ids, rows = _rows_cohort(rng, (2,), 6, 4)
+    dense = rng.normal(size=(2, 3)).astype(np.float32)
+
+    def tree(rs_cls, arr):
+        return {"a": rs_cls(arr(ids), arr(rows), 50), "b": arr(dense),
+                "c": rs_cls(arr(ids), arr(rows), 50)}
+
+    want = j_compress.quantize_tree_int8(tree(JRowSparse, jnp.asarray), _jax_key(3, 5))
+    got = compress.quantize_tree_int8(tree(RowSparse, _t), (3, 5))
+    for name in ("a", "c"):
+        np.testing.assert_array_equal(got[name].q.numpy(), np.asarray(want[name].q))
+    np.testing.assert_array_equal(got["b"].numpy(), dense)
+    assert not torch.equal(got["a"].q, got["c"].q)
+
+
+def test_compress_delta_tree_topk_then_int8_matches_jax(jax_uniforms):
+    rng = np.random.default_rng(1)
+    ids, rows = _rows_cohort(rng, (4,), 10, 3)
+    dense = rng.normal(size=(4, 2)).astype(np.float32)
+    want = j_compress.compress_delta_tree(
+        {"w": JRowSparse(jnp.asarray(ids), jnp.asarray(rows), 50), "b": jnp.asarray(dense)},
+        topk=4, int8=True, key=_jax_key(17, 2))
+    got = compress.compress_delta_tree({"w": RowSparse(_t(ids), _t(rows), 50),
+                                        "b": _t(dense)}, topk=4, int8=True, key=(17, 2))
+    np.testing.assert_array_equal(got["w"].ids.numpy(), np.asarray(want["w"].ids))
+    np.testing.assert_array_equal(got["w"].rows.numpy(), np.asarray(want["w"].rows))
+    np.testing.assert_array_equal(got["b"].numpy(), dense)
+    with pytest.raises(ValueError, match="key"):
+        compress.compress_delta_tree({"w": RowSparse(_t(ids), _t(rows), 50)}, int8=True)
+
+
+def test_int8_uniform_streams_and_unbiased_rounding():
+    """The port's own stream: one ``(seed, rounds, leaf)`` draws the same
+    noise, another triple other noise, and the mean of 512 dequantised
+    draws is within 4 of the rounding's standard errors of the rows (each
+    row's sum, and all of them)."""
+    cpu = torch.device("cpu")
+    a = compress.int8_uniform((64,), 17, 3, 0, cpu)
+    assert torch.equal(a, compress.int8_uniform((64,), 17, 3, 0, cpu))
+    assert not torch.equal(a, compress.int8_uniform((64,), 17, 4, 0, cpu))
+    assert not torch.equal(a, compress.int8_uniform((64,), 17, 3, 1, cpu))
+    assert a.dtype == torch.float32 and float(a.min()) >= 0.0 and float(a.max()) < 1.0
+    rng = np.random.default_rng(2)
+    ids, rows = _rows_cohort(rng, (), 8, 5)
+    rs = RowSparse(_t(ids), _t(rows), 50)
+    n = 512
+    mean = sum(compress.dequantize_rows(compress.quantize_rows_int8(rs, (0, r, 0))).rows
+               for r in range(n)) / n
+    # the rounding's own standard error: s * sqrt(p (1 - p) / n), p = frac(x / s)
+    scales = rs.rows.abs().amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
+    frac = rs.rows / scales - torch.floor(rs.rows / scales)
+    var = scales * scales * frac * (1 - frac) / n
+    dev = mean - rs.rows
+    # each row's summed deviation (one element's z is no test at small p)
+    assert bool((dev.sum(-1).abs() <= 4 * torch.sqrt(var.sum(-1))).all())
+    assert float(dev.sum().abs()) <= 4 * float(torch.sqrt(var.sum()))
+
+
+@pytest.mark.parametrize("model", ["lr", "lstm", "din"])
+def test_leaf_order_matches_jax_flatten(model):
+    """The int8 stream's leaf index is the leaf's place in the JAX
+    package's flatten order of the same tree."""
+    key = jax.random.PRNGKey(0)
+    tree = {"lr": lambda: j_recsys.make_lr_params(30),
+            "lstm": lambda: j_recsys.make_lstm_params(30, emb_dim=4, hidden=3, layers=2,
+                                                      rng=key),
+            "din": lambda: j_recsys.make_din_params(30, emb_dim=4, hidden=6, rng=key)}[model]()
+    flat, _ = jax.tree_util.tree_flatten_with_path(unbox(tree))
+    want = [".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+            for path, _ in flat]
+    assert compress.leaf_order(reversed(want)) == want
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_topk_tree_matches_jax(lead):
+    rng = np.random.default_rng(4)
+    ids, rows = _rows_cohort(rng, lead, 7, 2)
+    dense = rng.normal(size=(3,)).astype(np.float32)
+    want = j_compress.topk_tree({"w": JRowSparse(jnp.asarray(ids), jnp.asarray(rows), 50),
+                                 "b": jnp.asarray(dense)}, 3)
+    got = compress.topk_tree({"w": RowSparse(_t(ids), _t(rows), 50), "b": _t(dense)}, 3)
+    np.testing.assert_array_equal(got["w"].ids.numpy(), np.asarray(want["w"].ids))
+    np.testing.assert_array_equal(got["w"].rows.numpy(), np.asarray(want["w"].rows))
+    np.testing.assert_array_equal(got["b"].numpy(), dense)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_encode_delta_tree_matches_jax(batched):
+    rng = np.random.default_rng(5)
+    v, d, k = 40, 3, 4
+    lead = (k,) if batched else ()
+    delta = {"w": rng.normal(size=lead + (v, d)).astype(np.float32),
+             "head": rng.normal(size=lead + (d, v)).astype(np.float32),
+             "b": rng.normal(size=lead + (2,)).astype(np.float32)}
+    raw = rng.integers(-1, v, lead + (12,))
+    ids = (np.stack([np.asarray(j_unique(jnp.asarray(r), 10)) for r in raw]) if batched
+           else np.asarray(j_unique(jnp.asarray(raw), 10)))
+    spaces = {"w": ("vocab", 0), "head": ("vocab", 1), "b": None}
+    want = j_encode.encode_delta_tree({n: jnp.asarray(x) for n, x in delta.items()},
+                                      JHeatSpec(spaces), jnp.asarray(ids))
+    got = encode.encode_delta_tree({n: _t(x) for n, x in delta.items()}, HeatSpec(spaces),
+                                   _t(ids))
+    np.testing.assert_array_equal(got["w"].ids.numpy(), np.asarray(want["w"].ids))
+    np.testing.assert_array_equal(got["w"].rows.numpy(), np.asarray(want["w"].rows))
+    assert got["w"].num_rows == v
+    for name in ("head", "b"):          # a trailing vocab axis stays dense
+        np.testing.assert_array_equal(got[name].numpy(), delta[name])
+
+
+@pytest.mark.parametrize("cap", [8, 40, 64])
+def test_batch_union_ids_match_jax(cap):
+    rng = np.random.default_rng(cap)
+    batch = {"hist": rng.integers(-1, 60, (5, 6)).astype(np.int32),
+             "target": rng.integers(0, 60, (5,)).astype(np.int32)}
+    keys = ("hist", "target")
+    jb = {n: jnp.asarray(x) for n, x in batch.items()}
+    tb = {n: _t(x) for n, x in batch.items()}
+    np.testing.assert_array_equal(encode.flat_feature_ids(tb, keys).numpy(),
+                                  np.asarray(j_encode.flat_feature_ids(jb, keys)))
+    np.testing.assert_array_equal(encode.batch_union_ids(tb, keys, cap).numpy(),
+                                  np.asarray(j_encode.batch_union_ids(jb, keys, cap)))
+
+
+@pytest.mark.parametrize("shape", [(4, 9), (2, 3, 4, 9)])
+def test_pin_labels_matches_jax(shape):
+    toks = np.random.default_rng(0).integers(0, 50, shape).astype(np.int32)
+    got = encode.pin_labels({"tokens": _t(toks)})["labels"]
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(j_encode.pin_labels({"tokens": jnp.asarray(toks)})["labels"]))
+    # the (B, S) and (K, I, B, S) layouts label the same sequence alike
+    np.testing.assert_array_equal(got.numpy().reshape(-1, 9)[:, :-1],
+                                  toks.reshape(-1, 9)[:, 1:])
+    assert (got.numpy()[..., -1] == 0).all()
+
+
+def test_pin_labels_noop_cases():
+    labels = torch.zeros((2, 3), dtype=torch.int32)
+    d = encode.pin_labels({"tokens": torch.ones((2, 3), dtype=torch.int32), "labels": labels})
+    assert d["labels"] is labels
+    assert "labels" not in encode.pin_labels({"label": torch.ones(4, dtype=torch.int32)})
+    assert "labels" not in encode.pin_labels({"tokens": torch.ones(4, dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("model", ["lr", "lstm"])
+def test_submodel_value_and_grad_matches_jax(model):
+    """Gather before backward: the union's ids exact, the loss and the row
+    and dense gradients within 1e-5."""
+    rng = np.random.default_rng(6)
+    v = 64
+    if model == "lr":
+        tree = {"w": rng.normal(size=(v, 1)).astype(np.float32),
+                "b": rng.normal(size=(1,)).astype(np.float32)}
+        batch = {"features": rng.integers(-1, v, (8, 5)).astype(np.int32),
+                 "label": rng.integers(0, 2, 8).astype(np.int32)}
+        key, table, j_loss, loss = "features", "w", j_recsys.lr_loss, recsys.lr_loss
+    else:
+        tree = jax.tree.map(np.asarray, unbox(j_recsys.make_lstm_params(
+            v, emb_dim=5, hidden=4, layers=1, rng=jax.random.PRNGKey(2))))
+        batch = {"tokens": rng.integers(-1, v, (6, 7)).astype(np.int32),
+                 "label": rng.integers(0, 2, 6).astype(np.int32)}
+        key, table, j_loss, loss = "tokens", "embedding", j_recsys.lstm_loss, recsys.lstm_loss
+    jb = {n: jnp.asarray(x) for n, x in batch.items()}
+    ids = j_encode.batch_union_ids(jb, (key,), 32)
+    want_loss, want = j_encode.submodel_value_and_grad(
+        j_loss, jax.tree.map(jnp.asarray, tree), jb, (table,), (key,), ids)
+    params, _ = params_from_jax(tree, device="cpu")
+    tb = {n: _t(x) for n, x in batch.items()}
+    tids = encode.batch_union_ids(tb, (key,), 32)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(ids))
+    got_loss, got = encode.submodel_value_and_grad(loss, params, tb, table, (key,), tids)
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5
+    np.testing.assert_array_equal(got[table].ids.numpy(), np.asarray(want[table].ids))
+    np.testing.assert_allclose(got[table].rows.numpy(), np.asarray(want[table].rows),
+                               rtol=1e-5, atol=1e-5)
+    from repro_torch.convert import _flatten
+    want_dense = _flatten({n: g for n, g in want.items() if n != table})
+    assert set(got) == set(params)
+    for name, w in want_dense.items():
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=1e-5, atol=1e-5, err_msg=name)

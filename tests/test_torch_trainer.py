@@ -35,8 +35,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax, server_state_from_jax
 from repro_torch.data.synthetic import (make_amazon_like, make_movielens_like,
                                         make_sent140_like)
-from repro_torch.federated.plan import (CohortSharding, ReplicatedLocal,
-                                        RoundPlan, RowSparseTransport,
+from repro_torch.federated.plan import (CohortSharding, RoundPlan, RowSparseTransport,
                                         ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
 from repro_torch.models import recsys
@@ -230,23 +229,22 @@ def test_explicit_plan_matches_config_flags(data):
                                         RowSparseTransport(), ServerUpdate("fedavg")))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(sparse_int8=True),
-    dict(plan=dict(sharding=CohortSharding(mesh=None))),
-    dict(plan=dict(debug_checks=True)),
-    dict(plan=dict(local=ReplicatedLocal())),
+@pytest.mark.parametrize("kw,item", [
+    (dict(plan=dict(sharding=CohortSharding(mesh=None))), 8),
+    (dict(telemetry=True), 6),
 ])
-def test_unported_paths_raise(data, kw):
+def test_unported_paths_raise(data, kw, item):
     _, port, _ = data
+    kw = dict(kw)
     plan = kw.pop("plan", None)
     if plan is not None:
         plan = RoundPlan(**{"local": SubmodelReplicatedLocal(),
                             "transport": RowSparseTransport(),
                             "server": ServerUpdate("fedsubavg"), **plan})
-    cfg = FedConfig(**{**_cfg_kw("fedsubavg", 0), **kw})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1, item \d"):
+    cfg = FedConfig(**_cfg_kw("fedsubavg", 0))
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\b"):
         FederatedTrainer(port, functools.partial(make_lr_params, port.num_features),
-                         lr_loss, cfg, plan=plan, device="cpu")
+                         lr_loss, cfg, plan=plan, device="cpu", **kw)
 
 
 def test_default_device_is_cuda_and_raises_without_it(data, monkeypatch):
