@@ -118,12 +118,40 @@ Phases, each of which asserts; any failure exits non-zero:
     against the host's, from the host's deltas, within 1e-5: a ulp of
     difference between the two sides' deltas can move a rounding by one
     quantum); Example 1's condition numbers (``core/preconditioner.py``)
+27. round telemetry at [4]'s configuration: 20 rounds through ``run`` and
+    20 through ``run(engine=True)``, telemetry on (a JSONL ``TraceSink``),
+    off and off again, K1 20 of 20 per run; on against off: the records
+    within 1e-6 and the parameters within 1e-5 (K1's atomic order on rows
+    scaled by up to N / n_m moves them by a few 1e-6 between any two runs;
+    the second off run shows it); every
+    round's heat histogram sums to its union, no id dropped at the pow2
+    capacity; the sink reads back; ``compile_time`` booked in exactly the
+    stretches with a first dispatch; ms and device ops per round on and
+    off; [25]'s sparse ``FedSgdLocal`` LSTM step (no K1) on and off bit for
+    bit under deterministic algorithms; a planted capacity of 16 through
+    ``build_round_step``: the drop counts equal a numpy count
+28. ``run(2, profile_dir=...)``: one trace file, its ``rounds[a:b]`` range
+    and as many K1 events as K1's launch counter rose by
+29. the buffered-async engine at [4]'s configuration: (a) zero delay with
+    ``buffer_size = K`` against ``run_rounds(10)`` within 1e-5 (K1 10 of
+    10 fires, the next numpy draw equal); (b) 20 lognormal waves with
+    stragglers and dropouts, 25-arrival buffers, polynomial staleness and
+    EMA heat: K1 once per fire, each fire's staleness histogram sums to 25,
+    loss falls, AUC > 0.5, rows only dropped clients touch unchanged; ms
+    per event and per fire, device ops per dispatch group, arrival group
+    and fire (a profiled rerun), K1 at the fire's shape; (c) the same with
+    100-arrival buffers and constant weights
+30. card against host: (b)'s schedule over 6 waves of K = 20 on 200
+    clients with telemetry and a non-binding top-k: losses, parameters,
+    EMA heat and telemetry within 1e-5 (integers equal); a mid-run
+    checkpoint saved on the card and resumed on the host equals the
+    uninterrupted host run within 1e-5
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
-on the replicated and int8 paths and in ``make_round_step``, and its times
-at the DIN and LSTM rounds), the card line and, last,
-``{"ok": true, "device": {...}}``.
+on the replicated and int8 paths, in ``make_round_step``, on the telemetry
+runs and the async fires, and its times at the DIN and LSTM rounds and at
+an async fire), the card line and, last, ``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
@@ -132,7 +160,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -146,7 +176,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.federated import ArrivalSim, BufferedAsyncServerUpdate  # noqa: E402
+from repro_torch.telemetry import TraceSink, read_events, telemetry_to_host  # noqa: E402
 from repro_torch.data.batching import pooled_batches  # noqa: E402
 from repro_torch.data.synthetic import (make_amazon_like,  # noqa: E402
                                         make_movielens_like, make_sent140_like)
@@ -178,7 +211,7 @@ from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
 from repro_torch.federated import plan as plan_mod  # noqa: E402
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
-from repro_torch.sparse.rowsparse import RowSparse  # noqa: E402
+from repro_torch.sparse.rowsparse import RowSparse, unique_ids_padded  # noqa: E402
 from tools.aggregation_times import N_CLIENTS, SHAPES, cohort, cuda_ms  # noqa: E402
 from tools.paper_tables import DIN_DATA, print_tables, tables, task_bindings  # noqa: E402
 
@@ -326,17 +359,20 @@ LSTM_REDUCED = ("none against a published size: the repository gives none for it
                 "this script's choice; emb 25, hidden 100, two cells as in the repository")
 
 
-def make_trainer(ds, alg: str, device, plan=None, **fed_kw) -> FederatedTrainer:
+def make_trainer(ds, alg: str, device, plan=None, telemetry: bool = False, sink=None,
+                 **fed_kw) -> FederatedTrainer:
     """The paper's model for the dataset's task at the repository's widths
     (``tools/paper_tables.py::task_bindings``; random leaves drawn on the
     host from ``SEED``, so the card and the host start alike), K = 100, on
-    the sparse plan unless ``fed_kw`` says otherwise."""
+    the sparse plan unless ``fed_kw`` says otherwise. Telemetry is off
+    unless asked for, so that the phases timing rounds run the program
+    they timed before the trainer's default turned it on."""
     cfg = FedConfig(**{**dict(num_clients=ds.num_clients, clients_per_round=100,
                               local_iters=5, local_batch=5, lr=0.5, algorithm=alg,
                               sparse=True, seed=SEED), **fed_kw})
     make_params, loss, predict = task_bindings(ds, SEED)
     return FederatedTrainer(ds, make_params, loss, cfg, predict_fn=predict, plan=plan,
-                            device=device)
+                            device=device, telemetry=telemetry, sink=sink)
 
 
 def drive(tr: FederatedTrainer, label: str) -> dict:
@@ -1147,7 +1183,10 @@ def device_times(prof) -> tuple:
 
     by_name, ops = {}, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a record_function range has a device-side span too: not an op
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith("async_engine.")):
             ops += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     return by_name, ops
@@ -1581,6 +1620,430 @@ def phase_new_card_vs_host(lr_small, lstm_small) -> None:
           and abs(kc - n) <= 1e-3 * n, "Example 1's condition numbers differ")
 
 
+# ---------------------------------------------------------------------------
+# Round telemetry, the trace sink, profile_dir and the buffered-async engine
+# ---------------------------------------------------------------------------
+
+#: git-ignored; traces, sinks and checkpoints of [27]-[30]
+OUT_DIR = ROOT / "build" / "chip_smoke"
+#: RoundTelemetry fields compared exactly between card and host
+TEL_EXACT = ("dropped_ids", "dropped_per_client", "union_size", "agg_rows",
+             "heat_hist", "staleness_hist", "buffer_occupancy", "round", "event")
+
+
+def params_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+
+def params_close(a: dict, b: dict, tol: float) -> bool:
+    """Every leaf within ``tol`` (``torch.allclose``, rtol = atol = tol)."""
+    return all(torch.allclose(a[k].cpu(), b[k].cpu(), rtol=tol, atol=tol) for k in a)
+
+
+def telemetry_diff(card: list, host: list) -> float:
+    """Round events of two runs: integer fields equal; returns the largest
+    difference of the float fields (``None`` fields must agree)."""
+    check(len(card) == len(host), f"{len(card)} against {len(host)} telemetry events")
+    worst = 0.0
+    for c, h in zip(card, host):
+        check(set(c) == set(h), "telemetry keys differ")
+        for name, w in h.items():
+            g = c[name]
+            if name in TEL_EXACT or name == "comm" or w is None:
+                check(g == w, f"telemetry {name}: card {g} host {w}")
+            else:
+                worst = max(worst, float(np.abs(np.asarray(g) - np.asarray(w)).max()))
+    return worst
+
+
+def ops_per_round(tr: FederatedTrainer, n: int = 3) -> tuple:
+    """Device ops and device ms per round over ``n`` warm ``run_round``
+    calls (torch.profiler through ``device_profile``)."""
+    _, by_name, ops = device_profile(lambda: [tr.run_round() for _ in range(n)])
+    return ops / n, sum(by_name.values()) / n / 1e3
+
+
+def stretch_firsts(tr: FederatedTrainer) -> list:
+    """Wrap the trainer's dispatch marker: the returned list gains, per
+    dispatch, the round count before it and whether it was a first."""
+    seen, mark = [], tr._mark_dispatch
+
+    def marked(key):
+        before = tr._rounds_run
+        mark(key)
+        seen.append((before, tr._last_dispatch_first))
+
+    tr._mark_dispatch = marked
+    return seen
+
+
+def phase_telemetry(ds, lstm_ds) -> dict:
+    """[27]: fedsubavg at [4]'s configuration, 20 rounds through ``run``
+    and 20 through ``run(engine=True)``, each with telemetry on (a JSONL
+    sink), off, and off again (the control); K1 20 of 20 per run; on
+    against off: records within 1e-6, parameters within 1e-5 (K1's atomic
+    order differs between any two runs, the control's too); every round's heat
+    histogram sums to its union size, no drop at the pow2 capacity; the
+    sink reads back; first dispatches booked exactly in the stretches that
+    had one. Then ms and device ops per round on and off, the LSTM's sparse
+    ``FedSgdLocal`` step (no K1) on and off bit for bit under deterministic
+    algorithms, and a planted capacity of 16 against a numpy count."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out, trainers = {"launches": {}}, {}
+    for engine in (False, True):
+        for tel in (True, False, None):
+            # None: a second run with telemetry off, the control for K1's order
+            label = (f"run{'(engine=True)' if engine else ''} telemetry "
+                     f"{'on' if tel else 'off'}{' again' if tel is None else ''}")
+            path = OUT_DIR / f"sink_engine{int(engine)}.jsonl"
+            tr = make_trainer(ds, "fedsubavg", DEV, telemetry=bool(tel),
+                              sink=TraceSink(str(path)) if tel else None)
+            firsts = stretch_firsts(tr)
+            union_segsum.launches = 0
+            tr.run(20, eval_every=10, engine=engine)
+            launches = union_segsum.launches
+            out["launches"][label] = launches
+            check(launches == 20, f"{label}: K1 served {launches}/20 rounds")
+            # run_round counts the round before its dispatch, run_rounds after
+            per_stretch = [any(f for r, f in firsts if (r - (not engine)) // 10 == i)
+                           for i in range(2)]
+            booked = [h.compile_time > 0 for h in tr.history]
+            check(booked == per_stretch and booked[0],
+                  f"{label}: compile_time {[h.compile_time for h in tr.history]} against "
+                  f"first dispatches by stretch {per_stretch}")
+            trainers[(engine, tel)] = tr
+            if tel:
+                tr.sink.close()
+                events = read_events(str(path))
+                rounds = [e for e in events if e["event"] == "round"]
+                check({e["event"] for e in events} == {"round", "record"}
+                      and len(rounds) == 20 and len(events) == 22, f"{label}: sink events")
+                check(all(sum(e["heat_hist"]) == e["union_size"] > 0 for e in rounds),
+                      f"{label}: a heat histogram does not sum to its union")
+                check(all(e["dropped_ids"] == 0 and e["dropped_mass"] == 0.0 for e in rounds),
+                      f"{label}: ids dropped at the pow2 capacity")
+                check(tr.telemetry_log == rounds, f"{label}: sink and telemetry_log differ")
+            print(f"  {label}: K1 {launches}/20; records' steady ms/round "
+                  f"{[round(h.wall_time * 1e3, 2) for h in tr.history]}, first-dispatch s "
+                  f"{[round(h.compile_time, 4) for h in tr.history]}")
+        on, off, again = (trainers[(engine, t)] for t in (True, False, None))
+        dl = max(max(abs(a.train_loss - b.train_loss), abs(a.test_metric - b.test_metric))
+                 for a, b in zip(on.history, off.history))
+        dp = params_diff(on.state.params, off.state.params)
+        dc = params_diff(again.state.params, off.state.params)
+        print(f"  on against off ({'engine' if engine else 'loop'}): max |train loss or AUC "
+              f"diff| {dl:.3g}, max |param diff| {dp:.3g} (off against off: {dc:.3g}, K1's "
+              f"atomic order on rows scaled by up to N / n_m = {ds.num_clients}); union "
+              f"size mean {on.telemetry_summary()['mean_union_size']:.1f}")
+        # the parameters as card against host ([5]): 1e-6 does not hold between
+        # any two runs of K1 here, telemetry or not
+        check(dl <= 1e-6 and params_close(on.state.params, off.state.params, 1e-5),
+              f"telemetry on and off differ: {dl}, {dp}")
+    for tel in (True, False):
+        tr = trainers[(False, tel)]
+        ms = statistics.mean(h.wall_time for h in tr.history) * 1e3
+        ops, dev_ms = ops_per_round(tr)
+        out["on" if tel else "off"] = {"ms_per_round": ms, "device_ops_per_round": ops,
+                                       "device_ms_per_round": dev_ms}
+        print(f"  telemetry {'on' if tel else 'off'}: {ms:.2f} ms/round steady (run), "
+              f"{ops:.0f} device ops and {dev_ms:.3f} ms of device work per round")
+
+    make_params, loss_fn, _ = task_bindings(lstm_ds, SEED)
+    params0, axes = make_params(DEV)
+    cfg = FedConfig(num_clients=lstm_ds.num_clients, clients_per_round=100, local_iters=5,
+                    local_batch=5, lr=0.5, seed=SEED)
+    results = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for tel in (False, True):
+            rng = np.random.default_rng(SEED + 6)
+            step = make_round_step(loss_fn, params0, axes, cfg, mode="sparse", telemetry=tel)
+            params, losses, tels = {k: v.clone() for k, v in params0.items()}, [], []
+            for _ in range(3):
+                params, m = step(params, lstm_inputs(lstm_ds, rng, False))
+                losses.append(float(m["loss"]))
+                tels.append(m.get("telemetry"))
+            results.append((losses, params, tels))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l0, p0, _), (l1, p1, tels) = results
+    same = l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
+    host = [telemetry_to_host(t) for t in tels]
+    print(f"  LSTM sparse FedSgdLocal, 3 steps, telemetry on and off: equal bit for bit: "
+          f"{same}; union sizes {[h['union_size'] for h in host]}, delta norms "
+          f"{[round(h['delta_norm_pre'], 5) for h in host]}")
+    check(same, "telemetry changed the sparse FedSgdLocal step")
+    check(all(sum(h["heat_hist"]) == h["union_size"] > 0 for h in host), "LSTM heat hist")
+
+    make_params, loss_fn, _ = task_bindings(ds, SEED)
+    params, axes = make_params(DEV)
+    cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100, local_iters=5,
+                    local_batch=5, lr=0.5, seed=SEED)
+    step = build_round_step(resolve_plan("sparse_replicated", cfg, feature_key="features"),
+                            loss_fn, axes, params, cfg, telemetry=True)
+    rng = np.random.default_rng(SEED + 9)
+    batch = sample_cohort_batch(ds, rng.choice(ds.num_clients, 100, replace=False), 5, 5, rng)
+    feats = batch["features"].reshape(100, -1)
+    valid = np.where((feats >= 0) & (feats < ds.num_features), feats, -1)
+    cap = 16
+    small = unique_ids_padded(torch.from_numpy(valid).to(DEV), cap)
+    dev_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEV) for k, v in batch.items()}
+    dev_batch["heat_vocab"] = torch.as_tensor(ds.heat.counts, dtype=torch.float32, device=DEV)
+    _, m = step(ServerState(params, (), 0), dev_batch, small)
+    tel = telemetry_to_host(m["telemetry"])
+    dropped, mass = [], 0
+    for row in valid:
+        kept = np.unique(row[row >= 0])[:cap]
+        dropped.append(len(np.unique(row[row >= 0])) - kept.size)
+        mass += int(((row >= 0) & ~np.isin(row, kept)).sum())
+    print(f"  planted capacity {cap}, K = 100: dropped ids {tel['dropped_ids']} (numpy "
+          f"{sum(dropped)}), mass {tel['dropped_mass']:.0f} (numpy {mass}), union "
+          f"{tel['union_size']}")
+    check(tel["dropped_per_client"] == dropped and tel["dropped_ids"] == sum(dropped) > 0
+          and tel["dropped_mass"] == float(mass), "planted capacity: drop counts differ")
+    return out
+
+
+def phase_profile_dir(ds) -> dict:
+    """[28]: ``run(2, profile_dir=...)`` writes one trace holding its
+    ``rounds[a:b]`` range and K1's events, as many as K1's launch counter
+    rose by (the rule of ``device_profile``: a trace short of them is the
+    profiler's miss, taken again)."""
+    tr = make_trainer(ds, "fedsubavg", DEV, telemetry=True)
+    tr.run_round()
+    for attempt in range(5):
+        pdir = OUT_DIR / f"profile_{attempt}"
+        shutil.rmtree(pdir, ignore_errors=True)
+        torch.cuda.synchronize()
+        before = union_segsum.launches
+        a = tr._rounds_run
+        tr.run(2, eval_every=2, profile_dir=str(pdir))
+        rise = union_segsum.launches - before
+        files = sorted(pdir.glob("*.pt.trace.json"))
+        check(len(files) == 1, f"profile_dir holds {files}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        ranges = sorted({e["name"] for e in events
+                         if re.fullmatch(r"rounds\[\d+:\d+\]", str(e.get("name", "")))})
+        k1 = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "union_segsum_kernel" in str(e.get("name", "")))
+        if k1 == rise:
+            break
+        print(f"    (the trace holds {k1} K1 events against {rise} launches: profiling again)")
+    print(f"  {files[0].name}: {files[0].stat().st_size / 1e6:.2f} MB, {len(events)} events, "
+          f"ranges {ranges}, K1 events {k1} = launches {rise}")
+    check(k1 == rise == 2 and ranges == [f"rounds[{a}:{a + 2}]"],
+          f"profile_dir: ranges {ranges}, K1 {k1} against {rise}")
+    return {"k1_events": k1, "ranges": ranges}
+
+
+def ops_by_range(prof, names) -> dict:
+    """``{name: [ranges, device ops, device us, host us]}`` for each named
+    host range of a profile: a device event belongs to the range its launch
+    call (matched by correlation id) falls in."""
+    path = OUT_DIR / "ranges.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {n: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == n and e.get("cat") == "user_annotation"] for n in names}
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {n: [len(s), 0, 0.0, sum(b - a for a, b in s)] for n, s in spans.items()}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launch.get(e.get("args", {}).get("correlation"))
+        for n, s in spans.items():
+            if t is not None and any(a <= t <= b for a, b in s):
+                out[n][1] += 1
+                out[n][2] += e["dur"]
+    return out
+
+
+ASYNC_SIM = dict(num_rounds=20, delay="lognormal", delay_scale=0.5, lognormal_sigma=1.2,
+                 straggler_frac=0.05, dropout_frac=0.02, seed=8)
+
+
+def phase_async(ds, sync_ms: float) -> dict:
+    """[29]: (a) zero delay, ``buffer_size = K``: ``run_async`` over 10
+    waves against ``run_rounds(10)`` within 1e-5, the next numpy draw
+    equal, K1 10 of 10 fires; (b) ``ASYNC_SIM`` with 25-arrival buffers,
+    polynomial staleness and EMA heat: K1 once per fire, each fire's
+    staleness histogram sums to 25, loss falls and AUC > 0.5, the rows only
+    dropped-out clients touch unchanged; its time per event and per fire, a
+    profiled rerun's device ops per dispatch and per fire, K1 at the fire's
+    shape; (c) the same schedule with 100-arrival buffers and constant
+    weights."""
+    from torch.autograd import DeviceType
+
+    out = {"launches": {}}
+    sync = make_trainer(ds, "fedsubavg", DEV, telemetry=True)
+    asyn = make_trainer(ds, "fedsubavg", DEV, telemetry=True)
+    ls = sync.run_rounds(10)
+    union_segsum.launches = 0
+    la = asyn.run_async(ArrivalSim(num_rounds=10))
+    launches = union_segsum.launches
+    out["launches"]["zero delay"] = launches
+    dl = max(abs(a - b) for a, b in zip(ls, la))
+    dp = params_diff(sync.state.params, asyn.state.params)
+    same_draw = sync.np_rng.integers(1 << 30) == asyn.np_rng.integers(1 << 30)
+    print(f"  (a) zero delay, M = K = 100, 10 waves: K1 {launches}/10 fires; against "
+          f"run_rounds(10): max |loss diff| {dl:.3g}, max |param diff| {dp:.3g}; next "
+          f"draw equal: {same_draw}")
+    check(launches == 10 and dl <= 1e-5 and same_draw and len(la) == 10
+          and params_close(sync.state.params, asyn.state.params, 1e-5),
+          "zero-delay async differs from run_rounds")
+
+    for tag, srv in (("b", BufferedAsyncServerUpdate(buffer_size=25, staleness="polynomial",
+                                                     heat="ema")),
+                     ("c", BufferedAsyncServerUpdate(buffer_size=100, heat="ema"))):
+        sim = ArrivalSim(**ASYNC_SIM)
+        sch = sim.compile(100, srv.buffer_size)
+        tr = make_trainer(ds, "fedsubavg", DEV, telemetry=True)
+        waves, sample = [], tr._sample_sparse_cohort
+
+        def recorded():
+            c, f = sample()
+            waves.append(f)
+            return c, f
+
+        tr._sample_sparse_cohort = recorded
+        loss0, table0 = tr.train_loss(), tr.state.params["w"].clone()
+        captured = {}
+        union_segsum.launches = 0
+        torch.cuda.synchronize()
+        with capture_k1(captured):
+            t0 = time.perf_counter()
+            losses = tr.run_async(sim, server=srv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = union_segsum.launches
+        out["launches"][tag] = launches
+        fires = tr.telemetry_log[-sch.num_fires:]
+        loss1, auc = tr.train_loss(), tr.evaluate()
+        feats = np.concatenate(waves)
+
+        def touched(mask):
+            ids = feats[mask].ravel()
+            return np.unique(ids[(ids >= 0) & (ids < ds.num_features)])
+
+        private = np.setdiff1d(touched(sch.dropped), touched(~sch.dropped))
+        at = torch.from_numpy(private).to(DEV)
+        untouched = torch.equal(tr.state.params["w"][at], table0[at])
+        moved = int((tr.state.params["w"] != table0).any(-1).sum())
+        res = {"events": sch.num_events, "fires": sch.num_fires, "wall_s": wall,
+               "ms_per_event": wall / sch.num_events * 1e3,
+               "ms_per_fire": wall / sch.num_fires * 1e3, "launches": launches}
+        out[tag] = res
+        print(f"  ({tag}) M = {srv.buffer_size}, {srv.staleness} staleness, EMA heat: "
+              f"{sch.num_tasks} tasks, {int(sch.dropped.sum())} dropped, {sch.num_events} "
+              f"events, {sch.num_slots} slots, {sch.num_fires} fires (simulated speedup over "
+              f"the barrier {sch.sim_speedup():.2f}); K1 {launches}; {wall:.2f} s: "
+              f"{res['ms_per_event']:.3f} ms/event, {res['ms_per_fire']:.2f} ms/fire "
+              f"(a synchronous round {sync_ms:.2f} ms)")
+        print(f"    loss {loss0:.5f} -> {loss1:.5f}, AUC {auc:.5f}; fire losses "
+              f"{[round(x, 4) for x in losses[:3]]} ... {[round(x, 4) for x in losses[-3:]]}; "
+              f"staleness of the last fire {fires[-1]['staleness_hist']}; "
+              f"{private.size} rows only dropped clients touch, unchanged: {untouched} "
+              f"({moved} rows moved)")
+        check(launches == sch.num_fires == len(losses), f"({tag}) K1 {launches} against "
+              f"{sch.num_fires} fires")
+        check(all(sum(e["staleness_hist"]) == srv.buffer_size for e in fires),
+              f"({tag}) a fire's staleness histogram")
+        check(all(math.isfinite(x) for x in losses) and loss1 < loss0 and auc > 0.5,
+              f"({tag}) loss {loss0} -> {loss1}, AUC {auc}")
+        check(private.size > 0 and untouched, f"({tag}) dropped clients' rows")
+        if tag == "b":
+            args, scale = captured["args"], captured["kw"]["scale"]
+            ids, rows, v = args[0], args[1], args[5]
+            union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+            err = check_k1("union_segsum[async fire]", args, scale, union)
+            again = make_trainer(ds, "fedsubavg", DEV, telemetry=True)
+            prof, by_name, ops = device_profile(lambda: again.run_async(sim, server=srv))
+            # K1's device ops and time per call from the run's own profile: a
+            # short profile of a few K1 calls after [28]'s has come back empty
+            # five times in a row
+            k1_us = [us for name, us in by_name.items() if "union_segsum_kernel" in name]
+            k1_ops = sum(1 for e in prof.events() if "union_segsum_kernel" in e.name
+                         and e.device_type == DeviceType.CUDA)
+            timed = time_k1_k2(args, scale, "async fire", keys=("k1",), profiled={
+                "k1": (k1_ops / sch.num_fires, sum(k1_us) / sch.num_fires / 1e3)})
+            out["k1"] = {"shape": timed["shape"], "max_abs_err": err, **timed["k1"]}
+            names = ("async_engine.dispatch", "async_engine.arrive", "async_engine.fire")
+            ranges = ops_by_range(prof, names)
+            n_dispatch = int((sch.kind == 0).sum())
+            d, a, f = (ranges[n] for n in names)
+            res.update(device_ops=ops, device_ms=sum(by_name.values()) / 1e3,
+                       ops_per_dispatch=d[1] / n_dispatch,
+                       ranges={n[len("async_engine."):]: {
+                           "count": r[0], "device_ops_each": r[1] / max(r[0], 1),
+                           "device_ms_each": r[2] / 1e3 / max(r[0], 1),
+                           "host_ms_each_profiled": r[3] / 1e3 / max(r[0], 1)}
+                           for n, r in ranges.items()})
+            print(f"    profiled rerun: {ops} device ops, {res['device_ms']:.2f} ms of device "
+                  f"work ({res['device_ms'] / (wall * 1e3) * 100:.1f}% of the unprofiled "
+                  f"run's wall time); {res['ops_per_dispatch']:.2f} device ops per dispatch")
+            for n, r in res["ranges"].items():
+                print(f"      {r['count']} {n} ranges: {r['device_ops_each']:.1f} device ops, "
+                      f"{r['device_ms_each']:.4f} ms of device work and "
+                      f"{r['host_ms_each_profiled']:.3f} ms of host time (profiled) each")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            for name, us in top:
+                print(f"      {us / 1e3:.3f} ms  {name[:100]}")
+            check(f[0] == sch.num_fires and d[1] + a[1] + f[1] <= ops,
+                  f"ranges {ranges} against {ops} device ops")
+    return out
+
+
+def phase_async_card_vs_host(small) -> None:
+    """[30]: ``ASYNC_SIM`` over 6 waves of K = 20 on 200 clients, (b)'s
+    server slot, telemetry on and a top-k above every client's submodel, on
+    the card and on ``device="cpu"``: losses, parameters and the EMA heat
+    within 1e-5, telemetry's integer fields equal and its floats within
+    1e-5. Then a mid-run checkpoint: the first half of the events on the
+    card, ``save_checkpoint``, ``load_checkpoint`` on the host into a fresh
+    ``AsyncState``, the second half there; it equals the uninterrupted host
+    run within 1e-5."""
+    sim = ArrivalSim(**{**ASYNC_SIM, "num_rounds": 6})
+    srv = BufferedAsyncServerUpdate(buffer_size=25, staleness="polynomial", heat="ema")
+    kw = dict(clients_per_round=20, sparse_topk=1 << 16)
+    runs = []
+    for device in (DEV, torch.device("cpu")):
+        tr = make_trainer(small, "fedsubavg", device, telemetry=True, **kw)
+        runs.append((tr, tr.run_async(sim, server=srv)))
+    (card, lc), (host, lh) = runs
+    dl = max(abs(a - b) for a, b in zip(lc, lh))
+    dp = params_diff(card.state.params, host.state.params)
+    dh = float((card._async_heat_ema.cpu() - host._async_heat_ema).abs().max())
+    dt = telemetry_diff(card.telemetry_log, host.telemetry_log)
+    print(f"  {len(lc)} fires card vs host: max |loss diff| {dl:.3g}, |param diff| {dp:.3g}, "
+          f"|heat EMA diff| {dh:.3g}, telemetry integers equal, floats within {dt:.3g}")
+    check(len(lc) == len(lh) > 0 and max(dl, dh, dt) <= 1e-5
+          and params_close(card.state.params, host.state.params, 1e-5),
+          f"async card and host differ: {dl}, {dp}, {dh}, {dt}")
+
+    mid = str(OUT_DIR / "async_mid")
+    part = make_trainer(small, "fedsubavg", DEV, telemetry=True, **kw).prepare_async(sim, srv)
+    sch = part.schedule
+    cut = sch.num_events // 2
+    half, _ = part.engine.run(part.state, sch.slice_events(0, cut), part.tasks,
+                              part.sub_ids, part.feats)
+    save_checkpoint(mid, half, step=cut)
+    rest = make_trainer(small, "fedsubavg", "cpu", telemetry=True, **kw).prepare_async(sim, srv)
+    resumed = load_checkpoint(mid, rest.state)
+    done, _ = rest.engine.run(resumed, sch.slice_events(cut, sch.num_events), rest.tasks,
+                              rest.sub_ids, rest.feats)
+    dp = params_diff(done.server.params, host.state.params)
+    dh = float((done.heat_ema - host._async_heat_ema).abs().max())
+    print(f"  mid-run checkpoint after {cut} of {sch.num_events} events ({half.arrivals} "
+          f"arrivals, {half.server.rounds} fires, {half.buf_count} buffered) on the card, "
+          f"resumed on the host: max |param diff| {dp:.3g}, |heat EMA diff| {dh:.3g} "
+          f"against the uninterrupted host run")
+    check(done.server.rounds == len(lh) and dh <= 1e-5
+          and params_close(done.server.params, host.state.params, 1e-5),
+          f"checkpoint resume differs: {dp}, {dh}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1753,6 +2216,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_new_card_vs_host(small, make_sent140_like(**{**LSTM_DATA, "num_clients": 200}))
     print(f"  [26] took {time.perf_counter() - t0:.1f} s")
+
+    print("[27] round telemetry at MovieLens-1M width: on against off, the JSONL sink, "
+          "first dispatches, the LSTM step bit for bit, a planted capacity")
+    t0 = time.perf_counter()
+    tel = phase_telemetry(lr_ds, deep["lstm"][0])
+    for label, n in tel["launches"].items():
+        k1["launches_by_path"][f"lr {label}"] = n
+    print(f"  [27] took {time.perf_counter() - t0:.1f} s")
+
+    print("[28] run(profile_dir=...): the trace, its round ranges and K1's events")
+    t0 = time.perf_counter()
+    phase_profile_dir(lr_ds)
+    print(f"  [28] took {time.perf_counter() - t0:.1f} s")
+
+    print("[29] the buffered-async engine at MovieLens-1M width")
+    t0 = time.perf_counter()
+    asyn = phase_async(lr_ds, tel["off"]["ms_per_round"])
+    for label, n in asyn["launches"].items():
+        k1["launches_by_path"][f"lr async {label}"] = n
+    k1["async_fire"] = asyn["k1"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], asyn["k1"]["max_abs_err"])
+    print(f"  [29] took {time.perf_counter() - t0:.1f} s")
+
+    print("[30] card vs host: the async engine on 200 clients, K = 20, 6 waves; a mid-run "
+          "checkpoint saved on the card and resumed on the host")
+    t0 = time.perf_counter()
+    phase_async_card_vs_host(small)
+    print(f"  [30] took {time.perf_counter() - t0:.1f} s")
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -16,11 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sparse.rowsparse import RowSparse
+from repro_torch.sparse.rowsparse import RowSparse, membership
 
 __all__ = ["check_union_ids", "check_rowsparse", "check_drop_order", "check_capacity"]
-
-_SENTINEL = torch.iinfo(torch.int32).max
 
 
 def _require(ok: torch.Tensor, msg: str) -> None:
@@ -52,21 +50,6 @@ def check_rowsparse(rs: RowSparse, *, name: str = "delta") -> None:
              f"{name}.rows: non-zero payload in a -1 pad slot")
 
 
-def _membership(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Is each token in ``ids`` (sorted, ``-1``-padded)? ``ids`` is ``(R,)``
-    or ``(K, R)`` with ``tokens`` ``(K, M)``. Negative tokens never are."""
-    key = torch.where(ids >= 0, ids, _SENTINEL).to(torch.int32).contiguous()
-    t = tokens.to(torch.int32)
-    if ids.dim() > 1:
-        t = t.reshape(tuple(ids.shape[:-1]) + (-1,)).contiguous()
-    pos = torch.clamp(torch.searchsorted(key, t), max=key.shape[-1] - 1)
-    if ids.dim() == 1:
-        hit = key[pos] == t
-    else:
-        hit = torch.gather(key, -1, pos) == t
-    return hit & (t >= 0)
-
-
 def check_drop_order(ids: torch.Tensor, tokens: torch.Tensor, *,
                      name: str = "ids") -> None:
     """Capacity drops were largest first.
@@ -76,7 +59,7 @@ def check_drop_order(ids: torch.Tensor, tokens: torch.Tensor, *,
     missing from its union is legal only when that union is full and the
     token is larger than every kept id.
     """
-    member = _membership(tokens, ids)
+    member = membership(tokens, ids)
     real = ids >= 0
     full = real.all(dim=-1, keepdim=True)
     kept_max = torch.where(real, ids, -1).amax(dim=-1, keepdim=True)

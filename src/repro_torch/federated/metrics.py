@@ -1,5 +1,5 @@
-"""Evaluation metrics (numpy): binary accuracy, AUC, and comm-cost summaries
-of the sparse submodel update plane."""
+"""Evaluation metrics (numpy): binary accuracy, AUC, and summaries of the
+sparse submodel update plane's comm cost and of the round telemetry."""
 from __future__ import annotations
 
 from typing import Dict, Sequence
@@ -24,6 +24,26 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
 
 def accuracy(labels: np.ndarray, scores: np.ndarray) -> float:
     return float(((scores > 0) == (np.asarray(labels) > 0.5)).mean())
+
+
+def telemetry_summary(telemetry_log: Sequence[Dict]) -> Dict[str, object]:
+    """Aggregate a trainer's per-round telemetry events (host dicts with the
+    ``repro_torch.telemetry.round.RoundTelemetry`` fields): drops total over
+    rounds, union size and density average, the heat histogram sums bucket
+    by bucket."""
+    if not telemetry_log:
+        return {"rounds": 0, "dropped_ids": 0, "dropped_mass": 0.0,
+                "mean_union_size": 0.0, "mean_density": 0.0, "heat_hist": []}
+    drops = sum(int(e.get("dropped_ids") or 0) for e in telemetry_log)
+    mass = sum(float(e.get("dropped_mass") or 0.0) for e in telemetry_log)
+    unions = [float(e.get("union_size") or 0) for e in telemetry_log]
+    dens = [float(e.get("density") or 0.0) for e in telemetry_log]
+    hists = [e["heat_hist"] for e in telemetry_log if e.get("heat_hist")]
+    hist = (np.sum(np.asarray(hists, dtype=np.float64), axis=0).tolist()
+            if hists else [])
+    return {"rounds": len(telemetry_log), "dropped_ids": drops,
+            "dropped_mass": mass, "mean_union_size": float(np.mean(unions)),
+            "mean_density": float(np.mean(dens)), "heat_hist": hist}
 
 
 def comm_summary(comm_log: Sequence) -> Dict[str, float]:

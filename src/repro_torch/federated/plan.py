@@ -20,9 +20,10 @@ and the four mode strings of ``make_round_step`` through
 single-device round step, with the heat static (the trainer) or read from
 the batch's ``heat_*`` entries (the simulation entry point), and with the
 RowSparse contract checked at the plane's boundaries under
-``debug_checks``. Round telemetry (ROADMAP Queue 1 item 6) and
-``CohortSharding`` (item 8) are not ported: building a step with either
-raises ``NotImplementedError`` naming its item.
+``debug_checks``, and with ``telemetry=True`` the round's
+:class:`~repro_torch.telemetry.round.RoundTelemetry`. ``CohortSharding``
+(ROADMAP Queue 1 item 8) is not ported: building a step with it raises
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -50,9 +51,12 @@ from repro_torch.sparse.comm import (CommMeta, CommStats, model_comm_meta,
 from repro_torch.sparse.compress import compress_delta_tree
 from repro_torch.sparse.encode import (DEFAULT_SPARSE_SPACES, batch_union_ids,
                                        decode_delta_tree, encode_delta_tree,
-                                       sparse_eligible,
+                                       flat_feature_ids, sparse_eligible,
                                        stacked_feature_ids, submodel_value_and_grad)
 from repro_torch.sparse.rowsparse import RowSparse, is_rowsparse, unique_ids_padded
+from repro_torch.telemetry.round import (HEAT_BUCKETS, RoundTelemetry, drop_stats,
+                                         heat_histogram, tree_agg_rows, tree_sq_sum,
+                                         union_ids_vec)
 
 #: round-plan server algorithms ("central" is not a federated round)
 PLAN_ALGORITHMS = tuple(a for a in SERVER_ALGORITHMS if a != "central")
@@ -409,6 +413,10 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
     the pooled batch's); sparse transports add ``"sub_rows"`` and
     ``"density"``.
 
+    ``telemetry=True`` adds the round's :class:`RoundTelemetry` under
+    ``metrics["telemetry"]``: pure reads of the step's own tensors, taken
+    before the apply, so losses and parameters are the same bit for bit.
+
     Stateless algorithms on the sparse transport update the table rows of
     ``state.params`` in place; every other apply builds new tensors. With
     ``plan.debug_checks`` on a sparse transport, the sub-ids and the
@@ -419,8 +427,6 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
     sparse = transport.sparse
     if plan.sharding is not None:
         raise _not_ported("CohortSharding", 8)
-    if telemetry:
-        raise _not_ported("round telemetry", 6)
 
     feature_keys = tuple(plan.feature_keys)
     heat_spec = heat_spec_from_axes(axes)
@@ -503,6 +509,42 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             for leaf in agg.values():
                 if is_rowsparse(leaf):
                     sanitize.check_rowsparse(leaf, name="agg")
+
+    # ---- telemetry: pure reads of the round's own tensors ----------------
+    heat_space = heat_spec.leaf_spaces[table_paths[0]][0] if table_paths else None
+
+    def cohort_drop_tel(data: Dict, used_ids: Optional[torch.Tensor], device):
+        """``(union ids, dropped, mass, per_client)`` from the ids the step
+        consumed: the per-client ``(K, R)`` stack or the flat ``(R,)``
+        union, priced against the batch's raw feature ids."""
+        zi = torch.zeros((), dtype=torch.int32, device=device)
+        zf = torch.zeros((), dtype=torch.float32, device=device)
+        if not (sparse and vocab) or used_ids is None:
+            return None, zi, zf, None
+        if used_ids.dim() == 2:
+            d_pc, m_pc = drop_stats(stacked_feature_ids(data, feature_keys),
+                                    used_ids, vocab)
+            return (union_ids_vec(used_ids, vocab), d_pc.sum(dtype=torch.int32),
+                    m_pc.sum(), d_pc)
+        dropped, mass = drop_stats(flat_feature_ids(data, feature_keys), used_ids, vocab)
+        return used_ids, dropped, mass, None
+
+    def assemble_tel(data, used_ids, agg, counts, pre_sq, post_sq) -> RoundTelemetry:
+        device = pre_sq.device
+        union, dropped, mass, per_client = cohort_drop_tel(data, used_ids, device)
+        union_size = ((union >= 0).sum(dtype=torch.int32) if union is not None
+                      else torch.zeros((), dtype=torch.int32, device=device))
+        hv = counts.get(heat_space) if (counts and heat_space) else None
+        hist = (heat_histogram(hv, union) if union is not None and hv is not None
+                else torch.zeros(HEAT_BUCKETS, dtype=torch.float32, device=device))
+        dens = (union_size.to(torch.float32) / vocab if vocab
+                else torch.zeros((), dtype=torch.float32, device=device))
+        return RoundTelemetry(
+            dropped_ids=dropped, dropped_mass=mass, dropped_per_client=per_client,
+            union_size=union_size,
+            agg_rows=tree_agg_rows(agg) if agg is not None else None,
+            shard_union_sizes=None, delta_norm_pre=torch.sqrt(pre_sq),
+            delta_norm_post=torch.sqrt(post_sq), heat_hist=hist, density=dens)
 
     # run_local(params, data, sub_ids) -> (update, loss | None, used_ids | None, data)
     if isinstance(local, FedSgdLocal) and sparse:
@@ -590,11 +632,14 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             # before an in-place apply
             first = {key: v[:, 0] for key, v in data.items()}
             loss = vmap(lambda b: loss_fn(params, b))(first).mean()
+        pre_sq = tree_sq_sum(update) if telemetry else None
+        tel = None
         if sparse:
             if transport.topk or transport.int8:
                 update = compress_delta_tree(
                     update, topk=transport.topk, int8=transport.int8,
                     key=(int8_seed, state.rounds) if transport.int8 else None)
+            post_sq = tree_sq_sum(update) if telemetry else None
             if local.stacked:
                 agg = sparse_cohort_aggregate(
                     update, heat_spec, counts, n_total, data[feature_keys[0]].shape[0],
@@ -611,8 +656,14 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
                         agg[name] = correct_dense_leaf(leaf, space, counts, n_total)
                     else:
                         agg[name] = leaf
+            if telemetry:
+                # read before the stateless apply writes the tables in place
+                tel = assemble_tel(data, used_ids, agg, counts, pre_sq, post_sq)
             new_state = apply_sparse(state, agg)
         else:
+            if telemetry:
+                # dense transport: no wire compression, no union
+                tel = assemble_tel(data, used_ids, None, counts, pre_sq, pre_sq)
             if isinstance(local, SubmodelReplicatedLocal):
                 update = _densify_stacked(update)
             if local.stacked:
@@ -624,6 +675,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             denom = vocab if used_ids.dim() == 1 else used_ids.shape[0] * vocab
             metrics["sub_rows"] = sub_rows
             metrics["density"] = sub_rows / denom
+        if telemetry:
+            metrics["telemetry"] = tel
         return new_state, metrics
 
     return step

@@ -57,6 +57,9 @@ def make_round_step(loss_fn: Callable, params: Dict[str, torch.Tensor],
     transport the table rows of the ``params`` passed in are updated in
     place, as the trainer updates its own; pass a copy to keep them.
 
+    ``telemetry=True`` adds the round's ``RoundTelemetry`` under
+    ``metrics["telemetry"]`` without changing losses or parameters.
+
     The int8 transport keys its noise off the round counter; a stateless
     step has none, so the counter is the batch's fingerprint
     (:func:`batch_fingerprint`): distinct cohorts draw independent noise,

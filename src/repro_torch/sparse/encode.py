@@ -57,6 +57,13 @@ def encode_delta_tree(delta: Dict[str, torch.Tensor], heat_spec: HeatSpec,
             else leaf for name, leaf in delta.items()}
 
 
+def remap_to_rows(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``remap_ids`` for a gathered table of ``R`` rows: a token dropped by
+    a full capacity (absent from ``ids``) lands on the last row instead of
+    past the table, as the JAX package's clamped gather reads it."""
+    return torch.clamp(remap_ids(tokens, ids), max=ids.shape[-1] - 1)
+
+
 def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
                             batch: Dict[str, torch.Tensor], table: str,
                             feature_keys: Sequence[str], ids: torch.Tensor):
@@ -73,7 +80,7 @@ def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
     rows0 = params[table][torch.clamp(ids, min=0).long()]
     sub_batch = dict(batch)
     for k in feature_keys:
-        sub_batch[k] = remap_ids(batch[k], ids)
+        sub_batch[k] = remap_to_rows(batch[k], ids)
     rest = {name: p for name, p in params.items() if name != table}
 
     def joint_loss(rows, p):
@@ -136,7 +143,7 @@ def remap_feature_batch(batch: Dict[str, torch.Tensor],
     """Remap each feature-carrying batch leaf to submodel row slots."""
     out = dict(batch)
     for k in feature_keys:
-        out[k] = remap_ids(batch[k], ids)
+        out[k] = remap_to_rows(batch[k], ids)
     return out
 
 

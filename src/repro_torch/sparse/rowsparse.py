@@ -96,6 +96,26 @@ def count_unique_ids(ids: torch.Tensor) -> torch.Tensor:
     return _sorted_firsts(ids)[1].sum(dim=-1, dtype=torch.int32)
 
 
+def membership(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Is each token in ``ids`` (sorted ascending, ``-1``-padded)?
+
+    ``ids`` is ``(R,)`` with ``tokens`` of any shape (the mask has the
+    tokens' shape), or ``(K, R)`` with ``tokens`` ``(K, ...)``: each
+    client's tokens are looked up in its own row of ids and the mask is
+    ``(K, M)``. Negative tokens are never members. Binary search plus an
+    equality check, so an absent token reports False where
+    :func:`remap_ids` would give an arbitrary slot: what prices capacity
+    drops exactly.
+    """
+    key = torch.where(ids >= 0, ids, _SENTINEL).to(torch.int32).contiguous()
+    t = tokens.to(torch.int32)
+    if ids.dim() > 1:
+        t = t.reshape(tuple(ids.shape[:-1]) + (-1,)).contiguous()
+    pos = torch.clamp(torch.searchsorted(key, t), max=key.shape[-1] - 1)
+    hit = key[pos] == t if ids.dim() == 1 else torch.gather(key, -1, pos) == t
+    return hit & (t >= 0)
+
+
 def remap_ids(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Map feature ids to their slot in ``ids`` (sorted uniques then -1 pads).
 

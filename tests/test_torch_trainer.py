@@ -35,8 +35,9 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax, server_state_from_jax
 from repro_torch.data.synthetic import (make_amazon_like, make_movielens_like,
                                         make_sent140_like)
-from repro_torch.federated.plan import (CohortSharding, RoundPlan, RowSparseTransport,
-                                        ServerUpdate, SubmodelReplicatedLocal)
+from repro_torch.federated.plan import (CohortSharding, DenseTransport, RoundPlan,
+                                        RowSparseTransport, ServerUpdate,
+                                        SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
 from repro_torch.models import recsys
 from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params
@@ -231,7 +232,7 @@ def test_explicit_plan_matches_config_flags(data):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(plan=dict(sharding=CohortSharding(mesh=None))), 8),
-    (dict(telemetry=True), 6),
+    (dict(plan=dict(sharding=CohortSharding(mesh=None), transport=DenseTransport())), 8),
 ])
 def test_unported_paths_raise(data, kw, item):
     _, port, _ = data

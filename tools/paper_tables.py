@@ -89,7 +89,7 @@ def rounds_to_target(ds: FederatedDataset, algorithm: str, target_loss: float,
               local_batch=5, lr=0.5, algorithm=algorithm)
     kw.update(fed_kw or {})
     tr = FederatedTrainer(ds, mk, loss_fn, FedConfig(**kw), predict_fn=predict,
-                          metric="auc", rng_seed=seed, device=device)
+                          metric="auc", rng_seed=seed, device=device, telemetry=False)
     t0 = time.perf_counter()
     best, reached, ms = float("inf"), None, []
     for r in range(max_rounds):
@@ -161,7 +161,8 @@ def din_order(device=None, rounds: int = DIN_ROUNDS, eval_every: int = 20) -> Di
         cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100,
                         local_iters=5, local_batch=5, lr=0.5, algorithm=alg,
                         sparse=True, seed=0)
-        tr = FederatedTrainer(ds, mk, loss_fn, cfg, predict_fn=predict, device=device)
+        tr = FederatedTrainer(ds, mk, loss_fn, cfg, predict_fn=predict, device=device,
+                              telemetry=False)
         hist = tr.run(rounds, eval_every=eval_every)
         out[alg] = [(h.round, h.test_metric, h.train_loss, h.wall_time * 1e3)
                     for h in hist]
