@@ -146,12 +146,31 @@ Phases, each of which asserts; any failure exits non-zero:
     EMA heat and telemetry within 1e-5 (integers equal); a mid-run
     checkpoint saved on the card and resumed on the host equals the
     uninterrupted host run within 1e-5
+31. cohort-sharded rounds (``FederatedTrainer(mesh=...)``): LR at [4]'s
+    configuration, fedsubavg and fedavg (``auto``: psum) and fedsubavg
+    with ``combine="union"``, 20 rounds each, on 1 rank (NCCL), 2 and 4
+    ranks (gloo on the card's tensors: the machine has one card and NCCL
+    refuses two ranks on one device), spawned with a bounded join; K1 once
+    per rank per round under psum, once per rank more under union (the
+    partial, then one call per further rank); losses, train loss and
+    parameters within 1e-5 of the unsharded trainer on the card, every
+    rank's parameters equal to rank 0's bit for bit; ms per round per
+    world size (ranks sharing one card measure the machinery, not a
+    speed-up); K1 at the shard partial's and the union combine's shapes
+32. DIN at [15]'s configuration on 2 ranks, 10 rounds: ``auto`` picks the
+    union combine at 63,001 x 18 f32, K1 twice per rank per round, as [31]
+33. ``make_round_step`` on 2 ranks on [25]'s LSTM inputs: flat fedsgd and
+    sparse, replicated, sparse_replicated and a 3-client cohort with
+    ``debug_checks``, 3 steps each against the unsharded step on the card
+    within 1e-5; every rank's collective counters equal
+    ``round_collective_budget``'s components in every step
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
 on the replicated and int8 paths, in ``make_round_step``, on the telemetry
-runs and the async fires, and its times at the DIN and LSTM rounds and at
-an async fire), the card line and, last, ``{"ok": true, "device": {...}}``.
+runs and the async fires, per rank on the mesh, and its times at the DIN
+and LSTM rounds, at an async fire and at the mesh's partial and union
+combine), the card line and, last, ``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
@@ -166,6 +185,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import tracemalloc
 from pathlib import Path
@@ -186,10 +206,11 @@ from repro_torch.data.synthetic import (make_amazon_like,  # noqa: E402
 from repro_torch.core.preconditioner import (condition_number,  # noqa: E402
                                              preconditioned_hessian)
 from repro_torch.data.batching import sample_cohort_batch  # noqa: E402
-from repro_torch.federated.plan import (FedSgdLocal, RoundPlan,  # noqa: E402
-                                        RowSparseTransport, ServerUpdate,
+from repro_torch.federated.plan import (CohortSharding, FedSgdLocal,  # noqa: E402
+                                        RoundPlan, RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal, build_round_step,
-                                        resolve_plan)
+                                        resolve_plan, round_collective_budget)
+from repro_torch.launch.mesh import make_cohort_mesh, spawn_ranks  # noqa: E402
 from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
 from repro_torch.sparse import compress  # noqa: E402
@@ -210,7 +231,7 @@ from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
                                               union_segsum_torch)
 from repro_torch.federated import plan as plan_mod  # noqa: E402
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
-from repro_torch.sparse.aggregate import aggregate_rowsparse_dense  # noqa: E402
+from repro_torch.sparse.aggregate import aggregate_rowsparse_dense, pick_combine  # noqa: E402
 from repro_torch.sparse.rowsparse import RowSparse, unique_ids_padded  # noqa: E402
 from tools.aggregation_times import N_CLIENTS, SHAPES, cohort, cuda_ms  # noqa: E402
 from tools.paper_tables import DIN_DATA, print_tables, tables, task_bindings  # noqa: E402
@@ -360,7 +381,7 @@ LSTM_REDUCED = ("none against a published size: the repository gives none for it
 
 
 def make_trainer(ds, alg: str, device, plan=None, telemetry: bool = False, sink=None,
-                 **fed_kw) -> FederatedTrainer:
+                 mesh=None, **fed_kw) -> FederatedTrainer:
     """The paper's model for the dataset's task at the repository's widths
     (``tools/paper_tables.py::task_bindings``; random leaves drawn on the
     host from ``SEED``, so the card and the host start alike), K = 100, on
@@ -372,7 +393,7 @@ def make_trainer(ds, alg: str, device, plan=None, telemetry: bool = False, sink=
                               sparse=True, seed=SEED), **fed_kw})
     make_params, loss, predict = task_bindings(ds, SEED)
     return FederatedTrainer(ds, make_params, loss, cfg, predict_fn=predict, plan=plan,
-                            device=device, telemetry=telemetry, sink=sink)
+                            device=device, telemetry=telemetry, sink=sink, mesh=mesh)
 
 
 def drive(tr: FederatedTrainer, label: str) -> dict:
@@ -675,8 +696,11 @@ def k1_library(flat_ids, flat_rows, heat, total, scale):
     u, inv = torch.unique(flat_ids, sorted=True, return_inverse=True)
     out = torch.zeros((u.numel(), flat_rows.shape[1]), device=DEV).index_add_(
         0, inv, flat_rows.float())
-    h = heat[u.clamp(min=0)]
-    f = torch.where(h > 0, total / h.clamp(min=1.0), 0.0) * scale
+    if heat is None:
+        f = torch.full(u.shape, scale, device=DEV)
+    else:
+        h = heat[u.clamp(min=0)]
+        f = torch.where(h > 0, total / h.clamp(min=1.0), 0.0) * scale
     return u, out * torch.where(u >= 0, f, 0.0)[:, None]
 
 
@@ -740,13 +764,13 @@ def profile_calls(fn, n: int = 5) -> tuple:
 
 
 def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
-               profiled=None) -> dict:
+               profiled=None, profile: bool = True) -> dict:
     """K1 and K2 on one cohort: kernel, plain version and library call by
     CUDA events in turns (plain / kernel / kernel / plain), the bound, and
     device ops and device time per call from the profiler. ``profiled``
     gives those two by key where a round's profile has measured them
     already (a short profile right after a round's was seen to record no
-    device events)."""
+    device events); ``profile=False`` leaves them out (not measured)."""
     ids, rows, heat, total, cap, v = k1_args
     flat_ids, flat_rows = ids.reshape(-1), rows.reshape(ids.numel(), -1)
     t, d = flat_rows.shape
@@ -761,10 +785,11 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
                                                scale=scale),
                lambda: k2_library(flat_ids, flat_rows, heat, total, v, scale)),
     }
-    # least bytes each function must move: ids and rows read once, heat at
-    # the union's rows, outputs written once; ops: one add per row element
-    # and one scale per output element
-    bounds = {"k1": bound(4 * t + esize * t * d + 4 * n_union + 4 * cap + 4 * cap * d,
+    # least bytes each function must move: ids and rows read once, heat (if
+    # any) at the union's rows, outputs written once; ops: one add per row
+    # element and one scale per output element
+    heat_bytes = 4 * n_union if heat is not None else 0
+    bounds = {"k1": bound(4 * t + esize * t * d + heat_bytes + 4 * cap + 4 * cap * d,
                           t * d + cap * d),
               "k2": bound(4 * t + esize * t * d + 4 * n_union + 4 * v * d,
                           t * d + 2 * v * d)}
@@ -774,7 +799,9 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
         kernel, plain, library = fns[key]
         p1, m1, m2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
         lib = cuda_ms(library)
-        if profiled is None:
+        if not profile:
+            ops, dev_ms, names = None, None, []
+        elif profiled is None:
             ops, dev_ms, names = profile_calls(kernel)
         else:
             (ops, dev_ms), names = profiled[key], ["from the round's profile"]
@@ -782,11 +809,13 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
         out[key] = {"ms": min(m1, m2), "plain_ms": min(p1, p2), "library_ms": lib,
                     "bound_ms": b, "bound_by": by, "share": b / min(m1, m2),
                     "device_ops_per_call": ops, "device_ms_per_call": dev_ms}
+        prof = (f"profiler: {ops:g} device ops, {dev_ms:.4f} ms of device time per call "
+                f"({', '.join(names)[:120]})" if profile else "not profiled")
         print(f"  {key.upper()} {label} {out['shape']}: kernel {m1:.4f}/{m2:.4f} ms "
               f"({b / min(m1, m2) * 100:.1f}% of the bound), plain {p1:.4f}/{p2:.4f} ms, "
-              f"library {lib:.4f} ms, bound {b:.5f} ms ({by}); profiler: {ops:g} device "
-              f"ops, {dev_ms:.4f} ms of device time per call ({', '.join(names)[:120]})")
-        check(ops == 1, f"{key.upper()} {label}: {ops} device ops per call, want one")
+              f"library {lib:.4f} ms, bound {b:.5f} ms ({by}); {prof}")
+        check(not profile or ops == 1,
+              f"{key.upper()} {label}: {ops} device ops per call, want one")
     return out
 
 
@@ -2044,6 +2073,283 @@ def phase_async_card_vs_host(small) -> None:
           f"checkpoint resume differs: {dp}, {dh}")
 
 
+# ---------------------------------------------------------------------------
+# Cohort-sharded rounds over torch.distributed ([31]-[33])
+# ---------------------------------------------------------------------------
+
+#: the join of a spawned mesh: a rank stuck in a collective fails the run
+MESH_TIMEOUT_S = 300.0
+#: [33]: make_round_step's modes on the mesh (label, mode, stacked, K, debug)
+MESH_STEP_MODES = (("fedsgd", "fedsgd", False, 100, False),
+                   ("sparse", "sparse", False, 100, False),
+                   ("replicated", "replicated", True, 100, False),
+                   ("sparse_replicated", "sparse_replicated", True, 100, False),
+                   ("sparse_replicated K=3 debug_checks", "sparse_replicated", True, 3, True))
+
+
+def cpu_tree(tree: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def mesh_drive(tr: FederatedTrainer, rounds: int) -> dict:
+    """Half the rounds through ``run_round`` (timed one by one), the rest
+    through ``run(engine=True)`` with the evaluation at its end; K1's
+    launches counted from 0."""
+    n1 = rounds // 2
+    union_segsum.launches = 0
+    losses, ms = [], []
+    for _ in range(n1):
+        t0 = time.perf_counter()
+        losses.append(tr.run_round())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tr.run(rounds - n1, eval_every=rounds - n1, engine=True)
+    rec = tr.history[-1]
+    return {"rounds": rounds, "loss": losses, "ms": ms, "train_loss": rec.train_loss,
+            "auc": rec.test_metric,
+            "launches": union_segsum.launches, "params": cpu_tree(tr.state.params),
+            "comm": tr.comm_summary()}
+
+
+def mesh_trainer_job(mesh, job: dict) -> dict:
+    """A trainer on the mesh: the job's algorithm and combine, ``rounds``
+    rounds by ``mesh_drive``; the last round's collective counters, and
+    with ``capture`` the inputs of the last round's K1 calls."""
+    plan = RoundPlan(SubmodelReplicatedLocal(), RowSparseTransport(),
+                     ServerUpdate(job["alg"]),
+                     sharding=CohortSharding(mesh, combine=job["combine"]))
+    tr = make_trainer(job["ds"], job["alg"], mesh.device, plan=plan, mesh=mesh)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return union_segsum(*args, **kw)
+
+    if job.get("capture"):
+        aggregate_mod.union_segsum = capture
+    try:
+        out = mesh_drive(tr, job["rounds"])
+    finally:
+        aggregate_mod.union_segsum = union_segsum
+    out["counters"] = dict(mesh.counters)
+    out["combine"] = {name: pick_combine(p.shape[0], p[0].numel(), job["combine"])
+                      for name, p in tr.state.params.items() if name in tr._sparse_paths}
+    per_round = out["launches"] // job["rounds"]
+    out["k1_calls"] = [(tuple(a.cpu() if torch.is_tensor(a) else a for a in args), kw)
+                       for args, kw in calls[len(calls) - per_round:]] if calls else []
+    return out
+
+
+def mesh_steps_job(mesh, job: dict) -> dict:
+    """[33]: ``make_round_step`` on the LSTM's inputs, each mode of
+    ``MESH_STEP_MODES`` 3 steps on the mesh; rank 0 also runs the unsharded
+    step on the same batches. K1 and the collective counters per step, the
+    counters held to ``round_collective_budget``."""
+    ds = job["ds"]
+    make_params, loss_fn, _ = task_bindings(ds, SEED)
+    params0, axes = make_params(mesh.device)
+    cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=100, local_iters=5,
+                    local_batch=5, lr=0.5, seed=SEED)
+    out = {}
+    for label, mode, stacked, k, debug in MESH_STEP_MODES:
+        plan = dataclasses.replace(resolve_plan(mode, cfg), debug_checks=debug)
+        sharded = dataclasses.replace(plan, sharding=CohortSharding(mesh))
+        step = make_round_step(loss_fn, params0, axes, cfg, mode=sharded)
+        plain = make_round_step(loss_fn, params0, axes, cfg, mode=plan)
+        ps = {n: v.clone() for n, v in params0.items()}
+        pu = {n: v.clone() for n, v in params0.items()}
+        rng = np.random.default_rng(SEED + 8)
+        res = {"loss": [], "plain_loss": [], "launches": [], "counters_equal_budget": [],
+               "ms": []}
+        for _ in range(3):
+            batch = lstm_inputs(ds, rng, stacked, k=k)
+            budget = round_collective_budget(sharded, axes, ps, cfg, batch)
+            if DEV.type == "cuda":
+                torch.cuda.synchronize()
+            union_segsum.launches = 0
+            t0 = time.perf_counter()
+            ps, m = step(ps, batch)
+            res["loss"].append(float(m["loss"]))
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["launches"].append(union_segsum.launches)
+            res["counters_equal_budget"].append(mesh.counters == budget["components"])
+            res["by_op"] = mesh.by_op()
+            if mesh.rank == 0:
+                pu, mu = plain(pu, batch)
+                res["plain_loss"].append(float(mu["loss"]))
+        res["params"] = cpu_tree(ps)
+        if mesh.rank == 0:
+            res["plain_params"] = cpu_tree(pu)
+        out[label] = res
+    return out
+
+
+MESH_JOBS = {"trainer": mesh_trainer_job, "steps": mesh_steps_job}
+
+
+def mesh_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
+              jobs: list, device: str) -> None:
+    """One rank of a cohort mesh spawned on this host: every rank on the
+    parent's device (the one card); checks that the backend's all-reduce
+    and all-gather take the device's tensors, runs ``jobs`` and saves its
+    results for the parent."""
+    global DEV
+    DEV = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_cohort_mesh(device=DEV, backend=backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        x = torch.full((3,), float(rank + 1), device=mesh.device)
+        s, g = mesh.psum(x, "probe"), mesh.all_gather(x.to(torch.int32), "probe:gather")
+        check(s.device == mesh.device
+              and torch.equal(s.cpu(), torch.full((3,), world * (world + 1) / 2)),
+              f"rank {rank}: all-reduce of a {mesh.device} tensor gave {s}")
+        check(torch.equal(g[:, 0].cpu(), torch.arange(1, world + 1, dtype=torch.int32)),
+              f"rank {rank}: all-gather of a {mesh.device} tensor gave {g}")
+        results = {job["label"]: MESH_JOBS[job["kind"]](mesh, job) for job in jobs}
+        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+        mesh.barrier()
+    finally:
+        mesh.destroy()
+
+
+def run_mesh(world: int, backend: str, jobs: list) -> list:
+    """Spawn ``world`` ranks of ``mesh_rank`` on the card; their results by rank."""
+    out_dir = Path(tempfile.mkdtemp(prefix=f"mesh{world}_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(mesh_rank, world, args=(world, backend, str(out_dir / "store"),
+                                            str(out_dir), jobs, str(DEV)),
+                    timeout_s=MESH_TIMEOUT_S)
+        res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  {world} rank(s), {backend}: spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def rank_spread(ranks: list, key: str) -> float:
+    """Largest difference of any rank's ``params`` from rank 0's under ``key``."""
+    return max(params_diff(r[key]["params"], ranks[0][key]["params"]) for r in ranks)
+
+
+#: rounds of [31] (LR) and [32] (DIN) on the mesh and on one device
+MESH_LR_ROUNDS, MESH_DIN_ROUNDS = 20, 10
+
+
+def phase_mesh_runs(lr_ds, din_ds, lstm_ds) -> tuple:
+    """[31]-[33]'s runs: the unsharded trainers on the card, then one spawn
+    per world size: 1 rank on NCCL (LR), 2 ranks on gloo (LR, DIN and the
+    round steps of [33]) and 4 on gloo (LR), every rank on the one card.
+    Returns the unsharded runs and the ranks' results by world size."""
+    plain = {f"lr {alg}": mesh_drive(make_trainer(lr_ds, alg, DEV), MESH_LR_ROUNDS)
+             for alg in ("fedsubavg", "fedavg")}
+    plain["din fedsubavg"] = mesh_drive(make_trainer(din_ds, "fedsubavg", DEV),
+                                        MESH_DIN_ROUNDS)
+    lr_jobs = [dict(kind="trainer", label=f"lr {alg} {comb}", ds=lr_ds, alg=alg,
+                    combine=comb, rounds=MESH_LR_ROUNDS, capture=comb == "union")
+               for alg, comb in (("fedsubavg", "auto"), ("fedavg", "auto"),
+                                 ("fedsubavg", "union"))]
+    more = [dict(kind="trainer", label="din fedsubavg auto", ds=din_ds, alg="fedsubavg",
+                 combine="auto", rounds=MESH_DIN_ROUNDS),
+            dict(kind="steps", label="steps", ds=lstm_ds)]
+    ranks = {1: run_mesh(1, "nccl", lr_jobs[:2]), 2: run_mesh(2, "gloo", lr_jobs + more),
+             4: run_mesh(4, "gloo", lr_jobs)}
+    return plain, ranks
+
+
+def check_mesh_trainer(ranks: list, label: str, want: dict) -> dict:
+    """One trainer job on every rank against the unsharded run: K1 once per
+    round and rank under psum, once per rank more under union (the
+    partial, then one call per further rank); losses, train loss and
+    parameters within 1e-5; every rank's parameters equal rank 0's."""
+    world, r0 = len(ranks), ranks[0][label]
+    (mode,) = r0["combine"].values()
+    rounds = r0["rounds"]
+    per_round = world if mode == "union" else 1
+    launches = [r[label]["launches"] for r in ranks]
+    check(launches == [per_round * rounds] * world,
+          f"x{world} {label}: K1 launched {launches} times per rank in {rounds} rounds, "
+          f"want {per_round * rounds} each")
+    loss_err = max(abs(a - b) for a, b in zip(r0["loss"], want["loss"]))
+    check(loss_err <= 1e-5, f"x{world} {label}: losses {loss_err} from the unsharded "
+          "trainer's")
+    check(abs(r0["train_loss"] - want["train_loss"]) <= 1e-5,
+          f"x{world} {label}: train loss {r0['train_loss']} against {want['train_loss']}")
+    params_err = params_diff(r0["params"], want["params"])
+    check(params_close(r0["params"], want["params"], 1e-5),
+          f"x{world} {label}: parameters {params_err} from the unsharded trainer's")
+    spread = rank_spread(ranks, label)
+    check(spread == 0.0, f"x{world} {label}: ranks differ by {spread}")
+    ms, plain_ms = statistics.median(r0["ms"][2:]), statistics.median(want["ms"][2:])
+    by_op = {}
+    for c in r0["counters"].values():
+        by_op[c["op"]] = by_op.get(c["op"], 0) + c["bytes"]
+    print(f"  x{world} {label} ({mode}): loss err {loss_err:.3g}, params err "
+          f"{params_err:.3g}, ranks equal bit for bit; K1 per rank {launches}; ms/round "
+          f"(rank 0) {ms:.2f} against {plain_ms:.2f} unsharded; bytes per rank per round "
+          f"by op {by_op}; AUC {r0['auc']:.5f} against {want['auc']:.5f}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_mesh_lr(plain: dict, ranks: dict) -> dict:
+    """[31]: LR through ``FederatedTrainer(mesh=...)`` at world sizes 1
+    (NCCL), 2 and 4 (gloo on the card's tensors; the ranks share the one
+    card), fedsubavg and fedavg (``auto``: psum at V x 1 f32), and
+    fedsubavg with ``combine="union"``, 20 rounds each, against the
+    unsharded trainer on the card."""
+    out = {"launches": {}, "k1_calls": []}
+    for world, rks in sorted(ranks.items()):
+        for label in rks[0]:
+            if label.startswith("lr "):
+                alg = label.split()[1]
+                res = check_mesh_trainer(rks, label, plain[f"lr {alg}"])
+                out["launches"][f"x{world} {label[3:]}"] = res["launches"]
+        if world == 2:
+            out["k1_calls"] = rks[0]["lr fedsubavg union"]["k1_calls"]
+    print("  (ranks sharing one card measure the machinery, not a speed-up; gloo's "
+          "all-reduce and all-gather took the card's tensors directly on every rank)")
+    return out
+
+
+def phase_mesh_din(plain: dict, ranks: list) -> list:
+    """[32]: DIN through ``FederatedTrainer(mesh=...)``, 2 ranks, 10 rounds;
+    ``auto`` picks ``union`` at 63,001 x 18 f32 (4.5 MB): K1 twice per rank
+    per round."""
+    check(ranks[0]["din fedsubavg auto"]["combine"] == {"item_emb": "union"},
+          f"DIN combine {ranks[0]['din fedsubavg auto']['combine']}")
+    return check_mesh_trainer(ranks, "din fedsubavg auto", plain["din fedsubavg"])["launches"]
+
+
+def phase_mesh_steps(ranks: list) -> dict:
+    """[33]: ``make_round_step`` on the mesh, two ranks, each mode of
+    ``MESH_STEP_MODES`` against its unsharded step on the card; every
+    rank's collective counters equal the budget's components."""
+    out = {}
+    for label, mode, stacked, k, debug in MESH_STEP_MODES:
+        r0 = ranks[0]["steps"][label]
+        want = 1 if mode == "sparse_replicated" else 0
+        for r, rk in enumerate(ranks):
+            res = rk["steps"][label]
+            check(res["launches"] == [want] * 3,
+                  f"{label}: rank {r} K1 {res['launches']}, want {want} per step")
+            check(all(res["counters_equal_budget"]),
+                  f"{label}: rank {r} collective counters differ from the budget")
+        loss_err = max(abs(a - b) for a, b in zip(r0["loss"], r0["plain_loss"]))
+        check(loss_err <= 1e-5, f"{label}: losses {loss_err} from the unsharded step's")
+        check(params_close(r0["params"], r0["plain_params"], 1e-5),
+              f"{label}: parameters {params_diff(r0['params'], r0['plain_params'])} apart")
+        spread = max(params_diff(rk["steps"][label]["params"], r0["params"]) for rk in ranks)
+        check(spread == 0.0, f"{label}: ranks differ by {spread}")
+        out[label] = [rk["steps"][label]["launches"] for rk in ranks]
+        print(f"  {label}: loss err {loss_err:.3g}, params err "
+              f"{params_diff(r0['params'], r0['plain_params']):.3g}, ranks equal; K1 per "
+              f"rank per step {out[label]}; counters = budget on every rank; bytes per "
+              f"rank by op {r0['by_op']}; ms/step (rank 0) {[round(x, 1) for x in r0['ms']]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2244,6 +2550,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_async_card_vs_host(small)
     print(f"  [30] took {time.perf_counter() - t0:.1f} s")
+
+    print("[31] LR through FederatedTrainer(mesh=...) at MovieLens-1M width: 1 rank "
+          "(NCCL), 2 and 4 ranks (gloo) on the one card")
+    t0 = time.perf_counter()
+    plain, mesh_ranks = phase_mesh_runs(lr_ds, deep["din"][0], deep["lstm"][0])
+    mesh_lr = phase_mesh_lr(plain, mesh_ranks)
+    for label, per_rank in mesh_lr["launches"].items():
+        k1["launches_by_path"][f"lr mesh {label}"] = per_rank
+    for (args, kw), tag in zip(mesh_lr["k1_calls"], ("mesh_partial", "mesh_union")):
+        args = tuple(a.to(DEV) if torch.is_tensor(a) else a for a in args)
+        ids, rows, v = args[0], args[1], args[5]
+        union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+        k1["max_abs_err"] = max(k1["max_abs_err"],
+                                check_k1(f"union_segsum[{tag}]", args, kw["scale"], union))
+        timed = time_k1_k2(args, kw["scale"], f"LR x2 union, {tag}", keys=("k1",),
+                           profile=False)
+        k1[tag] = {"shape": timed["shape"], **{f: timed["k1"][f] for f in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+    print(f"  [31] took {time.perf_counter() - t0:.1f} s (with [32] and [33]'s runs)")
+
+    print("[32] DIN through FederatedTrainer(mesh=...), 2 ranks: the union combine")
+    k1["launches_by_path"]["din mesh x2 fedsubavg union"] = phase_mesh_din(
+        plain, mesh_ranks[2])
+
+    print("[33] make_round_step on the mesh, 2 ranks, on the LSTM's inputs: four modes, a "
+          "cohort that does not divide, debug checks; collectives against the budget")
+    for label, per_rank in phase_mesh_steps(mesh_ranks[2]).items():
+        k1["launches_by_path"][f"lstm mesh x2 make_round_step {label}"] = per_rank
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,13 +21,21 @@ single-device round step, with the heat static (the trainer) or read from
 the batch's ``heat_*`` entries (the simulation entry point), and with the
 RowSparse contract checked at the plane's boundaries under
 ``debug_checks``, and with ``telemetry=True`` the round's
-:class:`~repro_torch.telemetry.round.RoundTelemetry`. ``CohortSharding``
-(ROADMAP Queue 1 item 8) is not ported: building a step with it raises
-``NotImplementedError`` naming the item.
+:class:`~repro_torch.telemetry.round.RoundTelemetry`.
+
+:class:`CohortSharding` is the optional fourth strategy: it splits the
+cohort over the ranks of a :class:`~repro_torch.launch.mesh.CohortMesh`.
+Every rank runs the same step on the full cohort batch and takes its own
+shard-major block of clients (of examples, on the flat path); each rank
+trains its block and reduces it to a partial, a cross-rank combine builds
+the replicated aggregate, and every rank applies it to its replica of the
+server state. :func:`round_collective_budget` prices the collectives one
+such step makes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -44,8 +52,9 @@ from repro_torch.core.algorithms import (ServerAlgorithm, ServerState,
 from repro_torch.federated.client import (cohort_deltas, cohort_submodel_deltas,
                                           make_local_trainer,
                                           make_submodel_local_trainer)
-from repro_torch.sparse.aggregate import (apply_rowsparse, correct_rowsparse,
-                                          sparse_cohort_aggregate)
+from repro_torch.sparse.aggregate import (aggregate_rowsparse_partial, apply_rowsparse,
+                                          combine_rowsparse_partials, correct_rowsparse,
+                                          pick_combine, sparse_cohort_aggregate)
 from repro_torch.sparse.comm import (CommMeta, CommStats, model_comm_meta,
                                      round_comm_stats)
 from repro_torch.sparse.compress import compress_delta_tree
@@ -53,19 +62,14 @@ from repro_torch.sparse.encode import (DEFAULT_SPARSE_SPACES, batch_union_ids,
                                        decode_delta_tree, encode_delta_tree,
                                        flat_feature_ids, sparse_eligible,
                                        stacked_feature_ids, submodel_value_and_grad)
-from repro_torch.sparse.rowsparse import RowSparse, is_rowsparse, unique_ids_padded
+from repro_torch.sparse.rowsparse import (RowSparse, count_unique_ids, is_rowsparse,
+                                          unique_ids_padded)
 from repro_torch.telemetry.round import (HEAT_BUCKETS, RoundTelemetry, drop_stats,
                                          heat_histogram, tree_agg_rows, tree_sq_sum,
                                          union_ids_vec)
 
 #: round-plan server algorithms ("central" is not a federated round)
 PLAN_ALGORITHMS = tuple(a for a in SERVER_ALGORITHMS if a != "central")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item {item}): the port "
-        "builds every local step, transport and server update on one device")
 
 
 def heat_spec_from_axes(axes: Dict[str, Tuple],
@@ -244,11 +248,36 @@ class ServerUpdate:
 
 @dataclass(frozen=True)
 class CohortSharding:
-    """Shard the cohort axis over devices (not ported yet: Queue 1 item 8)."""
+    """Shard one round's cohort axis over the ranks of a mesh.
+
+    ``mesh``/``axis`` name the mesh axis the cohort is split over (a
+    :class:`~repro_torch.launch.mesh.CohortMesh`, or anything with
+    ``axis_names`` and ``shape`` keyed by axis). Each rank trains its
+    K/ranks clients and reduces them to a partial; a cross-rank combine
+    builds the replicated aggregate before the server apply, which is the
+    same on every rank. ``combine`` picks the sparse plane's cross-rank
+    reduction: ``"psum"`` (densify and all-reduce), ``"union"`` (all-gather
+    the partial unions and segment-sum them again) or ``"auto"`` (by bytes,
+    ``repro_torch.sparse.aggregate.pick_combine``).
+    """
 
     mesh: object
     axis: str = "data"
     combine: str = "auto"
+
+    def __post_init__(self):
+        if self.axis not in self.mesh.axis_names:
+            raise ValueError(
+                f"CohortSharding axis {self.axis!r} not in mesh axes "
+                f"{self.mesh.axis_names}")
+        if self.combine not in ("auto", "psum", "union"):
+            raise ValueError(
+                f"unknown combine strategy {self.combine!r}: expected "
+                "'auto', 'psum' or 'union'")
+
+    @property
+    def num_shards(self) -> int:
+        return int(self.mesh.shape[self.axis])
 
 
 @dataclass(frozen=True)
@@ -266,6 +295,9 @@ class RoundPlan:
         base = (f"{type(self.local).__name__} -> "
                 f"{type(self.transport).__name__} -> "
                 f"ServerUpdate({self.server.algorithm})")
+        if self.sharding is not None:
+            base += (f" [sharded x{self.sharding.num_shards} over "
+                     f"'{self.sharding.axis}']")
         if self.debug_checks:
             base += " [debug_checks]"
         return base
@@ -331,6 +363,91 @@ def plan_comm_meta(params: Dict[str, torch.Tensor], axes: Dict[str, Tuple]) -> C
     """Static comm geometry of a model for ``Transport.round_comm``."""
     paths = {name for name, _ in sparse_table_paths(heat_spec_from_axes(axes))}
     return model_comm_meta(params, paths)
+
+
+def round_collective_budget(plan: RoundPlan, axes: Dict[str, Tuple],
+                            params_template: Dict[str, torch.Tensor], cfg: FedConfig,
+                            batch: Dict, *, sub_ids: Optional[torch.Tensor] = None) -> Dict:
+    """Per-rank collective budget of one cohort-sharded round step.
+
+    The JAX package's function term by term: the collectives the shard
+    bodies of :func:`build_round_step` make with telemetry off, priced per
+    rank, payloads as f32 and ids as int32 (an all-gather counts its whole
+    output). A :class:`~repro_torch.launch.mesh.CohortMesh` counts what a
+    step really moved under the same component names.
+
+    - stacked locals: ``loss`` and ``sub_rows`` all-reduces (4 B each),
+      ``dense_leaves`` (the non-table leaves), and per table the combine
+      ``pick_combine`` chooses: an all-reduce of the densified ``(V, E)``
+      partial, or an all-gather of the partial's ``min(V, K_shard * cap)``
+      ids and rows. A dense transport moves every leaf as ``dense_tree``.
+    - the flat local: ``loss``, ``dense_leaves``, the one table's combine
+      over the round's union capacity and the ``used_ids`` all-gather that
+      counts the cross-rank union (or ``dense_tree`` on a dense transport).
+
+    Returns ``{"axis", "num_shards", "vocab", "stacked", "combine": {table:
+    mode}, "capacity": {table: per-rank partial capacity}, "components":
+    {name: {"op", "bytes"}}, "by_op", "allowed_ops"}``.
+    """
+    sharding = plan.sharding
+    if sharding is None:
+        raise ValueError("round_collective_budget prices the cross-shard "
+                         "combine: the plan has no CohortSharding")
+    local, sparse = plan.local, plan.transport.sparse
+    ndev = sharding.num_shards
+    feature_keys = tuple(plan.feature_keys)
+    table_paths = [name for name, _ in sparse_table_paths(heat_spec_from_axes(axes))]
+    vocabs = sorted({int(params_template[p].shape[0]) for p in table_paths})
+    vocab = vocabs[-1] if vocabs else 0
+    _, data = split_heat_batch(batch)
+    tables = [(p, int(params_template[p].shape[0]),
+               max(math.prod(params_template[p].shape[1:]), 1)) for p in table_paths]
+    static_f32 = sum(float(x.numel()) for name, x in params_template.items()
+                     if name not in table_paths) * 4.0
+    dense_tree = sum(float(x.numel()) * 4.0 for x in params_template.values())
+
+    components: Dict[str, Dict] = {}
+    combine_modes: Dict[str, str] = {}
+    capacities: Dict[str, int] = {}
+
+    def add(name, op, nbytes):
+        if nbytes > 0:
+            components[name] = {"op": op, "bytes": float(nbytes)}
+
+    def add_combine(name, v_t, elems_t, cap):
+        mode = pick_combine(v_t, elems_t, sharding.combine)
+        combine_modes[name] = mode
+        capacities[name] = cap
+        if mode == "psum":
+            add(f"combine:{name}", "all-reduce", float(v_t) * elems_t * 4.0)
+        else:
+            add(f"combine:{name}", "all-gather", float(ndev) * cap * (4.0 + elems_t * 4.0))
+
+    add("loss", "all-reduce", 4.0)
+    if not sparse:
+        add("dense_tree", "all-reduce", dense_tree)
+    elif local.stacked:
+        k_shard = -(-int(data[feature_keys[0]].shape[0]) // ndev)
+        add("sub_rows", "all-reduce", 4.0)
+        add("dense_leaves", "all-reduce", static_f32)
+        cap_client = (int(sub_ids.shape[-1]) if sub_ids is not None else round_capacity(
+            vocab, sum(math.prod(data[k].shape[1:]) for k in feature_keys)))
+        for name, v_t, elems_t in tables:
+            add_combine(name, v_t, elems_t, min(v_t, k_shard * cap_client))
+    else:
+        add("dense_leaves", "all-reduce", static_f32)
+        cap = (int(sub_ids.shape[-1]) if sub_ids is not None else round_capacity(
+            vocab, sum(data[k].numel() // ndev for k in feature_keys)))
+        add_combine(*tables[0], cap)
+        add("used_ids", "all-gather", float(ndev) * cap * 4.0)
+
+    by_op: Dict[str, float] = {}
+    for c in components.values():
+        by_op[c["op"]] = by_op.get(c["op"], 0.0) + c["bytes"]
+    return {"axis": sharding.axis, "num_shards": ndev, "vocab": vocab,
+            "stacked": bool(local.stacked), "combine": combine_modes,
+            "capacity": capacities, "components": components, "by_op": by_op,
+            "allowed_ops": sorted(by_op)}
 
 
 # ---------------------------------------------------------------------------
@@ -425,9 +542,6 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
     """
     local, transport, server = plan.local, plan.transport, plan.server
     sparse = transport.sparse
-    if plan.sharding is not None:
-        raise _not_ported("CohortSharding", 8)
-
     feature_keys = tuple(plan.feature_keys)
     heat_spec = heat_spec_from_axes(axes)
     n_total = float(cfg.num_clients if total is None else total)
@@ -529,7 +643,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         dropped, mass = drop_stats(flat_feature_ids(data, feature_keys), used_ids, vocab)
         return used_ids, dropped, mass, None
 
-    def assemble_tel(data, used_ids, agg, counts, pre_sq, post_sq) -> RoundTelemetry:
+    def assemble_tel(data, used_ids, agg, counts, pre_sq, post_sq,
+                     shard_union_sizes=None) -> RoundTelemetry:
         device = pre_sq.device
         union, dropped, mass, per_client = cohort_drop_tel(data, used_ids, device)
         union_size = ((union >= 0).sum(dtype=torch.int32) if union is not None
@@ -543,7 +658,7 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             dropped_ids=dropped, dropped_mass=mass, dropped_per_client=per_client,
             union_size=union_size,
             agg_rows=tree_agg_rows(agg) if agg is not None else None,
-            shard_union_sizes=None, delta_norm_pre=torch.sqrt(pre_sq),
+            shard_union_sizes=shard_union_sizes, delta_norm_pre=torch.sqrt(pre_sq),
             delta_norm_post=torch.sqrt(post_sq), heat_hist=hist, density=dens)
 
     # run_local(params, data, sub_ids) -> (update, loss | None, used_ids | None, data)
@@ -618,6 +733,11 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         new = {k: p + corrected[k].to(p.dtype) * eta for k, p in state.params.items()}
         return ServerState(new, state.opt, state.rounds + 1)
 
+    if plan.sharding is not None:
+        return _sharded_step(
+            plan, loss_fn, heat_spec, n_total, vocab, debug, telemetry, run_local,
+            check_ids, batch_counts, assemble_tel, apply_sparse, apply_dense)
+
     def step(state: ServerState, batch: Dict[str, torch.Tensor],
              sub_ids: Optional[torch.Tensor] = None):
         params = state.params
@@ -680,3 +800,205 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         return new_state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# cohort-sharded execution (plan.sharding): one rank's part of a round
+# ---------------------------------------------------------------------------
+
+
+def _mask_clients(tree: Dict, wmask: torch.Tensor) -> Dict:
+    """Zero the pad clients' contributions (RowSparse rows too)."""
+    def m(x):
+        return x * wmask.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+
+    return {name: RowSparse(leaf.ids, m(leaf.rows), leaf.num_rows)
+            if is_rowsparse(leaf) else m(leaf) for name, leaf in tree.items()}
+
+
+def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_total: float,
+                  vocab: int, debug: bool, telemetry: bool, run_local: Callable,
+                  check_ids: Callable, batch_counts: Callable, assemble_tel: Callable,
+                  apply_sparse: Callable, apply_dense: Callable) -> Callable:
+    """The round step of a plan with ``CohortSharding``, run by every rank.
+
+    Every rank is handed the full cohort batch and the replicated state. A
+    stacked cohort of K clients is padded to a multiple of the ranks by
+    repeating clients cyclically (the pads are masked out of every
+    reduction, and the mean keeps ``1/K``), and rank r trains the clients
+    of block r; a flat batch must divide, and rank r takes its block of
+    examples (a caller's ``sub_ids`` goes to every rank as it is). The
+    collectives all run on ``mesh`` under ``round_collective_budget``'s
+    component names (telemetry's under ``"telemetry:norms"`` and
+    ``"telemetry:ids"``), so every rank
+    issues them in the same order with the same shapes, and every refusal
+    raises before the first of them. Under ``debug_checks`` a caller's
+    ``sub_ids`` are checked whole on every rank before the split; ids a rank
+    derives are checked on that rank. The aggregate is the same on every
+    rank: the ``psum`` combine's by construction; the ``union`` combine's
+    as long as every rank sums the gathered rows in the same order.
+    """
+    local, transport, server = plan.local, plan.transport, plan.server
+    sharding = plan.sharding
+    mesh, ndev = sharding.mesh, sharding.num_shards
+    sparse = transport.sparse
+    feature_keys = tuple(plan.feature_keys)
+    if sparse and transport.int8:
+        raise ValueError(
+            "CohortSharding does not compose with int8 transport yet: the "
+            "stochastic-rounding noise is drawn over the full cohort stack and "
+            "would not reproduce the single-device stream per shard")
+    if sparse and transport.topk and isinstance(local, FedSgdLocal):
+        raise ValueError(
+            "CohortSharding does not compose with top-k on the flat fused-gradient "
+            "sparse path: top-k there selects rows of the whole-cohort union, which "
+            "no per-shard selection reproduces; use a replicated local (per-client "
+            "top-k shards exactly)")
+
+    def combine(leaf, name, counts, scale):
+        space = heat_spec.leaf_spaces.get(name)
+        h = counts.get(space[0]) if server.correct and space is not None else None
+        return combine_rowsparse_partials(
+            leaf, mesh, h, n_total, scale, combine=sharding.combine,
+            union_backend=transport.union_backend, tag=f"combine:{name}")
+
+    def correct_dense(mean, name, counts):
+        if not server.correct:
+            return mean
+        return correct_dense_leaf(mean, heat_spec.leaf_spaces.get(name), counts, n_total)
+
+    def stacked_shard(params, data, sub_ids, wmask, counts, k_real):
+        """This rank's clients: local steps, the partial, the combine.
+        Returns the replicated aggregate, the loss, the sub-row count and
+        telemetry's parts."""
+        update, _, used_ids, data = run_local(params, data, sub_ids)
+        check_ids(used_ids, data, derived=sub_ids is None)
+        # the monitoring loss reads the pre-round parameters
+        losses = vmap(lambda b: loss_fn(params, b))({k: v[:, 0] for k, v in data.items()})
+        raw = update
+        if sparse and transport.topk:
+            update = compress_delta_tree(update, topk=transport.topk)
+        update = _mask_clients(update, wmask)
+        scale = 1.0 / float(k_real)
+        agg = {}
+        for name, leaf in update.items():
+            if not sparse:
+                if is_rowsparse(leaf):
+                    leaf = _densify_stacked({name: leaf})[name]
+                agg[name] = mesh.psum(leaf.sum(dim=0), "dense_tree") * scale
+            elif is_rowsparse(leaf):
+                part = aggregate_rowsparse_partial(leaf,
+                                                   union_backend=transport.union_backend)
+                agg[name] = combine(part, name, counts, scale)
+            else:
+                agg[name] = correct_dense(mesh.psum(leaf.sum(dim=0), "dense_leaves") * scale,
+                                          name, counts)
+        loss = mesh.psum((losses * wmask).sum(), "loss") / k_real
+        if sparse and used_ids is not None:
+            valid = (used_ids >= 0) & (wmask > 0)[:, None]
+            sub_rows = mesh.psum(valid.sum(dtype=torch.int32), "sub_rows")
+        else:
+            sub_rows = torch.zeros((), dtype=torch.int32, device=wmask.device)
+        if not telemetry:
+            return agg, loss, sub_rows, None
+        # norms over the real clients only (the pads are cyclic repeats)
+        tel = {"pre": mesh.psum(tree_sq_sum(_mask_clients(raw, wmask)), "telemetry:norms"),
+               "post": mesh.psum(tree_sq_sum(update), "telemetry:norms")}
+        if sparse:
+            masked = torch.where((wmask > 0)[:, None], used_ids, -1)
+            tel["used_ids"] = mesh.all_gather(masked, "telemetry:ids").flatten(0, 1)
+            tel["shard_union"] = mesh.all_gather(count_unique_ids(masked.reshape(-1)),
+                                                 "telemetry:ids")
+        return agg, loss, sub_rows, tel
+
+    def flat_shard(params, data, sub_ids, counts):
+        """This rank's examples of the pooled batch. Exact when ``loss_fn``
+        is a uniform mean over the batch: the cohort gradient is then the
+        mean of equal-sized shard gradients."""
+        update, fwd_loss, used_ids, _ = run_local(params, data, sub_ids)
+        check_ids(used_ids, data, derived=sub_ids is None)
+        scale = 1.0 / float(ndev)
+        if sparse:
+            agg = {name: combine(leaf, name, counts, scale) if is_rowsparse(leaf)
+                   else correct_dense(mesh.pmean(leaf, "dense_leaves"), name, counts)
+                   for name, leaf in update.items()}
+            gathered = mesh.all_gather(used_ids, "used_ids")
+            # the single-device union count: distinct ids across the ranks
+            sub_rows = count_unique_ids(gathered.reshape(-1))
+        else:
+            agg = {name: mesh.pmean(g, "dense_tree") for name, g in update.items()}
+            sub_rows = torch.zeros((), dtype=torch.int32, device=fwd_loss.device)
+        loss = mesh.pmean(fwd_loss, "loss")
+        if not telemetry:
+            return agg, loss, sub_rows, None
+        # the flat path never compresses under sharding, so pre == post:
+        # the L2 of the replicated aggregate
+        sq = tree_sq_sum(agg)
+        tel = {"pre": sq, "post": sq}
+        if sparse:
+            tel["used_ids"] = gathered
+            # one count per rank, of the rank's own union
+            tel["shard_union"] = mesh.all_gather(
+                (used_ids >= 0).sum(dtype=torch.int32), "telemetry:ids")
+        return agg, loss, sub_rows, tel
+
+    def sharded_step(state: ServerState, batch: Dict[str, torch.Tensor],
+                     sub_ids: Optional[torch.Tensor] = None):
+        params = state.params
+        heat, data = split_heat_batch(batch)
+        counts = batch_counts(heat)
+        if debug and sub_ids is not None and vocab:
+            sanitize.check_union_ids(sub_ids, vocab, name="sub_ids")
+        r = mesh.rank
+        if local.stacked:
+            k_real = int(data[feature_keys[0]].shape[0])
+            ks = -(-k_real // ndev)
+            device = data[feature_keys[0]].device
+            slots = torch.arange(r * ks, (r + 1) * ks, device=device)
+            idx = slots % k_real
+            wmask = (slots < k_real).to(torch.float32)
+            mesh.reset_counters()
+            agg, loss, sub_rows, tel = stacked_shard(
+                params, {k: v.index_select(0, idx) for k, v in data.items()},
+                None if sub_ids is None else sub_ids.index_select(0, idx), wmask, counts,
+                k_real)
+        else:
+            bleaf = feature_keys[0] if feature_keys[0] in data else next(iter(data))
+            bsz = int(data[bleaf].shape[0])
+            if bsz % ndev:
+                raise ValueError(
+                    f"flat cohort batch of {bsz} examples does not divide over {ndev} "
+                    "shards: pad the batch to a multiple of the mesh axis, or use a "
+                    "replicated local (which pads and masks per-client automatically)")
+            nmb = max(getattr(local, "microbatches", 1), 1)
+            if nmb > 1 and (bsz // ndev) % nmb:
+                raise ValueError(
+                    f"per-shard batch of {bsz // ndev} examples (batch {bsz} over {ndev} "
+                    f"shards) does not divide into {nmb} microbatches: each shard runs "
+                    "its own gradient accumulation, so B must be a multiple of ndev * "
+                    "microbatches")
+            k_real, b = None, bsz // ndev
+            mesh.reset_counters()
+            agg, loss, sub_rows, tel = flat_shard(
+                params, {k: v if v.dim() == 0 else v[r * b:(r + 1) * b]
+                         for k, v in data.items()}, sub_ids, counts)
+        tel_out = None
+        if telemetry:
+            used = None
+            if sparse and vocab:
+                used = (tel["used_ids"][:k_real] if k_real is not None
+                        else union_ids_vec(tel["used_ids"], vocab))
+            # read before the stateless apply writes the tables in place
+            tel_out = assemble_tel(data, used, agg if sparse else None, counts,
+                                   tel["pre"], tel["post"],
+                                   shard_union_sizes=tel.get("shard_union"))
+        new_state = apply_sparse(state, agg) if sparse else apply_dense(state, agg, counts)
+        metrics = {"loss": loss}
+        if sparse and vocab:
+            metrics["sub_rows"] = sub_rows
+            metrics["density"] = sub_rows / (vocab if k_real is None else k_real * vocab)
+        if telemetry:
+            metrics["telemetry"] = tel_out
+        return new_state, metrics
+
+    return sharded_step

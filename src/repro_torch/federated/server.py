@@ -21,8 +21,10 @@ Each round records its :class:`~repro_torch.telemetry.round.RoundTelemetry`
 :class:`~repro_torch.telemetry.sink.TraceSink`; ``run`` splits first
 dispatches from steady ones and can profile itself (``profile_dir``); and
 ``run_async`` drives the buffered-async engine over an ``ArrivalSim``
-schedule, K1 serving each buffer fire. Cohort sharding is not ported
-(ROADMAP Queue 1 item 8).
+schedule, K1 serving each buffer fire. ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.CohortMesh`) shards every round's cohort
+over the mesh's ranks: each rank runs this same trainer, samples the same
+cohorts and trains its own block of clients.
 """
 from __future__ import annotations
 
@@ -48,9 +50,10 @@ from repro_torch.federated.async_engine import (BufferedAsyncServerUpdate,
                                                 build_async_engine)
 from repro_torch.federated.metrics import (accuracy, auc, comm_summary,
                                            telemetry_summary)
-from repro_torch.federated.plan import (RoundPlan, SubmodelReplicatedLocal,
-                                        build_round_step, heat_spec_from_axes,
-                                        plan_from_config, sparse_table_paths)
+from repro_torch.federated.plan import (CohortSharding, RoundPlan,
+                                        SubmodelReplicatedLocal, build_round_step,
+                                        heat_spec_from_axes, plan_from_config,
+                                        sparse_table_paths)
 from repro_torch.sparse.comm import CommStats, model_comm_meta
 from repro_torch.sparse.rowsparse import count_unique_ids, unique_ids_padded
 from repro_torch.telemetry import PhaseTimer, TraceSink
@@ -131,6 +134,19 @@ class FederatedTrainer:
     :class:`TraceSink` receiving the round and record events and the
     verbose reporting; an in-memory one when omitted, ``TraceSink(path)``
     to persist JSONL.
+
+    ``mesh``: a :class:`~repro_torch.launch.mesh.CohortMesh` (e.g.
+    ``make_cohort_mesh()`` under ``torchrun``) to shard every round's
+    cohort over its ranks (``device`` then defaults to the mesh's). Every
+    rank runs the same trainer: the host pipeline is untouched, each rank
+    samples the full cohort from the same numpy stream and the step trains
+    the rank's shard-major block, so sharded rounds reproduce unsharded
+    ones to 1e-5. Pass a plan with an explicit ``CohortSharding`` for
+    another axis or combine. On a mesh only rank 0 writes files
+    (``writes_files``): the other ranks close the sink's file and keep its
+    events in memory, and ``run(profile_dir=...)`` profiles rank 0 alone;
+    save checkpoints where ``writes_files`` holds. The buffered-async
+    engine does not run on a mesh.
     """
 
     def __init__(self, ds: FederatedDataset, make_params: Callable,
@@ -138,7 +154,10 @@ class FederatedTrainer:
                  predict_fn: Optional[Callable] = None,
                  metric: str = "auc", rng_seed: int = 0,
                  plan: Optional[RoundPlan] = None, device=None,
-                 telemetry: bool = True, sink: Optional[TraceSink] = None):
+                 telemetry: bool = True, sink: Optional[TraceSink] = None,
+                 mesh=None):
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.ds = ds
         self.cfg = cfg
@@ -176,13 +195,26 @@ class FederatedTrainer:
         self._async_engines: Dict[Any, Any] = {}
         self._async_heat_ema: Optional[torch.Tensor] = None
 
+        self.writes_files = mesh is None or mesh.rank == 0
         if cfg.algorithm == "central":
             if plan is not None:
                 raise ValueError("central training takes no RoundPlan")
+            if mesh is not None:
+                raise ValueError("central training takes no cohort mesh")
             self._central_step = self._make_central_step()
             return
 
         self.plan = self._resolve_trainer_plan(params, plan)
+        if mesh is not None:
+            if self.plan.sharding is not None and self.plan.sharding.mesh is not mesh:
+                raise ValueError("mesh= conflicts with the explicit plan's "
+                                 "CohortSharding: set the mesh on the plan only")
+            if self.plan.sharding is None:
+                self.plan = dataclasses.replace(self.plan, sharding=CohortSharding(mesh))
+        if self.plan.sharding is not None:
+            self.writes_files = self.plan.sharding.mesh.rank == 0
+        if not self.writes_files:
+            self.sink.close()
         self._is_sparse = self.plan.transport.sparse
         self._step = build_round_step(self.plan, loss_fn, axes, params, cfg,
                                       heat_counts=heat_counts,
@@ -473,6 +505,10 @@ class FederatedTrainer:
         if self.plan is None or not self._is_sparse:
             raise ValueError("run_async needs a sparse federated plan "
                              "(RowSparseTransport)")
+        if self.plan.sharding is not None:
+            raise ValueError(
+                "run_async does not compose with CohortSharding: the event stream "
+                "is inherently sequential; run the synchronous engine on the mesh")
         cfg = self.cfg
         srv = server if server is not None else BufferedAsyncServerUpdate(
             algorithm=self.plan.server.algorithm, buffer_size=cfg.clients_per_round)
@@ -539,12 +575,12 @@ class FederatedTrainer:
         activities, and the card's when the trainer is on one), with one
         ``record_function("rounds[a:b]")`` range per dispatched stretch,
         and write the trace under that directory
-        (``tensorboard_trace_handler``).
+        (``tensorboard_trace_handler``); on a mesh, rank 0 alone.
 
         ``RoundRecord.round`` continues the trainer's round counter, so
         repeated calls append monotone history.
         """
-        if profile_dir is None:
+        if profile_dir is None or not self.writes_files:
             return self._run_chunks(rounds, eval_every, verbose, engine, annotate=False)
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
@@ -605,7 +641,7 @@ class FederatedTrainer:
                     rec.density = s["mean_density"]
                 self.history.append(rec)
                 self.sink.emit({"event": "record", **dataclasses.asdict(rec)})
-                if verbose:
+                if verbose and self.writes_files:
                     self.sink.report(
                         f"[{self.cfg.algorithm}] round {self._rounds_run}: "
                         f"loss={rec.train_loss:.4f} {self.metric}="

@@ -14,7 +14,9 @@
                        protocol: ``SubmodelReplicatedLocal x RowSparseTransport``
 
 The batch carries the cohort data and the heat vectors (``heat_vocab``); the
-FedSubAvg correction reads the parameters' logical axes.
+FedSubAvg correction reads the parameters' logical axes. A ``RoundPlan``
+with ``CohortSharding`` runs on every rank of its mesh, each rank handed
+the same batch.
 """
 from __future__ import annotations
 

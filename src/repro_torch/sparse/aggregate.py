@@ -15,14 +15,22 @@ Union backends of ``aggregate_rowsparse``:
             tensors
 
 Every backend drops ids outside ``[0, V)``.
+
+On a cohort mesh (``repro_torch.launch.mesh``) each rank reduces its own
+clients with ``aggregate_rowsparse_partial`` (no heat, no scale) and
+``combine_rowsparse_partials`` builds the replicated aggregate: ``psum``
+densifies and all-reduces, ``union`` all-gathers the partial unions and
+segment-sums them once more (``pick_combine`` chooses by the dense bytes).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.core.aggregate import HeatSpec, correct_dense_leaf
+from repro_torch.core.heat import heat_correction_factors
 from repro_torch.kernels.heat_scatter import rowsparse_scatter
 from repro_torch.kernels.union_segsum import union_segsum, union_segsum_torch
 from repro_torch.sparse.encode import DEFAULT_SPARSE_SPACES
@@ -100,6 +108,99 @@ def aggregate_rowsparse(stacked: RowSparse, heat: Optional[torch.Tensor] = None,
         summed = summed.index_add_(0, pos, flat_rows.to(torch.float32))[:cap]
         return correct_rowsparse(RowSparse(union, summed, v), heat, total, scale)
     raise ValueError(f"unknown union backend {union_backend!r}")
+
+
+#: psum-densify combine budget: bytes of one dense ``(V, row_elems)`` f32
+#: buffer. Below it one all-reduce of the densified partial is cheapest;
+#: above it the gathered union of unions keeps the RowSparse form and never
+#: moves a dense ``(V, D)`` table.
+_PSUM_COMBINE_MAX_BYTES = 1 << 21
+
+
+def pick_combine(num_rows: int, row_elems: int, combine: str = "auto") -> str:
+    """The cross-shard combine of a sharded aggregation: ``"psum"`` or
+    ``"union"`` as given, or by the dense buffer's bytes for ``"auto"``."""
+    if combine != "auto":
+        if combine not in ("psum", "union"):
+            raise ValueError(f"unknown combine strategy {combine!r}: "
+                             "expected 'auto', 'psum' or 'union'")
+        return combine
+    dense_bytes = int(num_rows) * max(int(row_elems), 1) * 4
+    return "psum" if dense_bytes <= _PSUM_COMBINE_MAX_BYTES else "union"
+
+
+def aggregate_rowsparse_partial(stacked: RowSparse,
+                                union_capacity: Optional[int] = None,
+                                union_backend: str = "auto") -> RowSparse:
+    """One rank's half of a sharded aggregation: its clients' ``(K_shard, R)``
+    deltas summed onto the rank's union ids with no heat and no scale. The
+    heat correction and the ``1/K`` mean are per-row factors and enter once,
+    in :func:`combine_rowsparse_partials`, after the cross-rank sum."""
+    return aggregate_rowsparse(stacked, heat=None, total=1.0, scale=1.0,
+                               union_capacity=union_capacity,
+                               union_backend=union_backend)
+
+
+def combine_rowsparse_partials(partial: RowSparse, mesh, heat: Optional[torch.Tensor],
+                               total: float, scale: float = 1.0, combine: str = "auto",
+                               union_backend: str = "auto", tag: str = "combine"):
+    """Combine every rank's partial into the replicated global aggregate.
+
+    ``psum``   densify the partial and all-reduce it: the corrected dense
+               ``(V, ...)`` update (cold rows exact zeros), the same tensor
+               on every rank.
+    ``union``  all-gather the partials into a ``(ranks, cap)`` stack and
+               segment-sum it with :func:`aggregate_rowsparse` (union
+               capacity ``min(V, ranks * cap)``): RowSparse.
+
+    Either way the heat correction ``total / n_m`` and ``scale`` are applied
+    here, once. ``mesh`` is a ``repro_torch.launch.mesh.CohortMesh``; its
+    counters book the collectives under ``tag``.
+
+    Every rank must end with the same bits. An all-reduce hands every rank
+    the same sum; a segment-sum over the gathered stack would not, since
+    the kernel sums with atomics in an order that varies between calls,
+    and from three addends on the order moves the last ulp. So ``union``
+    folds the gathered partials in rank order, one segment-sum per further
+    rank, each over two stacked unions: every id then sums at most two rows
+    per call, and ``a + b == b + a`` in f32. The heat and ``scale`` enter at
+    the last call, whose union capacity is ``min(V, ranks * cap)``.
+    """
+    row_elems = math.prod(int(d) for d in partial.rows.shape[1:])
+    if pick_combine(partial.num_rows, row_elems, combine) == "psum":
+        dense = mesh.psum(partial.to_dense().to(torch.float32), tag)
+        if heat is not None:
+            factors = heat_correction_factors(heat, total) * scale
+        else:
+            factors = torch.full((partial.num_rows,), scale, dtype=torch.float32,
+                                 device=dense.device)
+        return dense * factors.reshape((-1,) + (1,) * (dense.dim() - 1))
+    v, cap, n = partial.num_rows, partial.capacity, mesh.size
+    ids, rows = mesh.all_gather(partial.ids, tag), mesh.all_gather(partial.rows, tag)
+    acc = RowSparse(ids[0], rows[0], v)
+    for s in range(1, n - 1):
+        acc = aggregate_rowsparse(_stack_pair(acc, RowSparse(ids[s], rows[s], v)),
+                                  union_capacity=min(v, (s + 1) * cap),
+                                  union_backend=union_backend)
+    stack = (_stack_pair(acc, RowSparse(ids[-1], rows[-1], v)) if n > 1
+             else RowSparse(ids, rows, v))
+    return aggregate_rowsparse(stack, heat, total, scale, union_capacity=min(v, n * cap),
+                               union_backend=union_backend)
+
+
+def _stack_pair(a: RowSparse, b: RowSparse) -> RowSparse:
+    """Two unbatched RowSparse as a ``(2, R)`` stack, the shorter padded."""
+    r = max(a.capacity, b.capacity)
+
+    def pad(x: RowSparse):
+        extra = r - x.capacity
+        if not extra:
+            return x.ids, x.rows
+        return (torch.cat([x.ids, x.ids.new_full((extra,), -1)]),
+                torch.cat([x.rows, x.rows.new_zeros((extra,) + tuple(x.rows.shape[1:]))]))
+
+    (ia, ra), (ib, rb) = pad(a), pad(b)
+    return RowSparse(torch.stack([ia, ib]), torch.stack([ra, rb]), a.num_rows)
 
 
 def aggregate_rowsparse_dense(stacked: RowSparse, heat: torch.Tensor,

@@ -13,8 +13,8 @@ consumed (``build_round_step(telemetry=True)`` puts it under
     them.
 ``union_size`` / ``shard_union_sizes`` / ``agg_rows``
     Distinct ids across the cohort's submodels; per-shard union sizes on a
-    cohort-sharded round (``None`` here: sharding is not ported); and the
-    valid rows of the aggregated RowSparse update (after top-k).
+    cohort-sharded round (one per rank; ``None`` unsharded); and the valid
+    rows of the aggregated RowSparse update (after top-k).
 ``delta_norm_pre`` / ``delta_norm_post``
     L2 of the transported update stack before and after wire compression
     (top-k, int8).
@@ -64,7 +64,7 @@ class RoundTelemetry(NamedTuple):
     dropped_per_client: Any     # (K,) i32 | None (per-client layouts only)
     union_size: Any             # i32 scalar: distinct ids across submodels
     agg_rows: Any               # i32 scalar | None: aggregated RowSparse rows
-    shard_union_sizes: Any      # None (cohort sharding is not ported)
+    shard_union_sizes: Any      # (ranks,) i32 | None (cohort-sharded rounds only)
     delta_norm_pre: Any         # f32 scalar: L2 of the raw update stack
     delta_norm_post: Any        # f32 scalar: L2 after top-k / int8
     heat_hist: Any              # (HEAT_BUCKETS,) f32 over touched union ids

@@ -39,6 +39,7 @@ from repro_torch.federated.plan import (CohortSharding, DenseTransport, FedSgdLo
                                         ReplicatedLocal, RoundPlan, RowSparseTransport,
                                         ServerUpdate, SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
+from repro_torch.launch.mesh import CohortMesh
 from repro_torch.models.recsys import lr_loss, lstm_loss
 
 from test_torch_telemetry import assert_telemetry_close
@@ -164,7 +165,8 @@ COUNTS = {"vocab": torch.full((V,), 5.0)}
 
 @pytest.mark.parametrize("change,exc,match", [
     (dict(server=ServerUpdate("fedsubavg")), TypeError, "BufferedAsyncServerUpdate"),
-    (dict(sharding=CohortSharding(mesh=None)), ValueError, "inherently sequential"),
+    (dict(sharding=CohortSharding(CohortMesh(rank=0, size=2, device=torch.device("cpu")))),
+     ValueError, "inherently sequential"),
     (dict(transport=DenseTransport()), ValueError, "RowSparseTransport"),
     (dict(transport=RowSparseTransport(int8=True)), ValueError, "int8"),
     (dict(local=FedSgdLocal()), ValueError, "FedSgdLocal"),

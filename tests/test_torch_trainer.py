@@ -39,6 +39,7 @@ from repro_torch.federated.plan import (CohortSharding, DenseTransport, RoundPla
                                         RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal)
 from repro_torch.federated.server import FederatedTrainer, derive_sub_ids
+from repro_torch.launch.mesh import CohortMesh
 from repro_torch.models import recsys
 from repro_torch.models.recsys import lr_logits, lr_loss, make_lr_params
 
@@ -230,22 +231,29 @@ def test_explicit_plan_matches_config_flags(data):
                                         RowSparseTransport(), ServerUpdate("fedavg")))
 
 
+_MESH = CohortMesh(rank=0, size=1, device=torch.device("cpu"))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(plan=dict(sharding=CohortSharding(mesh=None))), 8),
-    (dict(plan=dict(sharding=CohortSharding(mesh=None), transport=DenseTransport())), 8),
+    (dict(plan=dict(sharding=CohortSharding(_MESH))), 8),
+    (dict(plan=dict(sharding=CohortSharding(_MESH), transport=DenseTransport())), 8),
 ])
 def test_unported_paths_raise(data, kw, item):
+    """The paths ROADMAP Queue 1 item 8 ported (cohort sharding) now build:
+    the trainer keeps the plan's sharding and builds its step (the
+    sharded rounds themselves run in tests/test_torch_sharding.py)."""
     _, port, _ = data
     kw = dict(kw)
-    plan = kw.pop("plan", None)
-    if plan is not None:
-        plan = RoundPlan(**{"local": SubmodelReplicatedLocal(),
-                            "transport": RowSparseTransport(),
-                            "server": ServerUpdate("fedsubavg"), **plan})
+    plan = RoundPlan(**{"local": SubmodelReplicatedLocal(),
+                        "transport": RowSparseTransport(),
+                        "server": ServerUpdate("fedsubavg"), **kw.pop("plan")})
     cfg = FedConfig(**_cfg_kw("fedsubavg", 0))
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, item {item}\b"):
-        FederatedTrainer(port, functools.partial(make_lr_params, port.num_features),
-                         lr_loss, cfg, plan=plan, device="cpu", **kw)
+    assert item == 8
+    tr = FederatedTrainer(port, functools.partial(make_lr_params, port.num_features),
+                          lr_loss, cfg, plan=plan, device="cpu", **kw)
+    assert tr.plan.sharding.mesh is _MESH and tr.plan.sharding.num_shards == 1
+    assert tr.plan.describe().endswith("[sharded x1 over 'data']")
+    assert tr.writes_files
 
 
 def test_default_device_is_cuda_and_raises_without_it(data, monkeypatch):
