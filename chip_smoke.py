@@ -164,13 +164,43 @@ Phases, each of which asserts; any failure exits non-zero:
     ``debug_checks``, 3 steps each against the unsharded step on the card
     within 1e-5; every rank's collective counters equal
     ``round_collective_budget``'s components in every step
+34. K3's backward (``flash_attention_bwd``) against its plain version on
+    the card: the training shape (B 16, S 128, H 40, KV 8, hd 128) and
+    ragged, windowed, GQA, continuation and non-causal shapes, f32 and
+    bf16 (2e-5 and 2e-2, as [8]); ``FlashAttention`` under
+    ``torch.func.grad`` and ``vmap(grad)`` over 3 clients against autograd
+    of K3's plain version, one backward launch per call
+35. the LLM main path: ``repro_torch.launch.train.train`` at Qwen2.5-14B's
+    published widths (d_model 5,120, 40 / 8 heads, d_ff 13,824, vocab
+    152,064, QKV bias) with 4 of its 48 layers (a cut printed on a
+    ``reduced:`` line), f32, weights from seed 0, on
+    ``make_lm_federated(256 clients, 128 tokens, 4 samples, zipf 1.3)``,
+    cohort 16, lr 0.05: FedSgdLocal under fedsubavg and fedavg on the dense
+    and the row-sparse transport, 10 rounds each; K3 and its backward 4
+    times per round, K1 never; losses finite; ms per round, peak device
+    memory, uplink bytes per round on the sparse transport
+36. card against host: 1 layer at full width, cohort 2, 32 tokens, one
+    round per transport from the same weights; loss and parameters within
+    1e-4 (the sum order of 5,120- and 13,824-long f32 dot products, as [11])
+37. ``make_round_step`` on the LLM at the reference's ``100m`` scale in its
+    four modes, 3 steps each: K1 once per ``sparse_replicated`` step and
+    never otherwise; the same at ``tiny`` on the card and on the host,
+    losses and parameters within 1e-5
+38. where a fedsubavg dense round of [35] goes (torch.profiler): device
+    ops, busy share, device ms in matmuls, K3, K3's backward and the rest;
+    K3 and its backward at the training shape by CUDA events beside their
+    plain versions, SDPA (for the backward: autograd of
+    ``scaled_dot_product_attention``, its forward subtracted) and the bound
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
 on the replicated and int8 paths, in ``make_round_step``, on the telemetry
-runs and the async fires, per rank on the mesh, and its times at the DIN
-and LSTM rounds, at an async fire and at the mesh's partial and union
-combine), the card line and, last, ``{"ok": true, "device": {...}}``.
+runs and the async fires, per rank on the mesh and on [37]'s LLM steps,
+and its times at the DIN and LSTM rounds, at an async fire and at the
+mesh's partial and union combine; K3's its launches on the training path
+and its times at the training shape; K3-backward's entry its launches on
+[35] and its share of a round), the card line and, last,
+``{"ok": true, "device": {...}}``.
 
 """
 from __future__ import annotations
@@ -217,8 +247,12 @@ from repro_torch.sparse import compress  # noqa: E402
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import _build, _rows  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+from repro_torch.kernels.flash_attention import (FlashAttention,  # noqa: E402
+                                                 flash_attention, flash_attention_bwd,
+                                                 flash_attention_bwd_torch,
                                                  flash_attention_torch)
+from repro_torch.data.synthetic import make_lm_federated  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -971,24 +1005,28 @@ def capture_attention_inputs(cfg, params) -> dict:
     """One K3 (first prefill layer) and one K4 (last layer of the last
     decode step) input set, recorded, as copies, in an untimed run of the
     same request as [10]'s (same weights and prompt seed). The kernels are
-    reached through ``layers``' module names, which this run wraps."""
+    reached through ``FlashAttention.forward`` for K3 and ``layers``' name
+    for K4, which this run wraps."""
     captured = {}
     copy = lambda args: tuple(a.clone() if torch.is_tensor(a) else a for a in args)  # noqa: E731
+    k3_forward = FlashAttention.forward
 
-    def capture_k3(*args, **kw):
-        captured.setdefault("k3", (copy(args), kw))
-        return flash_attention(*args, **kw)
+    def capture_k3(q, k, v, causal, window, q_offset, query_chunk, kv_chunk):
+        captured.setdefault("k3", (copy((q, k, v)), dict(
+            causal=causal, window=window, q_offset=q_offset, query_chunk=query_chunk,
+            kv_chunk=kv_chunk)))
+        return k3_forward(q, k, v, causal, window, q_offset, query_chunk, kv_chunk)
 
     def capture_k4(*args, **kw):
         captured["k4"] = (copy(args), kw)
         return flash_decode(*args, **kw)
 
-    layers_mod.flash_attention, layers_mod.flash_decode = capture_k3, capture_k4
+    FlashAttention.forward, layers_mod.flash_decode = staticmethod(capture_k3), capture_k4
     try:
         serve_mod.serve(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
                         device=DEV, seed=SEED, params=params)
     finally:
-        layers_mod.flash_attention, layers_mod.flash_decode = flash_attention, flash_decode
+        FlashAttention.forward, layers_mod.flash_decode = staticmethod(k3_forward), flash_decode
     return captured
 
 
@@ -2350,6 +2388,496 @@ def phase_mesh_steps(ranks: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [34]-[38]: federated LLM training
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2_5_14b"
+LM_LAYERS = 4
+#: examples/federated_llm.py's corpus and cohort (``train``'s corpus takes 4
+#: samples per client)
+LM_CORPUS = dict(clients=256, seq=128, zipf_a=1.3, cohort=16)
+LM_LR, LM_ROUNDS = 0.05, 10
+LM_REDUCED = ("layers 48 -> 4: 4 layers at full width are 2.66 B f32 parameters "
+              "(10.6 GB); parameters, gradients, the update and the new parameters "
+              "take ~43 GB of the card's 80, and 48 layers would need ~470 GB")
+#: [35]'s plans: FedSgdLocal on the dense and on the row-sparse transport
+LM_PLANS = (("fedsubavg dense", "fedsubavg", False), ("fedavg dense", "fedavg", False),
+            ("fedsubavg sparse", "fedsubavg", True), ("fedavg sparse", "fedavg", True))
+#: card against host at full width ([36]): the sum order of 5,120- and
+#: 13,824-long f32 dot products, as [11], and of the 2,048- and 32-token
+#: gradient sums; the update scales a gradient by up to N / n_m = 256
+LM_HOST_TOL = 1e-4
+#: [36]'s update, leaf by leaf: ||(p_card - p0) - (p_host - p0)|| /
+#: ||p_host - p0||. Each side rounds p0 + update to f32, an ulp of p0 apart
+#: at most, which is large against an update far below p0; a gradient that
+#: is zero or lost reads 1 and a wrong one about 1 or more
+LM_UPDATE_TOL = 1e-3
+#: card against host at the tiny scale ([37]): the repository's 1e-5
+LM_STEP_TOL = 1e-5
+LM_STEP_MODES = ("fedsgd", "sparse", "replicated", "sparse_replicated")
+LM_TRAIN_SHAPE = (LM_CORPUS["cohort"], LM_CORPUS["seq"])
+LM_COUNTED = (("flash_attention", flash_attention), ("flash_attention_bwd", flash_attention_bwd),
+              ("union_segsum", union_segsum))
+
+
+def lm_counts() -> dict:
+    return {name: w.launches for name, w in LM_COUNTED}
+
+
+def lm_zero_counts() -> None:
+    for _, w in LM_COUNTED:
+        w.launches = 0
+
+
+def lm_config(layers: int = LM_LAYERS, **over):
+    return get_config(LM_ARCH).replace(num_layers=layers, dtype="float32", **over)
+
+
+def lm_params(cfg, device) -> tuple:
+    """The flat training dict and its axes, drawn from seed ``SEED``."""
+    model = transformer.make_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                                    device)
+    return transformer.train_params(model)
+
+
+def compare_grads(name, got, want, dtype) -> float:
+    return max(compare(f"{name}.{g}", a.float(), w.float(), dtype)
+               for g, a, w in zip(("dq", "dk", "dv"), got, want))
+
+
+def phase_k3_bwd(rng) -> tuple:
+    """[34] K3 and its backward against their plain versions, case by case
+    (tolerance by dtype), and ``FlashAttention`` under ``torch.func.grad``
+    and ``vmap`` against autograd of K3's plain version. Returns the worst
+    forward and the worst backward error."""
+    from torch.func import grad, vmap
+
+    bf, f32 = torch.bfloat16, torch.float32
+    b, s = LM_TRAIN_SHAPE
+    cases = [("train", b, s, s, 40, 8, 128, True, 0, 0, f32),
+             ("train", b, s, s, 40, 8, 128, True, 0, 0, bf),
+             ("ragged", 2, 100, 100, 8, 2, 64, True, 0, 0, f32),
+             ("ragged", 2, 100, 100, 8, 2, 64, True, 0, 0, bf),
+             ("window", 2, 300, 300, 8, 2, 128, True, 70, 0, f32),
+             ("window", 2, 300, 300, 8, 2, 128, True, 70, 0, bf),
+             ("continue", 2, 77, 200, 8, 2, 32, True, 0, 123, f32),
+             ("non-causal", 1, 90, 150, 4, 4, 16, False, 0, 0, f32),
+             ("window-nc", 1, 128, 128, 4, 2, 64, False, 40, 0, bf)]
+    worst = worst_fwd = 0.0
+    for name, b, sq, sk, h, kv, hd, causal, window, off, dtype in cases:
+        q, k, v = (normal(rng, (b, sq, h, hd), dtype), normal(rng, (b, sk, kv, hd), dtype),
+                   normal(rng, (b, sk, kv, hd), dtype))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        # the backward below takes the kernel's output: the forward is held
+        # to its plain version first, so a wrong ``o`` cannot pass unseen
+        o = flash_attention(q, k, v, **kw)
+        err_f = compare(f"flash_attention[{name}]", o, flash_attention_torch(q, k, v, **kw),
+                        dtype)
+        worst_fwd = max(worst_fwd, err_f)
+        do = normal(rng, o.shape, dtype)
+        err = compare_grads(f"flash_attention_bwd[{name}]",
+                            flash_attention_bwd(q, k, v, o, do, **kw),
+                            flash_attention_bwd_torch(q, k, v, o, do, **kw), dtype)
+        worst = max(worst, err)
+        print(f"  K3 and backward {name:10s} {str(dtype):14s} B={b} Sq={sq} Sk={sk} H={h} "
+              f"KV={kv} hd={hd} causal={causal} window={window} q_offset={off} "
+              f"max_abs_err forward {err_f:.3g}, backward {err:.3g}")
+
+    # FlashAttention through torch.func against autograd of the plain forward
+    n, b, s, h, kv, hd = 3, 2, 128, 8, 2, 64
+    for dtype in (f32, bf):
+        q, k, v = (normal(rng, (n, b, s, h, hd), dtype), normal(rng, (n, b, s, kv, hd), dtype),
+                   normal(rng, (n, b, s, kv, hd), dtype))
+        w = normal(rng, (b, s, h, hd), dtype)
+        fused = lambda q, k, v: (FlashAttention.apply(q, k, v, True, 0, 0, 1024, 1024)  # noqa: E731
+                                 * w).float().sum()
+
+        def plain_grads(i):
+            leaves = [t[i].clone().requires_grad_() for t in (q, k, v)]
+            out = (flash_attention_torch(*leaves) * w).float().sum()
+            return torch.autograd.grad(out, leaves)
+
+        g_fn = grad(fused, argnums=(0, 1, 2))
+        before = flash_attention_bwd.launches
+        got = g_fn(q[0], k[0], v[0])
+        torch.cuda.synchronize()
+        check(flash_attention_bwd.launches == before + 1, "grad did not launch K3's backward")
+        err = compare_grads(f"FlashAttention grad {dtype}", got, plain_grads(0), dtype)
+        before = flash_attention_bwd.launches
+        got = vmap(g_fn)(q, k, v)
+        torch.cuda.synchronize()
+        check(flash_attention_bwd.launches == before + 1,
+              "vmap(grad) did not fold the clients into one K3 backward launch")
+        for i in range(n):
+            err = max(err, compare_grads(f"FlashAttention vmap(grad)[{i}] {dtype}",
+                                         tuple(g[i] for g in got), plain_grads(i), dtype))
+        worst = max(worst, err)
+        print(f"  FlashAttention {str(dtype):14s} under grad and vmap(grad) over {n} "
+              f"clients (B={b} S={s} H={h} KV={kv} hd={hd}) against autograd of the plain "
+              f"forward: max_abs_err={err:.3g}; one launch per call")
+    return worst_fwd, worst
+
+
+def phase_lm_main() -> dict:
+    """[35] the main path: ``launch.train.train`` at Qwen2.5-14B's widths,
+    4 layers, f32, 10 rounds per plan, each from the seed's weights, with
+    every count set to 0 just before it and read just after."""
+    cfg = lm_config()
+    runs = {}
+    for label, alg, sparse in LM_PLANS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_zero_counts()
+        # the weights from seed 0 (``SEED``), drawn by ``train`` itself, so
+        # that no second copy of them stays alive through the run
+        res = train_mod.train(cfg, rounds=LM_ROUNDS, lr=LM_LR, algorithm=alg,
+                              sparse=sparse, device=DEV, log_every=0, **LM_CORPUS)
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not runs:
+            n_params = sum(p.numel() for p in res.params.values())
+            print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                  f"{n_params / 1e9:.3f} B params ({cfg.dtype}); reduced: {LM_REDUCED}")
+        check(all(math.isfinite(x) for x in res.losses), f"{label}: a loss is not finite")
+        nl = cfg.num_layers * LM_ROUNDS
+        check(launches == {"flash_attention": nl, "flash_attention_bwd": nl,
+                           "union_segsum": 0},
+              f"{label}: launches {launches}, want {cfg.num_layers} of K3 and of its "
+              "backward per round and no K1 (FedSgdLocal)")
+        steady = statistics.median(res.ms_per_round[1:])
+        runs[label] = {"losses": res.losses, "ms_per_round": res.ms_per_round,
+                       "steady_ms_per_round": steady, "peak_gb": peak / 1e9,
+                       "launches": launches, "bytes_up_sparse": res.bytes_up_sparse,
+                       "bytes_up_dense": res.bytes_up_dense}
+        print(f"  {label} ({res.plan}): loss {[round(x, 4) for x in res.losses]}")
+        print(f"    ms/round: first {res.ms_per_round[0]:.1f}, steady {steady:.1f} (median "
+              f"of rounds 2-{LM_ROUNDS}); peak device memory {peak / 1e9:.2f} GB; "
+              f"launches {launches}")
+        if res.bytes_up_sparse:
+            print(f"    uplink per round (cohort as one union): "
+                  f"{[round(x / 1e6, 2) for x in res.bytes_up_sparse]} MB sparse against "
+                  f"{res.bytes_up_dense[-1] / 1e6:.1f} MB dense")
+        del res
+    return runs
+
+
+def phase_lm_card_vs_host() -> dict:
+    """[36] one round per transport at full width, 1 layer, cohort 2,
+    32 tokens, on the card and on the host from the same weights: the loss,
+    the parameters, and each leaf's update (parameters after minus before),
+    which the parameters' own tolerance cannot see when it is small."""
+    cfg = lm_config(1)
+    out = {}
+    for label, sparse in (("dense", False), ("sparse", True)):
+        card, axes = lm_params(cfg, DEV)
+        # the round updates sparse tables in place: p0 stays untouched
+        p0 = {k: v.to("cpu", copy=True) for k, v in card.items()}
+        host = {k: v.clone() for k, v in p0.items()}
+        kw = dict(rounds=1, lr=LM_LR, sparse=sparse, axes=axes, log_every=0,
+                  **{**LM_CORPUS, "cohort": 2, "seq": 32})
+        lm_zero_counts()
+        rc = train_mod.train(cfg, device=DEV, params=card, **kw)
+        check(lm_counts() == {"flash_attention": 1, "flash_attention_bwd": 1,
+                              "union_segsum": 0}, f"card run launches {lm_counts()}")
+        del card
+        t0 = time.perf_counter()
+        rh = train_mod.train(cfg, device="cpu", params=host, **kw)
+        host_s = time.perf_counter() - t0
+        check(lm_counts()["flash_attention"] == 1, "the host run launched a kernel")
+        loss_err = abs(rc.losses[0] - rh.losses[0])
+        check(loss_err <= LM_HOST_TOL * max(1.0, abs(rh.losses[0])),
+              f"{label}: card and host losses differ by {loss_err}")
+        err, upd = 0.0, {}
+        for name, want in rh.params.items():
+            got = rc.params[name].cpu()
+            err = max(err, float((got - want).abs().max()))
+            check(torch.allclose(got, want, rtol=LM_HOST_TOL, atol=LM_HOST_TOL),
+                  f"{label}: {name} differs between card and host by "
+                  f"{float((got - want).abs().max())}")
+            d_host, d_card = want - p0[name], got - p0[name]
+            norm = float(torch.linalg.vector_norm(d_host))
+            rel = (float(torch.linalg.vector_norm(d_card - d_host)) / norm if norm
+                   else (0.0 if not d_card.any() else math.inf))
+            upd[name] = (rel, float(d_host.abs().max()))
+            check(rel <= LM_UPDATE_TOL, f"{label}: {name}'s update differs between card and "
+                  f"host by {rel:.3g} of its norm (largest update {upd[name][1]:.3g})")
+        worst = max(upd, key=lambda n: upd[n][0])
+        out[label] = {"loss_diff": loss_err, "param_diff": err,
+                      "update_rel_diff": {n: r for n, (r, _) in upd.items()},
+                      "update_max_abs": {n: m for n, (_, m) in upd.items()}}
+        print(f"  {label}: loss card {rc.losses[0]:.6f} host {rh.losses[0]:.6f} "
+              f"(|diff| {loss_err:.3g}); max |param diff| {err:.3g} (tolerance "
+              f"{LM_HOST_TOL}); host round {host_s:.1f} s")
+        print(f"    update card against host, ||d_card - d_host|| / ||d_host|| by leaf "
+              f"(tolerance {LM_UPDATE_TOL}; a zero gradient reads 1): worst {upd[worst][0]:.3g} "
+              f"({worst})")
+        for name, (rel, big) in upd.items():
+            if name.startswith("layers.0.attn") or not name.startswith("layers."):
+                print(f"      {name:28s} rel {rel:.3g}, largest |update| {big:.3g}")
+        del rc, rh, host, p0
+    return out
+
+
+def lm_step_batches(ds, cohort: int, steps: int, stacked: bool, local_iters: int = 2):
+    """``steps`` numpy batches from ``ds``: flat ``(cohort * 4, S)`` pooled
+    sequences, or ``(cohort, local_iters, 2, S)`` per-client stacks, each with
+    ``heat_vocab``."""
+    rng = np.random.default_rng(SEED)
+    toks = ds.client_data["tokens"]
+    out = []
+    for _ in range(steps):
+        ids = rng.choice(ds.num_clients, size=cohort, replace=False)
+        t = toks[ids]                                        # (K, 4, S)
+        t = t.reshape(cohort, local_iters, -1, t.shape[-1]) if stacked else t.reshape(
+            -1, t.shape[-1])
+        out.append({"tokens": t, "heat_vocab": ds.heat.counts.astype(np.float32)})
+    return out
+
+
+def run_lm_steps(cfg, mode: str, device, batches, clients: int, cohort: int, params,
+                 axes) -> tuple:
+    """``make_round_step`` in ``mode`` over ``batches`` from ``params`` on
+    ``device``; returns losses, ms per step, final parameters and the
+    launches, counted from 0."""
+    api = build_model(cfg)
+    fed = FedConfig(num_clients=clients, clients_per_round=cohort, local_iters=2, lr=LM_LR,
+                    algorithm="fedsubavg")
+    step = make_round_step(api.loss, params, axes, fed, mode=mode)
+    losses, ms = [], []
+    lm_zero_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, m = step(params, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, params, lm_counts()
+
+
+def phase_lm_round_steps() -> dict:
+    """[37] ``make_round_step`` at the reference's ``100m`` scale in its four
+    modes, K1 counted per step and held to its plain version on the
+    ``sparse_replicated`` step's inputs; the same at ``tiny`` on the card and
+    on the host."""
+    steps, cohort, clients = 3, 4, 64
+    out = {}
+    for scale in ("100m", "tiny"):
+        cfg = get_config(LM_ARCH).replace(**serve_mod.SCALES[scale])
+        ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=128,
+                               samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
+        for mode in LM_STEP_MODES:
+            batches = lm_step_batches(ds, cohort, steps, "replicated" in mode)
+            init, axes = lm_params(cfg, DEV)
+            host_init = {k: v.to("cpu", copy=True) for k, v in init.items()}
+            captured = {}
+            ctx = (capture_k1(captured) if mode == "sparse_replicated"
+                   else contextlib.nullcontext())
+            with ctx:
+                losses, ms, params, launches = run_lm_steps(cfg, mode, DEV, batches, clients,
+                                                            cohort, init, axes)
+            del init
+            if captured:
+                args = captured["args"]
+                ids, rows, v = args[0], args[1], args[5]
+                union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+                err = check_k1(f"union_segsum[lm {scale} sparse_replicated step]", args,
+                               captured["kw"]["scale"], union)
+                out["k1_err"] = max(out.get("k1_err", 0.0), err)
+                print(f"  K1 at a {scale} sparse_replicated step: V={v} T={ids.numel()} "
+                      f"D={rows.shape[-1]} cap={args[4]} union={union} max_abs_err={err:.3g}")
+            check(all(math.isfinite(x) for x in losses), f"{scale} {mode}: loss not finite")
+            want_k1 = steps if mode == "sparse_replicated" else 0
+            check(launches["union_segsum"] == want_k1,
+                  f"{scale} {mode}: K1 launched {launches['union_segsum']} times in {steps} "
+                  f"steps, want {want_k1}")
+            check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+                  f"{scale} {mode}: K3 or its backward did not launch: {launches}")
+            line = (f"  {scale} {mode:17s}: loss {[round(x, 4) for x in losses]}, ms/step "
+                    f"{[round(x, 1) for x in ms]}, launches {launches}")
+            if scale == "tiny":
+                h_losses, _, h_params, h_launches = run_lm_steps(cfg, mode, "cpu", batches,
+                                                                 clients, cohort, host_init,
+                                                                 axes)
+                check(sum(h_launches.values()) == 0, "the host run launched a kernel")
+                err = max(float((params[k].cpu() - h_params[k]).abs().max())
+                          for k in h_params)
+                check(np.allclose(losses, h_losses, rtol=LM_STEP_TOL, atol=LM_STEP_TOL),
+                      f"tiny {mode}: card losses {losses} against host {h_losses}")
+                check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=LM_STEP_TOL,
+                                         atol=LM_STEP_TOL) for k in h_params),
+                      f"tiny {mode}: card and host parameters differ by {err}")
+                line += f"; card against host: max |param diff| {err:.3g}"
+                out[f"tiny {mode} param_diff"] = err
+            out[f"{scale} {mode}"] = launches
+            print(line)
+            del params
+    return out
+
+
+def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
+                     k3: dict) -> dict:
+    """[38] where one fedsubavg dense round of [35]'s path goes (device ops,
+    busy share of [35]'s steady round, device ms by kind), then K3 and its
+    backward at the training shape, each first held to its plain version
+    there, then timed by CUDA events beside their plain versions, SDPA (its
+    backward: autograd of ``scaled_dot_product_attention``, its forward
+    subtracted) and the bound. Returns K3-backward's entry and adds K3's
+    training-shape times and error to ``k3``."""
+    import torch.nn.functional as F
+
+    cfg = lm_config()
+    api = build_model(cfg)
+    params, axes = lm_params(cfg, DEV)
+    k = LM_CORPUS["cohort"]
+    ds = make_lm_federated(num_clients=LM_CORPUS["clients"], vocab=cfg.vocab_size,
+                           seq_len=LM_CORPUS["seq"], zipf_a=LM_CORPUS["zipf_a"],
+                           samples_per_client=4)
+    fed = FedConfig(num_clients=ds.num_clients, clients_per_round=k, lr=LM_LR,
+                    algorithm="fedsubavg")
+    step = make_round_step(api.loss, params, axes, fed, mode=train_mod.make_plan())
+    rng = np.random.default_rng(SEED)
+    toks = ds.client_data["tokens"]
+    ids = rng.choice(ds.num_clients, size=k, replace=False)
+    batch = {"tokens": torch.from_numpy(toks[ids, rng.integers(0, toks.shape[1], k)]).to(DEV),
+             "heat_vocab": torch.as_tensor(ds.heat.counts, dtype=torch.float32).to(DEV)}
+    state = {"params": params}
+    del params
+
+    def one_round():
+        state["params"], m = step(state["params"], batch)
+        float(m["loss"])
+
+    one_round()
+    _, by_name, ops = device_profile(one_round)
+    device_ms = sum(by_name.values()) / 1e3
+    kinds = {"K3": ("attention_kernel",), "K3 backward": ("dq_kernel", "dkv_kernel")}
+    split = {kind: sum(t for name, t in by_name.items() if any(w in name for w in ws)) / 1e3
+             for kind, ws in kinds.items()}
+    split["matmuls"] = matmul_us(by_name) / 1e3
+    split["elementwise and the rest"] = device_ms - sum(split.values())
+    # cuBLAS's share: forward and backward (2 + 4 flops a weight a token) of
+    # every 2-D weight but the embedding, which is gathered, not multiplied
+    mm_flops = 6 * batch["tokens"].numel() * sum(
+        p.numel() for name, p in state["params"].items() if p.dim() == 2 and name != "embedding")
+    del state
+    print(f"  fedsubavg dense round: {steady_ms:.1f} ms steady ([35]); {ops} device ops, "
+          f"{device_ms:.2f} ms busy ({device_ms / steady_ms * 100:.1f}%): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    print(f"  matmuls: {mm_flops / 1e12:.2f} TFLOP per round from the shapes, "
+          f"{mm_flops / split['matmuls'] / 1e9:.1f} TFLOP/s (f32 without TF32; "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s peak)")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {t / 1e3:.4f} ms  {name[:90]}")
+
+    rng = np.random.default_rng(SEED + 34)
+    b, s = LM_TRAIN_SHAPE
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dtype = torch.float32
+    q, k, v = normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kvh, hd), dtype), normal(
+        rng, (b, s, kvh, hd), dtype)
+    o = flash_attention(q, k, v)
+    err_fwd = compare("flash_attention[training round shape]", o, flash_attention_torch(q, k, v),
+                      dtype)
+    k3["max_abs_err"] = max(k3["max_abs_err"], err_fwd)
+    do = normal(rng, o.shape, dtype)
+    err_bwd = max(err_bwd, compare_grads("flash_attention_bwd[training round shape]",
+                                         flash_attention_bwd(q, k, v, o, do),
+                                         flash_attention_bwd_torch(q, k, v, o, do), dtype))
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    fwd = lambda: flash_attention(q, k, v)                                  # noqa: E731
+    fwd_plain = lambda: flash_attention_torch(q, k, v)                      # noqa: E731
+    bwd = lambda: flash_attention_bwd(q, k, v, o, do)                       # noqa: E731
+    bwd_plain = lambda: flash_attention_bwd_torch(q, k, v, o, do)           # noqa: E731
+    with torch.no_grad():
+        f_p1, f1, f2, f_p2 = (cuda_ms(fwd_plain, 5, 1), cuda_ms(fwd, 20), cuda_ms(fwd, 20),
+                              cuda_ms(fwd_plain, 5, 1))
+        f_lib = cuda_ms(sdpa, 20)
+    b_p1, b1, b2, b_p2 = (cuda_ms(bwd_plain, 5, 1), cuda_ms(bwd, 20), cuda_ms(bwd, 20),
+                          cuda_ms(bwd_plain, 5, 1))
+    b_lib = cuda_ms(sdpa_fwd_bwd, 20) - f_lib
+    pairs = s * (s + 1) // 2
+    fbytes, fops = attention_work(b, s, h, kvh, hd, s, pairs, dtype)
+    f_bound, f_by = attention_bound(fbytes, fops, dtype)
+    # the gradient reads q, k, v, o and dout and writes dq, dk and dv: twice
+    # the forward's bytes; five products per valid pair: 2.5 times its flops
+    b_bound, b_by = attention_bound(2 * fbytes, 2.5 * fops, dtype)
+    print(f"  K3 at the training shape B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} causal: "
+          f"max_abs_err {err_fwd:.3g}; kernel {f1:.4f}/{f2:.4f} ms, plain {f_p1:.4f}/"
+          f"{f_p2:.4f} ms, SDPA {f_lib:.4f} ms, "
+          f"bound {f_bound:.5f} ms ({f_by})")
+    print(f"  K3 backward: kernel {b1:.4f}/{b2:.4f} ms ({2.5 * fops / min(b1, b2) / 1e9:.1f} "
+          f"TFLOP/s), plain {b_p1:.4f}/{b_p2:.4f} ms, SDPA backward {b_lib:.4f} ms, bound "
+          f"{b_bound:.5f} ms ({b_by}; {OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s)")
+    k3["training"] = {"shape": [b, s, h, kvh, hd], "dtype": "float32",
+                      "ms": min(f1, f2), "plain_ms": min(f_p1, f_p2), "library_ms": f_lib,
+                      "bound_ms": f_bound, "bound_by": f_by,
+                      "launches_main_path": k3["launches_by_path"]["training"],
+                      "max_abs_err": err_fwd,
+                      "device_ms_per_round": split["K3"]}
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:154",
+            "launches": launches_bwd, "max_abs_err": err_bwd,
+            "ms": min(b1, b2), "plain_ms": min(b_p1, b_p2), "bound_ms": b_bound,
+            "bound_by": b_by, "library_ms": b_lib,
+            "device_ms_per_round": split["K3 backward"],
+            "round_split_ms": split, "round_device_ops": ops,
+            "round_matmul_tflop": mm_flops / 1e12}
+
+
+def phase_lm_training(kernels: list, rng, k1: dict) -> list:
+    """[34]-[38], each timed; returns K3-backward's kernel entry (K3's gains
+    its training numbers, K1's its launches on [37]'s steps)."""
+    print("[34] K3 and its backward vs plain versions; FlashAttention under grad and vmap")
+    t0 = time.perf_counter()
+    k3 = next(e for e in kernels if e["name"] == "flash_attention")
+    err_fwd, err_bwd = phase_k3_bwd(rng)
+    k3["max_abs_err"] = max(k3["max_abs_err"], err_fwd)
+    print(f"  [34] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[35] federated LLM training: {LM_ARCH} at its published widths, {LM_LAYERS} "
+          f"layers, f32, {LM_CORPUS}, {LM_ROUNDS} rounds per plan")
+    t0 = time.perf_counter()
+    lm_runs = phase_lm_main()
+    print(f"  [35] took {time.perf_counter() - t0:.1f} s")
+
+    print("[36] card vs host: 1 layer at full width, f32, cohort 2, 32 tokens, one round "
+          "per transport")
+    t0 = time.perf_counter()
+    phase_lm_card_vs_host()
+    print(f"  [36] took {time.perf_counter() - t0:.1f} s")
+
+    print("[37] make_round_step on the LLM at the 100m scale in four modes; card vs host "
+          "at the tiny scale")
+    t0 = time.perf_counter()
+    steps = phase_lm_round_steps()
+    for mode in LM_STEP_MODES:
+        k1["launches_by_path"][f"lm 100m make_round_step {mode}"] = steps[
+            f"100m {mode}"]["union_segsum"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], steps["k1_err"])
+    print(f"  [37] took {time.perf_counter() - t0:.1f} s")
+
+    print("[38] where a training round's time goes; K3 and its backward at the training "
+          "shape")
+    t0 = time.perf_counter()
+    k3["launches_by_path"] = {
+        "serving prefill": k3["launches"],
+        "training": sum(r["launches"]["flash_attention"] for r in lm_runs.values())}
+    launches_bwd = sum(r["launches"]["flash_attention_bwd"] for r in lm_runs.values())
+    entry = phase_lm_profile(lm_runs["fedsubavg dense"]["steady_ms_per_round"],
+                             err_bwd, launches_bwd, k3)
+    print(f"  [38] took {time.perf_counter() - t0:.1f} s")
+    return [entry]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2578,6 +3106,9 @@ def main() -> int:
           "cohort that does not divide, debug checks; collectives against the budget")
     for label, per_rank in phase_mesh_steps(mesh_ranks[2]).items():
         k1["launches_by_path"][f"lstm mesh x2 make_round_step {label}"] = per_rank
+    del plain, mesh_ranks
+
+    kernels += phase_lm_training(kernels, rng, k1)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

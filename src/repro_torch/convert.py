@@ -9,7 +9,9 @@ port's form on ``device``:
   logical axes;
 - the dense transformer's tree (``repro.models.transformer.make_params``,
   layers stacked on a leading L axis): the port's ``Transformer`` module,
-  one entry of its ``layers`` per slice of L, and its logical axes.
+  one entry of its ``layers`` per slice of L, and its logical axes; with
+  ``flat=True`` the flat training dict of ``transformer.train_params``
+  (``layers.{i}.attn.wq.w`` and so on) instead of the module.
 
 ``server_state_from_jax`` carries a recsys trainer's whole ``ServerState``
 across: parameters, the server optimizer's slots and the round count.
@@ -27,7 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.algorithms import ServerState
 from repro_torch.models.recsys import DIN_AXES, LR_AXES, lstm_axes
-from repro_torch.models.transformer import make_params
+from repro_torch.models.transformer import make_params, train_params, unstack_layers
 
 
 def _model_axes(names) -> Optional[Dict[str, Tuple]]:
@@ -57,43 +59,37 @@ def _is_transformer(flat: Mapping[str, np.ndarray]) -> bool:
     return "embedding" in flat and "layers.attn.wq.w" in flat
 
 
-def _unstack_layers(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """``layers.attn.wq.w`` (L, ...) -> ``layers.{i}.attn.wq.w``; bf16
-    arrays (numpy's ``ml_dtypes`` type, which torch does not read) widen to
-    f32 exactly and narrow back to the model's dtype on load."""
-    state = {}
-    for name, arr in flat.items():
-        if arr.dtype.name == "bfloat16":
-            arr = arr.astype(np.float32)
-        if name.startswith("layers."):
-            for i in range(arr.shape[0]):
-                state[f"layers.{i}.{name[len('layers.'):]}"] = arr[i].copy()
-        else:
-            state[name] = arr.copy()
-    return state
+def _writable_copy(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A writable copy of each array (torch reads no read-only array without
+    a warning); bf16 (numpy's ``ml_dtypes`` type, which torch does not read)
+    widened to f32 exactly, which ``make_params`` narrows back to the
+    model's dtype."""
+    return {name: arr.astype(np.float32) if arr.dtype.name == "bfloat16" else np.array(arr)
+            for name, arr in flat.items()}
 
 
-def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = None
-                    ) -> Tuple[object, Dict[str, Tuple]]:
+def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = None,
+                    flat: bool = False) -> Tuple[object, Dict[str, Tuple]]:
     """``(params, axes)`` for a JAX parameter tree given as numpy arrays.
-    The transformer's tree needs its ``cfg``; ``params`` is then the model."""
-    flat = _flatten(np_tree)
-    if _is_transformer(flat):
+    The transformer's tree needs its ``cfg``; ``params`` is then the model,
+    or with ``flat=True`` its flat training dict."""
+    leaves = _flatten(np_tree)
+    if _is_transformer(leaves):
         if cfg is None:
             raise ValueError("params_from_jax: the transformer's tree needs its "
                              "ModelConfig (cfg=...)")
-        state = _unstack_layers(flat)
+        state = unstack_layers(_writable_copy(leaves))
         model = make_params(cfg, device=device, state=state)
         if set(state) != set(model.axes):
             raise ValueError(f"params_from_jax: the tree does not fit {cfg.name}: "
                              f"{sorted(set(state) ^ set(model.axes))}")
-        return model, dict(model.axes)
-    axes = _model_axes(flat)
+        return train_params(model) if flat else (model, dict(model.axes))
+    axes = _model_axes(leaves)
     if axes is None:
-        raise ValueError(f"no ported model has parameters {sorted(flat)}")
+        raise ValueError(f"no ported model has parameters {sorted(leaves)}")
     dev = resolve_device(device)
     # a copy: the trainer updates its tables in place
-    params = {k: torch.tensor(v, device=dev) for k, v in flat.items()}
+    params = {k: torch.tensor(v, device=dev) for k, v in leaves.items()}
     return params, axes
 
 

@@ -254,11 +254,43 @@ def make_alibaba_like(**kw) -> FederatedDataset:
     return ds
 
 
-#: the ported generators by the reference's dataset names (its "lm" corpus
-#: is not ported)
+# ---------------------------------------------------------------------------
+# Federated LM corpus (the LLM training path)
+# ---------------------------------------------------------------------------
+
+
+def make_lm_federated(num_clients: int = 64, vocab: int = 512, seq_len: int = 64,
+                      samples_per_client: int = 4, zipf_a: float = 1.2,
+                      seed: int = 0) -> FederatedDataset:
+    """Token sequences per client: Zipf popularity over ``vocab`` with 16
+    topic tokens per client boosted by e^2. The reference's draws, in its
+    order (``rng.choice`` with ``p``, whose CDF changes per client)."""
+    rng = np.random.default_rng(seed)
+    pop = _zipf_probs(vocab, zipf_a)
+    toks, counts = [], []
+    for _ in range(num_clients):
+        boost = np.zeros(vocab)
+        topic = rng.choice(vocab, size=16, p=pop)
+        boost[topic] = 2.0
+        p = pop * np.exp(boost)
+        p /= p.sum()
+        seqs = rng.choice(vocab, size=(samples_per_client, seq_len), p=p).astype(np.int32)
+        toks.append(seqs)
+        counts.append(samples_per_client)
+    heat = _heat_from_ids([t.reshape(-1) for t in toks], vocab)
+    return FederatedDataset(
+        name="lm_federated", task="lm", num_clients=num_clients,
+        num_features=vocab, client_data={"tokens": np.stack(toks)},
+        sample_counts=np.array(counts), heat=heat,
+        test_data={"tokens": np.concatenate(toks)[:64]}, feature_key="tokens",
+    )
+
+
+#: the generators by the reference's dataset names
 DATASETS = {
     "movielens": make_movielens_like,
     "sent140": make_sent140_like,
     "amazon": make_amazon_like,
     "alibaba": make_alibaba_like,
+    "lm": make_lm_federated,
 }

@@ -62,7 +62,7 @@ from repro_torch.federated.plan import (FedSgdLocal, ReplicatedLocal, RoundPlan,
                                         heat_spec_from_axes, sparse_table_paths)
 from repro_torch.sparse.aggregate import sparse_cohort_aggregate
 from repro_torch.sparse.compress import compress_delta_tree
-from repro_torch.sparse.encode import encode_delta_tree, sparse_eligible
+from repro_torch.sparse.encode import encode_delta_tree, pin_labels, sparse_eligible
 from repro_torch.sparse.rowsparse import PAD_ID, RowSparse, is_rowsparse
 from repro_torch.telemetry.round import (HEAT_BUCKETS, STALENESS_BUCKETS,
                                          RoundTelemetry, drop_stats, heat_histogram,
@@ -296,7 +296,9 @@ def build_async_engine(plan: RoundPlan, loss_fn: Callable, axes: Dict[str, Tuple
             loss_fn, cfg, table_paths, feature_keys, prox_mu=local.prox_mu)
 
         def train(params, data, ids):
-            return cohort_submodel_deltas(submodel_train, params, data, ids)
+            # next-token targets stay vocabulary ids: pin them before the remap
+            return cohort_submodel_deltas(submodel_train, params,
+                                          pin_labels(data, feature_keys[0]), ids)
     else:
         dense_train = make_local_trainer(loss_fn, cfg, prox_mu=local.prox_mu)
 

@@ -60,7 +60,7 @@ from repro_torch.sparse.comm import (CommMeta, CommStats, model_comm_meta,
 from repro_torch.sparse.compress import compress_delta_tree
 from repro_torch.sparse.encode import (DEFAULT_SPARSE_SPACES, batch_union_ids,
                                        decode_delta_tree, encode_delta_tree,
-                                       flat_feature_ids, sparse_eligible,
+                                       flat_feature_ids, pin_labels, sparse_eligible,
                                        stacked_feature_ids, submodel_value_and_grad)
 from repro_torch.sparse.rowsparse import (RowSparse, count_unique_ids, is_rowsparse,
                                           unique_ids_padded)
@@ -666,6 +666,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         table = table_paths[0]
 
         def run_local(params, data, sub_ids):
+            # next-token targets stay vocabulary ids: pin them before the remap
+            data = pin_labels(data, feature_keys[0])
             if sub_ids is None:
                 require_tables_for_ids()
                 sub_ids = derive_flat_ids(data)
@@ -707,6 +709,7 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             loss_fn, cfg, table_paths, feature_keys, prox_mu=local.prox_mu)
 
         def run_local(params, data, sub_ids):
+            data = pin_labels(data, feature_keys[0])
             if sub_ids is None:
                 sub_ids = derive_cohort_ids(data)
             deltas = cohort_submodel_deltas(submodel_train, params, data, sub_ids)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take device
 pointers, sizes and a stream, and return the launch's CUDA error; K1 and K2
 also expose an occupancy query and share ``csrc/rowsum.cuh``. Every
 library links ``libcuda`` (``-lcuda``) for ``cuTensorMapEncodeTiled``,
-which encodes the TMA descriptors of the tensor-core kernels of K3 and K4.
+which encodes the TMA descriptors of the tensor-core kernels of K3 and K4
+(K3's backward, ``csrc/flash_attention_bwd.cu``, needs none).
 On first use every source is compiled for ``sm_90a`` into its own shared
 library under ``build/repro_torch_kernels/<hash>/`` at the repository root,
 the hash covering the sources, the headers and the flags. All ``nvcc``
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ATTENTION = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
+_ATTENTION_BWD = (_P,) * 9 + (_I,) * 6 + (_F, _I, _I, _I, _P)
 #: argument types of every launcher, by source name and symbol
 SIGNATURES = {
     "union_segsum": {"union_segsum_launch":
@@ -40,6 +42,8 @@ SIGNATURES = {
                           "rowsparse_scatter_max_blocks": (_I, _I)},
     "flash_attention": {"flash_attention_bf16_launch": _ATTENTION,
                         "flash_attention_f32_launch": _ATTENTION},
+    "flash_attention_bwd": {"flash_attention_bwd_bf16_launch": _ATTENTION_BWD,
+                            "flash_attention_bwd_f32_launch": _ATTENTION_BWD},
     "flash_decode": {"flash_decode_launch":
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                       _P)},

@@ -1,16 +1,17 @@
-"""Uniform model API: port of ``repro/models/api.py`` for the serving path.
+"""Uniform model API: port of ``repro/models/api.py``.
 
 ``build_model(cfg)`` returns a ``ModelApi`` whose functions have the
-reference's signatures, so the serving launcher treats every ported family
-the same way:
+reference's signatures, so the serving and training launchers treat every
+ported family the same way:
 
     init(generator=None, device=None)      -> parameters (a ``Transformer``)
+    loss(params, batch)                    -> scalar (the module, or the flat
+                                              dict of ``transformer.train_params``)
     init_cache(batch, max_seq, device=None) -> KVCache
     prefill(params, batch, cache)          -> (logits, cache)
     decode_step(params, cache, batch)      -> (logits, cache)
 
-Only the dense family is ported; ``loss`` (training) comes with the LLM
-training slice (ROADMAP Queue 1 item 9).
+Only the dense family is ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.models import transformer as T
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -47,5 +49,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     def decode_step(params, cache, batch):
         return T.decode_step(cfg, params, cache, batch["tokens"])
 
-    return ModelApi(cfg=cfg, init=init, prefill=prefill, decode_step=decode_step,
-                    init_cache=init_cache)
+    def loss(params, batch):
+        return T.loss_fn(cfg, params, batch)
+
+    return ModelApi(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                    decode_step=decode_step, init_cache=init_cache)

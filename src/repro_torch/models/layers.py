@@ -4,9 +4,10 @@ The public functions keep the reference's layouts: activations
 ``(B, S, H, hd)``, caches ``(L, B, KV, S, hd)``, weights ``(d_in, d_out)``.
 Parameters are passed as ``ParamTree`` modules and read with the
 reference's keys. On CUDA tensors ``mea_attention`` launches K3
-(``kernels.flash_attention``) and ``decode_attention`` launches K4
-(``kernels.flash_decode``); on CPU tensors they run the kernels' plain
-versions, which repeat the reference's arithmetic.
+(``kernels.flash_attention``; its gradient launches K3's backward kernel)
+and ``decode_attention`` launches K4 (``kernels.flash_decode``); on CPU
+tensors they run the kernels' plain versions, which repeat the reference's
+arithmetic.
 
 Not ported yet: ``moe``, ``apply_mrope`` and ``sinusoidal_positions``
 (ROADMAP Queue 1 item 9).
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import NEG_INF, FlashAttention
 from repro_torch.kernels.flash_decode import flash_decode
 
 
@@ -99,10 +100,11 @@ def mea_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   query_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
     """Flash attention. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H a multiple
     of KV (GQA); ``q_offset`` is the absolute position of q[0]. K3 on the
-    card; on the host the chunked online softmax of the reference (the chunk
-    sizes shape only that plain version)."""
-    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                           query_chunk=query_chunk, kv_chunk=kv_chunk)
+    card, its gradient K3's backward kernel (``FlashAttention``: one path for
+    serving and training, under ``torch.func.grad`` and ``vmap`` too); on the
+    host the chunked online softmax of the reference (the chunk sizes shape
+    only that plain version) and the plain gradient."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, query_chunk, kv_chunk)
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0, **_):

@@ -8,17 +8,24 @@ read ``lp["attn"]["wq"]["w"]`` as the reference does. The reference's
 ``lax.scan`` and ``fori_loop`` over stacked layers become a Python loop, and
 its sharding constraints go (one card).
 
-Serving only: ``prefill`` and ``decode_step`` run under ``torch.no_grad``
-and write the KV cache in place. MoE, M-RoPE, patch embeddings and the
-training loss (``loss_fn``, ``chunked_xent``) are not ported yet (ROADMAP
-Queue 1 item 9).
+Serving: ``prefill`` and ``decode_step`` run under ``torch.no_grad`` and
+write the KV cache in place. Training: ``loss_fn`` (the causal LM loss
+through ``chunked_xent``) differentiates ``forward`` with K3's gradient
+kernel on the card. ``forward`` reads the parameters in either form: the
+``Transformer`` module serving takes, or the flat ``{state_dict name:
+tensor}`` dict that ``train_params`` gives the round step with its logical
+axes. The reference's ``jax.checkpoint`` per layer changes no number and
+is left out: the depths the port trains keep every layer's activations.
+MoE, M-RoPE and patch embeddings are not ported yet (ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
@@ -53,6 +60,81 @@ class Transformer(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+
+class FlatParams:
+    """A flat parameter dict read with the module's keys:
+    ``FlatParams(flat)["layers"][0]["attn"]["wq"]["w"]`` is
+    ``flat["layers.0.attn.wq.w"]``."""
+
+    def __init__(self, flat: Mapping[str, torch.Tensor], prefix: str = ""):
+        self.flat, self.prefix = flat, prefix
+
+    def __getitem__(self, key):
+        name = f"{self.prefix}{key}"
+        if name in self.flat:
+            return self.flat[name]
+        return FlatParams(self.flat, name + ".")
+
+    def __contains__(self, key) -> bool:
+        return f"{self.prefix}{key}" in self.flat
+
+
+Params = Union[Transformer, Mapping[str, torch.Tensor]]
+
+
+def as_tree(params: Params):
+    """The module as it is, a flat dict behind ``FlatParams``."""
+    return params if isinstance(params, Transformer) else FlatParams(params)
+
+
+def train_params(model: Transformer) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
+    """``(params, axes)`` for the round step: the module's tensors under their
+    ``state_dict`` names (the same storage, not a copy) and their logical
+    axes. ``lm_head``'s vocabulary axis is axis 1: it stays dense on the
+    sparse transport and is heat-corrected on the dense one."""
+    return dict(model.state_dict()), dict(model.axes)
+
+
+def stack_layers(flat: Mapping[str, torch.Tensor], axes: Optional[Mapping[str, Tuple]] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Tuple]]]:
+    """The flat training dict in the reference's stacked layout: each layer
+    leaf ``layers.{i}.attn.wq.w`` goes, in layer order, into one ``(L, ...)``
+    tensor under ``layers.attn.wq.w``, its axes led by ``"layers"``:
+    ``save_checkpoint`` of the two writes the reference's LLM checkpoint."""
+    out: Dict[str, object] = {}
+    for name, t in flat.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            out.setdefault(f"layers.{rest}", {})[int(i)] = t
+        else:
+            out[name] = t
+    for name, by_layer in out.items():
+        if isinstance(by_layer, dict):
+            if sorted(by_layer) != list(range(len(by_layer))):
+                raise ValueError(f"{name}: layers {sorted(by_layer)} are not 0..L-1")
+            out[name] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    if axes is None:
+        return out, None
+    return out, {name: (("layers",) + tuple(axes[f"layers.0.{name[len('layers.'):]}"])
+                        if name.startswith("layers.") else tuple(axes[name]))
+                 for name in out}
+
+
+def unstack_layers(stacked: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``stack_layers``'s inverse: ``layers.attn.wq.w`` ``(L, ...)`` back to
+    ``layers.{i}.attn.wq.w`` (a view of each slice; numpy arrays too), in
+    ``train_params``'s key order."""
+    out: Dict[str, torch.Tensor] = {}
+    names = [n for n in stacked if n.startswith("layers.")]
+    for name, t in stacked.items():
+        if not name.startswith("layers."):
+            out[name] = t
+        elif name == names[0]:
+            for i in range(t.shape[0]):
+                for n in names:
+                    out[f"layers.{i}.{n[len('layers.'):]}"] = stacked[n][i]
+    return out
 
 
 class _Factory:
@@ -194,7 +276,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill) and the LM loss
 # ---------------------------------------------------------------------------
 
 
@@ -203,23 +285,65 @@ class ForwardOut(NamedTuple):
     kv: Optional[List[Tuple]]            # per layer (k, v), each (B, S, KV, hd)
 
 
-def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             collect_kv: bool = False) -> ForwardOut:
+    """Full-sequence forward (train / prefill) over the module or the flat
+    training dict."""
+    p = as_tree(params)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, p, tokens)
     kvs = [] if collect_kv else None
-    for lp in params.layers:
+    for i in range(cfg.num_layers):
+        lp = p["layers"][i]
         h, kv = attention_block(cfg, lp["attn"],
                                 L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps), positions)
         x = x + h
         x = x + L.mlp(lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
         if collect_kv:
             kvs.append(kv)
-    hidden = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return ForwardOut(hidden, kvs)
+
+
+def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+                 targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy in sequence chunks against ``lm_head``: f32
+    logits of one ``(B, c, V)`` chunk at a time, ``logsumexp - gold`` masked,
+    summed over chunks and divided by ``max(mask count, 1)``."""
+    head = as_tree(params)["lm_head"]
+    s = hidden.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_xent: sequence length {s} is not a multiple of {c}")
+    losses, counts = [], []
+    for i in range(s // c):
+        piece = slice(i * c, (i + 1) * c)
+        logits = (hidden[:, piece] @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[:, piece, None].long())[..., 0]
+        m = mask[:, piece]
+        losses.append(((lse - gold) * m).sum())
+        counts.append(m.sum())
+    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Causal LM loss, the mean over the batch's unmasked tokens. ``labels``
+    default to the tokens shifted left and padded with 0, ``mask`` to ones.
+    The dense family has no router, so the reference's aux term is 0."""
+    tokens = batch["tokens"]
+    targets = batch.get("labels")
+    if targets is None:
+        targets = F.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    out = forward(cfg, params, tokens)
+    return chunked_xent(cfg, params, out.hidden, targets, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,7 @@ def test_din_and_lstm_generators_bit_identical(name, kw):
 
 
 def test_datasets_registry():
-    assert synthetic.DATASETS.keys() == j_synthetic.DATASETS.keys() - {"lm"}
+    assert synthetic.DATASETS.keys() == j_synthetic.DATASETS.keys()
 
 
 @pytest.mark.parametrize("seed", [0, 7])
