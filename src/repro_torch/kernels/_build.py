@@ -5,7 +5,8 @@ pointers, sizes and a stream, and return the launch's CUDA error; K1 and K2
 also expose an occupancy query and share ``csrc/rowsum.cuh``. Every
 library links ``libcuda`` (``-lcuda``) for ``cuTensorMapEncodeTiled``,
 which encodes the TMA descriptors of the tensor-core kernels of K3 and K4
-(K3's backward, ``csrc/flash_attention_bwd.cu``, needs none).
+(K3's backward, ``csrc/flash_attention_bwd.cu``, loads by ``cp.async`` and
+needs none).
 On first use every source is compiled for ``sm_90a`` into its own shared
 library under ``build/repro_torch_kernels/<hash>/`` at the repository root,
 the hash covering the sources, the headers and the flags. All ``nvcc``
@@ -30,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ATTENTION = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
-_ATTENTION_BWD = (_P,) * 9 + (_I,) * 6 + (_F, _I, _I, _I, _P)
+_ATTENTION = (_P,) * 5 + (_I,) * 6 + (_F, _I, _I, _I, _P)
+_ATTENTION_BWD = (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _I, _I, _P)
 #: argument types of every launcher, by source name and symbol
 SIGNATURES = {
     "union_segsum": {"union_segsum_launch":

@@ -1,5 +1,8 @@
 // Causal GQA flash attention with an optional sliding window, for Hopper
-// (sm_90a). Forward only: the serving path's prefill.
+// (sm_90a). Forward only: the serving path's prefill and the training
+// forward, which also asks for each row's log-sum-exp (lse = m + log l, +inf
+// on a row with no valid key) for K3's backward (csrc/flash_attention_bwd.cu);
+// the serving path passes no lse pointer and writes none.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention.
 // That kernel runs the grid (B*H, q blocks, k blocks) with the k-block axis in
@@ -88,11 +91,18 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// a row's log-sum-exp from its running max m and sum l; +inf where the row
+// met no valid key (m never left the mask value), so that exp(s - lse) = 0
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m > kNegInf ? m + logf(l) : INFINITY;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma and TMA
@@ -352,8 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                 int b_count, int sq, int sk, int h, int kvh, float scale, int causal,
-                 int window, int q_offset, int n_m) {
+                 float* __restrict__ lse, int b_count, int sq, int sk, int h, int kvh,
+                 float scale, int causal, int window, int q_offset, int n_m) {
   using C = Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -583,8 +593,15 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        l[r] = fmaxf(l[r], 1e-30f);
       }
+      if (lse != nullptr && lane % 4 == 0) {
+        float* lb = lse + (static_cast<int64_t>(it.b) * h + it.head) * sq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row0 + 8 * r < sq) lb[row0 + 8 * r] = row_lse(m[r], l[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
       __nv_bfloat16* ob = o + (static_cast<int64_t>(it.b) * sq * h + it.head) * HD;
 #pragma unroll
       for (int j = 0; j < HD / 2; j += 2) {
@@ -621,7 +638,7 @@ bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch) {
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int sq,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int b, int sq,
                 int sk, int h, int kvh, float scale, int causal, int window, int q_offset,
                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -642,8 +659,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
   const int n_m = (sq + kBM - 1) / kBM;
   const int blocks = n_m * b * h < sms ? n_m * b * h : sms;
   kernel<<<blocks, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                              b, sq, sk, h, kvh, scale, causal, window,
-                                              q_offset, n_m);
+                                              static_cast<float*>(lse), b, sq, sk, h, kvh,
+                                              scale, causal, window, q_offset, n_m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,8 +680,9 @@ constexpr int f32_smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads, 2)
 attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-                     int h, int kvh, float scale, int causal, int window, int q_offset) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int h, int kvh, float scale,
+                     int causal, int window, int q_offset) {
   constexpr int QS = HD + 1;      // padded row stride of the Q and K/V tiles
   constexpr int PS = kF32BK + 1;  // padded row stride of the P tile
   constexpr int DJ = HD / 16;     // accumulator columns per thread
@@ -797,11 +815,13 @@ attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ob[s * q_row + tx + 16 * j] = acc[i][j] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(blockIdx.z) * h + head) * sq + s] = row_lse(m[i], l[i]);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int sq,
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int b, int sq,
                int sk, int h, int kvh, float scale, int causal, int window, int q_offset,
                cudaStream_t stream) {
   constexpr int bytes = f32_smem_floats<HD>() * sizeof(float);
@@ -812,13 +832,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int 
   const dim3 grid((sq + kF32BQ - 1) / kF32BQ, h, b);
   kernel<<<grid, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kvh, scale, causal,
-      window, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), sq, sk, h,
+      kvh, scale, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int,
-                       int, float, int, int, int, cudaStream_t);
+using Launch = int (*)(const void*, const void*, const void*, void*, void*, int, int, int,
+                       int, int, float, int, int, int, cudaStream_t);
 
 Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
   switch (hd) {
@@ -834,27 +854,29 @@ Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
 
 // q, o (b, sq, h, hd); k, v (b, sk, kvh, hd); all contiguous, h a multiple of
 // kvh, hd in {16, 32, 64, 128}. Query row i sits at position q_offset + i,
-// key j at position j. window <= 0 means no window. Each returns the CUDA
-// error of its launch, 0 if none.
+// key j at position j. window <= 0 means no window. lse, when not null, is
+// (b, h, sq) f32 and takes each row's log-sum-exp of its scaled scores over
+// its valid keys (+inf on a row with none), for K3's backward; the serving
+// path passes null. Each returns the CUDA error of its launch, 0 if none.
 
 // bf16 inputs, 16-byte aligned: the tensor-core kernel
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
-                                           void* o, int b, int sq, int sk, int h, int kvh,
-                                           int hd, float scale, int causal, int window,
-                                           int q_offset, void* stream) {
+                                           void* o, void* lse, int b, int sq, int sk, int h,
+                                           int kvh, int hd, float scale, int causal,
+                                           int window, int q_offset, void* stream) {
   Launch fn = pick(hd, launch_bf16<16>, launch_bf16<32>, launch_bf16<64>, launch_bf16<128>);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset,
+  return fn(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, window, q_offset,
             static_cast<cudaStream_t>(stream));
 }
 
 // f32 inputs: the CUDA-core kernel
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                                          void* o, int b, int sq, int sk, int h, int kvh,
-                                          int hd, float scale, int causal, int window,
-                                          int q_offset, void* stream) {
+                                          void* o, void* lse, int b, int sq, int sk, int h,
+                                          int kvh, int hd, float scale, int causal,
+                                          int window, int q_offset, void* stream) {
   Launch fn = pick(hd, launch_f32<16>, launch_f32<32>, launch_f32<64>, launch_f32<128>);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, b, sq, sk, h, kvh, scale, causal, window, q_offset,
+  return fn(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, window, q_offset,
             static_cast<cudaStream_t>(stream));
 }

@@ -1,287 +1,663 @@
 // The gradient of K3: dq, dk and dv of causal GQA flash attention with an
-// optional sliding window, for Hopper (sm_90a), on the CUDA cores.
+// optional sliding window, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces what the TPU path gets from autodiff: the JAX package has no
-// backward Pallas kernel, and differentiates src/repro/models/layers.py::
-// mea_attention (jax.checkpoint per query chunk, so the backward recomputes
+// backward Pallas kernel, and differentiates src/repro/models/layers.py:154
+// (mea_attention; jax.checkpoint per query chunk, so the backward recomputes
 // each chunk's scores) through XLA. Here the function K3 computes
 // (src/repro_torch/kernels/csrc/flash_attention.cu, whose TPU kernel is
 // src/repro/kernels/flash_attention.py:flash_attention) is differentiated by
 // hand. With s = q k^T * scale masked where kpos >= Sk, kpos > qpos (causal)
-// or kpos <= qpos - window, P = softmax over the valid keys, o = P v:
+// or kpos <= qpos - window, and lse K3's log-sum-exp of s over the valid keys
+// of each row (+inf on a row with none):
 //
+//   P_ij  = exp(s_ij - lse_i) / sum_j exp(s_ij - lse_i)   (0 where masked)
 //   D_i   = rowsum(dO_i * O_i)
 //   dV_j  = sum_i P_ij dO_i                       (over the group's heads)
 //   dS_ij = P_ij (dO_i . v_j - D_i)
 //   dQ_i  = scale * sum_j dS_ij k_j
 //   dK_j  = scale * sum_i dS_ij q_i               (over the group's heads)
 //
-// P is never stored: both kernels recompute it from the row statistics, so
-// K3's forward stays as it is and emits nothing extra. Two launches:
+// Bound on the H100 by route, at the training shape (B 16, S 128, H 40, KV 8,
+// hd 128, causal, f32): the five products a valid (query, key) pair needs
+// (S, dP, dV, dK, dQ) are 6.76e9 flops; 3 TF32 products each at 495 TFLOP/s
+// is an effective 165 TFLOP/s, 0.041 ms, against 201 MB of q, k, v, o, dO,
+// lse and the three gradients, 0.060 ms at 3.35 TB/s: 0.060 ms, bound by
+// bytes (on the f32 CUDA cores, 0.101 ms, by operations). The design, point
+// by point:
 //
-//   dq_kernel, one block per (query tile of 64 rows, head, batch): a first
-//   walk over the key tiles between the window's lower edge and the causal
-//   diagonal recomputes each row's max m and sum l of exp(s - m) over its
-//   valid keys; D comes from O and dO. m, l and D go to a scratch buffer.
-//   A second walk forms P, dP = dO V^T and dS, and accumulates dQ.
+// 1. Tensor cores. Every product is a warp's mma.sync over 16-row tiles.
+//    f32 runs m16n8k8 TF32 products on the 3xTF32 split of CUTLASS's
+//    OpMultiplyAddFastF32: each operand x is split into big = x rounded to
+//    TF32 (cvt.rna.tf32's rounding, in integer operations) and small = x -
+//    big rounded likewise, and the accumulator takes small*big + big*small +
+//    big*big, smallest first (Tf32x3). The tensor cores truncate as they
+//    accumulate, so every kChain k-steps start from a zero accumulator that
+//    an f32 add, which rounds, folds into the sum. bf16 runs m16n8k16 bf16
+//    products, P and dS rounded to bf16 as operands (Bf16), as
+//    FlashAttention-2 does. wgmma is not used: it takes tf32 only with both
+//    operands K-major, and three of the five products contract over rows
+//    stored MN-major. dkv_kernel forms S^T = K Q^T with the terms of each
+//    product in dq_kernel's order for Q K^T, so that its scores are dq's bit
+//    for bit.
+//    P and dS stay in registers: the m16n8 accumulator holds columns 2t and
+//    2t + 1 where the tf32 A fragment wants t and t + 4, so the contraction
+//    index of the next product is permuted (A's k = t, t + 4 read columns 2t,
+//    2t + 1, and load_b_kn reads B's rows 2t, 2t + 1 to match). bf16's A
+//    fragment is the accumulator pair by pair (FlashAttention-2's layout).
+//    A fragments and K-major B fragments come by ldmatrix.x4.
+// 2. Occupancy. A block is 4 warps; each warp owns 16 rows of the block's 64
+//    resident rows. Shared memory per block: 64 resident rows of two tensors,
+//    a two-stage ring of 16 streamed rows of two tensors and, in f32, the
+//    small halves of the streamed tile that two products read (split once by
+//    split_tile for the 4 warps: K in dq_kernel, Q in dkv_kernel), rows
+//    padded by 16 bytes against bank conflicts: 110,080 B for dQ and
+//    110,208 B for dK/dV at hd 128 in f32 (52,480 B and 65,536 B in bf16),
+//    so two blocks (8 warps) share an SM. Registers: ptxas -v, printed by the build
+//    (kernels/_build.py); at hd 128 both f32 kernels are at or near 255.
+// 3. Loads. Tiles arrive by 16-byte cp.async copies into the ring; the next
+//    tile's copies are in flight while the current tile's products run.
+//    Rows past Sq or Sk are zero-filled by cp.async's source size. D comes
+//    from dO in shared memory and O by 16-byte loads.
+// 4. Seven products a pair. K3's forward writes lse (its optional lse
+//    pointer), so no statistics walk is needed. dq_kernel, one block per
+//    (64 query rows, head, batch), writes D once per row for dkv_kernel, then
+//    streams key tiles: S, dP, dQ (3 products). dkv_kernel, one block per
+//    (64 keys, KV head, batch, share of the group), streams query tiles: S^T,
+//    dP^T, dV, dK (4 products). P = exp2(s * scale * log2(e) - lse * log2(e))
+//    sums to 1 over a row only where these scores are the forward's to the
+//    bit, and with logits far from 0 a score's last bits move P by more than
+//    f32 holds: dq_kernel also sums each row's P as it goes, divides dQ by
+//    the sum (dQ is linear in P, D held) and hands 1 / sum to dkv_kernel
+//    with D, so that both take P as the softmax of the scores they compute.
+// 5. The GQA group without atomics. dkv_kernel's blocks of one (key tile, KV
+//    head, batch) form a thread-block cluster of up to 8, one share of the
+//    group's query heads each (groups above 8 loop inside a block). Each
+//    block leaves its partial dK and dV in its shared memory; after a cluster
+//    barrier each block sums a slice of them over the cluster's blocks in
+//    rank order through distributed shared memory and writes it. Nothing is
+//    added atomically: the same bits every run. Key tiles are numbered
+//    heaviest first (the causal first tile sees every query), query tiles of
+//    dq_kernel likewise (the last sees every key).
 //
-//   dkv_kernel, one block per (key tile of 64 keys, KV head, batch): walks
-//   the query tiles that can see its keys, for each query head of its GQA
-//   group in turn, reads m, l and D, and accumulates dK and dV in
-//   registers. One block owns each dK and dV row, so the group's heads are
-//   summed without atomics and the result is the same from run to run.
+// What holds it back at the training shape: 3 TF32 products and the
+// operands' splits per f32 product, and 2 warps per SM sub-partition (254
+// registers, 110 KB of shared memory a block) to hide the latency of each
+// warp's chain of fragment loads, splits and mma.sync.
 //
-// A row with no valid key gets P = 0 (l = 0): no gradient flows through it.
-// The forward gives such a row the mean of V over its masked keys, a value
-// no causal training batch produces (key 0 is valid for every query at
-// q_offset >= 0 without a window).
-//
-// Bound on the H100: operations. The gradient needs five products per valid
-// (query, key) pair (S again, dP, dV, dQ, dK), 2.5x the forward's flops: at
-// the training shape (B 16, S 128, H 40, KV 8, hd 128, causal, f32) 6.8e9
-// flops, 0.101 ms at the 67 TFLOP/s f32 rate, against 201 MB of q, k, v, o,
-// dO and the three gradients, 0.060 ms at 3.35 TB/s. This kernel makes eight
-// products per pair (S in both launches, dP in both). This first design is
-// simple and right, not fast: f32 FMAs on the CUDA cores for f32 and bf16
-// inputs alike (bf16 is widened to f32 as it is loaded into shared memory,
-// and every sum is f32), 256 threads as 16 x 16, each owning a 4 x 4 block
-// of a 64 x 64 score tile and a 4 x (hd/16) block of its accumulator;
-// shared-memory rows padded by one word against bank conflicts. wgmma is
-// later work (the forward's bf16 kernel shows the layout).
+// A row with no valid key has lse = +inf and P = 0: no gradient flows through
+// it. A warp skips a 16 x 16 step none of whose pairs is valid.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;        // query rows and keys per tile
-constexpr int kThreads = 256;    // 16 x 16: ty picks rows, tx columns
-constexpr int kPS = kTile + 1;   // padded row stride of the score tile
+constexpr int kRows = 64;      // resident rows a block keeps: query rows or keys
+constexpr int kStream = 16;    // rows per streamed tile
+constexpr int kStages = 2;     // depth of the streamed ring
+constexpr int kThreads = 128;  // 4 warps, 16 resident rows each
+constexpr int kMaxCluster = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// a tile's row stride in elements: its rows padded by 16 bytes, so that the
+// 8 rows of an ldmatrix phase, or the rows of a column of fragment loads,
+// fall in different banks
+template <int HD, typename T>
+__host__ __device__ constexpr int tile_ld() {
+  return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-__device__ __forceinline__ bool is_valid(int kpos, int qpos, int sk, int causal,
-                                         int window) {
+// shared memory per block, in bytes: two resident tiles of kRows rows, the
+// ring of two streamed tiles of kStream rows, and for a policy that splits
+// its operands (P::kSplit) the small halves of one streamed tile; then the
+// row scalars (dq_kernel: D; dkv_kernel: lse, D and 1 / sum P per streamed
+// row), or dkv_kernel's f32 partial dK and dV where they take more
+template <int HD, class P>
+struct Smem {
+  static constexpr int kLD = tile_ld<HD, typename P::T>();
+  static constexpr int kTiles = (2 * kRows + 2 * kStages * kStream + (P::kSplit ? kStream : 0)) *
+                                kLD * sizeof(typename P::T);
+  static constexpr int kDq = kTiles + kRows * 4;                          // + D
+  static constexpr int kDkvTiles = kTiles + 3 * kStages * kStream * 4;    // + lse, (D, 1 / sum P)
+  static constexpr int kPartials = 2 * kRows * HD * 4;                    // dK, dV in f32
+  static constexpr int kDkv = kDkvTiles > kPartials ? kDkvTiles : kPartials;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled past `bytes`
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// 16 bytes of block `rank`'s shared memory at the address `p` has in this one
+__device__ __forceinline__ float4 ld_cluster(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// the dot product of 16 bytes at p (global) and q (shared), in f32
+__device__ __forceinline__ float dot16(const float* p, const float* q) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(q);
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* p, const __nv_bfloat16* q) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint4 b = *reinterpret_cast<const uint4*>(q);
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.y, w.y, fmaf(u.x, w.x, acc));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ bool is_valid(int kpos, int qpos, int sk, int causal, int window) {
   bool ok = kpos < sk;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
 }
 
-// rows [row0, row0 + 64) of one head of a (batch, seq, heads, HD) tensor into
-// a padded f32 tile; rows past `limit` are zero
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// does the block of pairs (keys [k_first, k_first + 16), query positions
+// [q_first, q_first + 16)) hold a valid one?
+__device__ __forceinline__ bool any_valid(int k_first, int q_first, int sk, int causal,
+                                          int window) {
+  bool ok = k_first < sk;
+  if (causal) ok = ok && k_first <= q_first + 15;
+  if (window > 0) ok = ok && k_first + 15 > q_first - window;
+  return ok;
+}
+
+// ---------------------------------------------------------------------------
+// the two products, f32 by 3xTF32 and bf16
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8 x 16-byte matrices of shared memory into a warp's registers:
+// register j of lane 4 g + t holds 4 bytes at (row g, byte 4 t) of matrix
+// j, whose row addresses lanes 8 j to 8 j + 7 give
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(row)));
+}
+
+// the row a lane addresses for ldsm_x4 in a 16-row tile of stride LD
+// elements, E elements to 16 bytes: an A fragment's matrices are (rows 0-7,
+// bytes 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31); two B fragments'
+// (rows 0-7 and 8-15 being the two n-tiles) (0-7, 0-15), (0-7, 16-31),
+// (8-15, 0-15), (8-15, 16-31)
+template <int LD, int E>
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane % 8 + 8 * (lane / 8 % 2)) * LD + E * (lane / 16);
+}
+template <int LD, int E>
+__device__ __forceinline__ int b2_row(int lane) {
+  return (lane % 8 + 8 * (lane / 16)) * LD + E * (lane / 8 % 2);
+}
+
+// A warp's fragments, lane = 4 g + t. A: 16 rows x kK; B: kK x 8; the
+// accumulator of a 16 x 8 tile holds (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1). Tiles in shared memory are row-major with stride LD:
+// load_a reads [row][k], load_b2_nk reads the B fragments of two n-tiles
+// from [n][k] (K-major), both by ldmatrix; load_b_kn reads B from [k][n]
+// (MN-major); a_from_acc takes k-chunk j of a 16 x N accumulator as an A
+// fragment.
+struct Tf32x3 {
+  using T = float;
+  static constexpr int kK = 8;
+  static constexpr bool kSplit = true;   // a streamed tile used twice is split once, by split_tile
+  struct A { uint32_t big[4], small[4]; };
+  struct B { uint32_t big[2], small[2]; };
+
+  // big = x rounded to TF32 (10 explicit mantissa bits, to nearest, ties
+  // away: cvt.rna.tf32.f32's rounding, in two integer operations); small =
+  // x - big, exact in f32, rounded the same way by adding half a TF32 ulp:
+  // the mma reads a TF32 operand's top 19 bits and drops the rest
+  static __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+  }
+  template <int LD>
+  static __device__ __forceinline__ A load_a(const float* p, int lane) {
+    uint32_t r[4];
+    ldsm_x4(r, p + a_row<LD, 4>(lane));
+    A a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), a.big[i], a.small[i]);
+    return a;
+  }
+  // PRE: p holds big halves and `small` the small ones (split_tile); else p
+  // holds f32 values, split here
+  template <int LD, bool PRE>
+  static __device__ __forceinline__ void load_b2_nk(B (&b)[2], const float* p, const float* small,
+                                                    int lane) {
+    uint32_t r[4];
+    ldsm_x4(r, p + b2_row<LD, 4>(lane));
+    if constexpr (PRE) {
+      uint32_t lo[4];
+      ldsm_x4(lo, small + b2_row<LD, 4>(lane));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b[i / 2].big[i % 2] = r[i];
+        b[i / 2].small[i % 2] = lo[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split(__uint_as_float(r[i]), b[i / 2].big[i % 2], b[i / 2].small[i % 2]);
+    }
+  }
+  // k = t and t + 4 are rows 2t and 2t + 1: the order a_from_acc gives
+  template <int LD, bool PRE>
+  static __device__ __forceinline__ B load_b_kn(const float* p, const float* small, int g, int t) {
+    B b;
+    if constexpr (PRE) {
+      b.big[0] = __float_as_uint(p[2 * t * LD + g]);
+      b.small[0] = __float_as_uint(small[2 * t * LD + g]);
+      b.big[1] = __float_as_uint(p[(2 * t + 1) * LD + g]);
+      b.small[1] = __float_as_uint(small[(2 * t + 1) * LD + g]);
+    } else {
+      split(p[2 * t * LD + g], b.big[0], b.small[0]);
+      split(p[(2 * t + 1) * LD + g], b.big[1], b.small[1]);
+    }
+    return b;
+  }
+  template <int NT>
+  static __device__ __forceinline__ A a_from_acc(const float (&c)[NT][4], int j) {
+    A a;
+    split(c[j][0], a.big[0], a.small[0]);   // (g, k = t) is column 2t
+    split(c[j][2], a.big[1], a.small[1]);   // (g + 8, t)
+    split(c[j][1], a.big[2], a.small[2]);   // (g, t + 4) is column 2t + 1
+    split(c[j][3], a.big[3], a.small[3]);   // (g + 8, t + 4)
+    return a;
+  }
+  // SWAP: the terms in the order of the transposed product, so that S^T of
+  // dkv_kernel (K as A, Q as B) is S of dq_kernel (Q as A, K as B) bit for bit
+  template <bool SWAP = false>
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    if constexpr (SWAP) {
+      mma_tf32(d, a.big, b.small);
+      mma_tf32(d, a.small, b.big);
+    } else {
+      mma_tf32(d, a.small, b.big);
+      mma_tf32(d, a.big, b.small);
+    }
+    mma_tf32(d, a.big, b.big);
+  }
+};
+
+struct Bf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kK = 16;
+  static constexpr bool kSplit = false;
+  struct A { uint32_t x[4]; };
+  struct B { uint32_t x[2]; };
+
+  static __device__ __forceinline__ uint32_t pack(T lo, T hi) {
+    __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  template <int LD>
+  static __device__ __forceinline__ A load_a(const T* p, int lane) {
+    A a;
+    ldsm_x4(a.x, p + a_row<LD, 8>(lane));
+    return a;
+  }
+  template <int LD, bool PRE>
+  static __device__ __forceinline__ void load_b2_nk(B (&b)[2], const T* p, const T*, int lane) {
+    uint32_t r[4];
+    ldsm_x4(r, p + b2_row<LD, 8>(lane));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i / 2].x[i % 2] = r[i];
+  }
+  template <int LD, bool PRE>
+  static __device__ __forceinline__ B load_b_kn(const T* p, const T*, int g, int t) {
+    B b;
+    b.x[0] = pack(p[2 * t * LD + g], p[(2 * t + 1) * LD + g]);
+    b.x[1] = pack(p[(2 * t + 8) * LD + g], p[(2 * t + 9) * LD + g]);
+    return b;
+  }
+  template <int NT>
+  static __device__ __forceinline__ A a_from_acc(const float (&c)[NT][4], int j) {
+    A a;
+    a.x[0] = pack(c[2 * j][0], c[2 * j][1]);
+    a.x[1] = pack(c[2 * j][2], c[2 * j][3]);
+    a.x[2] = pack(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a.x[3] = pack(c[2 * j + 1][2], c[2 * j + 1][3]);
+    return a;
+  }
+  template <bool SWAP = false>
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    mma_bf16(d, a.x, b.x);
+  }
+};
+
+// The tensor cores add into their f32 accumulator with truncation, not
+// rounding, so the error of a chain of mma.sync on one accumulator grows with
+// its length: a 128-long f32 dot product is 48 TF32 products. Each chain of
+// at most kChain k-steps starts from zero instead and is added to the running
+// sum by an f32 add, which rounds.
+constexpr int kChain = 2;
+
+// s (16 x kStream) = a (16 rows) . b (kStream rows)^T over HD; SWAP: each
+// term in the order of b . a^T
+static_assert(kStream == 16, "load_b2_nk reads the two n-tiles of a 16-row streamed tile");
+template <class P, int HD, int LD, bool PRE, bool SWAP = false>
+__device__ __forceinline__ void scores(float (&s)[2][4], const typename P::T* a,
+                                       const typename P::T* b, const typename P::T* b_small,
+                                       int lane) {
+  constexpr int kSteps = HD / P::kK, kC = kSteps < kChain ? kSteps : kChain;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += kC * P::kK) {
+    typename P::A fa[kC];
+    typename P::B fb[kC][2];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      fa[c] = P::template load_a<LD>(a + kk + c * P::kK, lane);
+      P::template load_b2_nk<LD, PRE>(fb[c], b + kk + c * P::kK, b_small + kk + c * P::kK, lane);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < kC; ++c) P::template mma<SWAP>(part, fa[c], fb[c][nt]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] += part[e];
+    }
+  }
+}
+
+// acc (16 x HD) += p (16 x kStream, registers) . z (kStream rows x HD)
+template <class P, int HD, int LD, bool PRE>
+__device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
+                                           const float (&p)[kStream / 8][4],
+                                           const typename P::T* z,
+                                           const typename P::T* z_small, int g, int t) {
+  constexpr int kSteps = kStream / P::kK;   // k-steps of one streamed tile, at most kChain
+  typename P::A fa[kSteps];
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) fa[j] = P::a_from_acc(p, j);
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      P::mma(part, fa[j], P::template load_b_kn<LD, PRE>(z + j * P::kK * LD + nt * 8,
+                                                          z_small + j * P::kK * LD + nt * 8, g, t));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += part[e];
+  }
+}
+
+// rows [row0, row0 + ROWS) of one head of a (batch, seq, heads, HD) tensor
+// into a padded tile by 16-byte cp.async copies; rows past `limit` are zero
+template <int HD, int ROWS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           int64_t row_stride, int row0, int limit) {
-  for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, s = row0 + r;
-    dst[r * (HD + 1) + d] = s < limit ? to_f32(src[s * row_stride + d]) : 0.f;
+  constexpr int LD = tile_ld<HD, T>();
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kChunk;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kChunk, s = row0 + r;
+    const bool in = s < limit;
+    cp_async16(dst + r * LD + c, src + (in ? s * row_stride + c : 0), in ? 16 : 0);
   }
 }
 
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two padded tiles
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const float* b,
-                                         int ty, int tx) {
-  constexpr int S = HD + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * S + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * S + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+// a landed streamed tile that two products read, split once for every warp
+// (P::kSplit): each element x becomes big in place, and its small half goes
+// to the same place in `small`
+template <int HD, class P>
+__device__ __forceinline__ void split_tile(float* tile, float* small) {
+  constexpr int LD = tile_ld<HD, float>(), kPerRow = HD / 4;
+  for (int i = threadIdx.x; i < kStream * kPerRow; i += kThreads) {
+    const int at = i / kPerRow * LD + i % kPerRow * 4;
+    const float4 v = *reinterpret_cast<const float4*>(tile + at);
+    uint4 big, lo;
+    P::split(v.x, big.x, lo.x);
+    P::split(v.y, big.y, lo.y);
+    P::split(v.z, big.z, lo.z);
+    P::split(v.w, big.w, lo.w);
+    *reinterpret_cast<uint4*>(tile + at) = big;
+    *reinterpret_cast<uint4*>(small + at) = lo;
   }
 }
 
-template <int HD>
-constexpr int dq_smem_floats() {
-  return 4 * kTile * (HD + 1) + kTile * kPS + kTile;
-}
-
-template <int HD>
-constexpr int dkv_smem_floats() {
-  return 4 * kTile * (HD + 1) + kTile * kPS + 3 * kTile;
-}
-
 // ---------------------------------------------------------------------------
-// row statistics and dQ
+// D and dQ
 // ---------------------------------------------------------------------------
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ stats, int b_count, int sq, int sk, int h, int kvh,
-          float scale, int causal, int window, int q_offset) {
-  constexpr int S = HD + 1;
-  constexpr int DJ = HD / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // kTile x S
-  float* dos = qs + kTile * S;      // kTile x S
-  float* ks = dos + kTile * S;      // kTile x S
-  float* vs = ks + kTile * S;       // kTile x S
-  float* ps = vs + kTile * S;       // kTile x kPS: dS of the current tile
-  float* ds_row = ps + kTile * kPS; // kTile: D
+template <int HD, class P>
+__global__ void __launch_bounds__(kThreads, 2)
+dq_kernel(const typename P::T* __restrict__ q, const typename P::T* __restrict__ k,
+          const typename P::T* __restrict__ v, const typename P::T* __restrict__ o,
+          const typename P::T* __restrict__ dout, const float* __restrict__ lse,
+          typename P::T* __restrict__ dq, float2* __restrict__ dsum, int sq, int sk, int h,
+          int kvh, float scale, int causal, int window, int q_offset) {
+  using T = typename P::T;
+  constexpr int LD = tile_ld<HD, T>();
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);     // kRows x LD
+  T* dos = qs + kRows * LD;                   // kRows x LD
+  T* ks = dos + kRows * LD;                   // kStages x kStream x LD
+  T* vs = ks + kStages * kStream * LD;        // kStages x kStream x LD
+  T* k_small = vs + kStages * kStream * LD;   // kStream x LD, when P::kSplit
+  float* d_s = reinterpret_cast<float*>(k_small + (P::kSplit ? kStream * LD : 0));  // kRows
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kTile, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // the longest causal walk first
+  const int head = blockIdx.y, b = blockIdx.z;
   const int kv_head = head / (h / kvh);
   const int64_t q_row = static_cast<int64_t>(h) * HD;
   const int64_t k_row = static_cast<int64_t>(kvh) * HD;
   const int64_t q_base = (static_cast<int64_t>(b) * sq * h + head) * HD;
   const int64_t k_base = (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  const int64_t n_rows = static_cast<int64_t>(b_count) * h * sq;
-  const int64_t stat_base = (static_cast<int64_t>(b) * h + head) * sq;
+  const int64_t r_base = (static_cast<int64_t>(b) * h + head) * sq;   // lse and D rows
 
-  load_tile<HD>(qs, q + q_base, q_row, q0, sq);
-  load_tile<HD>(dos, dout + q_base, q_row, q0, sq);
-  {
-    // D: four threads per row, each a quarter of the head dim
-    const int r = tid / 4, part = tid % 4, s = q0 + r;
-    float acc = 0.f;
-    if (s < sq) {
-      const T* orow = o + q_base + s * q_row;
-      const T* dorow = dout + q_base + s * q_row;
-      for (int d = part; d < HD; d += 4) acc = fmaf(to_f32(orow[d]), to_f32(dorow[d]), acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) ds_row[r] = acc;
-  }
+  load_rows<HD, kRows>(qs, q + q_base, q_row, q0, sq);
+  load_rows<HD, kRows>(dos, dout + q_base, q_row, q0, sq);
+  cp_async_commit();
 
-  const int nk = (sk + kTile - 1) / kTile;
+  // the key tiles between the window's lower edge and the causal diagonal
+  const int nk = (sk + kStream - 1) / kStream;
   int kt_end = nk;
-  if (causal) kt_end = min(nk, (q_offset + min(q0 + kTile, sq) - 1) / kTile + 1);
+  if (causal) {
+    const int last = q_offset + min(q0 + kRows, sq) - 1;
+    kt_end = last < 0 ? 0 : min(nk, last / kStream + 1);
+  }
   int kt_begin = 0;
   if (window > 0) {
     const int lo = q_offset + q0 - window + 1;
-    kt_begin = lo > 0 ? lo / kTile : 0;
+    kt_begin = lo > 0 ? lo / kStream : 0;
   }
+  const int n = max(kt_end - kt_begin, 0);
+  auto fetch = [&](int i) {
+    const int st = i % kStages, k0 = (kt_begin + i) * kStream;
+    load_rows<HD, kStream>(ks + st * kStream * LD, k + k_base, k_row, k0, sk);
+    load_rows<HD, kStream>(vs + st * kStream * LD, v + k_base, k_row, k0, sk);
+  };
+  if (n > 0) fetch(0);
+  cp_async_commit();
 
-  int qpos[4];
-  float m[4], l[4];
+  // D = rowsum(dO * O) of this warp's 16 rows, written once for dkv_kernel:
+  // dO from shared memory, O by 16-byte loads, a row over kC lanes
+  cp_async_wait<1>();   // Q and dO have landed (key tile 0 may be in flight)
+  __syncthreads();
+  const int r0 = warp * 16;   // this warp's rows of the block's
+  {
+    constexpr int kE = 16 / sizeof(T), kC = HD / kE, kR = 32 / kC;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qpos[i] = q_offset + q0 + ty + 16 * i;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-
-  // first walk: each row's max and sum over its valid keys
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<HD>(ks, k + k_base, k_row, k0, sk);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<HD>(s, qs, ks, ty, tx);
+    for (int r = lane / kC; r < 16; r += kR) {
+      const int row = q0 + r0 + r;
+      float acc = 0.f;
+      if (row < sq) acc = dot16(o + q_base + row * q_row + (lane % kC) * kE,
+                                dos + (r0 + r) * LD + (lane % kC) * kE);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = is_valid(k0 + tx + 16 * j, qpos[i], sk, causal, window);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int off = kC / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane % kC == 0) {
+        d_s[r0 + r] = acc;
+        if (row < sq) dsum[r_base + row].x = acc;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sum += is_valid(k0 + tx + 16 * j, qpos[i], sk, causal, window)
-                   ? expf(s[i][j] - m_new) : 0.f;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-      l[i] = l[i] * expf(m[i] - m_new) + sum;
-      m[i] = m_new;
     }
   }
+  __syncwarp();
 
-  __syncthreads();  // D is in shared memory
-  float inv_l[4], drow[4];
+  // this thread's rows: r0 + g and r0 + g + 8
+  const float scale2 = scale * kLog2e;
+  const float dd[2] = {d_s[r0 + g], d_s[r0 + g + 8]};
+  float lse2[2];
+  int qpos[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    inv_l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    drow[i] = ds_row[r];
-    if (tx == 0 && q0 + r < sq) {
-      stats[stat_base + q0 + r] = m[i];
-      stats[n_rows + stat_base + q0 + r] = inv_l[i];
-      stats[2 * n_rows + stat_base + q0 + r] = drow[i];
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    qpos[i] = q_offset + row;
+    lse2[i] = row < sq ? lse[r_base + row] * kLog2e : INFINITY;   // P = 0 past Sq
   }
+  const int q_first = q_offset + q0 + r0;
+  float psum[2] = {0.f, 0.f};   // this thread's share of sum_j P_ij of its two rows
 
-  // second walk: P, dP = dO V^T, dS = P (dP - D), dQ += dS K
-  float acc[4][DJ];
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's K and dS reads are done
-    load_tile<HD>(ks, k + k_base, k_row, k0, sk);
-    load_tile<HD>(vs, v + k_base, k_row, k0, sk);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kStages, k0 = (kt_begin + i) * kStream;
+    if (i + 1 < n) fetch(i + 1);   // its stage was last read before the previous barrier
+    cp_async_commit();
+    cp_async_wait<1>();            // tile i has landed
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(s, qs, ks, ty, tx);
-    tile_dot<HD>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = is_valid(k0 + tx + 16 * j, qpos[i], sk, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - m[i]) * inv_l[i] : 0.f;
-        ps[(ty + 16 * i) * kPS + tx + 16 * j] = p * (dp[i][j] - drow[i]);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = ks[c * S + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    T* kt = ks + st * kStream * LD;
+    if constexpr (P::kSplit) {   // K feeds S and dQ
+      split_tile<HD, P>(kt, k_small);
+      __syncthreads();
     }
+    if (q0 + r0 < sq && any_valid(k0, q_first, sk, causal, window)) {
+      float s[kStream / 8][4], dp[kStream / 8][4];
+      scores<P, HD, LD, P::kSplit>(s, qs + r0 * LD, kt, k_small, lane);
+      scores<P, HD, LD, false>(dp, dos + r0 * LD, vs + st * kStream * LD, k_small, lane);
+#pragma unroll
+      for (int nt = 0; nt < kStream / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = e / 2;
+          const bool ok = is_valid(k0 + nt * 8 + 2 * t + (e & 1), qpos[ri], sk, causal, window);
+          const float p = ok ? exp2f(fmaf(s[nt][e], scale2, -lse2[ri])) : 0.f;
+          psum[ri] += p;
+          s[nt][e] = p * (dp[nt][e] - dd[ri]);   // dS
+        }
+      accumulate<P, HD, LD, P::kSplit>(acc, s, kt, k_small, g, t);
+    }
+    __syncthreads();   // every warp is done with stage st
   }
+  cp_async_wait<0>();  // no copy may land after the block has left
 
+  // exp(s - lse) sums to 1 over a row only where these scores are the
+  // forward's to the bit; divided by its sum, P is the softmax of these
+  // scores. dQ is linear in P (D held), so the division comes last, and
+  // dkv_kernel, whose scores are these bit for bit, takes the same factor
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= sq) continue;
+  for (int ri = 0; ri < 2; ++ri) {
+    psum[ri] += __shfl_xor_sync(0xffffffffu, psum[ri], 1);
+    psum[ri] += __shfl_xor_sync(0xffffffffu, psum[ri], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[q_base + s * q_row + tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = q0 + r0 + g + 8 * ri;
+    if (row >= sq) continue;
+    const float inv = psum[ri] > 0.f ? 1.f / psum[ri] : 0.f;   // 0 on a row with no valid key
+    if (t == 0) dsum[r_base + row].y = inv;
+    const float f = scale * inv;
+    T* out = dq + q_base + row * q_row + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      store2(out + nt * 8, acc[nt][2 * ri] * f, acc[nt][2 * ri + 1] * f);
   }
 }
 
@@ -289,208 +665,256 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // dK and dV
 // ---------------------------------------------------------------------------
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-           const float* __restrict__ stats, int b_count, int sq, int sk, int h, int kvh,
-           float scale, int causal, int window, int q_offset) {
-  constexpr int S = HD + 1;
-  constexpr int DJ = HD / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                 // kTile x S
-  float* vs = ks + kTile * S;       // kTile x S
-  float* qs = vs + kTile * S;       // kTile x S
-  float* dos = qs + kTile * S;      // kTile x S
-  float* ps = dos + kTile * S;      // kTile x kPS: P, then dS, [query][key]
-  float* m_s = ps + kTile * kPS;    // kTile each: m, 1 / l, D of the query rows
-  float* il_s = m_s + kTile;
-  float* d_s = il_s + kTile;
+template <int HD, class P>
+__global__ void __launch_bounds__(kThreads, 2)
+dkv_kernel(const typename P::T* __restrict__ q, const typename P::T* __restrict__ k,
+           const typename P::T* __restrict__ v, const typename P::T* __restrict__ dout,
+           const float* __restrict__ lse, const float2* __restrict__ dsum,
+           typename P::T* __restrict__ dk, typename P::T* __restrict__ dv, int sq, int sk,
+           int h, int kvh, float scale, int causal, int window, int q_offset) {
+  using T = typename P::T;
+  constexpr int LD = tile_ld<HD, T>();
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);     // kRows x LD
+  T* vs = ks + kRows * LD;                    // kRows x LD
+  T* qs = vs + kRows * LD;                    // kStages x kStream x LD
+  T* dos = qs + kStages * kStream * LD;       // kStages x kStream x LD
+  T* q_small = dos + kStages * kStream * LD;  // kStream x LD, when P::kSplit
+  float* lse_s = reinterpret_cast<float*>(q_small + (P::kSplit ? kStream * LD : 0));
+  float2* d_s = reinterpret_cast<float2*>(lse_s + kStages * kStream);    // kStages x kStream
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kTile, kv_head = blockIdx.y, b = blockIdx.z;
-  const int groups = h / kvh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rank = static_cast<int>(cluster_rank()), n_ranks = static_cast<int>(cluster_size());
+  const int k0 = (blockIdx.x / n_ranks) * kRows;   // key tile 0 (the heaviest) first
+  const int kv_head = blockIdx.y, b = blockIdx.z;
+  const int groups = h / kvh, per_block = groups / n_ranks;
   const int64_t q_row = static_cast<int64_t>(h) * HD;
   const int64_t k_row = static_cast<int64_t>(kvh) * HD;
   const int64_t k_base = (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  const int64_t n_rows = static_cast<int64_t>(b_count) * h * sq;
 
-  load_tile<HD>(ks, k + k_base, k_row, k0, sk);
-  load_tile<HD>(vs, v + k_base, k_row, k0, sk);
+  load_rows<HD, kRows>(ks, k + k_base, k_row, k0, sk);
+  load_rows<HD, kRows>(vs, v + k_base, k_row, k0, sk);
+  cp_async_commit();
 
   // the query tiles that can see a key of this tile
-  const int nq = (sq + kTile - 1) / kTile;
+  const int nq = (sq + kStream - 1) / kStream;
   int qt_begin = 0;
-  if (causal) {
-    const int first = k0 - q_offset;
-    qt_begin = first > 0 ? first / kTile : 0;
-  }
+  if (causal) qt_begin = max(k0 - q_offset, 0) / kStream;
   int qt_end = nq;
   if (window > 0) {
-    const int last = min(k0 + kTile, sk) - 1 + window - 1 - q_offset;
-    qt_end = last < 0 ? 0 : min(nq, last / kTile + 1);
+    const int last = min(k0 + kRows, sk) - 1 + window - 1 - q_offset;
+    qt_end = last < 0 ? 0 : min(nq, last / kStream + 1);
   }
-
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int g = 0; g < groups; ++g) {
-    const int head = kv_head * groups + g;
+  const int n_qt = max(qt_end - qt_begin, 0);
+  const int steps = per_block * n_qt;
+  // step j: query head rank + (j / n_qt) * n_ranks of the group, query tile
+  // qt_begin + j % n_qt
+  auto step_head = [&](int j) { return kv_head * groups + rank + (j / n_qt) * n_ranks; };
+  auto step_q0 = [&](int j) { return (qt_begin + j % n_qt) * kStream; };
+  auto fetch = [&](int j) {
+    const int st = j % kStages, head = step_head(j), q0 = step_q0(j);
     const int64_t q_base = (static_cast<int64_t>(b) * sq * h + head) * HD;
-    const int64_t stat_base = (static_cast<int64_t>(b) * h + head) * sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<HD>(qs, q + q_base, q_row, q0, sq);
-      load_tile<HD>(dos, dout + q_base, q_row, q0, sq);
-      if (tid < kTile) {
-        const bool in = q0 + tid < sq;
-        m_s[tid] = in ? stats[stat_base + q0 + tid] : 0.f;
-        il_s[tid] = in ? stats[n_rows + stat_base + q0 + tid] : 0.f;  // 1 / l = 0: P = 0
-        d_s[tid] = in ? stats[2 * n_rows + stat_base + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<HD>(s, qs, ks, ty, tx);     // [query ty + 16 i][key tx + 16 j]
-      tile_dot<HD>(dp, dos, vs, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = q_offset + q0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = is_valid(k0 + tx + 16 * j, qpos, sk, causal, window);
-          const float p = ok ? expf(s[i][j] * scale - m_s[r]) * il_s[r] : 0.f;
-          ps[r * kPS + tx + 16 * j] = p;
-          dp[i][j] = p * (dp[i][j] - d_s[r]);   // dS
-        }
-      }
-      __syncthreads();
-      // dV[key ty + 16 i][d tx + 16 j] += sum_r P[r][key] dO[r][d]
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pv[4], dov[DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = ps[r * kPS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dov[j] = dos[r * S + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) dv_acc[i][j] = fmaf(pv[i], dov[j], dv_acc[i][j]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPS + tx + 16 * j] = dp[i][j];
-      __syncthreads();
-      // dK[key][d] += sum_r dS[r][key] Q[r][d]
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float dsv[4], qv[DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = ps[r * kPS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) qv[j] = qs[r * S + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-      }
+    const int64_t r_base = (static_cast<int64_t>(b) * h + head) * sq;
+    load_rows<HD, kStream>(qs + st * kStream * LD, q + q_base, q_row, q0, sq);
+    load_rows<HD, kStream>(dos + st * kStream * LD, dout + q_base, q_row, q0, sq);
+    if (tid < kStream) {
+      const int row = q0 + tid;
+      const bool in = row < sq;
+      cp_async4(lse_s + st * kStream + tid, lse + (in ? r_base + row : 0), in ? 4 : 0);
+    } else if (tid < 2 * kStream) {
+      const int r = tid - kStream, row = q0 + r;
+      const bool in = row < sq;
+      cp_async8(d_s + st * kStream + r, dsum + (in ? r_base + row : 0), in ? 8 : 0);
     }
-  }
+  };
+  if (steps > 0) fetch(0);
+  cp_async_commit();
 
+  const int r0 = warp * 16;   // this warp's keys: k0 + r0 + [0, 16)
+  const float scale2 = scale * kLog2e;
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty + 16 * i;
-    if (s >= sk) continue;
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int64_t at = k_base + s * k_row + tx + 16 * j;
-      dk[at] = from_f32<T>(dk_acc[i][j] * scale);
-      dv[at] = from_f32<T>(dv_acc[i][j]);
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    const int st = j % kStages, q0 = step_q0(j);
+    if (j + 1 < steps) fetch(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // K, V and step j's tiles have landed
+    __syncthreads();
+    T* qt = qs + st * kStream * LD;
+    const T* dot = dos + st * kStream * LD;
+    if constexpr (P::kSplit) {   // Q feeds S^T and dK
+      split_tile<HD, P>(qt, q_small);
+      __syncthreads();
+    }
+    if (any_valid(k0 + r0, q_offset + q0, sk, causal, window)) {
+      const float* lrow = lse_s + st * kStream;
+      const float2* drow = d_s + st * kStream;   // D and 1 / sum_j P_ij of each query row
+      // S^T and dP^T: [key][query]
+      float s[kStream / 8][4], dp[kStream / 8][4];
+      scores<P, HD, LD, P::kSplit, true>(s, ks + r0 * LD, qt, q_small, lane);
+      scores<P, HD, LD, false, true>(dp, vs + r0 * LD, dot, q_small, lane);
+#pragma unroll
+      for (int nt = 0; nt < kStream / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + 2 * t + (e & 1), qrow = q0 + col;
+          const int kpos = k0 + r0 + g + 8 * (e / 2);
+          const bool ok = qrow < sq && is_valid(kpos, q_offset + qrow, sk, causal, window);
+          const float p =
+              ok ? exp2f(fmaf(s[nt][e], scale2, -lrow[col] * kLog2e)) * drow[col].y : 0.f;
+          s[nt][e] = p;                                 // P^T
+          dp[nt][e] = p * (dp[nt][e] - drow[col].x);    // dS^T
+        }
+      accumulate<P, HD, LD, false>(dv_acc, s, dot, q_small, g, t);
+      accumulate<P, HD, LD, P::kSplit>(dk_acc, dp, qt, q_small, g, t);
+    }
+    __syncthreads();   // every warp is done with stage st
+  }
+  cp_async_wait<0>();  // K and V have landed even when no step ran
+  __syncthreads();
+
+  // this block's partial dK and dV, f32, [key][d], in its shared memory
+  float* part = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = r0 + g + 8 * ri;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(part + row * HD + col) =
+          make_float2(dk_acc[nt][2 * ri], dk_acc[nt][2 * ri + 1]);
+      *reinterpret_cast<float2*>(part + (kRows + row) * HD + col) =
+          make_float2(dv_acc[nt][2 * ri], dv_acc[nt][2 * ri + 1]);
     }
   }
+  cluster_sync();   // every block's partials are in place
+  // each block sums a slice over the cluster's blocks, in rank order
+  constexpr int kVecs = 2 * kRows * HD / 4;
+  for (int i = rank * kThreads + tid; i < kVecs; i += n_ranks * kThreads) {
+    float4 sum = ld_cluster(part + 4 * i, 0);
+    for (int r = 1; r < n_ranks; ++r) {
+      const float4 x = ld_cluster(part + 4 * i, r);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const int flat = 4 * i, which = flat / (kRows * HD), rem = flat % (kRows * HD);
+    const int row = rem / HD, col = rem % HD;
+    if (k0 + row >= sk) continue;
+    const float f = which == 0 ? scale : 1.f;
+    sum.x *= f;
+    sum.y *= f;
+    sum.z *= f;
+    sum.w *= f;
+    store4((which == 0 ? dk : dv) + k_base + (k0 + row) * k_row + col, sum);
+  }
+  cluster_sync();   // no block leaves while another reads its partials
 }
 
-template <int HD, typename T>
+template <int HD, class P>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           void* dq, void* dk, void* dv, void* stats, int b, int sq, int sk, int h,
-           int kvh, float scale, int causal, int window, int q_offset,
+           const void* lse, void* dq, void* dk, void* dv, void* dsum, int b, int sq, int sk,
+           int h, int kvh, float scale, int causal, int window, int q_offset, int cluster,
            cudaStream_t stream) {
+  using T = typename P::T;
+  if (cluster < 1 || cluster > kMaxCluster || (h / kvh) % cluster != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
-  float* st = static_cast<float*>(stats);
-  constexpr int dq_bytes = dq_smem_floats<HD>() * sizeof(float);
-  constexpr int dkv_bytes = dkv_smem_floats<HD>() * sizeof(float);
-  auto k_dq = dq_kernel<HD, T>;
-  auto k_dkv = dkv_kernel<HD, T>;
+  const float* lp = static_cast<const float*>(lse);
+  float2* dp = static_cast<float2*>(dsum);
+  constexpr int dq_bytes = Smem<HD, P>::kDq;
+  constexpr int dkv_bytes = Smem<HD, P>::kDkv;
+  // a block may take 232,448 B; two share an SM's 233,472 B (1 KB reserved each)
+  static_assert(dq_bytes <= 232448 && dkv_bytes <= 232448, "shared memory per block");
+  static_assert(2 * (dq_bytes + 1024) <= 233472 && 2 * (dkv_bytes + 1024) <= 233472,
+                "two blocks to an SM");
+  auto k_dq = dq_kernel<HD, P>;
+  auto k_dkv = dkv_kernel<HD, P>;
   cudaError_t err =
       cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(k_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((sq + kTile - 1) / kTile, h, b);
-  k_dq<<<grid_q, kThreads, dq_bytes, stream>>>(qp, kp, vp, static_cast<const T*>(o), dop,
-                                               static_cast<T*>(dq), st, b, sq, sk, h, kvh,
-                                               scale, causal, window, q_offset);
+  const dim3 grid_q((sq + kRows - 1) / kRows, h, b);
+  k_dq<<<grid_q, kThreads, dq_bytes, stream>>>(qp, kp, vp, static_cast<const T*>(o), dop, lp,
+                                               static_cast<T*>(dq), dp, sq, sk, h, kvh, scale,
+                                               causal, window, q_offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_k((sk + kTile - 1) / kTile, kvh, b);
-  k_dkv<<<grid_k, kThreads, dkv_bytes, stream>>>(qp, kp, vp, dop, static_cast<T*>(dk),
-                                                 static_cast<T*>(dv), st, b, sq, sk, h,
-                                                 kvh, scale, causal, window, q_offset);
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((sk + kRows - 1) / kRows) * cluster, kvh, b);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dkv_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k_dkv, qp, kp, vp, dop, lp, static_cast<const float2*>(dp),
+                           static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, kvh, scale,
+                           causal, window, q_offset);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
-                       void*, void*, void*, void*, int, int, int, int, int, float, int,
-                       int, int, cudaStream_t);
+                       const void*, void*, void*, void*, void*, int, int, int, int, int,
+                       float, int, int, int, int, cudaStream_t);
 
-template <typename T>
+template <class P>
 Launch pick(int hd) {
   switch (hd) {
-    case 16: return launch<16, T>;
-    case 32: return launch<32, T>;
-    case 64: return launch<64, T>;
-    case 128: return launch<128, T>;
+    case 16: return launch<16, P>;
+    case 32: return launch<32, P>;
+    case 64: return launch<64, P>;
+    case 128: return launch<128, P>;
     default: return nullptr;
   }
 }
 
 }  // namespace
 
-// q, o, dout, dq (b, sq, h, hd); k, v, dk, dv (b, sk, kvh, hd); all contiguous
-// and of one dtype, h a multiple of kvh, hd in {16, 32, 64, 128}; stats f32
-// scratch of 3 * b * h * sq. Query row i sits at position q_offset + i, key j
-// at position j; window <= 0 means no window. Each returns the CUDA error of
-// its launches, 0 if none.
+// q, o, dout, dq (b, sq, h, hd); k, v, dk, dv (b, sk, kvh, hd); all contiguous,
+// 16-byte aligned and of one dtype, h a multiple of kvh, hd in {16, 32, 64,
+// 128}; lse (b, h, sq) f32 from K3's forward; dsum f32 scratch of b * h * sq
+// pairs (each row's D and 1 / sum_j P_ij, written by the first kernel for the
+// second). cluster: dK/dV blocks per (key tile, KV head, batch), dividing
+// h / kvh, at most 8. Query row i sits at position
+// q_offset + i, key j at position j; window <= 0 means no window. Each
+// returns the CUDA error of its launches, 0 if none.
 
 extern "C" int flash_attention_bwd_f32_launch(const void* q, const void* k, const void* v,
-                                              const void* o, const void* dout, void* dq,
-                                              void* dk, void* dv, void* stats, int b,
+                                              const void* o, const void* dout, const void* lse,
+                                              void* dq, void* dk, void* dv, void* dsum, int b,
                                               int sq, int sk, int h, int kvh, int hd,
                                               float scale, int causal, int window,
-                                              int q_offset, void* stream) {
-  Launch fn = pick<float>(hd);
+                                              int q_offset, int cluster, void* stream) {
+  Launch fn = pick<Tf32x3>(hd);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, dout, dq, dk, dv, stats, b, sq, sk, h, kvh, scale, causal, window,
-            q_offset, static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, sq, sk, h, kvh, scale, causal, window,
+            q_offset, cluster, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16_launch(const void* q, const void* k, const void* v,
-                                               const void* o, const void* dout, void* dq,
-                                               void* dk, void* dv, void* stats, int b,
-                                               int sq, int sk, int h, int kvh, int hd,
-                                               float scale, int causal, int window,
-                                               int q_offset, void* stream) {
-  Launch fn = pick<__nv_bfloat16>(hd);
+                                               const void* o, const void* dout,
+                                               const void* lse, void* dq, void* dk, void* dv,
+                                               void* dsum, int b, int sq, int sk, int h,
+                                               int kvh, int hd, float scale, int causal,
+                                               int window, int q_offset, int cluster,
+                                               void* stream) {
+  Launch fn = pick<Bf16>(hd);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, dout, dq, dk, dv, stats, b, sq, sk, h, kvh, scale, causal, window,
-            q_offset, static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, sq, sk, h, kvh, scale, causal, window,
+            q_offset, cluster, static_cast<cudaStream_t>(stream));
 }

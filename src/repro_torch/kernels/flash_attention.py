@@ -8,9 +8,12 @@ the causal diagonal with an online softmax in registers. It is bound by
 operations on the H100. The wrapper dispatches by dtype (``kernel_symbol``):
 bf16 runs the tensor-core kernel (``wgmma`` products on TMA-loaded tiles in
 mbarrier-guarded rings, a producer warpgroup and two consumers, one
-persistent block per SM); f32 runs the CUDA-core kernel, since TF32 tensor
-cores cannot meet the 2e-5 that f32 is held to. This is a dispatch by dtype, not a fallback: a failed build or
-launch of either raises. The source note says what each design does.
+persistent block per SM); f32 runs the CUDA-core kernel (one TF32 product
+keeps about three decimal digits, short of the 2e-5 that f32 is held to).
+This is a dispatch by dtype, not a fallback: a failed build or launch of
+either raises. With ``return_lse`` either kernel also writes each row's
+log-sum-exp for the gradient; the serving path asks for none. The source
+note says what each design does.
 
 ``flash_attention`` launches a kernel for CUDA tensors and runs
 ``flash_attention_torch``, the plain PyTorch version, for CPU tensors only.
@@ -18,13 +21,17 @@ It never falls back from one to the other.
 
 K3's gradient has no TPU kernel: the JAX package differentiates
 ``mea_attention`` by autodiff. Here ``flash_attention_bwd`` launches
-``csrc/flash_attention_bwd.cu`` (dq, dk and dv from the row statistics it
-recomputes; f32 sums on the CUDA cores for both dtypes) for CUDA tensors and
-runs ``flash_attention_bwd_torch``, the gradient written out step by step,
-for CPU tensors. ``FlashAttention`` is the ``torch.autograd.Function`` that
-pairs the two, usable under ``torch.func.grad`` and ``vmap``: its ``vmap``
-rules fold the vmapped dimension into B, since attention is independent per
-batch row and a ctypes launch cannot be traced.
+``csrc/flash_attention_bwd.cu`` for CUDA tensors: P from the forward's
+log-sum-exp, divided by its row sum so that it is the softmax of the scores
+the backward computes, every product a warp's ``mma.sync`` on the tensor
+cores (f32 by the 3xTF32 split, bf16 directly), and the GQA group's dK and dV
+summed over a thread-block cluster in a fixed order, without atomics
+(``bwd_cluster`` gives the cluster's size). CPU tensors run ``flash_attention_bwd_torch``, the
+gradient written out step by step. ``FlashAttention`` is the
+``torch.autograd.Function`` that pairs the two and carries the log-sum-exp
+from one to the other, usable under ``torch.func.grad`` and ``vmap``: its
+``vmap`` rules fold the vmapped dimension into B, since attention is
+independent per batch row and a ctypes launch cannot be traced.
 """
 from __future__ import annotations
 
@@ -51,13 +58,16 @@ def _scale(hd: int) -> float:
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int = 0, q_offset: int = 0,
-                          query_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
+                          query_chunk: int = 1024, kv_chunk: int = 1024,
+                          return_lse: bool = False):
     """Plain PyTorch version: ``repro/models/layers.py::mea_attention``.
 
     q ``(B, Sq, H, hd)``; k, v ``(B, Sk, KV, hd)`` with H a multiple of KV.
     Query row i sits at position ``q_offset + i``. Chunked online softmax in
     f32 with the reference's padding, masking, and cast of p to v's dtype
-    before the PV product; returns ``(B, Sq, H, hd)`` in q's dtype.
+    before the PV product; returns ``(B, Sq, H, hd)`` in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp ``m + log l`` of its scaled
+    scores over its valid keys, ``(B, H, Sq)`` f32, +inf on a row with none.
     """
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k.shape
@@ -72,7 +82,7 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vh = pad_seq(v, sk_pad).transpose(1, 2).repeat_interleave(groups, dim=1)
     dev = q.device
     kpos_all = torch.arange(sk + sk_pad, device=dev)
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         qc = qh[:, :, iq * cq:(iq + 1) * cq]
         qpos = q_offset + iq * cq + torch.arange(cq, device=dev)
@@ -99,13 +109,19 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + torch.matmul(p.to(vc.dtype).float(), vc.float())
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.cat(outs, dim=2).transpose(1, 2)[:, :sq]
-    return out.to(q.dtype)
+        # a valid key lifts m above the mask value; masked keys met before
+        # it were wiped from l by the correction
+        lses.append(torch.where(m > NEG_INF, m + torch.log(l), torch.inf))
+    out = torch.cat(outs, dim=2).transpose(1, 2)[:, :sq].to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=2)[..., :sq].contiguous()
+    return out
 
 
 def kernel_symbol(dtype: torch.dtype, kernels=KERNELS) -> str:
     """The launcher that serves ``dtype``: tensor cores for bf16, CUDA cores
-    for f32 (``BWD_KERNELS``: the gradient's, CUDA cores for both)."""
+    for f32 (``BWD_KERNELS``: the gradient's, tensor cores for both, f32 by
+    the 3xTF32 split)."""
     if dtype not in kernels:
         raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, got {dtype}")
     return kernels[dtype]
@@ -140,31 +156,35 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    query_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal GQA attention; see ``flash_attention_torch`` for the contract.
+                    query_chunk: int = 1024, kv_chunk: int = 1024,
+                    return_lse: bool = False):
+    """Causal GQA attention; see ``flash_attention_torch`` for the contract
+    (``return_lse`` too).
 
     CUDA tensors launch the kernel (any lengths; the chunk sizes only shape
     the plain version), CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, query_chunk=query_chunk,
-                                     kv_chunk=kv_chunk)
+                                     kv_chunk=kv_chunk, return_lse=return_lse)
     symbol = _check_inputs("flash_attention", q, k, v)
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k.shape
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q, k and v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse.fill_(torch.inf)) if return_lse else out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _build.launcher("flash_attention", symbol)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh,
-            hd, _scale(hd), int(causal), int(window), int(q_offset), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, b, sq, sk, h, kvh, hd, _scale(hd),
+            int(causal), int(window), int(q_offset), stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches so far (one per call that reached the card)
@@ -178,12 +198,16 @@ flash_attention.launches = 0
 
 def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True, window: int = 0, q_offset: int = 0):
+                              causal: bool = True, window: int = 0, q_offset: int = 0,
+                              lse: torch.Tensor | None = None):
     """Plain PyTorch version of K3's gradient: ``(dq, dk, dv)`` of
     ``flash_attention_torch`` at ``out`` for the output gradient ``dout``.
 
-    The kernel's arithmetic, in f32, with P the softmax over the valid keys
-    (0 on a row with none):
+    The kernel's arithmetic, in f32 (f64 for f64 inputs), with P the
+    softmax over the valid keys (0 on a row with none): ``exp(s - lse)``
+    from the forward's ``(B, H, Sq)`` log-sum-exp divided by its row sum
+    when ``lse`` is given (P sums to 1 whatever lse's rounding), else
+    recomputed from the scores:
 
         D = rowsum(dout * out); dP = dout V^T; dS = P (dP - D)
         dq = scale dS K; dk = scale dS^T Q; dv = P^T dout
@@ -195,7 +219,8 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, sk, kvh, _ = k.shape
     groups = h // kvh
     scale = _scale(hd)
-    heads = lambda x: x.transpose(1, 2).float()                          # noqa: E731
+    ct = torch.promote_types(q.dtype, torch.float32)
+    heads = lambda x: x.transpose(1, 2).to(ct)                           # noqa: E731
     qh, oh, doh = heads(q), heads(out), heads(dout)                       # (B, H, Sq, hd)
     kh = heads(k).repeat_interleave(groups, dim=1)                        # (B, H, Sk, hd)
     vh = heads(v).repeat_interleave(groups, dim=1)
@@ -206,12 +231,16 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid &= kpos <= qpos
     if window > 0:
         valid &= kpos > qpos - window
-    # the row statistics over the valid keys, as the kernel recomputes them
     s = torch.where(valid, torch.matmul(qh, kh.transpose(-1, -2)) * scale, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.where(valid, torch.exp(s - m), 0.0)
-    l = e.sum(dim=-1, keepdim=True)
-    p = e * torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30), 0.0)
+    if lse is not None:
+        e = torch.where(valid, torch.exp(s - lse.to(ct)[..., None]), 0.0)
+        l = e.sum(dim=-1, keepdim=True)
+        p = e * torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30), 0.0)
+    else:   # the row statistics over the valid keys
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.where(valid, torch.exp(s - m), 0.0)
+        l = e.sum(dim=-1, keepdim=True)
+        p = e * torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30), 0.0)
     d = (doh * oh).sum(dim=-1, keepdim=True)                              # (B, H, Sq, 1)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     ds = p * (dp - d)
@@ -223,30 +252,57 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.transpose(1, 2).to(v.dtype))
 
 
+#: dK/dV blocks of one key tile form a thread-block cluster of at most this
+#: many (``csrc/flash_attention_bwd.cu``)
+BWD_MAX_CLUSTER = 8
+
+
+def bwd_cluster(h: int, kvh: int) -> int:
+    """The dK/dV launch's cluster size, its ``cluster`` argument: the largest
+    divisor of the GQA group (``h // kvh`` query heads) up to
+    ``BWD_MAX_CLUSTER``. Each block of a cluster takes every cluster-th
+    query head of the group; the kernel owns the rest of its launch shape."""
+    groups = h // kvh
+    return max(c for c in range(1, min(groups, BWD_MAX_CLUSTER) + 1) if groups % c == 0)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, q_offset: int = 0):
+                        window: int = 0, q_offset: int = 0, lse: torch.Tensor | None = None):
     """K3's gradient; see ``flash_attention_bwd_torch`` for the contract.
 
     CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (two kernels, one
-    count), CPU tensors run the plain version."""
+    count), CPU tensors run the plain version. ``lse`` is K3's
+    ``return_lse`` output for these q, k, v; when it is None on the card,
+    K3 runs again to give it (one more K3 launch)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_torch(q, k, v, out, dout, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset, lse=lse)
     symbol = _check_inputs("flash_attention_bwd", q, k, v, out, dout, kernels=BWD_KERNELS)
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k.shape
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd: q, k, v, o and dout must be 16-byte aligned "
+                         "(cp.async)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # m, 1 / l and D per (batch, head, row), written by the first kernel
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    if lse is None:
+        lse = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                              return_lse=True)[1]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be ({b}, {h}, {sq}) f32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} {lse.device}")
+    lse = lse.contiguous()
+    # D and 1 / sum_j P_ij of each row, written by the first kernel for the second
+    dsum = torch.empty((b, h, sq, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _build.launcher("flash_attention_bwd", symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, sq, sk, h,
-            kvh, hd, _scale(hd), int(causal), int(window), int(q_offset), stream)
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+            b, sq, sk, h, kvh, hd, _scale(hd), int(causal), int(window), int(q_offset),
+            bwd_cluster(h, kvh), stream)
     _build.check("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -273,10 +329,10 @@ class FlashAttentionBackward(torch.autograd.Function):
     tensors). Its own gradient (a second derivative) is not provided."""
 
     @staticmethod
-    def forward(q, k, v, out, dout, causal, window, q_offset):
+    def forward(q, k, v, out, dout, lse, causal, window, q_offset):
         return flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                    out.contiguous(), dout.contiguous(), causal=causal,
-                                   window=window, q_offset=q_offset)
+                                   window=window, q_offset=q_offset, lse=lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -287,40 +343,52 @@ class FlashAttentionBackward(torch.autograd.Function):
         raise NotImplementedError("flash attention: no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, out, dout, causal, window, q_offset):
+    def vmap(info, in_dims, q, k, v, out, dout, lse, causal, window, q_offset):
         n = info.batch_size
-        args = [_fold(x, d, n) for x, d in zip((q, k, v, out, dout), in_dims[:5])]
+        args = [None if x is None else _fold(x, d, n)
+                for x, d in zip((q, k, v, out, dout, lse), in_dims[:6])]
         grads = FlashAttentionBackward.apply(*args, causal, window, q_offset)
         return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with K3's gradient: the forward launches K3 (the
-    plain version on the host), the backward ``flash_attention_bwd``. Works
-    under ``torch.autograd``, ``torch.func.grad`` and ``torch.func.vmap``."""
+    plain version on the host) and returns ``(out, lse)``, the backward
+    ``flash_attention_bwd`` on the saved ``lse`` (no gradient flows into
+    ``lse``). ``need_lse`` False (serving, without grad mode) asks K3 for no
+    log-sum-exp and returns ``(out, None)``; a backward then recomputes it.
+    Works under ``torch.autograd``, ``torch.func.grad`` and
+    ``torch.func.vmap``, with or without grad mode."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, q_offset, query_chunk, kv_chunk):
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window, q_offset=q_offset,
-                               query_chunk=query_chunk, kv_chunk=kv_chunk)
+    def forward(q, k, v, causal, window, q_offset, query_chunk, kv_chunk, need_lse=True):
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window, q_offset=q_offset,
+                              query_chunk=query_chunk, kv_chunk=kv_chunk, return_lse=need_lse)
+        return out if need_lse else (out, None)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window, q_offset = inputs[:6]
-        ctx.save_for_backward(q, k, v, output)
+        out, lse = output
+        if lse is not None:
+            ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = (causal, window, q_offset)
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, out, dout, *ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, out, dout, lse, *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, q_offset, query_chunk, kv_chunk):
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset, query_chunk, kv_chunk,
+             need_lse=True):
         n = info.batch_size
         q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
-        out = FlashAttention.apply(q, k, v, causal, window, q_offset, query_chunk,
-                                   kv_chunk)
-        return _unfold(out, n), 0
+        out, lse = FlashAttention.apply(q, k, v, causal, window, q_offset, query_chunk,
+                                        kv_chunk, need_lse)
+        if lse is None:
+            return (_unfold(out, n), None), (0, None)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)

@@ -103,8 +103,11 @@ def mea_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card, its gradient K3's backward kernel (``FlashAttention``: one path for
     serving and training, under ``torch.func.grad`` and ``vmap`` too); on the
     host the chunked online softmax of the reference (the chunk sizes shape
-    only that plain version) and the plain gradient."""
-    return FlashAttention.apply(q, k, v, causal, window, q_offset, query_chunk, kv_chunk)
+    only that plain version) and the plain gradient. K3 writes the
+    log-sum-exp its backward takes only in grad mode: serving's ``no_grad``
+    asks for none."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, query_chunk, kv_chunk,
+                                torch.is_grad_enabled())[0]
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0, **_):

@@ -208,7 +208,7 @@ def test_flash_attention_bwd_matches_jax(case):
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     fused = torch.autograd.grad((FlashAttention.apply(*leaves, True, kw["window"],
                                                       kw["q_offset"], kw["query_chunk"],
-                                                      kw["kv_chunk"]) * tw).sum(), leaves)
+                                                      kw["kv_chunk"])[0] * tw).sum(), leaves)
     autograd = torch.autograd.grad((flash_attention_torch(*leaves, **kw) * tw).sum(), leaves)
     for name, p, f, a, j in zip("qkv", plain, fused, autograd, want):
         np.testing.assert_allclose(p.numpy(), j, err_msg=f"d{name}", **ATTN_TOL)
@@ -225,7 +225,7 @@ def test_flash_attention_grad_under_vmap_matches_jax(case):
     tw = torch.from_numpy(w)
     loss = lambda q, k, v: (FlashAttention.apply(q, k, v, True, kw["window"],  # noqa: E731
                                                  kw["q_offset"], kw["query_chunk"],
-                                                 kw["kv_chunk"]) * tw).sum()
+                                                 kw["kv_chunk"])[0] * tw).sum()
     got = vmap(grad(loss, argnums=(0, 1, 2)))(*(torch.from_numpy(x) for x in (q, k, v)))
     shared = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(0, None, None))(
         torch.from_numpy(q), torch.from_numpy(k[0]), torch.from_numpy(v[0]))
