@@ -202,6 +202,38 @@ Phases, each of which asserts; any failure exits non-zero:
     bound; the backward's TFLOP/s on its 5 products and both its bounds
     (the tensor-core route's, 3xTF32 at an effective 165 TFLOP/s, and the
     f32 CUDA cores')
+39. K3 and K4 against their plain versions at the new configurations'
+    attention shapes, bf16 and f32 (H 64 / KV 8 of Qwen3-32B and
+    DeepSeek-67B, H 96 / KV 8 of Mistral Large 123B at 4 x 1,024; Mixtral's
+    H 48 / KV 8 with its window of 4,096 at 2 x 8,192, and K4 on its ring
+    of 4,096 slots after 8,224 positions); K3's backward (f32) at GQA
+    groups of 6 and 12 at [38]'s B 16 x S 128
+40. Mixtral 8x22B serving at its published widths (8 of 56 layers, a cut
+    printed on a ``reduced:`` line; bf16, random weights from seed 0)
+    through ``launch.serve``: 2 prompts of 8,192 tokens, 32 greedy steps;
+    K3 8 launches a prefill (the window binds), K4 8 a step on the wrapped
+    ring, the cache at 8,224; prefill ms, ms per step against the step's
+    weight-read bound, tok/s, peak memory, each prefill layer's
+    ``expert_tokens``; then K3 and K4 at its own inputs timed as [12] does
+    (SDPA with an explicit window mask, its backend named)
+41. card against host, Mixtral at full width in f32: (a) 1 layer served,
+    2 x 256 prompt tokens and 4 steps: logits within 1e-4, tokens and every
+    MoE call's routing identical, the smallest gap between a token's k-th
+    and (k+1)-th router probability printed; (b) ``moe`` alone under
+    ``grad`` on (2, 256, 6,144): out, aux and the five gradients within
+    1e-4 (and 1e-3 in relative norm), ``expert_tokens`` exact
+42. Mixtral federated training through ``launch.train.train`` (1 of 56
+    layers, f32, [35]'s corpus, cohort and lr): fedsubavg and fedavg dense
+    and fedsubavg sparse, 5 rounds each; K3 and its backward once a round,
+    K1 never; then ``make_round_step`` at the ``tiny`` scale (8 experts)
+    in four modes with ``heat_expert``, card against host within 1e-5, K1
+    once per ``sparse_replicated`` step; K3's backward at Mixtral's
+    training shape (B 16, S 128, H 48, KV 8) timed as [38] does
+43. Qwen3-32B, DeepSeek-67B and Mistral Large 123B at their published
+    widths (2 layers each, bf16) through ``launch.serve``: 4 x 1,024 tokens
+    and 8 greedy steps, ms and launches, finite logits; every registered
+    configuration's ``abstract_params`` at full depth on ``meta``, its
+    count ``param_counts()["total"]`` plus the leaves that count omits
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -210,7 +242,8 @@ runs and the async fires, per rank on the mesh and on [37]'s LLM steps,
 and its times at the DIN and LSTM rounds, at an async fire and at the
 mesh's partial and union combine; K3's its launches on the training path
 and its times at the training shape; K3-backward's entry its launches on
-[35] and its share of a round), the card line and, last,
+[35] and its share of a round; three rows more for [40]'s K3 and K4 and
+K3's backward at Mixtral's training shape), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -256,10 +289,11 @@ from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
 from repro_torch.sparse import compress  # noqa: E402
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, _rows  # noqa: E402
 from repro_torch.kernels.flash_attention import (FlashAttention,  # noqa: E402
-                                                 flash_attention, flash_attention_bwd,
+                                                 bwd_cluster, flash_attention,
+                                                 flash_attention_bwd,
                                                  flash_attention_bwd_torch,
                                                  flash_attention_torch)
 from repro_torch.data.synthetic import make_lm_federated  # noqa: E402
@@ -1013,10 +1047,11 @@ def phase_k4(rng) -> float:
     return worst
 
 
-def capture_attention_inputs(cfg, params) -> dict:
+def capture_attention_inputs(cfg, params, batch: int = SERVE_BATCH,
+                             prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN) -> dict:
     """One K3 (first prefill layer) and one K4 (last layer of the last
     decode step) input set, recorded, as copies, in an untimed run of the
-    same request as [10]'s (same weights and prompt seed). The kernels are
+    same request as the timed one's (same weights and prompt seed). The kernels are
     reached through ``FlashAttention.forward`` for K3 and ``layers``' name
     for K4, which this run wraps. Serving runs without grad mode, so K3 must
     be asked for no log-sum-exp."""
@@ -1037,8 +1072,8 @@ def capture_attention_inputs(cfg, params) -> dict:
 
     FlashAttention.forward, layers_mod.flash_decode = staticmethod(capture_k3), capture_k4
     try:
-        serve_mod.serve(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
-                        device=DEV, seed=SEED, params=params)
+        serve_mod.serve(cfg, batch=batch, prompt=prompt, gen=gen, device=DEV, seed=SEED,
+                        params=params)
     finally:
         FlashAttention.forward, layers_mod.flash_decode = staticmethod(k3_forward), flash_decode
     return captured
@@ -1133,97 +1168,150 @@ def attention_bound(nbytes, ops, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_attention_timing(captured, launches: dict, err_k3: float,
-                           err_k4: float) -> list:
-    """K3 and K4 at the serving path's own inputs: kernel, plain version,
+def sdpa_backend(fn, attempts: int = 3, calls: int = 10) -> str:
+    """Which of ``scaled_dot_product_attention``'s backends ``fn`` took,
+    read from the names of the device kernels of ``calls`` profiled calls
+    (the host's CUDA API events name none). The profiler can miss the
+    first kernels after it starts, which are all of a single call's, so
+    the calls are several and a profile that caught no device kernel is
+    taken again, as ``device_profile`` does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.name.lower() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        if names:
+            break
+    else:
+        return "not read (no profile caught a device kernel)"
+    for backend, words in (("cuDNN", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient attention", ("fmha", "cutlass", "efficient"))):
+        if any(w in names for w in words):
+            return backend
+    return "math (matmuls and softmax)"
+
+
+def attention_timing(captured, launches: dict, err_k3: float, err_k4: float,
+                     names=("flash_attention", "flash_decode"), want_window: int = 0,
+                     k3_target_ms: float | None = K3_TARGET_MS) -> list:
+    """K3 and K4 at a serving path's own inputs: kernel, plain version,
     ``scaled_dot_product_attention`` on the same inputs (laid out and GQA
-    heads repeated outside the timed call) and the bound."""
+    heads repeated outside the timed call; causal by its flag without a
+    window, by an explicit mask with one) and the bound over the valid
+    (query, key) pairs."""
     import torch.nn.functional as F
 
     (q, k, v), kw3 = captured["k3"]
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    window = kw3.get("window", 0)
+    window, w4 = kw3.get("window", 0), captured["k4"][1].get("window", 0)
+    check(window == want_window and w4 == want_window,
+          f"the serving model's window is {window}, want {want_window}")
     want = flash_attention_torch(q, k, v, **kw3)
-    err_k3 = max(err_k3, compare("flash_attention[serving prefill]",
+    err_k3 = max(err_k3, compare(f"{names[0]}[serving prefill]",
                                  flash_attention(q, k, v, **kw3).float(), want.float(),
                                  q.dtype))
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    qpos, kpos3 = torch.arange(sq, device=DEV)[:, None], torch.arange(sk, device=DEV)[None]
+    valid3 = kpos3 <= qpos
+    if window:
+        valid3 &= kpos3 > qpos - window
+        k3_lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid3)  # noqa: E731
+    else:
+        k3_lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    pairs3 = int(valid3.sum())
     k3 = lambda: flash_attention(q, k, v, **kw3)                       # noqa: E731
     k3_plain = lambda: flash_attention_torch(q, k, v, **kw3)           # noqa: E731
-    k3_lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
     p1, m1, m2, p2 = (cuda_ms(k3_plain, 5, 1), cuda_ms(k3, 20), cuda_ms(k3, 20),
                       cuda_ms(k3_plain, 5, 1))
     lib3 = cuda_ms(k3_lib, 20)
-    check(window == 0, "the serving model has no window")
-    bytes3, ops3 = attention_work(b, sq, h, kvh, hd, sk, sq * (sq + 1) // 2, q.dtype)
+    backend3 = sdpa_backend(k3_lib)
+    bytes3, ops3 = attention_work(b, sq, h, kvh, hd, sk, pairs3, q.dtype)
     b3, by3 = attention_bound(bytes3, ops3, q.dtype)
 
-    (q4, kc, vc, kpos, qpos), kw4 = captured["k4"]
-    valid = (kpos >= 0) & (kpos <= qpos)
+    (q4, kc, vc, kpos, qpos4), kw4 = captured["k4"]
+    valid = (kpos >= 0) & (kpos <= qpos4)
+    if w4:
+        valid &= kpos > qpos4 - w4
     n_valid = int(valid.sum())
-    err_k4 = max(err_k4, compare("flash_decode[serving step]",
-                                 flash_decode(q4, kc, vc, kpos, qpos, **kw4).float(),
-                                 flash_decode_torch(q4, kc, vc, kpos, qpos, **kw4).float(),
+    err_k4 = max(err_k4, compare(f"{names[1]}[serving step]",
+                                 flash_decode(q4, kc, vc, kpos, qpos4, **kw4).float(),
+                                 flash_decode_torch(q4, kc, vc, kpos, qpos4, **kw4).float(),
                                  q4.dtype))
     g = q4.shape[1] // kc.shape[1]
     q4t = q4[:, :, None]
     kct, vct = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
     mask = valid[None, None, None]
-    k4 = lambda: flash_decode(q4, kc, vc, kpos, qpos, **kw4)           # noqa: E731
-    k4_plain = lambda: flash_decode_torch(q4, kc, vc, kpos, qpos, **kw4)  # noqa: E731
+    k4 = lambda: flash_decode(q4, kc, vc, kpos, qpos4, **kw4)          # noqa: E731
+    k4_plain = lambda: flash_decode_torch(q4, kc, vc, kpos, qpos4, **kw4)  # noqa: E731
     k4_lib = lambda: F.scaled_dot_product_attention(q4t, kct, vct, attn_mask=mask)  # noqa: E731
     o1, n1, n2, o2 = cuda_ms(k4_plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(k4_plain)
     lib4 = cuda_ms(k4_lib)
+    backend4 = sdpa_backend(k4_lib)
     hk = kc.shape[1]
     bytes4, ops4 = attention_work(q4.shape[0], 1, q4.shape[1], hk, hd, n_valid, n_valid,
                                   q4.dtype, extra_bytes=4 * kpos.numel())
     b4, by4 = attention_bound(bytes4, ops4, q4.dtype)
     ms3, ms4 = min(m1, m2), min(n1, n2)
-    print(f"  K3 flash_attention B={b} S={sq} H={h} KV={kvh} hd={hd} {q.dtype} causal: "
-          f"kernel {m1:.4f}/{m2:.4f} ms ({ops3 / ms3 / 1e9:.1f} TFLOP/s), plain "
-          f"{p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms ({ops3 / lib3 / 1e9:.1f} TFLOP/s), "
-          f"bound {b3:.5f} ms ({by3}; {OPS_PER_S[q.dtype] / 1e12:.0f} TFLOP/s)")
-    print(f"  K4 flash_decode B={q4.shape[0]} H={q4.shape[1]} KV={hk} S={kc.shape[2]} "
-          f"valid={n_valid} {q4.dtype}: kernel {n1:.4f}/{n2:.4f} ms "
-          f"({bytes4 / ms4 / 1e9:.2f} TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA "
-          f"{lib4:.4f} ms ({bytes4 / lib4 / 1e9:.2f} TB/s), bound {b4:.5f} ms ({by4}; "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-    check(ms3 <= K3_TARGET_MS, f"K3 at the serving prefill: {ms3:.4f} ms > the "
-          f"{K3_TARGET_MS} ms target")
+    print(f"  K3 {names[0]} B={b} S={sq} H={h} KV={kvh} hd={hd} {q.dtype} causal window="
+          f"{window} ({pairs3} valid pairs per (b, h)): kernel {m1:.4f}/{m2:.4f} ms "
+          f"({ops3 / ms3 / 1e9:.1f} TFLOP/s), plain {p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms "
+          f"({backend3}; {ops3 / lib3 / 1e9:.1f} TFLOP/s), bound {b3:.5f} ms ({by3}; "
+          f"{OPS_PER_S[q.dtype] / 1e12:.0f} TFLOP/s)")
+    print(f"  K4 {names[1]} B={q4.shape[0]} H={q4.shape[1]} KV={hk} S={kc.shape[2]} "
+          f"valid={n_valid} window={w4} {q4.dtype}: kernel {n1:.4f}/"
+          f"{n2:.4f} ms ({bytes4 / ms4 / 1e9:.2f} TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA "
+          f"{lib4:.4f} ms ({backend4}; {bytes4 / lib4 / 1e9:.2f} TB/s), bound {b4:.5f} ms "
+          f"({by4}; {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    if k3_target_ms is not None:
+        check(ms3 <= k3_target_ms, f"K3 at the serving prefill: {ms3:.4f} ms > the "
+              f"{k3_target_ms} ms target")
     return [
-        {"name": "flash_attention", "route": "cuda",
+        {"name": names[0], "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:100",
          "launches": launches["flash_attention"], "max_abs_err": err_k3,
          "ms": min(m1, m2), "plain_ms": min(p1, p2), "bound_ms": b3,
-         "bound_by": by3, "library_ms": lib3},
-        {"name": "flash_decode", "route": "cuda",
+         "bound_by": by3, "library_ms": lib3, "library": f"SDPA, {backend3}"},
+        {"name": names[1], "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88",
          "launches": launches["flash_decode"], "max_abs_err": err_k4,
          "ms": min(n1, n2), "plain_ms": min(o1, o2), "bound_ms": b4,
-         "bound_by": by4, "library_ms": lib4},
+         "bound_by": by4, "library_ms": lib4, "library": f"SDPA, {backend4}"},
     ]
 
 
-def phase_decode_profile(params, steady_ms: float) -> dict:
-    """Where one decode step's time goes at the serving shape: device time
-    by op over 5 warm steps (torch.profiler) against the unprofiled step."""
+def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_BATCH,
+                         prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN, n: int = 5,
+                         read_bytes: float | None = None,
+                         split_target_us: float | None = K4_SPLIT_TARGET_US,
+                         label: str = "[10]") -> dict:
+    """Where one decode step's time goes at a serving shape (by default
+    [10]'s): device time by op over ``n`` warm steps after a prefill of the
+    same request (torch.profiler) against the unprofiled step and the
+    bound of reading ``read_bytes`` (by default every weight)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or get_config(SERVE_ARCH)
     api = build_model(cfg)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                          generator=torch.Generator().manual_seed(SEED + 1),
                          dtype=torch.int32).to(DEV)
-    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
+    cache = api.init_cache(batch, prompt + gen, DEV)
     logits, cache = api.prefill(params, {"tokens": toks}, cache)
     for _ in range(3):
         logits, cache = api.decode_step(params, cache, {"tokens": logits.argmax(-1).int()})
-    n = 5
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -1238,22 +1326,24 @@ def phase_decode_profile(params, steady_ms: float) -> dict:
     split_us_per_launch = sum(split_us) / (n * cfg.num_layers)
     gemm_ms = matmul_us(by_name) / n / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    if read_bytes is None:
+        read_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     out = {"steady_ms_per_step": steady_ms, "device_ms_per_step": device_ms,
            "device_ops_per_step": ops / n, "k4_ms_per_step": k4_ms,
            "k4_split_us_per_launch": split_us_per_launch,
            "matmul_ms_per_step": gemm_ms,
            "busy_share": device_ms / steady_ms if steady_ms else None,
-           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
-    print(f"  decode step: {steady_ms:.2f} ms steady (host clock, [10]); device busy "
+           "weight_read_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"  decode step: {steady_ms:.2f} ms steady (host clock, {label}); device busy "
           f"{device_ms:.3f} ms ({device_ms / steady_ms * 100:.1f}%), {ops / n:.0f} device "
           f"ops per step; matmuls {gemm_ms:.3f} ms, K4 {k4_ms:.4f} ms (split pass "
           f"{split_us_per_launch:.2f} us per launch); weight-read bound "
-          f"{out['weight_read_bound_ms']:.3f} ms ({weight_bytes / 1e9:.2f} GB)")
+          f"{out['weight_read_bound_ms']:.3f} ms ({read_bytes / 1e9:.2f} GB)")
     for name, t in top:
         print(f"    {t / n / 1e3:.4f} ms/step  {name[:90]}")
-    check(split_us_per_launch <= K4_SPLIT_TARGET_US, f"K4's split pass in the decode "
-          f"step: {split_us_per_launch:.2f} us > the {K4_SPLIT_TARGET_US} us target")
+    if split_target_us is not None:
+        check(split_us_per_launch <= split_target_us, f"K4's split pass in the decode "
+              f"step: {split_us_per_launch:.2f} us > the {split_target_us} us target")
     return out
 
 
@@ -2824,8 +2914,6 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
     backward: autograd of ``scaled_dot_product_attention``, its forward
     subtracted) and the bound. Returns K3-backward's entry and adds K3's
     training-shape times and error to ``k3``."""
-    import torch.nn.functional as F
-
     cfg = lm_config()
     api = build_model(cfg)
     params, axes = lm_params(cfg, DEV)
@@ -2870,22 +2958,42 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {t / 1e3:.4f} ms  {name[:90]}")
 
-    rng = np.random.default_rng(SEED + 34)
-    b, s = LM_TRAIN_SHAPE
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fwd, bwd = train_attention_timing((*LM_TRAIN_SHAPE, cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim), SEED + 34, "training round shape")
+    k3["max_abs_err"] = max(k3["max_abs_err"], fwd["max_abs_err"])
+    k3["training"] = {**fwd, "launches_main_path": k3["launches_by_path"]["training"],
+                      "device_ms_per_round": split["K3"]}
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:154",
+            "launches": launches_bwd, **bwd, "max_abs_err": max(err_bwd, bwd["max_abs_err"]),
+            "device_ms_per_round": split["K3 backward"],
+            "round_split_ms": split, "round_device_ops": ops,
+            "round_matmul_tflop": mm_flops / 1e12}
+
+
+def train_attention_timing(shape, seed: int, label: str) -> tuple:
+    """K3 and its backward at a training shape ``(B, S, H, KV, hd)``, f32,
+    causal, on random inputs from ``seed``: each first held to its plain
+    version there, then timed by CUDA events beside their plain versions,
+    SDPA (its backward: autograd of ``scaled_dot_product_attention``, its
+    forward subtracted) and the bound. Returns K3's and its backward's
+    numbers."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    b, s, h, kvh, hd = shape
     dtype = torch.float32
     q, k, v = normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kvh, hd), dtype), normal(
         rng, (b, s, kvh, hd), dtype)
     o, lse = flash_attention(q, k, v, return_lse=True)
     o_plain, lse_plain = flash_attention_torch(q, k, v, return_lse=True)
-    err_fwd = max(compare("flash_attention[training round shape]", o, o_plain, dtype),
-                  compare_lse("flash_attention lse[training round shape]", lse, lse_plain,
-                              dtype))
-    k3["max_abs_err"] = max(k3["max_abs_err"], err_fwd)
+    err_fwd = max(compare(f"flash_attention[{label}]", o, o_plain, dtype),
+                  compare_lse(f"flash_attention lse[{label}]", lse, lse_plain, dtype))
     do = normal(rng, o.shape, dtype)
-    err_bwd = max(err_bwd, compare_grads("flash_attention_bwd[training round shape]",
-                                         flash_attention_bwd(q, k, v, o, do, lse=lse),
-                                         flash_attention_bwd_torch(q, k, v, o, do), dtype))
+    err_bwd = compare_grads(f"flash_attention_bwd[{label}]",
+                            flash_attention_bwd(q, k, v, o, do, lse=lse),
+                            flash_attention_bwd_torch(q, k, v, o, do), dtype)
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
     vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
@@ -2918,32 +3026,22 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
     b_route = max(b_bytes / HBM_BYTES_PER_S, 3 * b_ops / TF32_OPS_PER_S) * 1e3
     b_route_by = "bytes" if b_bytes / HBM_BYTES_PER_S >= 3 * b_ops / TF32_OPS_PER_S \
         else "operations"
-    print(f"  K3 at the training shape B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} causal: "
+    print(f"  K3 at the {label} B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} causal: "
           f"max_abs_err {err_fwd:.3g}; kernel {f1:.4f}/{f2:.4f} ms, plain {f_p1:.4f}/"
           f"{f_p2:.4f} ms, SDPA {f_lib:.4f} ms, "
           f"bound {f_bound:.5f} ms ({f_by})")
-    print(f"  K3 backward: kernel {b1:.4f}/{b2:.4f} ms ({b_ops / min(b1, b2) / 1e9:.1f} "
-          f"TFLOP/s on its 5 products), plain {b_p1:.4f}/{b_p2:.4f} ms, SDPA backward "
-          f"{b_lib:.4f} ms; bound {b_route:.5f} ms on its route ({b_route_by}; 3xTF32 at "
-          f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s effective, {b_bytes / 1e6:.1f} MB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {b_bound:.5f} ms on the f32 CUDA cores "
-          f"({b_by}; {OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s)")
-    k3["training"] = {"shape": [b, s, h, kvh, hd], "dtype": "float32",
-                      "ms": min(f1, f2), "plain_ms": min(f_p1, f_p2), "library_ms": f_lib,
-                      "bound_ms": f_bound, "bound_by": f_by,
-                      "launches_main_path": k3["launches_by_path"]["training"],
-                      "max_abs_err": err_fwd,
-                      "device_ms_per_round": split["K3"]}
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/layers.py:154",
-            "launches": launches_bwd, "max_abs_err": err_bwd,
-            "ms": min(b1, b2), "plain_ms": min(b_p1, b_p2), "bound_ms": b_bound,
-            "bound_by": b_by, "bound_ms_route": b_route, "bound_by_route": b_route_by,
-            "library_ms": b_lib,
-            "device_ms_per_round": split["K3 backward"],
-            "round_split_ms": split, "round_device_ops": ops,
-            "round_matmul_tflop": mm_flops / 1e12}
+    print(f"  K3 backward: max_abs_err {err_bwd:.3g}; kernel {b1:.4f}/{b2:.4f} ms "
+          f"({b_ops / min(b1, b2) / 1e9:.1f} TFLOP/s on its 5 products), plain {b_p1:.4f}/"
+          f"{b_p2:.4f} ms, SDPA backward {b_lib:.4f} ms; bound {b_route:.5f} ms on its route "
+          f"({b_route_by}; 3xTF32 at {TF32_OPS_PER_S / 3e12:.0f} TFLOP/s effective, "
+          f"{b_bytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {b_bound:.5f} ms on "
+          f"the f32 CUDA cores ({b_by}; {OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s)")
+    return ({"shape": [b, s, h, kvh, hd], "dtype": "float32", "ms": min(f1, f2),
+             "plain_ms": min(f_p1, f_p2), "library_ms": f_lib, "bound_ms": f_bound,
+             "bound_by": f_by, "max_abs_err": err_fwd},
+            {"shape": [b, s, h, kvh, hd], "max_abs_err": err_bwd, "ms": min(b1, b2),
+             "plain_ms": min(b_p1, b_p2), "bound_ms": b_bound, "bound_by": b_by,
+             "bound_ms_route": b_route, "bound_by_route": b_route_by, "library_ms": b_lib})
 
 
 def phase_lm_training(kernels: list, rng, k1: dict) -> list:
@@ -2989,6 +3087,493 @@ def phase_lm_training(kernels: list, rng, k1: dict) -> list:
                              err_bwd, launches_bwd, k3)
     print(f"  [38] took {time.perf_counter() - t0:.1f} s")
     return [entry]
+
+
+# ---------------------------------------------------------------------------
+# [39]-[43]: Mixtral 8x22B's MoE and the other dense configurations
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral_8x22b"
+MOE_SERVE_LAYERS = 8
+MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 2, 8192, 32
+MOE_SERVE_REDUCED = ("layers 56 -> 8: a layer holds 2.504 B bf16 parameters (5.01 GB); 8 "
+                     "layers with the embedding and lm_head (0.81 GB) take ~40.9 GB of the "
+                     "card's 80, and 56 would take ~281 GB")
+MOE_TRAIN_ROUNDS = 5
+MOE_TRAIN_REDUCED = ("layers 56 -> 1: 2.91 B f32 parameters (11.6 GB); with the gradients, "
+                     "the update and the new parameters ~46 GB, and 2 layers would need "
+                     "~86 GB")
+#: [42]'s plans: FedSgdLocal under fedsubavg and fedavg on the dense transport,
+#: fedsubavg on the row-sparse one
+MOE_PLANS = LM_PLANS[:3]
+#: [41]: serving at 1 full-width layer in f32, card against host (the sum
+#: order of 6,144- and 16,384-long f32 dot products, as [11])
+MOE_HOST_PROMPT, MOE_HOST_GEN, MOE_HOST_TOL = 256, 4, 1e-4
+#: [43]: the dense configurations at their published widths, bf16, 2 layers
+DENSE_ARCHS = ("qwen3_32b", "deepseek_67b", "mistral_large_123b")
+DENSE_LAYERS = 2
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 1024, 8
+#: [39]'s K3 cases at the new configurations' attention shapes: (name, B, S,
+#: H, KV, window); hd 128 throughout. Qwen3-32B and DeepSeek-67B share
+#: H 64, KV 8; Mixtral's window binds from position 4,096 on
+NEW_K3_CASES = (("qwen3-32b, deepseek-67b", DENSE_BATCH, DENSE_PROMPT, 64, 8, 0),
+                ("mistral-large-123b", DENSE_BATCH, DENSE_PROMPT, 96, 8, 0),
+                ("mixtral-8x22b", MOE_SERVE_BATCH, MOE_SERVE_PROMPT, 48, 8, 4096))
+#: [39]'s K4 cases: (name, B, H, KV, slots, positions written, window); the
+#: dense caches full after a prompt and its steps, Mixtral's ring of 4,096
+#: slots after 8,224 positions
+NEW_K4_CASES = (("qwen3-32b, deepseek-67b", DENSE_BATCH, 64, 8, DENSE_PROMPT + DENSE_GEN,
+                 DENSE_PROMPT + DENSE_GEN, 0),
+                ("mistral-large-123b", DENSE_BATCH, 96, 8, DENSE_PROMPT + DENSE_GEN,
+                 DENSE_PROMPT + DENSE_GEN, 0),
+                ("mixtral-8x22b ring", MOE_SERVE_BATCH, 48, 8, 4096,
+                 MOE_SERVE_PROMPT + MOE_SERVE_GEN, 4096))
+#: [39]'s K3-backward cases, f32 at [38]'s B 16 x S 128: GQA groups of 6
+#: (Mixtral's 48 / 8) and 12 (Mistral Large's 96 / 8)
+NEW_BWD_CASES = (("group 6", 16, 128, 48, 8), ("group 12", 16, 128, 96, 8))
+#: [42]'s tiny steps: the cohort's heat per expert, from seed 0 in [1, 256]
+MOE_HEAT_RANGE = (1, 257)
+
+
+def phase_new_shapes(rng) -> tuple:
+    """[39] K3 and K4 against their plain versions at the new
+    configurations' attention shapes, bf16 and f32, and K3's backward (f32)
+    at GQA groups of 6 and 12. Returns the worst K3, K4 and backward
+    errors."""
+    worst = {"k3": 0.0, "k4": 0.0, "bwd": 0.0}
+    hd = 128
+    for name, b, s, h, kv, window in NEW_K3_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kv, hd), dtype),
+                       normal(rng, (b, s, kv, hd), dtype))
+            err = compare(f"flash_attention[{name}]", flash_attention(q, k, v, window=window),
+                          flash_attention_torch(q, k, v, window=window), dtype)
+            worst["k3"] = max(worst["k3"], err)
+            print(f"  K3 {name:24s} {str(dtype):14s} B={b} S={s} H={h} KV={kv} hd={hd} "
+                  f"window={window} max_abs_err={err:.3g}")
+            del q, k, v
+    for name, b, h, kv, slots, written, window in NEW_K4_CASES:
+        kpos = cache_slot_positions(written, slots, window > 0, DEV)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal(rng, (b, h, hd), dtype)
+            kc, vc = normal(rng, (b, kv, slots, hd), dtype), normal(rng, (b, kv, slots, hd), dtype)
+            got = flash_decode(q, kc, vc, kpos, written - 1, window=window)
+            err = compare(f"flash_decode[{name}]", got.float(),
+                          flash_decode_torch(q, kc, vc, kpos, written - 1,
+                                             window=window).float(), dtype)
+            worst["k4"] = max(worst["k4"], err)
+            print(f"  K4 {name:24s} {str(dtype):14s} B={b} H={h} KV={kv} S={slots} hd={hd} "
+                  f"q_position={written - 1} window={window} max_abs_err={err:.3g}")
+    dtype = torch.float32
+    for name, b, s, h, kv in NEW_BWD_CASES:
+        q, k, v = (normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kv, hd), dtype),
+                   normal(rng, (b, s, kv, hd), dtype))
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        do = normal(rng, o.shape, dtype)
+        err = compare_grads(f"flash_attention_bwd[{name}]",
+                            flash_attention_bwd(q, k, v, o, do, lse=lse),
+                            flash_attention_bwd_torch(q, k, v, o, do), dtype)
+        worst["bwd"] = max(worst["bwd"], err)
+        print(f"  K3 backward {name:8s} {str(dtype):14s} B={b} S={s} H={h} KV={kv} hd={hd} "
+              f"(cluster {bwd_cluster(h, kv)}) max_abs_err={err:.3g}")
+    return worst["k3"], worst["k4"], worst["bwd"]
+
+
+@contextlib.contextmanager
+def record_moe(records: list, routing: bool = False):
+    """Wrap ``layers.moe`` so that each call appends its ``expert_tokens``
+    and, with ``routing``, where it sent each token (``layers.moe_route``
+    recomputed on the same inputs, outside the call: expert ids, the keep
+    mask) and the smallest gap between a token's k-th and (k+1)-th router
+    probability."""
+    inner = layers_mod.moe
+
+    def moe(p, x, **kw):
+        out, stats = inner(p, x, **kw)
+        rec = {"expert_tokens": stats.expert_tokens}
+        if routing:
+            k = kw["top_k"]
+            r = layers_mod.moe_route(
+                p["router"], x.reshape(-1, x.shape[-1]), num_experts=kw["num_experts"],
+                top_k=k, capacity_factor=kw["capacity_factor"],
+                deterministic_capacity=kw.get("deterministic_capacity", 0))
+            top = torch.sort(r.probs, dim=-1, descending=True).values
+            rec.update(expert_ids=r.expert_ids.cpu(), keep=r.keep.cpu(),
+                       gap=float((top[:, k - 1] - top[:, k]).min()))
+        records.append(rec)
+        return out, stats
+
+    layers_mod.moe = moe
+    try:
+        yield records
+    finally:
+        layers_mod.moe = inner
+
+
+def moe_serve_config(layers: int = MOE_SERVE_LAYERS, **over):
+    return get_config(MOE_ARCH).replace(num_layers=layers, **over)
+
+
+def phase_moe_serve() -> tuple:
+    """[40] Mixtral 8x22B at its published widths (8 of 56 layers, bf16,
+    random weights from seed ``SEED``) through ``launch.serve``: 2 prompts
+    of 8,192 tokens (the window of 4,096 binds in K3), then 32 greedy steps
+    on the wrapped ring of 4,096 slots (drop-free MoE, capacity B * k: every
+    expert runs). An untimed run of the same request first records each
+    prefill layer's ``expert_tokens`` and one K3 and one K4 input set;
+    then the timed run, with the counts set to 0 just before it. Returns
+    the summary, with the K3/K4 inputs under ``captured``."""
+    cfg = moe_serve_config()
+    nl, b, gen = cfg.num_layers, MOE_SERVE_BATCH, MOE_SERVE_GEN
+    t0 = time.perf_counter()
+    params = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name}: {nl} layers, d_model {cfg.d_model}, {cfg.num_experts} experts "
+          f"(top {cfg.experts_per_token}) of d_ff {cfg.d_ff}, window {cfg.sliding_window}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}), random init from seed {SEED} in "
+          f"{init_s:.1f} s; reduced: {MOE_SERVE_REDUCED}")
+    records = []
+    with record_moe(records):
+        captured = capture_attention_inputs(cfg, params, b, MOE_SERVE_PROMPT, gen)
+    expert_tokens = [r["expert_tokens"].tolist() for r in records[:nl]]
+    check(all(sum(t) == b * MOE_SERVE_PROMPT * cfg.experts_per_token for t in expert_tokens),
+          f"prefill expert_tokens {expert_tokens} do not sum to B x S x k")
+    del records
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=b, prompt=MOE_SERVE_PROMPT, gen=gen, device=DEV,
+                          seed=SEED, params=params)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+          f"prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen},
+          f"decode launches {res.launches_decode}, want {nl} of K4 per step")
+    check(launches == {"flash_attention": nl, "flash_decode": nl * gen},
+          f"serving run launches {launches}")
+    check(res.cache_pos == MOE_SERVE_PROMPT + gen,
+          f"the cache is at {res.cache_pos}, want {MOE_SERVE_PROMPT + gen}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits), "non-finite logits")
+    check(all(lg.shape == (b, cfg.vocab_size) for lg in res.logits), "logits shape")
+    # a step reads every weight but the embedding (every expert runs at
+    # capacity B * k) and each layer's valid cache: the ring's 4,096 slots
+    weight_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                       if name != "embedding")
+    cache_bytes = nl * 2 * b * cfg.num_kv_heads * cfg.sliding_window * cfg.head_dim * 2
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    out = {"params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
+           "peak_gb": peak / 1e9, "launches": launches, "expert_tokens": expert_tokens,
+           "decode_bound_ms": bound_ms, "captured": captured}
+    print(f"  prefill {b} x {MOE_SERVE_PROMPT}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
+          f"{res.decode_ms_per_token:.2f} ms/token, {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB; cache at position {res.cache_pos} (ring of "
+          f"{cfg.sliding_window} slots)")
+    print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
+          f"against {bound_ms:.2f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
+    print(f"  launches: prefill {res.launches_prefill}, decode {res.launches_decode}")
+    for i, t in enumerate(expert_tokens):
+        print(f"    layer {i} prefill expert_tokens {t}")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    out["decode_profile"] = phase_decode_profile(
+        params, res.decode_ms_per_token, cfg, b, MOE_SERVE_PROMPT, gen, n=3,
+        read_bytes=weight_bytes + cache_bytes, split_target_us=None, label="[40]")
+    del params
+    return out
+
+
+def routing_same(card: list, host: list) -> bool:
+    return len(card) == len(host) and all(
+        torch.equal(c["expert_ids"], h["expert_ids"]) and torch.equal(c["keep"], h["keep"])
+        and torch.equal(c["expert_tokens"].cpu(), h["expert_tokens"]) for c, h in zip(card, host))
+
+
+def phase_moe_card_vs_host() -> dict:
+    """[41] Mixtral at full width, f32, card against host from the same
+    weights. (a) 1 layer through ``launch.serve``: 2 x 256 prompt tokens,
+    then 4 greedy steps; logits within ``MOE_HOST_TOL``, tokens and every
+    MoE call's routing (expert ids, keep mask, counts) identical. (b)
+    ``moe`` alone under ``grad`` on a (2, 256, 6,144) input with that
+    layer's expert stack: out and aux within ``MOE_HOST_TOL``,
+    ``expert_tokens`` exact, the gradients of x and the four weights within
+    ``MOE_HOST_TOL`` of the leaf's largest element (at least 1) and within
+    ``LM_UPDATE_TOL`` in relative norm. The router's gradient sums every
+    token's product with x through the softmax: its elements reach the
+    thousands, where an f32 ulp is 1e-4, so an absolute 1e-4 would hold
+    it to below its own rounding."""
+    from torch.func import grad_and_value
+
+    cfg = moe_serve_config(1, dtype="float32")
+    card = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    host = transformer.make_params(cfg, device="cpu",
+                                   state={k: v.cpu() for k, v in card.state_dict().items()})
+    kw = dict(batch=2, prompt=MOE_HOST_PROMPT, gen=MOE_HOST_GEN, seed=SEED)
+    rec_c, rec_h = [], []
+    with record_moe(rec_c, routing=True):
+        rc = serve_mod.serve(cfg, device=DEV, params=card, **kw)
+    t0 = time.perf_counter()
+    with record_moe(rec_h, routing=True):
+        rh = serve_mod.serve(cfg, device="cpu", params=host, **kw)
+    host_s = time.perf_counter() - t0
+    check(rc.launches_prefill["flash_attention"] == 1, "card run missed K3")
+    check(rh.launches_prefill["flash_attention"] == 0, "host run launched a kernel")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+    check(all(torch.allclose(a.cpu(), b, rtol=MOE_HOST_TOL, atol=MOE_HOST_TOL)
+              for a, b in zip(rc.logits, rh.logits)),
+          f"card and host logits differ by {err}")
+    check(torch.equal(rc.tokens.cpu(), rh.tokens), "card and host greedy tokens differ")
+    gaps = [min(r["gap"] for r in rec) for rec in (rec_c, rec_h)]
+    same = routing_same(rec_c, rec_h)
+    print(f"  (a) 1 layer x d_model {cfg.d_model} f32, 2 x {MOE_HOST_PROMPT} prompt tokens, "
+          f"{MOE_HOST_GEN} steps: max |logit diff| {err:.3g} (tolerance {MOE_HOST_TOL}); "
+          f"tokens identical {rc.tokens[0].tolist()}; routing of {len(rec_c)} MoE calls "
+          f"identical: {same}; smallest gap between the k-th and (k+1)-th router "
+          f"probability: card {gaps[0]:.3g}, host {gaps[1]:.3g}; host run {host_s:.1f} s")
+    check(same, "card and host route differently (see the gaps above)")
+
+    rng = np.random.default_rng(SEED + 41)
+    shape = (2, MOE_HOST_PROMPT, cfg.d_model)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    moe_kw = dict(num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                  capacity_factor=cfg.moe_capacity_factor)
+
+    def loss(p, x, w):
+        out, stats = layers_mod.moe(p, x, **moe_kw)
+        return (out * w).sum() + stats.aux_loss, (out, stats)
+
+    g = grad_and_value(loss, argnums=(0, 1), has_aux=True)
+    sides = {}
+    for side, model, dev in (("card", card, DEV), ("host", host, "cpu")):
+        p = {n: t.detach() for n, t in model.layers[0].ffn.named_parameters()}
+        t0 = time.perf_counter()
+        (gp, gx), (_, (out, stats)) = g(p, x.to(dev), w.to(dev))
+        sides[side] = ({**{n: t.cpu() for n, t in gp.items()}, "x": gx.cpu()}, out.cpu(),
+                       stats, time.perf_counter() - t0)
+    (gc, oc, sc, _), (gh, oh, sh, host_s) = sides["card"], sides["host"]
+    out_err = float((oc - oh).abs().max())
+    check(torch.allclose(oc, oh, rtol=MOE_HOST_TOL, atol=MOE_HOST_TOL),
+          f"(b) moe's output differs between card and host by {out_err}")
+    check(abs(float(sc.aux_loss) - float(sh.aux_loss)) <= MOE_HOST_TOL,
+          f"(b) aux {float(sc.aux_loss)} against {float(sh.aux_loss)}")
+    check(torch.equal(sc.expert_tokens.cpu(), sh.expert_tokens),
+          f"(b) expert_tokens {sc.expert_tokens.tolist()} against {sh.expert_tokens.tolist()}")
+    grad_err = {}
+    for name, want in gh.items():
+        got = gc[name]
+        rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        scale = max(1.0, float(want.abs().max()))
+        grad_err[name] = (float((got - want).abs().max()), rel, scale)
+        check(grad_err[name][0] <= MOE_HOST_TOL * scale and rel <= LM_UPDATE_TOL,
+              f"(b) d{name} differs between card and host: (max abs, rel norm, scale) "
+              f"{grad_err[name]}")
+    print(f"  (b) moe under grad on {shape}, {cfg.num_experts} experts of {cfg.d_model} x "
+          f"{cfg.d_ff}: out {out_err:.3g}, aux {abs(float(sc.aux_loss) - float(sh.aux_loss)):.3g}, "
+          f"expert_tokens {sh.expert_tokens.tolist()} on both; gradients (max abs, rel norm): "
+          + ", ".join(f"d{n} {a:.3g}/{r:.3g} (largest |element| {m:.3g})"
+                      for n, (a, r, m) in grad_err.items())
+          + f"; host {host_s:.1f} s")
+    del card, host, sides
+    return {"max_logit_diff": err, "router_gap": gaps, "grad_err": grad_err}
+
+
+def phase_moe_training() -> dict:
+    """[42] Mixtral through ``launch.train.train`` at its published widths
+    (1 of 56 layers, f32, weights from seed ``SEED``) on [35]'s corpus and
+    cohort, ``MOE_TRAIN_ROUNDS`` rounds per plan, the counts set to 0 just
+    before each run and read just after; then ``make_round_step`` at the
+    ``tiny`` scale (8 experts, f32) in four modes with ``heat_expert``, on
+    the card and on the host."""
+    cfg = moe_serve_config(1, dtype="float32")
+    runs = {}
+    for label, alg, sparse in MOE_PLANS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_zero_counts()
+        res = train_mod.train(cfg, rounds=MOE_TRAIN_ROUNDS, lr=LM_LR, algorithm=alg,
+                              sparse=sparse, device=DEV, log_every=0, **LM_CORPUS)
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not runs:
+            n_params = sum(p.numel() for p in res.params.values())
+            print(f"  {cfg.name}: {cfg.num_layers} layer, d_model {cfg.d_model}, "
+                  f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, {n_params / 1e9:.3f} B params "
+                  f"({cfg.dtype}); reduced: {MOE_TRAIN_REDUCED}")
+        check(all(math.isfinite(x) for x in res.losses), f"{label}: a loss is not finite")
+        n = cfg.num_layers * MOE_TRAIN_ROUNDS
+        check(launches == {"flash_attention": n, "flash_attention_bwd": n, "union_segsum": 0},
+              f"{label}: launches {launches}, want {cfg.num_layers} of K3 and of its "
+              "backward per round and no K1 (FedSgdLocal)")
+        steady = statistics.median(res.ms_per_round[1:])
+        runs[label] = {"losses": res.losses, "ms_per_round": res.ms_per_round,
+                       "steady_ms_per_round": steady, "peak_gb": peak / 1e9,
+                       "launches": launches, "bytes_up_sparse": res.bytes_up_sparse}
+        print(f"  {label} ({res.plan}): loss {[round(x, 4) for x in res.losses]}")
+        print(f"    ms/round: first {res.ms_per_round[0]:.1f}, steady {steady:.1f} (median "
+              f"of rounds 2-{MOE_TRAIN_ROUNDS}); peak device memory {peak / 1e9:.2f} GB; "
+              f"launches {launches}")
+        if res.bytes_up_sparse:
+            print(f"    uplink per round (cohort as one union): "
+                  f"{[round(x / 1e6, 2) for x in res.bytes_up_sparse]} MB sparse against "
+                  f"{res.bytes_up_dense[-1] / 1e6:.1f} MB dense")
+        del res
+    torch.cuda.empty_cache()
+
+    steps, cohort, clients = 3, 4, 64
+    tiny = get_config(MOE_ARCH).replace(**serve_mod.SCALES["tiny"])
+    ds = make_lm_federated(num_clients=clients, vocab=tiny.vocab_size, seq_len=128,
+                           samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
+    heat_expert = np.random.default_rng(SEED).integers(
+        *MOE_HEAT_RANGE, tiny.num_experts).astype(np.float32)
+    print(f"  tiny ({tiny.num_experts} experts, d_model {tiny.d_model}, f32), heat_expert "
+          f"{heat_expert.tolist()}")
+    for mode in LM_STEP_MODES:
+        batches = [{**b, "heat_expert": heat_expert}
+                   for b in lm_step_batches(ds, cohort, steps, "replicated" in mode)]
+        init, axes = lm_params(tiny, DEV)
+        host_init = {k: v.to("cpu", copy=True) for k, v in init.items()}
+        losses, ms, params, launches = run_lm_steps(tiny, mode, DEV, batches, clients, cohort,
+                                                    init, axes)
+        want_k1 = steps if mode == "sparse_replicated" else 0
+        check(all(math.isfinite(x) for x in losses), f"tiny {mode}: loss not finite")
+        check(launches["union_segsum"] == want_k1,
+              f"tiny {mode}: K1 launched {launches['union_segsum']} times in {steps} steps, "
+              f"want {want_k1}")
+        check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+              f"tiny {mode}: K3 or its backward did not launch: {launches}")
+        h_losses, _, h_params, h_launches = run_lm_steps(tiny, mode, "cpu", batches, clients,
+                                                         cohort, host_init, axes)
+        check(sum(h_launches.values()) == 0, "the host run launched a kernel")
+        err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
+        check(np.allclose(losses, h_losses, rtol=LM_STEP_TOL, atol=LM_STEP_TOL),
+              f"tiny {mode}: card losses {losses} against host {h_losses}")
+        check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=LM_STEP_TOL,
+                                 atol=LM_STEP_TOL) for k in h_params),
+              f"tiny {mode}: card and host parameters differ by {err}")
+        runs[f"tiny {mode}"] = launches
+        print(f"  tiny {mode:17s}: loss {[round(x, 4) for x in losses]}, launches {launches}; "
+              f"card against host: max |param diff| {err:.3g}")
+        del params, h_params
+    return runs
+
+
+def uncounted_params(cfg) -> int:
+    """The parameters the reference's ``param_counts`` leaves out of its
+    total, which its tree holds: the final norm, QKV biases and QK norms."""
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    per_layer = (q + 2 * kv) * cfg.qkv_bias + 2 * cfg.head_dim * cfg.qk_norm
+    return cfg.d_model + cfg.num_layers * per_layer
+
+
+def phase_dense_configs() -> dict:
+    """[43] Qwen3-32B, DeepSeek-67B and Mistral Large 123B at their published
+    widths (2 layers each, bf16, random weights from seed ``SEED``) through
+    ``launch.serve``: a prefill of 4 x 1,024 tokens and 8 greedy steps
+    after a warm-up request, counts set to 0 just before; then every
+    registered configuration's ``abstract_params`` at full depth on
+    ``meta``."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch).replace(num_layers=DENSE_LAYERS)
+        params = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        n_params = sum(p.numel() for p in params.parameters())
+        kw = dict(batch=DENSE_BATCH, prompt=DENSE_PROMPT, device=DEV, seed=SEED, params=params)
+        serve_mod.serve(cfg, gen=2, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        flash_decode.launches = 0
+        res = serve_mod.serve(cfg, gen=DENSE_GEN, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        nl = cfg.num_layers
+        check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0}
+              and res.launches_decode == {"flash_attention": 0, "flash_decode": nl * DENSE_GEN},
+              f"{arch}: launches {res.launches_prefill}, {res.launches_decode}")
+        check(res.cache_pos == DENSE_PROMPT + DENSE_GEN, f"{arch}: cache at {res.cache_pos}")
+        check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+              f"{arch}: non-finite logits")
+        out[arch] = {"prefill_ms": res.prefill_ms, "decode_ms_per_token": res.decode_ms_per_token,
+                     "tok_per_s": res.tok_per_s, "peak_gb": peak / 1e9,
+                     "launches_prefill": res.launches_prefill,
+                     "launches_decode": res.launches_decode}
+        print(f"  {cfg.name}: {nl} layers, d_model {cfg.d_model}, H {cfg.num_heads} / KV "
+              f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, {n_params / 1e9:.3f} B params "
+              f"({cfg.dtype}); prefill {DENSE_BATCH} x {DENSE_PROMPT}: {res.prefill_ms:.1f} ms; "
+              f"{res.decode_ms_per_token:.2f} ms/token, {res.tok_per_s:.1f} tok/s; peak "
+              f"{peak / 1e9:.2f} GB; launches {res.launches_prefill}, {res.launches_decode}")
+        del params, res
+        torch.cuda.empty_cache()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        model = build_model(cfg).abstract_params()
+        n = sum(p.numel() for p in model.parameters())
+        check(all(p.device.type == "meta" for p in model.parameters()),
+              f"{arch}: abstract_params holds storage")
+        total, extra = cfg.param_counts()["total"], uncounted_params(cfg)
+        check(n == total + extra, f"{arch}: abstract_params holds {n} parameters, "
+              f"param_counts {total} + {extra} uncounted")
+        print(f"  abstract_params {arch}: {cfg.num_layers} layers, {n} parameters on meta = "
+              f"param_counts()['total'] {total} + {extra} it leaves out (final norm, QKV "
+              "biases, QK norms)")
+    return out
+
+
+def phase_moe_slice(kernels: list, rng) -> list:
+    """[39]-[43], each timed; adds [39]'s errors to K3's, K4's and K3
+    backward's entries and returns this slice's rows of the kernels line."""
+    print("[39] K3, K4 and K3's backward vs plain versions at the new configurations' shapes")
+    t0 = time.perf_counter()
+    err_k3, err_k4, err_bwd = phase_new_shapes(rng)
+    by_name = {e["name"]: e for e in kernels}
+    by_name["flash_attention"]["max_abs_err"] = max(by_name["flash_attention"]["max_abs_err"],
+                                                    err_k3)
+    by_name["flash_decode"]["max_abs_err"] = max(by_name["flash_decode"]["max_abs_err"], err_k4)
+    by_name["flash_attention_bwd"]["max_abs_err"] = max(
+        by_name["flash_attention_bwd"]["max_abs_err"], err_bwd)
+    print(f"  [39] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[40] serving path: {MOE_ARCH} at its published widths, {MOE_SERVE_LAYERS} layers")
+    t0 = time.perf_counter()
+    served = phase_moe_serve()
+    rows = attention_timing(
+        served.pop("captured"), served["launches"], err_k3, err_k4,
+        names=("flash_attention (mixtral_8x22b prefill, window 4096)",
+               "flash_decode (mixtral_8x22b ring step)"),
+        want_window=get_config(MOE_ARCH).sliding_window, k3_target_ms=None)
+    print(f"  [40] took {time.perf_counter() - t0:.1f} s")
+
+    print("[41] card vs host: Mixtral at full width, f32, 1 layer served; moe alone under grad")
+    t0 = time.perf_counter()
+    phase_moe_card_vs_host()
+    print(f"  [41] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[42] federated training: {MOE_ARCH} at its published widths, 1 layer, f32, "
+          f"{LM_CORPUS}, {MOE_TRAIN_ROUNDS} rounds per plan; tiny make_round_step with "
+          "heat_expert, card vs host")
+    t0 = time.perf_counter()
+    trained = phase_moe_training()
+    moe_cfg = get_config(MOE_ARCH)
+    _, bwd = train_attention_timing((*LM_TRAIN_SHAPE, moe_cfg.num_heads, moe_cfg.num_kv_heads,
+                                     moe_cfg.head_dim), SEED + 42, "mixtral training shape")
+    rows.append({"name": "flash_attention_bwd (mixtral_8x22b training)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/models/layers.py:154",
+                 "launches": sum(trained[label]["launches"]["flash_attention_bwd"]
+                                 for label, _, _ in MOE_PLANS), **bwd})
+    print(f"  [42] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[43] the dense configurations at their published widths, {DENSE_LAYERS} layers "
+          "each; abstract_params at full depth")
+    t0 = time.perf_counter()
+    phase_dense_configs()
+    print(f"  [43] took {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -3046,7 +3631,7 @@ def main() -> int:
     print("[11] card vs host, 2 layers at full width, f32")
     phase_serve_card_vs_host()
     print("[12] K3 and K4 times at the serving path's inputs")
-    kernels += phase_attention_timing(captured, served["launches"], err_k3, err_k4)
+    kernels += attention_timing(captured, served["launches"], err_k3, err_k4)
     print("[13] where a decode step's time goes")
     phase_decode_profile(params, served["decode_ms_per_token"])
     print("[14] where a prefill's time goes")
@@ -3222,6 +3807,7 @@ def main() -> int:
     del plain, mesh_ranks
 
     kernels += phase_lm_training(kernels, rng, k1)
+    kernels += phase_moe_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

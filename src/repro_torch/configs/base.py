@@ -1,10 +1,11 @@
 """Configuration, stdlib only: port of ``repro/configs/base.py``.
 
-``ModelConfig`` (one architecture; field for field, with ``param_counts``)
-and ``FedConfig`` (paper Algorithm 1) keep the reference's fields, defaults
+``ModelConfig`` (one architecture; field for field, with ``param_counts``),
+``ShapeConfig`` and ``SHAPES`` (the four assigned input shapes) and
+``FedConfig`` (paper Algorithm 1) keep the reference's fields, defaults
 and construction-time validation. The registry (``get_config``,
-``get_smoke_config``, ``ARCH_IDS``) covers the architectures ported so far;
-any other raises ``NotImplementedError``.
+``get_smoke_config``, ``ARCH_IDS``, ``all_arch_ids``) covers the
+architectures ported so far; any other raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -144,6 +145,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Federated configuration (paper Algorithm 1)
 # ---------------------------------------------------------------------------
 
@@ -213,8 +235,14 @@ class FedConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-#: architectures the port runs (the reference registers ten)
-ARCH_IDS = ("qwen2_5_14b",)
+#: architectures the port runs, in the reference's order (it registers ten)
+ARCH_IDS = (
+    "mixtral_8x22b",
+    "mistral_large_123b",
+    "qwen3_32b",
+    "qwen2_5_14b",
+    "deepseek_67b",
+)
 
 
 def _canon(name: str) -> str:
@@ -236,3 +264,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
+
+
+def all_arch_ids():
+    return ARCH_IDS

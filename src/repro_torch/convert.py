@@ -7,8 +7,9 @@ port's form on ``device``:
 - the LR, DIN and LSTM trees: the port's flat parameter dict (nested keys
   joined with ".", the LSTM's tuple of cells as ``cells.{i}``) and its
   logical axes;
-- the dense transformer's tree (``repro.models.transformer.make_params``,
-  layers stacked on a leading L axis): the port's ``Transformer`` module,
+- the transformer's tree, dense or MoE (``repro.models.transformer.make_params``,
+  layers stacked on a leading L axis, the MoE's router ``(L, d, E)`` and
+  experts ``(L, E, ., .)`` among them): the port's ``Transformer`` module,
   one entry of its ``layers`` per slice of L, and its logical axes; with
   ``flat=True`` the flat training dict of ``transformer.train_params``
   (``layers.{i}.attn.wq.w`` and so on) instead of the module.

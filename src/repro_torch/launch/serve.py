@@ -1,11 +1,13 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-Port of ``repro/launch/serve.py`` for the ported (dense) architectures:
+Port of ``repro/launch/serve.py`` for every registered architecture of the
+transformer families (dense and MoE; ``configs.base.ARCH_IDS``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \\
         --scale full --batch 4 --prompt 1024 --gen 32
 
-runs on the card (``--device cpu`` runs on the host at a small ``--scale``).
+runs on the card (``--device cpu`` runs on the host at a small ``--scale``;
+``--layers`` cuts the depth to what the card holds).
 Weights are drawn from seed 0 and the prompts from seed 1, as the
 reference's ``PRNGKey(0)`` and ``PRNGKey(1)``. ``serve`` is the body, for
 callers that want its numbers.
@@ -49,8 +51,9 @@ def _launches() -> Dict[str, int]:
 class ServeResult:
     """What one serving run did. ``logits`` holds the prefill's last-token
     logits and then each decode step's, (B, V) f32 each; ``tokens`` the
-    greedy tokens fed to the decode steps, (B, gen). Launch counts are the
-    kernels' counters over the prefill and over the whole decode loop."""
+    greedy tokens fed to the decode steps, (B, gen); ``cache_pos`` the
+    cache's position at the end. Launch counts are the kernels' counters over
+    the prefill and over the whole decode loop."""
 
     device: torch.device
     tokens: torch.Tensor
@@ -58,6 +61,7 @@ class ServeResult:
     prefill_ms: float
     decode_ms_per_token: float
     tok_per_s: float
+    cache_pos: int = 0
     launches_prefill: Dict[str, int] = field(default_factory=dict)
     launches_decode: Dict[str, int] = field(default_factory=dict)
 
@@ -103,7 +107,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
         tokens=torch.stack(out_toks, 1) if out_toks else toks[:, :0],
         logits=out_logits, prefill_ms=prefill_ms,
         decode_ms_per_token=dt / max(gen, 1) * 1e3,
-        tok_per_s=batch * gen / dt if gen else 0.0,
+        tok_per_s=batch * gen / dt if gen else 0.0, cache_pos=cache.pos,
         launches_prefill={k: after_prefill[k] - before[k] for k in before},
         launches_decode={k: after[k] - after_prefill[k] for k in before})
 
@@ -112,6 +116,7 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_5_14b")
     ap.add_argument("--scale", default="tiny", choices=list(SCALES))
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
@@ -122,6 +127,8 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     cfg = get_config(args.arch)
     if SCALES[args.scale]:
         cfg = cfg.replace(**SCALES[args.scale])
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     res = serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen,
                 device=args.device)
     print(f"arch={cfg.name} device={res.device} batch={args.batch} "

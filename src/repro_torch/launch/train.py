@@ -4,11 +4,13 @@ the plan flags of ``examples/federated_llm.py``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_14b \\
         --scale tiny --rounds 50 [--sparse] [--topk 256] [--int8]
 
-builds a dense transformer, draws a Zipf-heat federated corpus
-(``make_lm_federated``) and runs FedSGD rounds (``FedSgdLocal``: one
-gradient of the cohort's pooled batch) through ``make_round_step`` on the
-dense transport, or on the row-sparse one with ``--sparse`` (``--topk`` and
-``--int8`` imply it), with the heat read from the batch's ``heat_vocab``.
+builds the transformer of any registered architecture (dense or MoE),
+draws a Zipf-heat federated corpus (``make_lm_federated``) and runs FedSGD
+rounds (``FedSgdLocal``: one gradient of the cohort's pooled batch) through
+``make_round_step`` on the dense transport, or on the row-sparse one with
+``--sparse`` (``--topk`` and ``--int8`` imply it), with the heat read from
+the batch's ``heat_vocab``. As the reference's, the batch carries no
+``heat_expert``, so the experts' leaves go uncorrected.
 It runs on the card unless ``--device cpu``. ``--layers`` cuts the depth;
 ``--smoke`` is ``examples/federated_llm.py``'s CPU-sized model and corpus.
 Weights are drawn from seed 0 and the cohorts from ``default_rng(0)`` as

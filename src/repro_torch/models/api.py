@@ -5,37 +5,81 @@ reference's signatures, so the serving and training launchers treat every
 ported family the same way:
 
     init(generator=None, device=None)      -> parameters (a ``Transformer``)
+    abstract_params()                      -> the same tree on ``meta``
     loss(params, batch)                    -> scalar (the module, or the flat
                                               dict of ``transformer.train_params``)
     init_cache(batch, max_seq, device=None) -> KVCache
     prefill(params, batch, cache)          -> (logits, cache)
     decode_step(params, cache, batch)      -> (logits, cache)
+    input_specs(shape_name)                -> batch dict of ``meta`` tensors
 
-Only the dense family is ported (ROADMAP Queue 1 item 9).
+``abstract_params`` and ``input_specs`` stand in for the reference's
+``ShapeDtypeStruct`` trees: tensors on the ``meta`` device carry a shape and
+a dtype and no storage, so a 123B configuration exists on any host. The
+dense and MoE families are ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Dict, Sequence
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
+
+META = torch.device("meta")
 
 
 @dataclass(frozen=True)
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]
+    abstract_params: Callable[[], Any]
     loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
+    input_specs: Callable[[str], Dict]
+
+
+def _spec(shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype, device=META)
+
+
+def _common_specs(cfg: ModelConfig, sc: ShapeConfig, kind: str) -> Dict[str, torch.Tensor]:
+    b, s = sc.global_batch, sc.seq_len
+    emb_dt = T.model_dtype(cfg)
+    specs: Dict[str, torch.Tensor] = {}
+    if kind == "decode":
+        specs["tokens"] = _spec((b,), torch.int32)
+    else:
+        specs["tokens"] = _spec((b, s), torch.int32)
+    if kind == "train":
+        specs["labels"] = _spec((b, s), torch.int32)
+        specs["mask"] = _spec((b, s), torch.float32)
+    if cfg.frontend == "vision_patches" and kind != "decode":
+        specs["patch_embeds"] = _spec((b, cfg.num_patches, cfg.d_model), emb_dt)
+    if cfg.frontend == "audio_frames":
+        specs["frames"] = _spec((b, cfg.encoder_seq, cfg.d_model), emb_dt)
+    if cfg.mrope:
+        specs["mrope_pos"] = _spec((3, b, 1 if kind == "decode" else s), torch.int32)
+    if kind == "train":
+        # static heat statistics consumed by the FedSubAvg correction
+        specs["heat_vocab"] = _spec((cfg.vocab_size,), torch.float32)
+        if cfg.is_moe:
+            specs["heat_expert"] = _spec((cfg.num_experts,), torch.float32)
+    return specs
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    if cfg.frontend != "none" or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: patch embeddings and M-RoPE are not ported yet "
+            "(ROADMAP Queue 1 item 9)")
 
     def init(generator=None, device=None):
         return T.make_params(cfg, generator, device)
@@ -52,5 +96,10 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     def loss(params, batch):
         return T.loss_fn(cfg, params, batch)
 
-    return ModelApi(cfg=cfg, init=init, loss=loss, prefill=prefill,
-                    decode_step=decode_step, init_cache=init_cache)
+    def input_specs(shape_name: str) -> Dict[str, torch.Tensor]:
+        sc = SHAPES[shape_name]
+        return _common_specs(cfg, sc, sc.kind)
+
+    return ModelApi(cfg=cfg, init=init, abstract_params=lambda: T.make_params(cfg, device=META),
+                    loss=loss, prefill=prefill, decode_step=decode_step,
+                    init_cache=init_cache, input_specs=input_specs)

@@ -9,8 +9,10 @@ and ``decode_attention`` launches K4 (``kernels.flash_decode``); on CPU
 tensors they run the kernels' plain versions, which repeat the reference's
 arithmetic.
 
-Not ported yet: ``moe``, ``apply_mrope`` and ``sinusoidal_positions``
-(ROADMAP Queue 1 item 9).
+``moe`` is the reference's dropping MoE: its routing, capacity and drop
+order, with the expert products as batched matmuls (cuBLAS), outside any
+kernel as in the reference. Not ported yet: ``apply_mrope`` and
+``sinusoidal_positions`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -200,7 +202,7 @@ def cache_write(k_layer: torch.Tensor, v_layer: torch.Tensor, pos: int,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP
+# Gated MLP + MoE
 # ---------------------------------------------------------------------------
 
 
@@ -216,3 +218,115 @@ def make_mlp(pf, d: int, ff: int) -> "ParamTree":
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return h @ p["wo"]
+
+
+def make_moe(pf, d: int, ff: int, num_experts: int) -> "ParamTree":
+    """The router ``(d, E)`` and the experts' gated MLPs stacked on axis 0."""
+    return ParamTree({
+        "router": pf("router", (d, num_experts), ("embed", "experts")),
+        "wi": pf("wi", (num_experts, d, ff), ("experts", "embed", "ffn")),
+        "wg": pf("wg", (num_experts, d, ff), ("experts", "embed", "ffn")),
+        "wo": pf("wo", (num_experts, ff, d), ("experts", "ffn", "embed")),
+    })
+
+
+class MoEStats(NamedTuple):
+    aux_loss: torch.Tensor         # load-balance loss (Switch-style), f32 scalar
+    expert_tokens: torch.Tensor    # (E,) int32 tokens routed per expert (pre-capacity)
+
+
+class MoERoute(NamedTuple):
+    """Where ``moe`` sends each token: the router's f32 probabilities
+    ``(T, E)``, the normalised gates and expert ids of the top k ``(T, k)``,
+    each flattened (token, k) assignment's position in its expert and
+    whether it fits the capacity ``(T*k,)``, and the counts per expert."""
+
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    expert_ids: torch.Tensor
+    pos_in_expert: torch.Tensor
+    keep: torch.Tensor
+    expert_tokens: torch.Tensor
+    capacity: int
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int, top_k: int,
+              capacity_factor: float, deterministic_capacity: int = 0) -> MoERoute:
+    """The routing of ``moe`` for tokens ``xt`` (T, d): top-k experts by
+    router probability and the capacity's drops. ``C = int(max(1, cf * k *
+    T / E))``, a floor as the reference computes it, or
+    ``deterministic_capacity``; the drops follow the order of the flattened
+    (token, k) assignments."""
+    t, e = xt.shape[0], num_experts
+    # the router product in the model's dtype, then f32, as the reference
+    # computes it: in bf16 a router computed in f32 routes differently
+    probs = torch.softmax((xt @ router).float(), dim=-1)                  # (T, E)
+    # lax.top_k: the larger value first, the lower expert index first among
+    # equals; a stable descending sort promises that order, torch.topk not
+    gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_ids = gate_vals[:, :top_k], expert_ids[:, :top_k]  # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    cap = deterministic_capacity or int(max(1, capacity_factor * top_k * t / e))
+    # position of each token-major assignment within its expert: a running
+    # count over the one-hot, so that the drops follow the assignment order
+    onehot = (expert_ids.reshape(-1, 1) == torch.arange(e, device=xt.device)
+              ).to(torch.int32)                                           # (T*k, E)
+    pos_in_expert = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    return MoERoute(probs, gate_vals, expert_ids, pos_in_expert, pos_in_expert < cap,
+                    onehot.sum(dim=0, dtype=torch.int32), cap)
+
+
+def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int, capacity_factor: float,
+        deterministic_capacity: int = 0, token_chunk: int = 0
+        ) -> Tuple[torch.Tensor, MoEStats]:
+    """Dropping MoE with scatter-based dispatch: ``repro/models/layers.py::moe``.
+
+    x: (B, S, d). Tokens go where ``moe_route`` sends them; the overflow of
+    each expert's capacity is dropped. ``deterministic_capacity`` sets the
+    capacity (decode: ``B * k``, drop-free). ``token_chunk``: route chunks
+    of that many tokens one after another (capacity per chunk); the aux loss
+    is the chunks' mean and ``expert_tokens`` their sum.
+
+    Out of place throughout (``index_add``, never ``index_add_``), so that
+    autograd and ``torch.func.vmap`` take it as the training plans do.
+    """
+    b, s, d = x.shape
+    if token_chunk and b * s > token_chunk and (b * s) % token_chunk == 0:
+        chunks = x.reshape(-1, token_chunk, d)
+        outs = [moe(p, xc[None], num_experts=num_experts, top_k=top_k,
+                    capacity_factor=capacity_factor,
+                    deterministic_capacity=deterministic_capacity) for xc in chunks]
+        out = torch.cat([y[0] for y, _ in outs]).reshape(b, s, d)
+        return out, MoEStats(torch.stack([st.aux_loss for _, st in outs]).mean(),
+                             torch.stack([st.expert_tokens for _, st in outs]).sum(
+                                 0, dtype=torch.int32))
+    t = b * s
+    xt = x.reshape(t, d)
+    e = num_experts
+    r = moe_route(p["router"], xt, num_experts=e, top_k=top_k,
+                  capacity_factor=capacity_factor,
+                  deterministic_capacity=deterministic_capacity)
+
+    # load-balance aux loss (Switch/Mixtral): E * sum_e f_e * p_e
+    me = r.probs.mean(dim=0)                                              # (E,)
+    fe = (r.expert_ids[:, :1] == torch.arange(e, device=x.device)).float().mean(dim=0)
+    aux = e * torch.sum(fe * me)
+
+    # dispatch into an (E, C, d) buffer; a dropped assignment adds 0 * x
+    # into slot (e, 0) as the reference's does, which changes no bit there
+    flat_tok = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    slot = r.expert_ids.reshape(-1) * r.capacity + torch.where(r.keep, r.pos_in_expert, 0)
+    src = r.keep.to(x.dtype)[:, None] * xt[flat_tok]
+    buf = torch.zeros((e * r.capacity, d), dtype=x.dtype, device=x.device).index_add(
+        0, slot, src).reshape(e, r.capacity, d)
+
+    # the expert products, batched over experts (cuBLAS)
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    y = torch.bmm(h, p["wo"]).reshape(e * r.capacity, d)                 # (E*C, d)
+
+    # combine: gather back and weight. At top-2 each token sums exactly two
+    # terms into a zero row, and a + b == b + a in floating point: the
+    # combine is exact in any order of the adds
+    weighted = y[slot] * (r.gate_vals.reshape(-1) * r.keep).to(y.dtype)[:, None]
+    out = torch.zeros((t, d), dtype=y.dtype, device=x.device).index_add(0, flat_tok, weighted)
+    return out.reshape(b, s, d), MoEStats(aux, r.expert_tokens)

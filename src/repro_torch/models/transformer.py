@@ -1,7 +1,9 @@
-"""Decoder-only transformer, dense family: port of ``repro/models/transformer.py``.
+"""Decoder-only transformer, dense and MoE families: port of
+``repro/models/transformer.py``.
 
-Serves Qwen2.5-14B and the other dense configurations: GQA with optional
-qk_norm, QKV bias and sliding window, gated MLP, RoPE. The parameters are a
+Serves and trains Qwen2.5-14B, Qwen3-32B, DeepSeek-67B, Mistral Large 123B
+and Mixtral 8x22B: GQA with optional qk_norm, QKV bias and sliding window,
+gated MLP or dropping MoE (``layers.moe``), RoPE. The parameters are a
 ``Transformer`` module whose layers sit in an ``nn.ModuleList``; every level
 is a ``layers.ParamTree`` under the reference's keys, so the functions below
 read ``lp["attn"]["wq"]["w"]`` as the reference does. The reference's
@@ -9,15 +11,16 @@ read ``lp["attn"]["wq"]["w"]`` as the reference does. The reference's
 its sharding constraints go (one card).
 
 Serving: ``prefill`` and ``decode_step`` run under ``torch.no_grad`` and
-write the KV cache in place. Training: ``loss_fn`` (the causal LM loss
-through ``chunked_xent``) differentiates ``forward`` with K3's gradient
-kernel on the card. ``forward`` reads the parameters in either form: the
-``Transformer`` module serving takes, or the flat ``{state_dict name:
-tensor}`` dict that ``train_params`` gives the round step with its logical
-axes. The reference's ``jax.checkpoint`` per layer changes no number and
-is left out: the depths the port trains keep every layer's activations.
-MoE, M-RoPE and patch embeddings are not ported yet (ROADMAP Queue 1
-item 9).
+write the KV cache in place; decode's MoE is drop-free (capacity ``B * k``).
+Training: ``loss_fn`` (the causal LM loss through ``chunked_xent``, plus
+``router_aux_weight`` times the MoE layers' mean aux loss) differentiates
+``forward`` with K3's gradient kernel on the card. ``forward`` reads the
+parameters in either form: the ``Transformer`` module serving takes, or the
+flat ``{state_dict name: tensor}`` dict that ``train_params`` gives the
+round step with its logical axes. The reference's ``jax.checkpoint`` per
+layer changes no number and is left out: the depths the port trains keep
+every layer's activations. M-RoPE and patch embeddings are not ported yet
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -141,7 +144,8 @@ class _Factory:
     """Makes each parameter as ``repro/sharding/logical.py::ParamFactory``
     draws it (``normal``: 0.02 * N(0, 1); ``fan_in``: N(0, 1) /
     sqrt(shape[-2]); ``ones``; ``zeros``; drawn in f32, then cast), or takes
-    it from ``state`` by name; records its logical axes."""
+    it from ``state`` by name; records its logical axes. On the ``meta``
+    device it draws nothing: the tensor has a shape and a dtype only."""
 
     def __init__(self, dtype, device, generator, state, axes=None, prefix=""):
         self.dtype, self.device = dtype, device
@@ -164,6 +168,8 @@ class _Factory:
             if tuple(value.shape) != tuple(shape):
                 raise ValueError(f"{full}: shape {tuple(value.shape)}, want {tuple(shape)}")
             value = value.to(self.device, dtype, copy=True)
+        elif self.device.type == "meta":
+            value = torch.empty(shape, dtype=dtype, device=self.device)
         elif init in ("ones", "zeros"):
             value = (torch.ones if init == "ones" else torch.zeros)(
                 shape, dtype=dtype, device=self.device)
@@ -196,12 +202,15 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     Drawn from ``generator`` (a ``torch.Generator`` on that device; seed 0
     when omitted) with the reference's distributions, or taken from
     ``state``, keyed by ``state_dict`` names such as ``layers.0.attn.wq.w``.
+    On ``device="meta"`` the tree has shapes and dtypes only
+    (``api.abstract_params``).
     """
-    if cfg.family != "dense" or cfg.is_moe or cfg.mrope:
+    if cfg.family not in ("dense", "moe") or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (ROADMAP Queue 1 item 9)")
+            f"{cfg.name}: only the dense and MoE families are ported "
+            "(ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
-    if generator is None and state is None:
+    if generator is None and state is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     root = _Factory(model_dtype(cfg), dev, generator, state)
     d, hd = cfg.d_model, cfg.head_dim
@@ -221,9 +230,11 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         if cfg.qk_norm:
             attn["q_norm"] = ap("q_norm", (hd,), (None,), init="ones", dtype=torch.float32)
             attn["k_norm"] = ap("k_norm", (hd,), (None,), init="ones", dtype=torch.float32)
+        ffn = (L.make_moe(pf.scope("ffn"), d, cfg.d_ff, cfg.num_experts) if cfg.is_moe
+               else L.make_mlp(pf.scope("ffn"), d, cfg.d_ff))
         layers.append(ParamTree({"attn": ParamTree(attn),
                                  "ffn_norm": _make_rmsnorm(pf, "ffn_norm", d),
-                                 "ffn": L.make_mlp(pf.scope("ffn"), d, cfg.d_ff)}))
+                                 "ffn": ffn}))
     embedding = root("embedding", (cfg.vocab_size, d), ("vocab", "embed"), init="normal")
     final_norm = _make_rmsnorm(root, "final_norm", d)
     lm_head = root("lm_head", (d, cfg.vocab_size), ("embed", "vocab"))
@@ -282,7 +293,21 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor
 
 class ForwardOut(NamedTuple):
     hidden: torch.Tensor                 # (B, S, d) final-norm'd hidden states
+    aux_loss: torch.Tensor               # MoE load-balance aux, mean over layers (0 for dense)
     kv: Optional[List[Tuple]]            # per layer (k, v), each (B, S, KV, hd)
+
+
+def ffn_block(cfg: ModelConfig, fp, x: torch.Tensor, capacity: int = 0):
+    """The gated MLP, or the MoE; returns (out, MoE aux loss or None).
+    ``capacity`` > 0 sets the MoE's capacity and routes all tokens at once
+    (decode); 0 takes the configured factor and token chunk (forward)."""
+    if not cfg.is_moe:
+        return L.mlp(fp, x), None
+    out, stats = L.moe(fp, x, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       deterministic_capacity=capacity,
+                       token_chunk=0 if capacity else cfg.moe_token_chunk)
+    return out, stats.aux_loss
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -296,16 +321,22 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens(cfg, p, tokens)
     kvs = [] if collect_kv else None
+    auxes = []
     for i in range(cfg.num_layers):
         lp = p["layers"][i]
         h, kv = attention_block(cfg, lp["attn"],
                                 L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps), positions)
         x = x + h
-        x = x + L.mlp(lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
+        f, aux = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
+        x = x + f
+        if aux is not None:
+            auxes.append(aux)
         if collect_kv:
             kvs.append(kv)
     hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return ForwardOut(hidden, kvs)
+    aux_loss = (torch.stack(auxes).mean() if auxes
+                else torch.zeros((), dtype=torch.float32, device=x.device))
+    return ForwardOut(hidden, aux_loss, kvs)
 
 
 def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
@@ -332,9 +363,11 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
             ) -> torch.Tensor:
-    """Causal LM loss, the mean over the batch's unmasked tokens. ``labels``
-    default to the tokens shifted left and padded with 0, ``mask`` to ones.
-    The dense family has no router, so the reference's aux term is 0."""
+    """Causal LM loss, the mean over the batch's unmasked tokens, plus
+    ``router_aux_weight`` times the MoE aux loss. ``labels`` default to the
+    tokens shifted left and padded with 0, ``mask`` to ones. A dense model
+    has no router: the reference adds ``router_aux_weight * 0``, which
+    changes no bit, and the port adds nothing."""
     tokens = batch["tokens"]
     targets = batch.get("labels")
     if targets is None:
@@ -343,7 +376,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     out = forward(cfg, params, tokens)
-    return chunked_xent(cfg, params, out.hidden, targets, mask)
+    ce = chunked_xent(cfg, params, out.hidden, targets, mask)
+    return ce + cfg.router_aux_weight * out.aux_loss if cfg.is_moe else ce
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +432,10 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: L.KVCache,
         o = L.decode_attention(q[:, 0], k_layer, v_layer, slot_pos, pos,
                                window=cfg.sliding_window)
         x = x + L.linear(ap["wo"], o.reshape(b, -1))[:, None]
-        x = x + L.mlp(lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
+        # decode's MoE is drop-free: one token per sequence, capacity B * k
+        f, _ = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
+                         capacity=b * cfg.experts_per_token)
+        x = x + f
     hidden = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = (hidden[:, 0] @ params.lm_head).float()
     return logits, L.KVCache(cache.k, cache.v, pos + 1)

@@ -1,0 +1,201 @@
+"""Port parity, the registry and the dense configurations: every registered
+``CONFIG``, its smoke config and ``SHAPES`` equal to the JAX package's field
+for field (``param_counts`` too); ``input_specs`` against the reference's
+``ShapeDtypeStruct``s for every arch x shape; ``abstract_params`` on the
+``meta`` device at full size against the reference's abstract tree; the
+five unported architectures still raising; and Qwen3-32B's, DeepSeek-67B's
+and Mistral Large 123B's smoke configs through ``repro_torch`` against
+``repro.models.build_model`` on the weights of ``PRNGKey(0)`` (carried
+across by ``convert.params_from_jax``): loss and every gradient, prefill
+and greedy decode, within 1e-5 (f32)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import all_arch_ids as j_all_arch_ids
+from repro.configs import get_config as j_get_config
+from repro.configs import get_smoke_config as j_get_smoke_config
+from repro.models import build_model as j_build_model
+from repro.sharding.logical import unbox
+
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig, all_arch_ids,
+                                      get_config, get_smoke_config)
+from repro_torch.convert import _flatten, params_from_jax
+from repro_torch.models import transformer
+from repro_torch.models.api import build_model
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+DENSE = ("qwen3_32b", "deepseek_67b", "mistral_large_123b")
+TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32,
+                "bfloat16": torch.bfloat16}
+
+
+def test_registry_is_the_reference_order_less_the_unported():
+    assert all_arch_ids() == ARCH_IDS
+    assert ARCH_IDS == tuple(a for a in j_all_arch_ids() if a in ARCH_IDS)
+    assert set(ARCH_IDS) == {"mixtral_8x22b", "mistral_large_123b", "qwen3_32b",
+                             "qwen2_5_14b", "deepseek_67b"}
+
+
+@pytest.mark.parametrize("arch", sorted(set(j_all_arch_ids()) - set(ARCH_IDS)))
+def test_unported_architectures_raise(arch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        get_config(arch)
+    # the reference's smoke config, field for field, as the port's type
+    cfg = ModelConfig(**dataclasses.asdict(j_get_smoke_config(arch)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_match_the_reference(arch):
+    for jc, tc in ((j_get_config(arch), get_config(arch)),
+                   (j_get_smoke_config(arch), get_smoke_config(arch))):
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+        assert jc.param_counts() == tc.param_counts()
+        assert (jc.is_moe, jc.has_attention) == (tc.is_moe, tc.has_attention)
+    # dashes are accepted, as the reference accepts them
+    assert get_config(arch.replace("_", "-")) == get_config(arch)
+
+
+def test_shapes_match_the_reference():
+    assert SHAPES.keys() == J_SHAPES.keys()
+    for name, sc in J_SHAPES.items():
+        assert dataclasses.asdict(SHAPES[name]) == dataclasses.asdict(sc)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_input_specs_match_the_reference(arch):
+    japi, tapi = j_build_model(j_get_config(arch)), build_model(get_config(arch))
+    for shape in J_SHAPES:
+        want, got = japi.input_specs(shape), tapi.input_specs(shape)
+        assert got.keys() == want.keys(), shape
+        for key, spec in want.items():
+            assert got[key].device.type == "meta"
+            assert tuple(got[key].shape) == tuple(spec.shape), (shape, key)
+            assert got[key].dtype == TORCH_DTYPES[str(spec.dtype)], (shape, key)
+    if tapi.cfg.is_moe:
+        assert tuple(tapi.input_specs("train_4k")["heat_expert"].shape) == (8,)
+
+
+def _uncounted(cfg) -> int:
+    """The parameters ``param_counts`` leaves out of ``total``: the final
+    norm, the QKV biases and the QK norms (the reference's analytic count
+    omits them; its parameter tree holds them)."""
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    per_layer = (q + 2 * kv) * cfg.qkv_bias + 2 * cfg.head_dim * cfg.qk_norm
+    return cfg.d_model + cfg.num_layers * per_layer
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_params_at_full_size(arch):
+    """The whole published model on ``meta``: no storage, every leaf's
+    shape and dtype the reference's abstract tree's, and as many
+    parameters as ``param_counts()["total"]`` plus the leaves that count
+    omits."""
+    cfg = get_config(arch)
+    model = build_model(cfg).abstract_params()
+    flat, axes = transformer.train_params(model)
+    assert all(t.device.type == "meta" for t in flat.values())
+    n = sum(t.numel() for t in flat.values())
+    assert n == cfg.param_counts()["total"] + _uncounted(cfg)
+    tree = unbox(j_build_model(j_get_config(arch)).abstract_params())
+    want = {".".join(str(k.key) for k in path): spec
+            for path, spec in jax.tree_util.tree_leaves_with_path(tree)}
+    got, _ = transformer.stack_layers(flat, axes)
+    assert got.keys() == want.keys()
+    for name, spec in want.items():
+        assert tuple(got[name].shape) == tuple(spec.shape), name
+        assert got[name].dtype == TORCH_DTYPES[str(spec.dtype)], name
+    assert sum(int(np.prod(s.shape)) for s in want.values()) == n
+
+
+# ---------------------------------------------------------------------------
+# the dense smoke configs against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _pair(arch, flat):
+    jcfg = j_get_smoke_config(arch).replace(dtype="float32")
+    tcfg = get_smoke_config(arch).replace(dtype="float32")
+    japi, tapi = j_build_model(jcfg), build_model(tcfg)
+    jp = japi.init(jax.random.PRNGKey(0))
+    params, _ = params_from_jax(jax.tree.map(np.asarray, unbox(jp)), device="cpu", cfg=tcfg,
+                                flat=flat)
+    return japi, jp, tapi, params
+
+
+def _stacked(flat_port):
+    out, by_layer = {}, {}
+    for name, t in flat_port.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            by_layer.setdefault(f"layers.{rest}", {})[int(i)] = t.detach().numpy()
+        else:
+            out[name] = t.detach().numpy()
+    for name, d in by_layer.items():
+        out[name] = np.stack([d[i] for i in range(len(d))])
+    return out
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_loss_and_every_gradient_match_jax(arch):
+    japi, jp, tapi, params = _pair(arch, flat=True)
+    rng = np.random.default_rng(1)
+    b = {"tokens": rng.integers(0, 512, (3, 64)).astype(np.int32),
+         "mask": (rng.random((3, 64)) < 0.8).astype(np.float32)}
+    jl, jg = jax.value_and_grad(japi.loss)(jp, {k: jnp.asarray(v) for k, v in b.items()})
+    tg, tl = torch.func.grad_and_value(tapi.loss)(params, {k: torch.from_numpy(v)
+                                                          for k, v in b.items()})
+    np.testing.assert_allclose(float(tl), float(jl), **TOL)
+    want = _flatten(jax.tree.map(np.asarray, unbox(jg)))
+    got = _stacked(tg)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, err_msg=name, **TOL)
+    if tapi.cfg.qk_norm:
+        assert np.abs(got["layers.attn.q_norm"]).max() > 0
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_prefill_and_decode_match_jax(arch):
+    japi, jp, tapi, model = _pair(arch, flat=False)
+    prompt = np.random.default_rng(2).integers(0, 512, (2, 24)).astype(np.int32)
+    jcache = japi.init_cache(2, 32)
+    jl, jcache = jax.jit(japi.prefill)(jp, {"tokens": jnp.asarray(prompt)}, jcache)
+    tcache = tapi.init_cache(2, 32, "cpu")
+    tl, tcache = tapi.prefill(model, {"tokens": torch.from_numpy(prompt)}, tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    decode = jax.jit(japi.decode_step)
+    for _ in range(6):
+        jn = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+        tn = torch.argmax(tl, dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+        jl, jcache = decode(jp, jcache, {"tokens": jn})
+        tl, tcache = tapi.decode_step(model, tcache, {"tokens": tn})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert tcache.pos == int(jcache.pos) == 30
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k), **TOL)
+    np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v), **TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_launchers_serve_and_train_on_the_host(arch):
+    """The serving and training launchers at ``--scale tiny --device cpu``
+    for each dense configuration: finite logits and losses, the cache at
+    prompt + gen."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    res = serve_mod.main(["--arch", arch, "--scale", "tiny", "--device", "cpu", "--batch", "2",
+                          "--prompt", "16", "--gen", "3"])
+    assert res.tokens.shape == (2, 3) and res.cache_pos == 19
+    assert all(bool(torch.isfinite(lg).all()) for lg in res.logits)
+    out = train_mod.main(["--arch", arch, "--scale", "tiny", "--device", "cpu", "--rounds", "2",
+                          "--clients", "16", "--cohort", "4", "--seq", "32"])
+    assert len(out.losses) == 2 and all(np.isfinite(out.losses))
