@@ -234,6 +234,39 @@ Phases, each of which asserts; any failure exits non-zero:
     and 8 greedy steps, ms and launches, finite logits; every registered
     configuration's ``abstract_params`` at full depth on ``meta``, its
     count ``param_counts()["total"]`` plus the leaves that count omits
+44. K3 (bf16) at Qwen2-VL's and Llama 4's prefills (B 4 x S 2,048, H 28 /
+    KV 4; B 2 x S 2,048, H 40 / KV 8) and K4 (bf16, f32) at their decode
+    steps against their plain versions; K3's backward (f32) at GQA groups
+    of 7 and 5 at [38]'s B 16 x S 128 and at Qwen2-VL's training shape
+    (B 4, S 2,048, H 28, KV 4), its cluster the whole group, each timed as
+    [38] times it
+45. Qwen2-VL 7B served whole (28 layers, bf16, seed 0) through
+    ``launch.serve``: 4 prompts of 2,048 positions, the first 1,024 random
+    patch embeddings on a 32 x 32 image grid of M-RoPE streams (t 0, h
+    i // 32, w i % 32), then 1,024 text tokens at 32 + j on all three
+    streams; 32 greedy steps from the last position plus one; K3 28 a
+    prefill, K4 28 a step; the step against its 4.55 ms weight-read bound;
+    where a step's and a prefill's time goes; K3 and K4 at its own inputs
+    timed as [12] does
+46. Llama 4 Maverick at its published widths (2 of 48 layers, 128
+    experts, top 1; bf16, seed 0, the experts drawn in slices): 2 prompts of 2,048 tokens, the first
+    256 patches, 32 steps; each prefill layer's ``expert_tokens``; the
+    drop-free step against every weight read once
+47. card against host: one full-width f32 Qwen2-VL layer, 1 x 1,280
+    positions with [45]'s image and streams, 4 steps, logits within 1e-4
+    and tokens identical; Llama 4's smoke model in f32 with patches,
+    logits within 1e-5, routing and ``expert_tokens`` identical, the
+    smallest top-1 router gap printed
+48. (a) Qwen2-VL through ``launch.train.train`` at its published widths in
+    f32, 4 layers, cohort 4 at seq 2,048, each batch with the image's
+    patches and streams: 3 rounds with remat off (K3 and its backward 4 a
+    round) and on (K3 8, its backward 4), then the deepest depth one round
+    trains at in each setting, 4 tries each; (b) ``make_round_step`` on the
+    Qwen2-VL smoke model with ``mrope_pos``: 2 microbatches against 1 within
+    rtol 2e-4 / atol 2e-5, remat on against off within 1e-5; (c) the Llama 4
+    smoke model's ``make_round_step`` with patches and ``heat_expert`` in
+    four modes, card against host within 1e-5, K1 once per
+    ``sparse_replicated`` step
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -243,7 +276,8 @@ and its times at the DIN and LSTM rounds, at an async fire and at the
 mesh's partial and union combine; K3's its launches on the training path
 and its times at the training shape; K3-backward's entry its launches on
 [35] and its share of a round; three rows more for [40]'s K3 and K4 and
-K3's backward at Mixtral's training shape), the card line and, last,
+K3's backward at Mixtral's training shape; seven for [45]'s and [46]'s K3
+and K4 and [44]'s three backward shapes), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -289,7 +323,7 @@ from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
 from repro_torch.sparse import compress  # noqa: E402
 from repro_torch.federated.server import FederatedTrainer  # noqa: E402
-from repro_torch.configs.base import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, _rows  # noqa: E402
 from repro_torch.kernels.flash_attention import (FlashAttention,  # noqa: E402
                                                  bwd_cluster, flash_attention,
@@ -1048,7 +1082,8 @@ def phase_k4(rng) -> float:
 
 
 def capture_attention_inputs(cfg, params, batch: int = SERVE_BATCH,
-                             prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN) -> dict:
+                             prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN,
+                             **serve_kw) -> dict:
     """One K3 (first prefill layer) and one K4 (last layer of the last
     decode step) input set, recorded, as copies, in an untimed run of the
     same request as the timed one's (same weights and prompt seed). The kernels are
@@ -1073,7 +1108,7 @@ def capture_attention_inputs(cfg, params, batch: int = SERVE_BATCH,
     FlashAttention.forward, layers_mod.flash_decode = staticmethod(capture_k3), capture_k4
     try:
         serve_mod.serve(cfg, batch=batch, prompt=prompt, gen=gen, device=DEV, seed=SEED,
-                        params=params)
+                        params=params, **serve_kw)
     finally:
         FlashAttention.forward, layers_mod.flash_decode = staticmethod(k3_forward), flash_decode
     return captured
@@ -1296,11 +1331,13 @@ def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_
                          prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN, n: int = 5,
                          read_bytes: float | None = None,
                          split_target_us: float | None = K4_SPLIT_TARGET_US,
-                         label: str = "[10]") -> dict:
+                         label: str = "[10]", inputs: dict | None = None) -> dict:
     """Where one decode step's time goes at a serving shape (by default
     [10]'s): device time by op over ``n`` warm steps after a prefill of the
     same request (torch.profiler) against the unprofiled step and the
-    bound of reading ``read_bytes`` (by default every weight)."""
+    bound of reading ``read_bytes`` (by default every weight). ``inputs``:
+    the prefill's patch embeddings and M-RoPE streams, which the steps
+    continue."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = cfg or get_config(SERVE_ARCH)
@@ -1309,14 +1346,23 @@ def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_
                          generator=torch.Generator().manual_seed(SEED + 1),
                          dtype=torch.int32).to(DEV)
     cache = api.init_cache(batch, prompt + gen, DEV)
-    logits, cache = api.prefill(params, {"tokens": toks}, cache)
-    for _ in range(3):
-        logits, cache = api.decode_step(params, cache, {"tokens": logits.argmax(-1).int()})
+    inputs = inputs or {}
+    logits, cache = api.prefill(params, {"tokens": toks, **inputs}, cache)
+    steps = (serve_mod.decode_mrope_pos(inputs["mrope_pos"], 3 + n)
+             if "mrope_pos" in inputs else None)
+
+    def step_batch(i):
+        out = {"tokens": logits.argmax(-1).int()}
+        if steps is not None:
+            out["mrope_pos"] = steps[i]
+        return out
+
+    for i in range(3):
+        logits, cache = api.decode_step(params, cache, step_batch(i))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            logits, cache = api.decode_step(params, cache,
-                                            {"tokens": logits.argmax(-1).int()})
+        for i in range(n):
+            logits, cache = api.decode_step(params, cache, step_batch(3 + i))
         torch.cuda.synchronize()
     by_name, ops = device_times(prof)
     device_ms = sum(by_name.values()) / n / 1e3
@@ -1369,23 +1415,27 @@ def matmul_us(by_name: dict) -> float:
                if any(w in name.lower() for w in ("nvjet", "gemm", "gemv")))
 
 
-def phase_prefill_profile(params, prefill_ms: float) -> dict:
-    """Where one prefill's time goes at the serving shape: device time by op
-    over one warm prefill of 4 x 1,024 tokens (torch.profiler), K3's total
-    over its launches, the matmuls', against the unprofiled prefill of [10]."""
+def phase_prefill_profile(params, prefill_ms: float, cfg=None, batch: int = SERVE_BATCH,
+                          prompt: int = SERVE_PROMPT, inputs: dict | None = None,
+                          label: str = "[10]") -> dict:
+    """Where one prefill's time goes at a serving shape (by default [10]'s):
+    device time by op over one warm prefill of ``batch`` x ``prompt`` tokens
+    (and ``inputs``' patches and streams; torch.profiler), K3's total over
+    its launches, the matmuls', against the unprofiled prefill."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or get_config(SERVE_ARCH)
     api = build_model(cfg)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                          generator=torch.Generator().manual_seed(SEED + 2),
                          dtype=torch.int32).to(DEV)
-    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
-    api.prefill(params, {"tokens": toks}, cache)       # warm
-    cache = api.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, DEV)
+    req = {"tokens": toks, **(inputs or {})}
+    cache = api.init_cache(batch, prompt + SERVE_GEN, DEV)
+    api.prefill(params, req, cache)       # warm
+    cache = api.init_cache(batch, prompt + SERVE_GEN, DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.prefill(params, {"tokens": toks}, cache)
+        api.prefill(params, req, cache)
         torch.cuda.synchronize()
     by_name, ops = device_times(prof)
     device_ms = sum(by_name.values()) / 1e3
@@ -1397,7 +1447,7 @@ def phase_prefill_profile(params, prefill_ms: float) -> dict:
            "k3_ms": k3_ms, "k3_ms_per_launch": k3_ms / cfg.num_layers,
            "matmul_ms": gemm_ms, "other_ms": device_ms - k3_ms - gemm_ms,
            "busy_share": device_ms / prefill_ms if prefill_ms else None}
-    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT}: {prefill_ms:.1f} ms (host clock, [10]); "
+    print(f"  prefill {batch} x {prompt}: {prefill_ms:.1f} ms (host clock, {label}); "
           f"device busy {device_ms:.2f} ms ({device_ms / prefill_ms * 100:.1f}%), {ops} "
           f"device ops; matmuls {gemm_ms:.2f} ms, K3 {k3_ms:.3f} ms "
           f"({k3_ms / cfg.num_layers * 1e3:.1f} us x {cfg.num_layers}), the rest "
@@ -2723,7 +2773,8 @@ def phase_lm_main() -> dict:
         # the weights from seed 0 (``SEED``), drawn by ``train`` itself, so
         # that no second copy of them stays alive through the run
         res = train_mod.train(cfg, rounds=LM_ROUNDS, lr=LM_LR, algorithm=alg,
-                              sparse=sparse, device=DEV, log_every=0, **LM_CORPUS)
+                              sparse=sparse, device=DEV, log_every=0, remat=False,
+                              **LM_CORPUS)
         launches = lm_counts()
         peak = torch.cuda.max_memory_allocated()
         if not runs:
@@ -2765,7 +2816,7 @@ def phase_lm_card_vs_host() -> dict:
         # the round updates sparse tables in place: p0 stays untouched
         p0 = {k: v.to("cpu", copy=True) for k, v in card.items()}
         host = {k: v.clone() for k, v in p0.items()}
-        kw = dict(rounds=1, lr=LM_LR, sparse=sparse, axes=axes, log_every=0,
+        kw = dict(rounds=1, lr=LM_LR, sparse=sparse, axes=axes, log_every=0, remat=False,
                   **{**LM_CORPUS, "cohort": 2, "seq": 32})
         lm_zero_counts()
         rc = train_mod.train(cfg, device=DEV, params=card, **kw)
@@ -2923,7 +2974,8 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
                            samples_per_client=4)
     fed = FedConfig(num_clients=ds.num_clients, clients_per_round=k, lr=LM_LR,
                     algorithm="fedsubavg")
-    step = make_round_step(api.loss, params, axes, fed, mode=train_mod.make_plan())
+    step = make_round_step(lambda p, b: api.loss(p, b, remat=False), params, axes, fed,
+                           mode=train_mod.make_plan())
     rng = np.random.default_rng(SEED)
     toks = ds.client_data["tokens"]
     ids = rng.choice(ds.num_clients, size=k, replace=False)
@@ -3398,7 +3450,8 @@ def phase_moe_training() -> dict:
         torch.cuda.reset_peak_memory_stats()
         lm_zero_counts()
         res = train_mod.train(cfg, rounds=MOE_TRAIN_ROUNDS, lr=LM_LR, algorithm=alg,
-                              sparse=sparse, device=DEV, log_every=0, **LM_CORPUS)
+                              sparse=sparse, device=DEV, log_every=0, remat=False,
+                              **LM_CORPUS)
         launches = lm_counts()
         peak = torch.cuda.max_memory_allocated()
         if not runs:
@@ -3573,6 +3626,544 @@ def phase_moe_slice(kernels: list, rng) -> list:
     t0 = time.perf_counter()
     phase_dense_configs()
     print(f"  [43] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+VLM_ARCH, L4_ARCH = "qwen2_vl_7b", "llama4_maverick_400b_a17b"
+#: [45]: 4 prompts of 2,048 positions, the first 1,024 an image of 32 x 32
+#: patches (Qwen2-VL's M-RoPE grid), then 1,024 text tokens; 32 steps
+VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_GRID = 4, 2048, 32, (32, 32)
+#: [46]: 2 prompts of 2,048 tokens, the first 256 patches (early fusion)
+L4_BATCH, L4_PROMPT, L4_GEN, L4_LAYERS = 2, 2048, 32, 2
+L4_REDUCED = ("layers 48 -> {n}: a layer holds 16.17 B bf16 parameters (32.34 GB), almost "
+              "all of them its 128 experts; with the embedding and lm_head (4.14 GB), 2 "
+              "layers take 68.8 GB of the card's 80 and 48 would take ~1.56 TB")
+#: [47]: one full-width f32 Qwen2-VL layer, 1 prompt of 1,280 positions (the
+#: 32 x 32 image, then 256 text tokens), 4 steps; Llama 4 at its smoke widths
+VLM_HOST_PROMPT, VLM_HOST_GEN, VLM_HOST_TOL = 1280, 4, 1e-4
+L4_HOST_TOL = 1e-5
+#: [48] (a): Qwen2-VL at its published widths in f32, 4 layers, cohort 4 at
+#: seq 2,048 (each sequence opens with the 32 x 32 image), 3 rounds per remat
+#: setting; then the deepest depth a round trains at, 4 tries per setting,
+#: the first at the depth one round was seen to train at on an H100 80GB
+#: (5 layers without remat, 22 with)
+VLM_TRAIN_LAYERS, VLM_TRAIN_ROUNDS, VLM_DEPTH_TRIES = 4, 3, 4
+VLM_TRAIN = dict(clients=64, cohort=4, seq=2048, zipf_a=1.3)
+VLM_DEPTH_GUESS = {False: 5, True: 22}
+#: [48] (b): microbatches 2 against 1, the reference test's tolerances
+VLM_MB_TOL = dict(rtol=2e-4, atol=2e-5)
+#: [44]'s K3 cases (name, B, S, H, KV) at the two prefills, bf16
+VLM_K3_CASES = (("qwen2-vl-7b prefill", VLM_BATCH, VLM_PROMPT, 28, 4),
+                ("llama4-maverick prefill", L4_BATCH, L4_PROMPT, 40, 8))
+#: [44]'s K4 cases (name, B, H, KV, slots), each cache full after its steps
+VLM_K4_CASES = (("qwen2-vl-7b step", VLM_BATCH, 28, 4, VLM_PROMPT + VLM_GEN),
+                ("llama4-maverick step", L4_BATCH, 40, 8, L4_PROMPT + L4_GEN))
+#: [44]'s K3-backward cases (name, (B, S, H, KV, hd)), f32: GQA groups of 7
+#: (Qwen2-VL's 28 / 4) and 5 (Llama 4's 40 / 8) at [38]'s B 16 x S 128, and
+#: Qwen2-VL's training shape
+VLM_BWD_CASES = (("group 7", (16, 128, 28, 4, 128)), ("group 5", (16, 128, 40, 8, 128)),
+                 ("qwen2-vl training", (VLM_TRAIN["cohort"], VLM_TRAIN["seq"], 28, 4, 128)))
+
+
+def vlm_inputs(cfg, batch: int, prompt: int, dtype=None, seed: int = SEED) -> dict:
+    """Random patch embeddings (numpy, ``seed``) for a prompt's first
+    ``num_patches`` positions and, with M-RoPE, the streams of a
+    ``VLM_GRID`` image followed by text, on the card."""
+    rng = np.random.default_rng(seed)
+    patches = rng.standard_normal((batch, cfg.num_patches, cfg.d_model), dtype=np.float32)
+    out = {"patch_embeds": torch.from_numpy(patches).to(DEV, dtype or transformer.model_dtype(cfg))}
+    if cfg.mrope:
+        out["mrope_pos"] = serve_mod.image_grid_positions(batch, prompt, *VLM_GRID).to(DEV)
+    return out
+
+
+def phase_vlm_shapes(rng) -> dict:
+    """[44] K3 (bf16) at the two prefills' shapes and K4 (bf16 and f32) at
+    the two decode steps' against their plain versions; K3's backward (f32)
+    at GQA groups of 7 and 5 and at Qwen2-VL's training shape, held to its
+    plain version and timed beside SDPA's (``train_attention_timing``).
+    Returns the worst errors and the backward's timings."""
+    worst = {"k3": 0.0, "k4": 0.0, "bwd": 0.0}
+    hd = 128
+    for name, b, s, h, kv in VLM_K3_CASES:
+        dtype = torch.bfloat16
+        q, k, v = (normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kv, hd), dtype),
+                   normal(rng, (b, s, kv, hd), dtype))
+        err = compare(f"flash_attention[{name}]", flash_attention(q, k, v),
+                      flash_attention_torch(q, k, v), dtype)
+        worst["k3"] = max(worst["k3"], err)
+        print(f"  K3 {name:24s} {str(dtype):14s} B={b} S={s} H={h} KV={kv} hd={hd} "
+              f"max_abs_err={err:.3g}")
+        del q, k, v
+    for name, b, h, kv, slots in VLM_K4_CASES:
+        kpos = cache_slot_positions(slots, slots, False, DEV)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal(rng, (b, h, hd), dtype)
+            kc, vc = normal(rng, (b, kv, slots, hd), dtype), normal(rng, (b, kv, slots, hd), dtype)
+            err = compare(f"flash_decode[{name}]",
+                          flash_decode(q, kc, vc, kpos, slots - 1).float(),
+                          flash_decode_torch(q, kc, vc, kpos, slots - 1).float(), dtype)
+            worst["k4"] = max(worst["k4"], err)
+            print(f"  K4 {name:24s} {str(dtype):14s} B={b} H={h} KV={kv} S={slots} hd={hd} "
+                  f"max_abs_err={err:.3g}")
+    timed = {}
+    for name, shape in VLM_BWD_CASES:
+        cluster = bwd_cluster(shape[2], shape[3])
+        check(cluster == shape[2] // shape[3],
+              f"{name}: cluster {cluster}, want the whole group of {shape[2] // shape[3]}")
+        print(f"  {name}: GQA group {shape[2] // shape[3]}, dK/dV cluster {cluster} (its grid "
+              f"is key tiles x {cluster} blocks wide)")
+        fwd, bwd = train_attention_timing(shape, SEED + 44, name)
+        worst["k3"] = max(worst["k3"], fwd["max_abs_err"])
+        worst["bwd"] = max(worst["bwd"], bwd["max_abs_err"])
+        timed[name] = bwd
+    return {**worst, "bwd_timed": timed}
+
+
+def vlm_serve_checks(label: str, res, launches: dict, nl: int, prompt: int, gen: int, b: int,
+                     vocab: int) -> None:
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+          f"{label}: prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen},
+          f"{label}: decode launches {res.launches_decode}, want {nl} of K4 per step")
+    check(launches == {"flash_attention": nl, "flash_decode": nl * gen},
+          f"{label}: serving run launches {launches}")
+    check(res.cache_pos == prompt + gen, f"{label}: the cache is at {res.cache_pos}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits), f"{label}: non-finite logits")
+    check(all(lg.shape == (b, vocab) for lg in res.logits), f"{label}: logits shape")
+
+
+def phase_vlm_serve() -> dict:
+    """[45] Qwen2-VL 7B at full size (28 layers, bf16, weights from seed
+    ``SEED``) through ``launch.serve`` with [45]'s image prompts and
+    M-RoPE streams; an untimed run first records one K3 and one K4 input
+    set, then the timed run with the counts set to 0 just before; then
+    where a step's and a prefill's time goes."""
+    cfg = get_config(VLM_ARCH)
+    nl, b, prompt, gen = cfg.num_layers, VLM_BATCH, VLM_PROMPT, VLM_GEN
+    t0 = time.perf_counter()
+    params = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    inputs = vlm_inputs(cfg, b, prompt)
+    print(f"  {cfg.name}: {nl} layers, d_model {cfg.d_model}, H {cfg.num_heads} / KV "
+          f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, M-RoPE sections {cfg.mrope_sections}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}), random init from seed {SEED} in "
+          f"{init_s:.1f} s; reduced: none")
+    print(f"  prompts: {b} x {prompt}: {cfg.num_patches} patch embeddings (numpy seed {SEED}) "
+          f"on a {VLM_GRID[0]} x {VLM_GRID[1]} grid (t 0, h i // {VLM_GRID[1]}, w i % "
+          f"{VLM_GRID[1]}), then {prompt - cfg.num_patches} text tokens at {max(VLM_GRID)} + j "
+          f"on all three streams; steps from {max(VLM_GRID) + prompt - cfg.num_patches} on")
+    captured = capture_attention_inputs(cfg, params, b, prompt, gen, **inputs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=b, prompt=prompt, gen=gen, device=DEV, seed=SEED,
+                          params=params, **inputs)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    vlm_serve_checks("[45]", res, launches, nl, prompt, gen, b, cfg.vocab_size)
+    weight_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                       if name != "embedding")
+    cache_bytes = nl * 2 * b * cfg.num_kv_heads * (prompt + gen) * cfg.head_dim * 2
+    all_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    bound_ms = all_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
+          f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
+          f"{res.launches_decode}")
+    print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
+          f"against {bound_ms:.2f} ms ({all_bytes / 1e9:.2f} GB of weights at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x); "
+          f"what a step reads (every weight but the embedding table, the valid cache) "
+          f"{(weight_bytes + cache_bytes) / 1e9:.2f} GB, "
+          f"{(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    out = {"params": n_params, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
+           "peak_gb": peak / 1e9, "launches": launches, "decode_bound_ms": bound_ms,
+           "captured": captured}
+    out["decode_profile"] = phase_decode_profile(
+        params, res.decode_ms_per_token, cfg, b, prompt, gen, n=3,
+        read_bytes=weight_bytes + cache_bytes, split_target_us=None, label="[45]",
+        inputs=inputs)
+    out["prefill_profile"] = phase_prefill_profile(params, res.prefill_ms, cfg, b, prompt,
+                                                   inputs, label="[45]")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_l4_serve() -> dict:
+    """[46] Llama 4 Maverick at its published widths, ``L4_LAYERS`` of its
+    48 layers (the prefill fits beside their 68.8 GB: peak 69.53 GB on an
+    H100 80GB): draw the weights, record the prefill's ``expert_tokens``
+    and one K3 and K4 input set in an untimed run, then the timed run with
+    the counts set to 0 just before."""
+    cfg = get_config(L4_ARCH).replace(num_layers=L4_LAYERS)
+    nl, b, prompt, gen = cfg.num_layers, L4_BATCH, L4_PROMPT, L4_GEN
+    t0 = time.perf_counter()
+    params = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    inputs = vlm_inputs(cfg, b, prompt)
+    print(f"  {cfg.name}: {nl} layers, d_model {cfg.d_model}, H {cfg.num_heads} / KV "
+          f"{cfg.num_kv_heads}, {cfg.num_experts} experts (top {cfg.experts_per_token}) of "
+          f"d_ff {cfg.d_ff}, {n_params / 1e9:.3f} B params ({cfg.dtype}), random init from "
+          f"seed {SEED} in {init_s:.1f} s (tensors above "
+          f"{transformer.DRAW_WHOLE_MAX} elements drawn in slices); reduced: "
+          f"{L4_REDUCED.format(n=nl)}")
+    records = []
+    with record_moe(records):
+        captured = capture_attention_inputs(cfg, params, b, prompt, gen, **inputs)
+    expert_tokens = [r["expert_tokens"].tolist() for r in records[:nl]]
+    check(all(sum(t) == b * prompt * cfg.experts_per_token for t in expert_tokens),
+          "[46]: prefill expert_tokens do not sum to B x S x k")
+    del records
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=b, prompt=prompt, gen=gen, device=DEV, seed=SEED,
+                          params=params, **inputs)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    vlm_serve_checks("[46]", res, launches, nl, prompt, gen, b, cfg.vocab_size)
+    # decode is drop-free at capacity B * k: every expert runs, so a step
+    # reads every weight but the embedding table, and the valid cache
+    weight_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                       if name != "embedding")
+    cache_bytes = nl * 2 * b * cfg.num_kv_heads * (prompt + gen) * cfg.head_dim * 2
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
+          f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
+          f"{res.launches_decode}")
+    print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
+          f"against {bound_ms:.2f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
+    for i, t in enumerate(expert_tokens):
+        busy = sum(1 for x in t if x)
+        print(f"    layer {i} prefill expert_tokens ({busy} of {cfg.num_experts} experts "
+              f"take tokens, most {max(t)}): {t}")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    out = {"layers": nl, "params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
+           "peak_gb": peak / 1e9, "launches": launches, "expert_tokens": expert_tokens,
+           "decode_bound_ms": bound_ms, "captured": captured}
+    out["decode_profile"] = phase_decode_profile(
+        params, res.decode_ms_per_token, cfg, b, prompt, gen, n=3,
+        read_bytes=weight_bytes + cache_bytes, split_target_us=None, label="[46]",
+        inputs=inputs)
+    del params
+    return out
+
+
+def phase_vlm_card_vs_host() -> dict:
+    """[47] card against host from the same weights. (a) Qwen2-VL at one
+    full-width f32 layer through ``launch.serve``: 1 prompt of
+    ``VLM_HOST_PROMPT`` positions ([45]'s image and streams, then text), 4
+    steps; logits within ``VLM_HOST_TOL``, greedy tokens identical. (b)
+    Llama 4 at its smoke widths in f32 (one full-width f32 layer, 64.7 GB,
+    does not fit beside a host copy): 2 x 64 tokens, the first 8 patches,
+    4 steps; logits within ``L4_HOST_TOL``, every MoE call's routing and
+    ``expert_tokens`` identical, the smallest top-1 router gap printed."""
+    out = {}
+    cfg = get_config(VLM_ARCH).replace(num_layers=1, dtype="float32")
+    card = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    host = transformer.make_params(cfg, device="cpu",
+                                   state={k: v.cpu() for k, v in card.state_dict().items()})
+    inputs = vlm_inputs(cfg, 1, VLM_HOST_PROMPT)
+    kw = dict(batch=1, prompt=VLM_HOST_PROMPT, gen=VLM_HOST_GEN, seed=SEED)
+    rc = serve_mod.serve(cfg, device=DEV, params=card, **kw, **inputs)
+    t0 = time.perf_counter()
+    rh = serve_mod.serve(cfg, device="cpu", params=host, **kw,
+                         **{k: v.cpu() for k, v in inputs.items()})
+    host_s = time.perf_counter() - t0
+    check(rc.launches_prefill["flash_attention"] == 1, "[47] (a): card run missed K3")
+    check(rh.launches_prefill["flash_attention"] == 0, "[47] (a): host run launched a kernel")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+    check(all(torch.allclose(a.cpu(), b, rtol=VLM_HOST_TOL, atol=VLM_HOST_TOL)
+              for a, b in zip(rc.logits, rh.logits)),
+          f"[47] (a): card and host logits differ by {err}")
+    check(torch.equal(rc.tokens.cpu(), rh.tokens), "[47] (a): card and host tokens differ")
+    print(f"  (a) {cfg.name} 1 layer x d_model {cfg.d_model} f32, 1 x {VLM_HOST_PROMPT} "
+          f"positions ({cfg.num_patches} patches on the grid), {VLM_HOST_GEN} steps: max "
+          f"|logit diff| {err:.3g} (tolerance {VLM_HOST_TOL}); tokens identical "
+          f"{rc.tokens[0].tolist()}; host run {host_s:.1f} s")
+    out["qwen2_vl_max_logit_diff"] = err
+    del card, host, rc, rh
+    torch.cuda.empty_cache()
+
+    cfg = get_smoke_config(L4_ARCH).replace(dtype="float32")
+    card = transformer.make_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    host = transformer.make_params(cfg, device="cpu",
+                                   state={k: v.cpu() for k, v in card.state_dict().items()})
+    inputs = vlm_inputs(cfg, 2, 64)
+    kw = dict(batch=2, prompt=64, gen=4, seed=SEED)
+    rec_c, rec_h = [], []
+    with record_moe(rec_c, routing=True):
+        rc = serve_mod.serve(cfg, device=DEV, params=card, **kw, **inputs)
+    with record_moe(rec_h, routing=True):
+        rh = serve_mod.serve(cfg, device="cpu", params=host, **kw,
+                             **{k: v.cpu() for k, v in inputs.items()})
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+    check(all(torch.allclose(a.cpu(), b, rtol=L4_HOST_TOL, atol=L4_HOST_TOL)
+              for a, b in zip(rc.logits, rh.logits)),
+          f"[47] (b): card and host logits differ by {err}")
+    check(torch.equal(rc.tokens.cpu(), rh.tokens), "[47] (b): card and host tokens differ")
+    gaps = [min(r["gap"] for r in rec) for rec in (rec_c, rec_h)]
+    same = routing_same(rec_c, rec_h)
+    print(f"  (b) {cfg.name} at its smoke widths (d_model {cfg.d_model}, {cfg.num_experts} "
+          f"experts, top {cfg.experts_per_token}) f32, 2 x 64 tokens ({cfg.num_patches} "
+          f"patches), 4 steps: max |logit diff| {err:.3g} (tolerance {L4_HOST_TOL}); routing "
+          f"and expert_tokens of {len(rec_c)} MoE calls identical: {same}; smallest top-1 "
+          f"router gap: card {gaps[0]:.3g}, host {gaps[1]:.3g}")
+    check(same, "[47] (b): card and host route differently")
+    out.update(l4_max_logit_diff=err, l4_router_gap=gaps)
+    return out
+
+
+def vlm_train_inputs(cfg) -> dict:
+    """Each cohort batch's patches (f32, numpy seed ``SEED``) and image-grid
+    streams at ``VLM_TRAIN``'s cohort and sequence length."""
+    return vlm_inputs(cfg, VLM_TRAIN["cohort"], VLM_TRAIN["seq"], dtype=torch.float32)
+
+
+def vlm_round_fits(layers: int, remat: bool) -> tuple:
+    """One training round of Qwen2-VL at ``layers`` (f32, [48]'s batch):
+    whether it ran, its peak memory and its host-clock ms."""
+    cfg = get_config(VLM_ARCH).replace(num_layers=layers, dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = train_mod.train(cfg, rounds=1, lr=LM_LR, device=DEV, log_every=0, remat=remat,
+                              inputs=vlm_train_inputs(cfg), **VLM_TRAIN)
+        ok, ms = math.isfinite(res.losses[0]), res.ms_per_round[0]
+        del res
+    except torch.cuda.OutOfMemoryError:
+        ok, ms = False, None
+    peak = torch.cuda.max_memory_allocated()
+    return ok, peak / 1e9, ms
+
+
+def deepest_depth(remat: bool) -> dict:
+    """The deepest Qwen2-VL depth at which one round trains, in at most
+    ``VLM_DEPTH_TRIES`` tries from ``VLM_DEPTH_GUESS`` (the known fit is
+    ``VLM_TRAIN_LAYERS``): two layers up while it fits, then halving the
+    gap."""
+    lo, hi, tries = VLM_TRAIN_LAYERS, None, []
+    cand = VLM_DEPTH_GUESS[remat]
+    for _ in range(VLM_DEPTH_TRIES):
+        ok, peak, ms = vlm_round_fits(cand, remat)
+        tries.append({"layers": cand, "trained": ok, "peak_gb": peak, "ms": ms})
+        print(f"    remat {'on ' if remat else 'off'}: {cand} layers "
+              f"{'trained' if ok else 'out of memory'}; peak {peak:.2f} GB"
+              + (f", {ms:.0f} ms" if ms else ""))
+        if ok:
+            lo = max(lo, cand)
+        else:
+            hi = cand if hi is None else min(hi, cand)
+        if hi is not None and hi - lo <= 1:
+            break
+        cand = (lo + hi) // 2 if hi is not None else cand + 2
+    return {"deepest_trained": lo, "shallowest_refused": hi, "tries": tries}
+
+
+def vlm_step_batch(cfg, b: int = 4, s: int = 16) -> dict:
+    rng = np.random.default_rng(SEED + 48)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)),
+            "labels": torch.ones((b, s), dtype=torch.int32),
+            "mask": torch.ones((b, s)),
+            "mrope_pos": serve_mod.image_grid_positions(b, s, 2, 4),
+            "patch_embeds": torch.from_numpy(rng.standard_normal(
+                (b, cfg.num_patches, cfg.d_model), dtype=np.float32)),
+            "heat_vocab": torch.ones(cfg.vocab_size)}
+
+
+def phase_vlm_training() -> dict:
+    """[48] (a) Qwen2-VL through ``launch.train.train`` at its published
+    widths (f32, ``VLM_TRAIN_LAYERS`` layers, cohort 4 at seq 2,048 on
+    ``make_lm_federated``, lr ``LM_LR``), every batch carrying 1,024 patch
+    embeddings and the image's streams: ``VLM_TRAIN_ROUNDS`` rounds with
+    remat off and on, the counts set to 0 just before each run; then the
+    deepest depth a round trains at in each setting. (b) ``make_round_step``
+    on the Qwen2-VL smoke config with ``mrope_pos`` in the batch: 2
+    microbatches against 1, remat on against off. (c) ``make_round_step``
+    on the Llama 4 smoke config with patches and ``heat_expert`` in four
+    modes, card against host, K1 once per ``sparse_replicated`` step."""
+    out = {}
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_TRAIN_LAYERS, dtype="float32")
+    inputs = vlm_train_inputs(cfg)
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_zero_counts()
+        res = train_mod.train(cfg, rounds=VLM_TRAIN_ROUNDS, lr=LM_LR, device=DEV, log_every=0,
+                              remat=remat, inputs=inputs, **VLM_TRAIN)
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n = cfg.num_layers * VLM_TRAIN_ROUNDS
+        want = {"flash_attention": 2 * n if remat else n, "flash_attention_bwd": n,
+                "union_segsum": 0}
+        check(launches == want, f"[48] (a) remat {remat}: launches {launches}, want {want}")
+        check(all(math.isfinite(x) for x in res.losses), f"[48] (a) remat {remat}: loss")
+        steady = statistics.median(res.ms_per_round[1:])
+        label = "remat on" if remat else "remat off"
+        out[label] = {"losses": res.losses, "ms_per_round": res.ms_per_round,
+                      "steady_ms_per_round": steady, "peak_gb": peak / 1e9,
+                      "launches": launches}
+        if not remat:
+            n_params = sum(p.numel() for p in res.params.values())
+            print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                  f"{n_params / 1e9:.3f} B params (f32); {VLM_TRAIN}, lr {LM_LR}; reduced: "
+                  f"layers 28 -> {cfg.num_layers} (f32 parameters, gradients, update and new "
+                  "parameters of all 28 would be ~122 GB)")
+        print(f"  {label}: loss {[round(x, 5) for x in res.losses]}; ms/round: first "
+              f"{res.ms_per_round[0]:.1f}, steady {steady:.1f} (median of rounds 2-"
+              f"{VLM_TRAIN_ROUNDS}); peak device memory {peak / 1e9:.2f} GB; launches {launches}")
+        del res
+    off, on = out["remat off"], out["remat on"]
+    diff = max(abs(a - b) for a, b in zip(off["losses"], on["losses"]))
+    check(diff <= LM_HOST_TOL * max(1.0, max(abs(x) for x in off["losses"])),
+          f"[48] (a): remat on and off losses differ by {diff}")
+    print(f"  remat costs {on['steady_ms_per_round'] - off['steady_ms_per_round']:.1f} ms a "
+          f"round ({on['steady_ms_per_round'] / off['steady_ms_per_round']:.3f}x) and saves "
+          f"{off['peak_gb'] - on['peak_gb']:.2f} GB of peak memory; losses differ by at most "
+          f"{diff:.3g} (held to {LM_HOST_TOL} of the loss: the embedding's gradient is "
+          "summed by atomics)")
+    for remat in (False, True):
+        out[f"depth remat {'on' if remat else 'off'}"] = deepest_depth(remat)
+    print(f"  deepest depth that trains one round: remat off "
+          f"{out['depth remat off']['deepest_trained']}, remat on "
+          f"{out['depth remat on']['deepest_trained']} (first refusals "
+          f"{out['depth remat off']['shallowest_refused']} and "
+          f"{out['depth remat on']['shallowest_refused']})")
+    torch.cuda.empty_cache()
+
+    smoke = get_smoke_config(VLM_ARCH).replace(dtype="float32")
+    params0, axes = lm_params(smoke, DEV)
+    api = build_model(smoke)
+    batch = {k: v.to(DEV) for k, v in vlm_step_batch(smoke).items()}
+    got = {}
+    lm_zero_counts()
+    for nmb, remat in ((1, True), (2, True), (1, False)):
+        fed = FedConfig(num_clients=10, lr=0.1, algorithm="fedsubavg", microbatches=nmb)
+        step = make_round_step(lambda p, b, r=remat: api.loss(p, b, remat=r), params0, axes,
+                               fed, mode="fedsgd")
+        got[(nmb, remat)], _ = step({k: v.clone() for k, v in params0.items()}, batch)
+    check(lm_counts()["flash_attention_bwd"] > 0, "[48] (b): K3's backward did not launch")
+    mb_err = max(float((got[(2, True)][k] - got[(1, True)][k]).abs().max()) for k in params0)
+    check(all(torch.allclose(got[(2, True)][k], got[(1, True)][k], **VLM_MB_TOL)
+              for k in params0), f"[48] (b): 2 microbatches against 1 differ by {mb_err}")
+    rm_err = max(float((got[(1, True)][k] - got[(1, False)][k]).abs().max()) for k in params0)
+    check(all(torch.allclose(got[(1, True)][k], got[(1, False)][k], rtol=LM_STEP_TOL,
+                             atol=LM_STEP_TOL) for k in params0),
+          f"[48] (b): remat on against off differ by {rm_err}")
+    print(f"  (b) qwen2-vl smoke make_round_step with mrope_pos (3, 4, 16) and patches: 2 "
+          f"microbatches against 1 max |param diff| {mb_err:.3g} (rtol 2e-4, atol 2e-5); remat "
+          f"on against off {rm_err:.3g} (tolerance {LM_STEP_TOL})")
+    out.update(microbatch_diff=mb_err, remat_diff=rm_err)
+
+    steps, cohort, clients = 3, 4, 64
+    l4 = get_smoke_config(L4_ARCH).replace(dtype="float32")
+    ds = make_lm_federated(num_clients=clients, vocab=l4.vocab_size, seq_len=64,
+                           samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
+    heat_expert = np.random.default_rng(SEED).integers(
+        *MOE_HEAT_RANGE, l4.num_experts).astype(np.float32)
+    prng = np.random.default_rng(SEED + 49)
+    for mode in LM_STEP_MODES:
+        batches = [{**b, "heat_expert": heat_expert,
+                    "patch_embeds": prng.standard_normal(
+                        b["tokens"].shape[:-1] + (l4.num_patches, l4.d_model), dtype=np.float32)}
+                   for b in lm_step_batches(ds, cohort, steps, "replicated" in mode)]
+        init, axes = lm_params(l4, DEV)
+        host_init = {k: v.to("cpu", copy=True) for k, v in init.items()}
+        losses, _, params, launches = run_lm_steps(l4, mode, DEV, batches, clients, cohort,
+                                                   init, axes)
+        want_k1 = steps if mode == "sparse_replicated" else 0
+        check(launches["union_segsum"] == want_k1,
+              f"[48] (c) {mode}: K1 launched {launches['union_segsum']} times, want {want_k1}")
+        check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+              f"[48] (c) {mode}: K3 or its backward did not launch: {launches}")
+        h_losses, _, h_params, h_launches = run_lm_steps(l4, mode, "cpu", batches, clients,
+                                                         cohort, host_init, axes)
+        check(sum(h_launches.values()) == 0, "[48] (c): the host run launched a kernel")
+        err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
+        check(np.allclose(losses, h_losses, rtol=LM_STEP_TOL, atol=LM_STEP_TOL),
+              f"[48] (c) {mode}: card losses {losses} against host {h_losses}")
+        check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=LM_STEP_TOL,
+                                 atol=LM_STEP_TOL) for k in h_params),
+              f"[48] (c) {mode}: card and host parameters differ by {err}")
+        out[f"l4 smoke {mode}"] = launches
+        print(f"  (c) llama4 smoke {mode:17s}: loss {[round(x, 4) for x in losses]}, launches "
+              f"{launches}; card against host: max |param diff| {err:.3g}")
+        del params, h_params
+    return out
+
+
+def phase_vlm_slice(kernels: list, rng) -> list:
+    """[44]-[48], each timed; adds [44]'s errors to K3's, K4's and K3
+    backward's entries and returns this slice's rows of the kernels line."""
+    print("[44] K3, K4 and K3's backward vs plain versions at Qwen2-VL's and Llama 4's shapes")
+    t0 = time.perf_counter()
+    shapes = phase_vlm_shapes(rng)
+    by_name = {e["name"]: e for e in kernels}
+    for name, key in (("flash_attention", "k3"), ("flash_decode", "k4"),
+                      ("flash_attention_bwd", "bwd")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], shapes[key])
+    print(f"  [44] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[45] serving path: {VLM_ARCH} at full size, {VLM_BATCH} x {VLM_PROMPT} image "
+          f"prompts, {VLM_GEN} steps")
+    t0 = time.perf_counter()
+    served = phase_vlm_serve()
+    rows = attention_timing(served.pop("captured"), served["launches"], shapes["k3"],
+                            shapes["k4"], names=("flash_attention (qwen2_vl_7b prefill)",
+                                                 "flash_decode (qwen2_vl_7b step)"),
+                            k3_target_ms=None)
+    print(f"  [45] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[46] serving path: {L4_ARCH} at its published widths, {L4_BATCH} x {L4_PROMPT} "
+          f"prompts ({get_config(L4_ARCH).num_patches} patches), {L4_GEN} steps")
+    t0 = time.perf_counter()
+    l4 = phase_l4_serve()
+    rows += attention_timing(l4.pop("captured"), l4["launches"], shapes["k3"], shapes["k4"],
+                             names=("flash_attention (llama4_maverick prefill)",
+                                    "flash_decode (llama4_maverick step)"), k3_target_ms=None)
+    torch.cuda.empty_cache()
+    print(f"  [46] took {time.perf_counter() - t0:.1f} s")
+
+    print("[47] card vs host: Qwen2-VL at one full-width f32 layer; Llama 4 at its smoke "
+          "widths, f32")
+    t0 = time.perf_counter()
+    phase_vlm_card_vs_host()
+    print(f"  [47] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[48] federated training: {VLM_ARCH} at its published widths, f32, remat off and "
+          f"on, and the deepest depth each trains; make_round_step on both smoke configs")
+    t0 = time.perf_counter()
+    trained = phase_vlm_training()
+    bwd_launches = {
+        "group 7": trained["remat on"]["launches"]["flash_attention_bwd"]
+        + trained["remat off"]["launches"]["flash_attention_bwd"],
+        "group 5": sum(v["flash_attention_bwd"] for k, v in trained.items()
+                       if k.startswith("l4 smoke")),
+    }
+    bwd_launches["qwen2-vl training"] = bwd_launches["group 7"]
+    for name, timed in shapes["bwd_timed"].items():
+        rows.append({"name": f"flash_attention_bwd ({name})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                     "replaces": "src/repro/models/layers.py:154",
+                     "launches": bwd_launches[name], **timed})
+    print(f"  [48] took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3808,6 +4399,7 @@ def main() -> int:
 
     kernels += phase_lm_training(kernels, rng, k1)
     kernels += phase_moe_slice(kernels, rng)
+    kernels += phase_vlm_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

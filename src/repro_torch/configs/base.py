@@ -238,9 +238,11 @@ class FedConfig:
 #: architectures the port runs, in the reference's order (it registers ten)
 ARCH_IDS = (
     "mixtral_8x22b",
+    "llama4_maverick_400b_a17b",
     "mistral_large_123b",
     "qwen3_32b",
     "qwen2_5_14b",
+    "qwen2_vl_7b",
     "deepseek_67b",
 )
 

@@ -487,19 +487,27 @@ def _scale_tree_f32(tree: Dict, s: float) -> Dict:
     return {name: f(leaf) for name, leaf in tree.items()}
 
 
+def batch_axis(name: str) -> int:
+    """The batch axis of a batch leaf, keyed on its name as the reference
+    keys it: ``mrope_pos`` is ``(3, B, S)``, with a leading coordinate axis;
+    every other leaf has the batch on axis 0 (a genuine batch of 3 too)."""
+    return 1 if name == "mrope_pos" else 0
+
+
 def _microbatches(data: Dict[str, torch.Tensor], n: int) -> List[Dict]:
-    """``n`` contiguous slices of every batch leaf along axis 0 (0-d leaves
-    go to every slice)."""
+    """``n`` contiguous slices of every batch leaf along its batch axis
+    (``batch_axis``; 0-d leaves go to every slice)."""
     out = [dict() for _ in range(n)]
     for name, x in data.items():
         if x.dim() == 0:
             for mb in out:
                 mb[name] = x
             continue
-        if x.shape[0] % n:
-            raise ValueError(f"batch leaf {name!r} of {x.shape[0]} rows does not "
+        axis = batch_axis(name)
+        if x.shape[axis] % n:
+            raise ValueError(f"batch leaf {name!r} of {x.shape[axis]} rows does not "
                              f"split into {n} microbatches")
-        for mb, part in zip(out, x.reshape((n, -1) + tuple(x.shape[1:]))):
+        for mb, part in zip(out, torch.chunk(x, n, dim=axis)):
             mb[name] = part
     return out
 
@@ -983,7 +991,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             k_real, b = None, bsz // ndev
             mesh.reset_counters()
             agg, loss, sub_rows, tel = flat_shard(
-                params, {k: v if v.dim() == 0 else v[r * b:(r + 1) * b]
+                params, {k: v if v.dim() == 0 else v.narrow(batch_axis(k), r * b, b)
                          for k, v in data.items()}, sub_ids, counts)
         tel_out = None
         if telemetry:

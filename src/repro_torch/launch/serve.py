@@ -1,7 +1,7 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
 Port of ``repro/launch/serve.py`` for every registered architecture of the
-transformer families (dense and MoE; ``configs.base.ARCH_IDS``):
+transformer families (dense, MoE and VLM; ``configs.base.ARCH_IDS``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \\
         --scale full --batch 4 --prompt 1024 --gen 32
@@ -9,8 +9,11 @@ transformer families (dense and MoE; ``configs.base.ARCH_IDS``):
 runs on the card (``--device cpu`` runs on the host at a small ``--scale``;
 ``--layers`` cuts the depth to what the card holds).
 Weights are drawn from seed 0 and the prompts from seed 1, as the
-reference's ``PRNGKey(0)`` and ``PRNGKey(1)``. ``serve`` is the body, for
-callers that want its numbers.
+reference's ``PRNGKey(0)`` and ``PRNGKey(1)``. A configuration with a
+vision frontend gets the reference launcher's inputs unless the caller
+gives its own: patch embeddings of 0.02 and, with M-RoPE, the prompt's
+positions on all three streams (where M-RoPE equals RoPE). ``serve`` is the
+body, for callers that want its numbers.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.api import build_model
+from repro_torch.models.transformer import model_dtype
 
 SCALES = {
     # overrides applied to the arch config for CPU-runnable scales
@@ -71,10 +75,61 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_inputs(cfg: ModelConfig, batch: int, prompt: int, device,
+                  patch_embeds: Optional[torch.Tensor] = None,
+                  mrope_pos: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The prefill's inputs besides the tokens: ``patch_embeds`` (B, P, d)
+    for a vision frontend and ``mrope_pos`` (3, B, S) int32 for M-RoPE, the
+    caller's or else the reference launcher's (0.02 everywhere; the prompt's
+    positions on all three streams)."""
+    out = {}
+    if cfg.frontend == "vision_patches":
+        if patch_embeds is None:
+            patch_embeds = torch.full((batch, cfg.num_patches, cfg.d_model), 0.02,
+                                      dtype=model_dtype(cfg))
+        out["patch_embeds"] = patch_embeds.to(device, model_dtype(cfg))
+    if cfg.mrope:
+        if mrope_pos is None:
+            mrope_pos = torch.arange(prompt, dtype=torch.int32).expand(3, batch, prompt)
+        out["mrope_pos"] = mrope_pos.to(device, torch.int32)
+    return out
+
+
+def image_grid_positions(batch: int, seq: int, grid_h: int, grid_w: int) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE streams (arXiv:2409.12191 §2.1) for a prompt that
+    opens with one image of ``grid_h x grid_w`` patches, row-major, and
+    continues with text: patch i at (t 0, h i // grid_w, w i % grid_w), then
+    text token j at ``max(grid_h, grid_w) + j`` on all three streams.
+    ``(3, batch, seq)`` int32."""
+    n = grid_h * grid_w
+    if n > seq:
+        raise ValueError(f"image_grid_positions: {n} patches in {seq} positions")
+    i = torch.arange(n, dtype=torch.int32)
+    text = max(grid_h, grid_w) + torch.arange(seq - n, dtype=torch.int32)
+    streams = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                           torch.cat([i // grid_w, text]),
+                           torch.cat([i % grid_w, text])])
+    return streams[:, None, :].expand(3, batch, seq).contiguous()
+
+
+def decode_mrope_pos(mrope_pos: torch.Tensor, gen: int) -> torch.Tensor:
+    """Each decode step's ``mrope_pos``, ``(gen, 3, B, 1)``: step i of a
+    sequence sits at its prompt's largest position plus 1 + i on all three
+    streams (the reference launcher's ``prompt + i`` when the prompt's
+    streams are its positions)."""
+    nxt = mrope_pos.amax(dim=(0, 2)) + 1                                    # (B,)
+    steps = nxt[None, :] + torch.arange(gen, dtype=nxt.dtype, device=nxt.device)[:, None]
+    return steps[:, None, :, None].expand(gen, 3, mrope_pos.shape[1], 1).to(torch.int32)
+
+
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
-          device=None, seed: int = 0, params=None) -> ServeResult:
+          device=None, seed: int = 0, params=None,
+          patch_embeds: Optional[torch.Tensor] = None,
+          mrope_pos: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens, then ``gen``
-    greedy decode steps. ``params`` (on ``device``) skips the random init."""
+    greedy decode steps. ``params`` (on ``device``) skips the random init;
+    ``patch_embeds`` and ``mrope_pos`` replace the launcher's own
+    (``prompt_inputs``); decode continues the streams (``decode_mrope_pos``)."""
     dev = resolve_device(device)
     api = build_model(cfg)
     if params is None:
@@ -82,21 +137,26 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
     prompt_gen = torch.Generator().manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=prompt_gen,
                          dtype=torch.int32).to(dev)
+    extra = prompt_inputs(cfg, batch, prompt, dev, patch_embeds, mrope_pos)
+    steps_pos = decode_mrope_pos(extra["mrope_pos"], gen) if cfg.mrope else None
     cache = api.init_cache(batch, prompt + gen, dev)
 
     _sync(dev)
     before = _launches()
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": toks}, cache)
+    logits, cache = api.prefill(params, {"tokens": toks, **extra}, cache)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = _launches()
 
     out_logits, out_toks = [logits], []
     t0 = time.perf_counter()
-    for _ in range(gen):
+    for i in range(gen):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        logits, cache = api.decode_step(params, cache, {"tokens": nxt})
+        step = {"tokens": nxt}
+        if steps_pos is not None:
+            step["mrope_pos"] = steps_pos[i]
+        logits, cache = api.decode_step(params, cache, step)
         out_logits.append(logits)
         out_toks.append(nxt)
     _sync(dev)

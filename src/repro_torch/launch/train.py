@@ -4,13 +4,16 @@ the plan flags of ``examples/federated_llm.py``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_14b \\
         --scale tiny --rounds 50 [--sparse] [--topk 256] [--int8]
 
-builds the transformer of any registered architecture (dense or MoE),
+builds the transformer of any registered architecture (dense, MoE or VLM),
 draws a Zipf-heat federated corpus (``make_lm_federated``) and runs FedSGD
 rounds (``FedSgdLocal``: one gradient of the cohort's pooled batch) through
 ``make_round_step`` on the dense transport, or on the row-sparse one with
 ``--sparse`` (``--topk`` and ``--int8`` imply it), with the heat read from
 the batch's ``heat_vocab``. As the reference's, the batch carries no
-``heat_expert``, so the experts' leaves go uncorrected.
+``heat_expert``, so the experts' leaves go uncorrected, and no patch
+embeddings or M-RoPE streams unless ``train``'s caller adds them
+(``inputs``). ``remat`` (on, as the reference's ``loss_fn``) recomputes
+each layer in the backward.
 It runs on the card unless ``--device cpu``. ``--layers`` cuts the depth;
 ``--smoke`` is ``examples/federated_llm.py``'s CPU-sized model and corpus.
 Weights are drawn from seed 0 and the cohorts from ``default_rng(0)`` as
@@ -22,9 +25,10 @@ numbers.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -76,10 +80,13 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
           sparse: bool = False, topk: int = 0, int8: bool = False, zipf_a: float = 1.2,
           device=None, params: Optional[Dict[str, torch.Tensor]] = None,
           axes: Optional[Dict[str, tuple]] = None, ckpt: str = "",
-          log_every: int = 10) -> TrainResult:
+          log_every: int = 10, remat: bool = True,
+          inputs: Optional[Mapping[str, torch.Tensor]] = None) -> TrainResult:
     """``rounds`` FedSGD rounds of ``cohort`` clients on ``clients`` clients'
     corpus of ``seq``-token sequences. ``params``/``axes`` (the flat training
-    dict on ``device``) skip the random init."""
+    dict on ``device``) skip the random init. ``remat`` goes to ``loss_fn``;
+    ``inputs`` are added to every round's cohort batch (``patch_embeds``
+    ``(cohort, P, d)``, ``mrope_pos`` ``(3, cohort, seq)``)."""
     dev = resolve_device(device)
     api = build_model(cfg)
     if params is None:
@@ -89,7 +96,9 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     fed = FedConfig(num_clients=ds.num_clients, clients_per_round=cohort, lr=lr,
                     algorithm=algorithm)
     plan = make_plan(algorithm, sparse, topk, int8)
-    step = make_round_step(api.loss, params, axes, fed, mode=plan)
+    step = make_round_step(functools.partial(api.loss, remat=remat), params, axes, fed,
+                           mode=plan)
+    extra = {k: v.to(dev) for k, v in (inputs or {}).items()}
     heat = torch.as_tensor(ds.heat.counts, dtype=torch.float32).to(dev)
     meta = plan_comm_meta(params, axes) if plan.transport.sparse else None
     tokens = ds.client_data["tokens"]
@@ -102,7 +111,7 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
         ids = rng.choice(ds.num_clients, size=cohort, replace=False)
         sample = rng.integers(0, tokens.shape[1], size=cohort)
         batch = {"tokens": torch.from_numpy(tokens[ids, sample]).to(dev),
-                 "heat_vocab": heat}
+                 "heat_vocab": heat, **extra}
         params, metrics = step(params, batch)
         res.losses.append(float(metrics["loss"]))
         res.ms_per_round.append((time.perf_counter() - t0) * 1e3)

@@ -6,7 +6,7 @@ ported family the same way:
 
     init(generator=None, device=None)      -> parameters (a ``Transformer``)
     abstract_params()                      -> the same tree on ``meta``
-    loss(params, batch)                    -> scalar (the module, or the flat
+    loss(params, batch, remat=True)        -> scalar (the module, or the flat
                                               dict of ``transformer.train_params``)
     init_cache(batch, max_seq, device=None) -> KVCache
     prefill(params, batch, cache)          -> (logits, cache)
@@ -16,7 +16,9 @@ ported family the same way:
 ``abstract_params`` and ``input_specs`` stand in for the reference's
 ``ShapeDtypeStruct`` trees: tensors on the ``meta`` device carry a shape and
 a dtype and no storage, so a 123B configuration exists on any host. The
-dense and MoE families are ported (ROADMAP Queue 1 item 9).
+dense, MoE and VLM families are ported (patch embeddings and M-RoPE ride in
+the batch as ``patch_embeds`` and ``mrope_pos``); the hybrid, SSM and
+audio families are not yet (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -73,13 +75,9 @@ def _common_specs(cfg: ModelConfig, sc: ShapeConfig, kind: str) -> Dict[str, tor
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
-    if cfg.frontend != "none" or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: patch embeddings and M-RoPE are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
 
     def init(generator=None, device=None):
         return T.make_params(cfg, generator, device)
@@ -88,13 +86,16 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return T.init_cache(cfg, batch, max_seq, device)
 
     def prefill(params, batch, cache):
-        return T.prefill(cfg, params, batch["tokens"], cache)
+        return T.prefill(cfg, params, batch["tokens"], cache,
+                         patch_embeds=batch.get("patch_embeds"),
+                         mrope_pos=batch.get("mrope_pos"))
 
     def decode_step(params, cache, batch):
-        return T.decode_step(cfg, params, cache, batch["tokens"])
+        return T.decode_step(cfg, params, cache, batch["tokens"],
+                             mrope_pos=batch.get("mrope_pos"))
 
-    def loss(params, batch):
-        return T.loss_fn(cfg, params, batch)
+    def loss(params, batch, remat: bool = True):
+        return T.loss_fn(cfg, params, batch, remat=remat)
 
     def input_specs(shape_name: str) -> Dict[str, torch.Tensor]:
         sc = SHAPES[shape_name]

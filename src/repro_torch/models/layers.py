@@ -11,12 +11,12 @@ arithmetic.
 
 ``moe`` is the reference's dropping MoE: its routing, capacity and drop
 order, with the expert products as batched matmuls (cuBLAS), outside any
-kernel as in the reference. Not ported yet: ``apply_mrope`` and
-``sinusoidal_positions`` (ROADMAP Queue 1 item 9).
+kernel as in the reference. Not ported yet: ``sinusoidal_positions``
+(Whisper, ROADMAP Queue 1 item 9.5).
 """
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Tuple
+from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +86,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                       # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_streams(head_dim: int, sections: Tuple[int, ...]) -> List[int]:
+    """The stream (0 t, 1 h, 2 w) of each of the ``head_dim / 2`` frequency
+    slots: ``sections[i]`` slots of stream i in order, cut or padded with the
+    last stream to ``head_dim / 2`` as ``jnp.repeat(...,
+    total_repeat_length=)`` does."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)][:head_dim // 2]
+    return ids + [ids[-1] if ids else 0] * (head_dim // 2 - len(ids))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multi-dimensional RoPE. x: (..., seq, n_heads, head_dim);
+    ``positions3``: (3, ..., seq), the temporal, height and width position
+    of each token. Frequency slot j rotates by its own stream's position
+    times ``freqs[j]``, angles in f32. The reference selects the stream by a
+    one-hot product summed over the three (adding two exact zeros); an index
+    gives the same bits."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                             # (hd/2,)
+    angles_all = positions3[..., None].float() * freqs                  # (3, ..., seq, hd/2)
+    sel = torch.tensor(mrope_streams(hd, sections), device=x.device)
+    angles = torch.gather(angles_all, 0, sel.expand(angles_all.shape[1:])[None])[0]
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

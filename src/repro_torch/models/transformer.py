@@ -1,9 +1,11 @@
 """Decoder-only transformer, dense and MoE families: port of
 ``repro/models/transformer.py``.
 
-Serves and trains Qwen2.5-14B, Qwen3-32B, DeepSeek-67B, Mistral Large 123B
-and Mixtral 8x22B: GQA with optional qk_norm, QKV bias and sliding window,
-gated MLP or dropping MoE (``layers.moe``), RoPE. The parameters are a
+Serves and trains Qwen2.5-14B, Qwen3-32B, DeepSeek-67B, Mistral Large 123B,
+Mixtral 8x22B, Llama 4 Maverick and Qwen2-VL 7B: GQA with optional qk_norm,
+QKV bias and sliding window, gated MLP or dropping MoE (``layers.moe``),
+RoPE or M-RoPE (``layers.apply_mrope`` on the batch's ``mrope_pos``), and
+early-fusion patch embeddings (``embed_tokens``). The parameters are a
 ``Transformer`` module whose layers sit in an ``nn.ModuleList``; every level
 is a ``layers.ParamTree`` under the reference's keys, so the functions below
 read ``lp["attn"]["wq"]["w"]`` as the reference does. The reference's
@@ -17,15 +19,23 @@ Training: ``loss_fn`` (the causal LM loss through ``chunked_xent``, plus
 ``forward`` with K3's gradient kernel on the card. ``forward`` reads the
 parameters in either form: the ``Transformer`` module serving takes, or the
 flat ``{state_dict name: tensor}`` dict that ``train_params`` gives the
-round step with its logical axes. The reference's ``jax.checkpoint`` per
-layer changes no number and is left out: the depths the port trains keep
-every layer's activations. M-RoPE and patch embeddings are not ported yet
-(ROADMAP Queue 1 item 9).
+round step with its logical axes.
+
+Remat: the reference's ``jax.checkpoint`` per layer (and per group of
+layers with ``cfg.remat_groups``) is ``_Remat``, a ``torch.autograd.Function``
+that keeps only its inputs (the hidden state and the layer's parameter
+tensors) and whose backward runs the layer again under ``torch.func.vjp``.
+``torch.utils.checkpoint`` cannot serve here: the round plans differentiate
+through ``torch.func.grad`` and ``vmap``, which refuse saved-tensor hooks
+(``use_reentrant=False``) and a Function without ``setup_context``
+(``use_reentrant=True``). Remat changes no number; on the card K3 then runs
+twice per layer (the forward, and the recompute that asks for the
+log-sum-exp) and its backward once.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -140,12 +150,22 @@ def unstack_layers(stacked: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
     return out
 
 
+#: a tensor of more elements than this is drawn in slices along axis 0 of at
+#: most ``DRAW_SLICE`` elements (at least one row), so that drawing it takes
+#: one f32 slice beside the model rather than the whole tensor in f32: a
+#: Llama 4 expert stack (128, 5,120, 8,192) is 21.5 GB in f32. Every tensor
+#: of the other configurations is below it and is drawn whole, as before
+DRAW_WHOLE_MAX = 1 << 30
+DRAW_SLICE = 1 << 28
+
+
 class _Factory:
     """Makes each parameter as ``repro/sharding/logical.py::ParamFactory``
     draws it (``normal``: 0.02 * N(0, 1); ``fan_in``: N(0, 1) /
-    sqrt(shape[-2]); ``ones``; ``zeros``; drawn in f32, then cast), or takes
-    it from ``state`` by name; records its logical axes. On the ``meta``
-    device it draws nothing: the tensor has a shape and a dtype only."""
+    sqrt(shape[-2]); ``ones``; ``zeros``; drawn in f32, then cast; above
+    ``DRAW_WHOLE_MAX`` elements in slices along axis 0), or takes it from
+    ``state`` by name; records its logical axes. On the ``meta`` device it
+    draws nothing: the tensor has a shape and a dtype only."""
 
     def __init__(self, dtype, device, generator, state, axes=None, prefix=""):
         self.dtype, self.device = dtype, device
@@ -175,9 +195,22 @@ class _Factory:
                 shape, dtype=dtype, device=self.device)
         else:
             std = 0.02 if init == "normal" else 1.0 / math.sqrt(max(shape[-2], 1))
-            value = torch.randn(shape, generator=self.generator, dtype=torch.float32,
-                                device=self.device).mul_(std).to(dtype)
+            value = self._draw(shape, std, dtype)
         return nn.Parameter(value, requires_grad=False)
+
+    def _draw(self, shape, std: float, dtype) -> torch.Tensor:
+        def randn(part_shape):
+            return torch.randn(part_shape, generator=self.generator, dtype=torch.float32,
+                               device=self.device).mul_(std)
+
+        if math.prod(shape) <= DRAW_WHOLE_MAX:
+            return randn(shape).to(dtype)
+        value = torch.empty(shape, dtype=dtype, device=self.device)
+        rows = max(1, DRAW_SLICE // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            part = value[i:i + rows]
+            part.copy_(randn(part.shape))
+        return value
 
 
 def _make_linear(pf: _Factory, name: str, d_in: int, d_out: int, axes: Tuple,
@@ -205,9 +238,9 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     On ``device="meta"`` the tree has shapes and dtypes only
     (``api.abstract_params``).
     """
-    if cfg.family not in ("dense", "moe") or cfg.mrope:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families are ported "
+            f"{cfg.name}: only the dense, MoE and VLM families are ported "
             "(ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     if generator is None and state is None and dev.type != "meta":
@@ -246,7 +279,8 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor):
+def _project_qkv(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor,
+                 mrope_pos: Optional[torch.Tensor] = None):
     b, s = x.shape[:2]
     q = L.linear(ap["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = L.linear(ap["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -254,18 +288,25 @@ def _project_qkv(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor)
     if cfg.qk_norm:
         q = L.head_rmsnorm(ap["q_norm"], q, cfg.norm_eps)
         k = L.head_rmsnorm(ap["k_norm"], k, cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_pos is not None:
+        q = L.apply_mrope(q, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_mrope(k, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        # an M-RoPE config given no mrope_pos falls back to plain RoPE, as
+        # the reference does
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attention_block(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor):
+def attention_block(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor,
+                    mrope_pos: Optional[torch.Tensor] = None):
     """Full-sequence (prefill) attention through ``mea_attention`` (K3 on
     the card). Returns (out, (k, v))."""
     if cfg.attn_impl != "mea":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: the port's attention is 'mea' only")
-    q, k, v = _project_qkv(cfg, ap, x, positions)
+    q, k, v = _project_qkv(cfg, ap, x, positions, mrope_pos)
     o = L.mea_attention(q, k, v, causal=True, window=cfg.sliding_window,
                         query_chunk=cfg.query_chunk, kv_chunk=cfg.kv_chunk)
     b, s = x.shape[:2]
@@ -278,12 +319,22 @@ def attention_block(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings scaled by sqrt(d_model); with ``patch_embeds``
+    ``(B, P, d)`` and ``cfg.num_patches > 0`` (early fusion) the first P
+    positions take the patch embeddings instead, unscaled, in x's dtype."""
     emb = params["embedding"]
     # sqrt(d_model) in f32, then rounded to the table's dtype, as the
     # reference scales it (in bf16, sqrt(5120) = 71.55 becomes 71.5)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    return emb[tokens] * float(scale.to(emb.dtype))
+    x = emb[tokens] * float(scale.to(emb.dtype))
+    if patch_embeds is None or cfg.num_patches <= 0:
+        return x
+    p = patch_embeds.shape[1]
+    if p > x.shape[1]:
+        raise ValueError(f"embed_tokens: {p} patch embeddings for {x.shape[1]} positions")
+    return torch.cat([patch_embeds.to(x.dtype), x[:, p:]], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -310,31 +361,149 @@ def ffn_block(cfg: ModelConfig, fp, x: torch.Tensor, capacity: int = 0):
     return out, stats.aux_loss
 
 
+def _layer(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
+           mrope_pos: Optional[torch.Tensor]):
+    """One decoder layer: ``(x, MoE aux or None, (k, v))``."""
+    h, kv = attention_block(cfg, lp["attn"], L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps),
+                            positions, mrope_pos)
+    x = x + h
+    f, aux = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
+    return x + f, aux, kv
+
+
+def _layer_leaves(lp) -> Tuple[List[str], List[torch.Tensor]]:
+    """A layer's parameter tensors and their names within the layer
+    (``attn.wq.w``), from the module or the flat training dict."""
+    if isinstance(lp, FlatParams):
+        names = [n[len(lp.prefix):] for n in lp.flat if n.startswith(lp.prefix)]
+        return names, [lp.flat[lp.prefix + n] for n in names]
+    named = list(lp.named_parameters())
+    return [n for n, _ in named], [t for _, t in named]
+
+
+def _layer_fn(cfg: ModelConfig, names: Tuple[str, ...]) -> Callable:
+    """``run(x, positions, mrope_pos, *tensors)``: one layer whose parameter
+    tensors come in the order of ``names``; returns ``(x,)``, or ``(x,
+    aux)`` with the MoE's aux loss as a (1,) tensor."""
+    def run(x, positions, mrope_pos, *tensors):
+        x, aux, _ = _layer(cfg, FlatParams(dict(zip(names, tensors))), x, positions,
+                           mrope_pos)
+        return (x, aux.reshape(1)) if cfg.is_moe else (x,)
+    return run
+
+
+def _split(tensors, layer_names) -> List[tuple]:
+    out, at = [], 0
+    for names in layer_names:
+        out.append(tuple(tensors[at:at + len(names)]))
+        at += len(names)
+    return out
+
+
+class _Remat(torch.autograd.Function):
+    """Consecutive layers (``layer_names``: each layer's parameter names, its
+    tensors in that order after ``mrope_pos``) that keep only their inputs
+    for the backward: ``jax.checkpoint`` for ``torch.func``. Returns
+    ``(x,)``, or ``(x, aux per layer)`` for the MoE.
+
+    The backward runs each layer again under ``torch.func.vjp`` and takes
+    its vector-Jacobian product. Over several layers (a group of the
+    two-level remat) it first reruns the group without grad to get each
+    layer's input, then goes back layer by layer, recomputing each: the
+    group keeps its input, its rerun each layer's, as the reference's
+    nested ``jax.checkpoint`` (whose rerun also runs the group's last
+    layer, whose output the backward does not need). ``setup_context`` and
+    the generated vmap rule let ``grad`` and ``vmap(grad)`` of a loss reach
+    through it; the hidden state and each parameter tensor are inputs of
+    their own, so that the gradient flows to each; the integer positions
+    get none. It is once differentiable, as K3's backward is."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(cfg, layer_names, x, positions, mrope_pos, *tensors):
+        auxes = []
+        for names, ts in zip(layer_names, _split(tensors, layer_names)):
+            got = _layer_fn(cfg, names)(x, positions, mrope_pos, *ts)
+            x = got[0]
+            auxes.extend(got[1:])
+        return (x, torch.cat(auxes)) if cfg.is_moe else (x,)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cfg, ctx.layer_names = inputs[:2]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, gx, *gaux):
+        cfg, layer_names = ctx.cfg, ctx.layer_names
+        x, positions, mrope_pos, *tensors = ctx.saved_tensors
+        fns = [_layer_fn(cfg, names) for names in layer_names]
+        per_layer = _split(tensors, layer_names)
+        inputs = [x]
+        with torch.no_grad():
+            for fn, ts in zip(fns[:-1], per_layer[:-1]):
+                inputs.append(fn(inputs[-1], positions, mrope_pos, *ts)[0])
+        grads: List[tuple] = [()] * len(fns)
+        for j in reversed(range(len(fns))):
+            def rerun(xj, *ts, fn=fns[j]):
+                return fn(xj, positions, mrope_pos, *ts)
+
+            _, vjp_fn = torch.func.vjp(rerun, inputs[j], *per_layer[j])
+            got = vjp_fn((gx, gaux[0][j:j + 1]) if cfg.is_moe else (gx,))
+            # torch.func.grad differentiates with create_graph, so this
+            # backward is recorded and each op takes the differentiable
+            # formula it takes without remat (under no_grad the fused silu
+            # backward would round otherwise): the bits agree. Detached, the
+            # gradients do not keep each layer's recompute alive until the
+            # whole gradient is done
+            gx, grads[j] = got[0].detach(), tuple(g.detach() for g in got[1:])
+            del vjp_fn, got
+        return (None, None, gx, None, None, *(g for gs in grads for g in gs))
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            patch_embeds: Optional[torch.Tensor] = None,
+            mrope_pos: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            collect_kv: bool = False) -> ForwardOut:
+            collect_kv: bool = False, remat: bool = True) -> ForwardOut:
     """Full-sequence forward (train / prefill) over the module or the flat
-    training dict."""
+    training dict. ``patch_embeds`` ``(B, P, d)`` replace the first P
+    positions' embeddings; ``mrope_pos`` ``(3, B, S)`` drives M-RoPE.
+    ``remat`` (in grad mode, without ``collect_kv``) keeps only each layer's
+    input for the backward, which recomputes the layer; with
+    ``cfg.remat_groups`` G > 1 dividing the depth, each of G groups of L/G
+    layers keeps only its input too (the reference's two-level remat)."""
     p = as_tree(params)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(cfg, p, tokens)
+    x = embed_tokens(cfg, p, tokens, patch_embeds)
+    nl = cfg.num_layers
     kvs = [] if collect_kv else None
     auxes = []
-    for i in range(cfg.num_layers):
-        lp = p["layers"][i]
-        h, kv = attention_block(cfg, lp["attn"],
-                                L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps), positions)
-        x = x + h
-        f, aux = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
-        x = x + f
-        if aux is not None:
-            auxes.append(aux)
-        if collect_kv:
-            kvs.append(kv)
+    if remat and not collect_kv and torch.is_grad_enabled():
+        leaves = [_layer_leaves(p["layers"][i]) for i in range(nl)]
+        g = cfg.remat_groups
+        per = nl // g if g > 1 and nl % g == 0 else 1
+        for start in range(0, nl, per):
+            group = leaves[start:start + per]
+            got = _Remat.apply(cfg, tuple(tuple(names) for names, _ in group), x, positions,
+                               mrope_pos, *(t for _, ts in group for t in ts))
+            x = got[0]
+            if cfg.is_moe:
+                auxes.append(got[1])
+        aux_all = torch.cat(auxes) if auxes else None
+    else:
+        for i in range(nl):
+            x, aux, kv = _layer(cfg, p["layers"][i], x, positions, mrope_pos)
+            if aux is not None:
+                auxes.append(aux)
+            if collect_kv:
+                kvs.append(kv)
+        aux_all = torch.stack(auxes) if auxes else None
     hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    aux_loss = (torch.stack(auxes).mean() if auxes
+    aux_loss = (aux_all.mean() if aux_all is not None
                 else torch.zeros((), dtype=torch.float32, device=x.device))
     return ForwardOut(hidden, aux_loss, kvs)
 
@@ -361,13 +530,15 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
-            ) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
     """Causal LM loss, the mean over the batch's unmasked tokens, plus
     ``router_aux_weight`` times the MoE aux loss. ``labels`` default to the
-    tokens shifted left and padded with 0, ``mask`` to ones. A dense model
-    has no router: the reference adds ``router_aux_weight * 0``, which
-    changes no bit, and the port adds nothing."""
+    tokens shifted left and padded with 0, ``mask`` to ones; the batch's
+    ``patch_embeds`` and ``mrope_pos``, when present, go to ``forward``, as
+    does ``remat`` (on by default, as the reference's). A dense model has no
+    router: the reference adds ``router_aux_weight * 0``, which changes no
+    bit, and the port adds nothing."""
     tokens = batch["tokens"]
     targets = batch.get("labels")
     if targets is None:
@@ -375,7 +546,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-    out = forward(cfg, params, tokens)
+    out = forward(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"),
+                  mrope_pos=batch.get("mrope_pos"), remat=remat)
     ce = chunked_xent(cfg, params, out.hidden, targets, mask)
     return ce + cfg.router_aux_weight * out.aux_loss if cfg.is_moe else ce
 
@@ -393,10 +565,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> L.KVC
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-            cache: L.KVCache) -> Tuple[torch.Tensor, L.KVCache]:
-    """Run the prompt, fill the cache (in place), return last-token logits
-    (f32) and the cache at position ``S``."""
-    out = forward(cfg, params, tokens, collect_kv=True)
+            cache: L.KVCache, *, patch_embeds: Optional[torch.Tensor] = None,
+            mrope_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, L.KVCache]:
+    """Run the prompt (its first positions ``patch_embeds`` when given,
+    M-RoPE on ``mrope_pos`` (3, B, S) when given), fill the cache (in
+    place), return last-token logits (f32) and the cache at position
+    ``S``."""
+    out = forward(cfg, params, tokens, patch_embeds=patch_embeds, mrope_pos=mrope_pos,
+                  collect_kv=True, remat=False)
     s = tokens.shape[1]
     cap = cache.capacity
     for i, (k, v) in enumerate(out.kv):
@@ -414,10 +590,12 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, cache: L.KVCache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, L.KVCache]:
-    """One decode step: tokens (B,) at position ``cache.pos``. Writes the
-    token's K/V into the cache (in place) before attending, as the
-    reference does; returns f32 logits and the cache at ``pos + 1``."""
+                tokens: torch.Tensor, *, mrope_pos: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, L.KVCache]:
+    """One decode step: tokens (B,) at position ``cache.pos`` (M-RoPE at
+    ``mrope_pos`` (3, B, 1) when given). Writes the token's K/V into the
+    cache (in place) before attending, as the reference does; returns f32
+    logits and the cache at ``pos + 1``."""
     b = tokens.shape[0]
     pos = cache.pos
     ring = cfg.sliding_window > 0
@@ -427,7 +605,8 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: L.KVCache,
     slot_pos = L.cache_slot_positions(pos + 1, cache.capacity, ring, dev)  # incl. current
     for i, lp in enumerate(params.layers):
         ap = lp["attn"]
-        q, k, v = _project_qkv(cfg, ap, L.rmsnorm(ap["norm"], x, cfg.norm_eps), positions)
+        q, k, v = _project_qkv(cfg, ap, L.rmsnorm(ap["norm"], x, cfg.norm_eps), positions,
+                               mrope_pos)
         k_layer, v_layer = L.cache_write(cache.k[i], cache.v[i], pos, k[:, 0], v[:, 0], ring)
         o = L.decode_attention(q[:, 0], k_layer, v_layer, slot_pos, pos,
                                window=cfg.sliding_window)

@@ -3,7 +3,8 @@
 for field (``param_counts`` too); ``input_specs`` against the reference's
 ``ShapeDtypeStruct``s for every arch x shape; ``abstract_params`` on the
 ``meta`` device at full size against the reference's abstract tree; the
-five unported architectures still raising; and Qwen3-32B's, DeepSeek-67B's
+three unported architectures (the hybrid, SSM and audio families) still
+raising; and Qwen3-32B's, DeepSeek-67B's
 and Mistral Large 123B's smoke configs through ``repro_torch`` against
 ``repro.models.build_model`` on the weights of ``PRNGKey(0)`` (carried
 across by ``convert.params_from_jax``): loss and every gradient, prefill
@@ -39,8 +40,11 @@ TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32,
 def test_registry_is_the_reference_order_less_the_unported():
     assert all_arch_ids() == ARCH_IDS
     assert ARCH_IDS == tuple(a for a in j_all_arch_ids() if a in ARCH_IDS)
-    assert set(ARCH_IDS) == {"mixtral_8x22b", "mistral_large_123b", "qwen3_32b",
-                             "qwen2_5_14b", "deepseek_67b"}
+    assert set(ARCH_IDS) == {"mixtral_8x22b", "llama4_maverick_400b_a17b",
+                             "mistral_large_123b", "qwen3_32b", "qwen2_5_14b",
+                             "qwen2_vl_7b", "deepseek_67b"}
+    assert {j_get_config(a).family for a in set(j_all_arch_ids()) - set(ARCH_IDS)} == {
+        "hybrid", "ssm", "audio"}
 
 
 @pytest.mark.parametrize("arch", sorted(set(j_all_arch_ids()) - set(ARCH_IDS)))
@@ -81,7 +85,8 @@ def test_input_specs_match_the_reference(arch):
             assert tuple(got[key].shape) == tuple(spec.shape), (shape, key)
             assert got[key].dtype == TORCH_DTYPES[str(spec.dtype)], (shape, key)
     if tapi.cfg.is_moe:
-        assert tuple(tapi.input_specs("train_4k")["heat_expert"].shape) == (8,)
+        assert tuple(tapi.input_specs("train_4k")["heat_expert"].shape) == (
+            tapi.cfg.num_experts,)
 
 
 def _uncounted(cfg) -> int:

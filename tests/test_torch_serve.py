@@ -80,9 +80,10 @@ def test_configs_match_the_reference():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.param_counts() == tc.param_counts()
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_config("qwen2_vl_7b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_model(get_smoke_config(ARCH).replace(family="vlm"))
+        get_config("zamba2_1_2b")
+    for family in ("hybrid", "ssm", "audio"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            build_model(get_smoke_config(ARCH).replace(family=family))
 
 
 def test_attention_is_mea_only(f32_pair):

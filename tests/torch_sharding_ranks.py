@@ -241,3 +241,56 @@ def failing_rank(rank: int, world: int, store: str) -> None:
     if rank == 1:
         raise RuntimeError("rank 1 failed on purpose")
     mesh.psum(torch.ones(1), "never")
+
+
+def mrope_case():
+    """Qwen2-VL's smoke model (f32, weights from seed 0) and a flat batch of
+    4 x 16 tokens with patches and image-grid streams, for the flat shard's
+    per-rank slice of ``mrope_pos`` (3, B, S)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import image_grid_positions
+    from repro_torch.models import transformer
+    cfg = get_smoke_config("qwen2_vl_7b").replace(dtype="float32")
+    params, axes = transformer.train_params(
+        transformer.make_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
+                                        .astype(np.int32)),
+             "mrope_pos": image_grid_positions(4, 16, 2, 4),
+             "patch_embeds": torch.from_numpy(rng.normal(
+                 size=(4, cfg.num_patches, cfg.d_model)).astype(np.float32)),
+             "heat_vocab": torch.ones(cfg.vocab_size)}
+    return cfg, params, axes, batch
+
+
+def mrope_flat_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One gloo rank: the sharded FedSgdLocal step on ``mrope_case`` whole
+    and in 2 microbatches; saves each step's loss, parameters and the shape
+    of each ``mrope_pos`` the rank's loss saw."""
+    from repro_torch.models.api import build_model
+    torch.set_num_threads(1)
+    mesh = make_cohort_mesh(device="cpu", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        cfg, params0, axes, batch = mrope_case()
+        api = build_model(cfg)
+        seen = []
+
+        def loss(p, b):
+            seen.append(tuple(b["mrope_pos"].shape))
+            return api.loss(p, b)
+
+        res = {}
+        for nmb in (1, 2):
+            fcfg = FedConfig(num_clients=10, lr=0.1, algorithm="fedsubavg", microbatches=nmb)
+            plan = dataclasses.replace(resolve_plan("fedsgd", fcfg),
+                                       sharding=CohortSharding(mesh))
+            step = make_round_step(loss, params0, axes, fcfg, mode=plan)
+            seen.clear()
+            params, m = step(_host(params0), batch)
+            res[nmb] = {"loss": float(m["loss"]), "params": _host(params),
+                        "mrope_shapes": list(seen)}
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+        mesh.barrier()
+    finally:
+        mesh.destroy()
