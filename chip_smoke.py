@@ -336,6 +336,7 @@ from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch  #
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import zamba  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import cache_slot_positions  # noqa: E402
 from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
@@ -1331,13 +1332,15 @@ def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_
                          prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN, n: int = 5,
                          read_bytes: float | None = None,
                          split_target_us: float | None = K4_SPLIT_TARGET_US,
-                         label: str = "[10]", inputs: dict | None = None) -> dict:
+                         label: str = "[10]", inputs: dict | None = None,
+                         k4_per_step: int | None = None) -> dict:
     """Where one decode step's time goes at a serving shape (by default
     [10]'s): device time by op over ``n`` warm steps after a prefill of the
     same request (torch.profiler) against the unprofiled step and the
     bound of reading ``read_bytes`` (by default every weight). ``inputs``:
     the prefill's patch embeddings and M-RoPE streams, which the steps
-    continue."""
+    continue. ``k4_per_step``: K4's launches a step (by default one a
+    layer)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = cfg or get_config(SERVE_ARCH)
@@ -1369,7 +1372,8 @@ def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_
     split_us = [t for name, t in by_name.items() if "split_kernel" in name]
     k4_ms = sum(t for name, t in by_name.items() if "split_kernel" in name
                 or "merge_kernel" in name) / n / 1e3
-    split_us_per_launch = sum(split_us) / (n * cfg.num_layers)
+    per_step = cfg.num_layers if k4_per_step is None else k4_per_step
+    split_us_per_launch = sum(split_us) / (n * per_step) if per_step else 0.0
     gemm_ms = matmul_us(by_name) / n / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if read_bytes is None:
@@ -2589,9 +2593,9 @@ def lm_config(layers: int = LM_LAYERS, **over):
 
 
 def lm_params(cfg, device) -> tuple:
-    """The flat training dict and its axes, drawn from seed ``SEED``."""
-    model = transformer.make_params(cfg, torch.Generator(device=device).manual_seed(SEED),
-                                    device)
+    """The flat training dict and its axes (any family), drawn from seed
+    ``SEED``."""
+    model = build_model(cfg).init(torch.Generator(device=device).manual_seed(SEED), device)
     return transformer.train_params(model)
 
 
@@ -3568,6 +3572,14 @@ def phase_dense_configs() -> dict:
         n = sum(p.numel() for p in model.parameters())
         check(all(p.device.type == "meta" for p in model.parameters()),
               f"{arch}: abstract_params holds storage")
+        if cfg.family in ("hybrid", "ssm"):
+            # the reference's analytic count describes neither tree (it counts
+            # Zamba2's shared block at every layer and gives xLSTM's blocks
+            # Mamba2's widths); tests/test_torch_configs.py holds both trees
+            # leaf by leaf to the reference's abstract tree
+            print(f"  abstract_params {arch}: {n} parameters on meta (param_counts() "
+                  "does not count this family's tree)")
+            continue
         total, extra = cfg.param_counts()["total"], uncounted_params(cfg)
         check(n == total + extra, f"{arch}: abstract_params holds {n} parameters, "
               f"param_counts {total} + {extra} uncounted")
@@ -4167,6 +4179,380 @@ def phase_vlm_slice(kernels: list, rng) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# [49]-[53]: Zamba2-1.2B and xLSTM-350M, served and trained
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH, XLSTM_ARCH = "zamba2_1_2b", "xlstm_350m"
+#: [50], [51]: each model whole at its published config, bf16, weights from
+#: seed ``SEED``; 4 prompts of 1,024 tokens (4 of xLSTM's mLSTM chunks of
+#: 256), then 32 greedy steps
+REC_BATCH, REC_PROMPT, REC_GEN = 4, 1024, 32
+#: [49]'s cases at Zamba2's attention shape (H = KV = 32, hd 64: MHA):
+#: K3 at its prefill (B, S, H), K4 at its step (B, H, slots), K3's backward
+#: at its training shape ([53] (a): cohort 8 x 512 tokens; f32)
+ZAMBA_HD = 64
+ZAMBA_K3_CASE = ("zamba2 prefill", REC_BATCH, REC_PROMPT, 32)
+ZAMBA_K4_CASE = ("zamba2 step", REC_BATCH, 32, REC_PROMPT + REC_GEN)
+ZAMBA_BWD_CASE = ("zamba2 training", (8, 512, 32, 32, ZAMBA_HD))
+#: [52]: card against host at full width, f32: Zamba2's first 6 layers (one
+#: attention site) and xLSTM's first 8 (m m m m s m m m); 1 x 256 tokens,
+#: 8 steps; [11]'s bound for long f32 dot products
+REC_HOST_LAYERS = {ZAMBA_ARCH: 6, XLSTM_ARCH: 8}
+REC_HOST_PROMPT, REC_HOST_GEN, REC_HOST_TOL = 256, 8, 1e-4
+#: [53] (a): both models at their published widths in f32, remat on; at 512
+#: tokens both scans carry their state across two chunks of 256
+REC_TRAIN = dict(clients=256, cohort=8, seq=512, zipf_a=1.3)
+REC_TRAIN_ROUNDS = 5
+
+
+def phase_rec_shapes(rng) -> dict:
+    """[49] K3 (bf16), K4 (bf16 and f32) and K3's backward (f32, cluster 1:
+    a GQA group of 1) at Zamba2's attention shapes against their plain
+    versions; the backward also timed beside SDPA's
+    (``train_attention_timing``). Returns the worst errors and the
+    backward's timing."""
+    worst = {"k3": 0.0, "k4": 0.0, "bwd": 0.0}
+    hd = ZAMBA_HD
+    name, b, s, h = ZAMBA_K3_CASE
+    dtype = torch.bfloat16
+    q, k, v = (normal(rng, (b, s, h, hd), dtype) for _ in range(3))
+    worst["k3"] = compare(f"flash_attention[{name}]", flash_attention(q, k, v),
+                          flash_attention_torch(q, k, v), dtype)
+    print(f"  K3 {name:16s} {str(dtype):14s} B={b} S={s} H=KV={h} hd={hd} causal "
+          f"max_abs_err={worst['k3']:.3g}")
+    del q, k, v
+    name, b, h, slots = ZAMBA_K4_CASE
+    kpos = cache_slot_positions(slots, slots, False, DEV)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = normal(rng, (b, h, hd), dtype)
+        kc, vc = normal(rng, (b, h, slots, hd), dtype), normal(rng, (b, h, slots, hd), dtype)
+        err = compare(f"flash_decode[{name}]", flash_decode(q, kc, vc, kpos, slots - 1).float(),
+                      flash_decode_torch(q, kc, vc, kpos, slots - 1).float(), dtype)
+        worst["k4"] = max(worst["k4"], err)
+        print(f"  K4 {name:16s} {str(dtype):14s} B={b} H=KV={h} S={slots} hd={hd} "
+              f"max_abs_err={err:.3g}")
+    name, shape = ZAMBA_BWD_CASE
+    cluster = bwd_cluster(shape[2], shape[3])
+    check(cluster == 1, f"{name}: cluster {cluster}, want 1 (a GQA group of 1)")
+    fwd, bwd = train_attention_timing(shape, SEED + 49, name)
+    worst["k3"] = max(worst["k3"], fwd["max_abs_err"])
+    worst["bwd"] = bwd["max_abs_err"]
+    return {**worst, "bwd_timed": bwd}
+
+
+def rec_step_bytes(cfg, params, cache) -> tuple:
+    """What a decode step must read and write, in bytes: (weights, state).
+    Weights: every parameter but the embedding table, Zamba2's shared block
+    once per site. State: the recurrent states read and written (Zamba2's
+    SSM and conv states; xLSTM's matrix memories, normalisers and
+    stabilisers) and, for Zamba2, the sites' K and V caches read."""
+    size = lambda t: t.numel() * t.element_size()                        # noqa: E731
+    weights = sum(size(p) for name, p in params.named_parameters() if name != "embedding")
+    if cfg.family == "hybrid":
+        shared = sum(size(p) for p in params.shared_attn.parameters())
+        weights += (zamba.num_attn_sites(cfg) - 1) * shared
+        state = 2 * (size(cache.ssm_state) + size(cache.conv_state)) + size(cache.k) + size(
+            cache.v)
+    else:
+        state = 2 * sum(size(t) for run in cache.m_states + cache.s_states for t in run)
+    return weights, state
+
+
+def phase_rec_serve(arch: str, label: str) -> dict:
+    """[50] / [51]: ``arch`` whole at its published config (bf16, weights
+    from seed ``SEED``) through ``launch.serve``: for Zamba2 an untimed run
+    first records one K3 and one K4 input set; then the timed run with the
+    counts set to 0 just before; then where a step's time goes."""
+    cfg = get_config(arch)
+    b, prompt, gen = REC_BATCH, REC_PROMPT, REC_GEN
+    hybrid = cfg.family == "hybrid"
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    shape = (f"{cfg.num_layers} Mamba2 layers, the shared attention block after every "
+             f"{cfg.attn_every} ({zamba.num_attn_sites(cfg)} sites; H = KV = {cfg.num_heads}, "
+             f"hd {cfg.head_dim}, d_ff {cfg.d_ff}), ssm heads {cfg.ssm_heads}, state "
+             f"{cfg.ssm_state}" if hybrid else
+             f"{len(cfg.block_pattern)} blocks {''.join(cfg.block_pattern)} "
+             f"({cfg.block_pattern.count('m')} mLSTM, {cfg.block_pattern.count('s')} sLSTM), "
+             f"{cfg.ssm_heads} heads, expand {cfg.ssm_expand}")
+    print(f"  {cfg.name}: {shape}, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}), random init from seed {SEED} in "
+          f"{init_s:.1f} s; reduced: none")
+    captured = capture_attention_inputs(cfg, params, b, prompt, gen) if hybrid else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=b, prompt=prompt, gen=gen, device=DEV, seed=SEED,
+                          params=params)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    sites = zamba.num_attn_sites(cfg) if hybrid else 0
+    check(res.launches_prefill == {"flash_attention": sites, "flash_decode": 0},
+          f"{label}: prefill launches {res.launches_prefill}, want {sites} of K3")
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": sites * gen},
+          f"{label}: decode launches {res.launches_decode}, want {sites} of K4 a step")
+    check(launches == {"flash_attention": sites, "flash_decode": sites * gen},
+          f"{label}: serving run launches {launches}")
+    check(res.cache_pos == prompt + gen, f"{label}: the cache is at {res.cache_pos}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+          f"{label}: non-finite logits")
+    check(all(lg.shape == (b, cfg.vocab_size) for lg in res.logits), f"{label}: logits shape")
+    cache = build_model(cfg).init_cache(b, prompt + gen, DEV)
+    weight_bytes, state_bytes = rec_step_bytes(cfg, params, cache)
+    del cache
+    bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
+          f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
+          f"{res.launches_decode}")
+    print(f"  decode step against its read bound: {res.decode_ms_per_token:.2f} ms against "
+          f"{bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of weights"
+          + (" with the shared block at each site" if hybrid else "")
+          + f", {state_bytes / 1e9:.3f} GB of state at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{res.decode_ms_per_token / bound_ms:.1f}x)")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    out = {"params": n_params, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
+           "peak_gb": peak / 1e9, "launches": launches, "decode_bound_ms": bound_ms,
+           "captured": captured}
+    out["decode_profile"] = phase_decode_profile(
+        params, res.decode_ms_per_token, cfg, b, prompt, gen, n=3,
+        read_bytes=weight_bytes + state_bytes, split_target_us=None, label=label,
+        k4_per_step=sites)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rec_card_vs_host() -> dict:
+    """[52] card against host from the same weights, at full width in f32:
+    Zamba2's first 6 layers (one attention site) and xLSTM's first 8 (m m m
+    m s m m m) through ``launch.serve``, 1 x ``REC_HOST_PROMPT`` tokens and
+    ``REC_HOST_GEN`` steps; logits within ``REC_HOST_TOL``, greedy tokens
+    identical."""
+    out = {}
+    for arch in (ZAMBA_ARCH, XLSTM_ARCH):
+        n = REC_HOST_LAYERS[arch]
+        cfg = get_config(arch).replace(num_layers=n, dtype="float32")
+        if cfg.family == "ssm":
+            cfg = cfg.replace(block_pattern=cfg.block_pattern[:n])
+        api = build_model(cfg)
+        card = api.init(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        host = api.init(device="cpu", state={k: v.cpu() for k, v in card.state_dict().items()})
+        kw = dict(batch=1, prompt=REC_HOST_PROMPT, gen=REC_HOST_GEN, seed=SEED)
+        rc = serve_mod.serve(cfg, device=DEV, params=card, **kw)
+        t0 = time.perf_counter()
+        rh = serve_mod.serve(cfg, device="cpu", params=host, **kw)
+        host_s = time.perf_counter() - t0
+        sites = zamba.num_attn_sites(cfg) if cfg.family == "hybrid" else 0
+        check(rc.launches_prefill["flash_attention"] == sites
+              and rc.launches_decode["flash_decode"] == sites * REC_HOST_GEN,
+              f"[52] {arch}: card launches {rc.launches_prefill}, {rc.launches_decode}")
+        check(sum(rh.launches_prefill.values()) + sum(rh.launches_decode.values()) == 0,
+              f"[52] {arch}: the host run launched a kernel")
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+        check(all(torch.allclose(a.cpu(), b, rtol=REC_HOST_TOL, atol=REC_HOST_TOL)
+                  for a, b in zip(rc.logits, rh.logits)),
+              f"[52] {arch}: card and host logits differ by {err}")
+        check(torch.equal(rc.tokens.cpu(), rh.tokens), f"[52] {arch}: card and host tokens "
+              "differ")
+        layout = (f"{sites} attention site" if cfg.family == "hybrid"
+                  else f"blocks {''.join(cfg.block_pattern)}")
+        print(f"  {cfg.name}: {n} layers ({layout}) x d_model {cfg.d_model}, f32, 1 x "
+              f"{REC_HOST_PROMPT} tokens, {REC_HOST_GEN} steps: max |logit diff| {err:.3g} "
+              f"(tolerance {REC_HOST_TOL}); tokens identical {rc.tokens[0].tolist()}; host run "
+              f"{host_s:.1f} s")
+        out[arch] = err
+        del card, host, rc, rh
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_spread(step, before: dict, after: dict, batch: dict) -> float:
+    """How far the host's own step moves when its parameters move by f32's
+    unit roundoff: the largest |parameter| gap between ``after`` (the step
+    from ``before``) and the step from ``before`` times (1 + 2^-24 N(0, 1)),
+    elementwise, from seed ``SEED``."""
+    gen = torch.Generator().manual_seed(SEED)
+    nudged = {k: v * (1 + 2.0 ** -24 * torch.randn(v.shape, generator=gen))
+              for k, v in before.items()}
+    moved, _ = step(nudged, batch)
+    return max(float((moved[k] - after[k]).abs().max()) for k in after)
+
+
+def phase_rec_training() -> dict:
+    """[53] (a) each model at its published widths in f32 through
+    ``launch.train.train`` (``make_lm_federated(256 clients, 512 tokens,
+    zipf 1.3)``, cohort 8, lr ``LM_LR``, remat on), the counts set to 0 just
+    before each run: Zamba2's K3 twice a site and round (the forward and
+    remat's recompute), its backward once; xLSTM none; K1 none. (b)
+    ``make_round_step`` on both smoke configs in ``sparse_replicated`` mode,
+    card against host step by step: each host step starts from the card's
+    parameters before that step. These runs are chaotic at lr ``LM_LR`` (on
+    the host alone, two runs that differ only in their threads' sum order
+    part by ~1e-6 after the first step, 5e-4 after the second and 0.24
+    after the third for xLSTM), so a whole trajectory is no test of the
+    card. Nor is 1e-5 on a step's parameters: the step scales a cold row's
+    gradient by N / n_m = 64, so each update is computed to ~1e-4 of its
+    size, and on the host alone a 2^-24 nudge of the step's inputs moves
+    xLSTM's parameters by 6.6e-5 (``host_spread``, printed). Each step: the
+    loss within ``LM_STEP_TOL``; each leaf's update within ``LM_UPDATE_TOL``
+    in relative norm ([36]'s bound) and each parameter within
+    ``LM_STEP_TOL`` plus ``LM_UPDATE_TOL`` of the leaf's largest update
+    element. K1 once a step, held to its plain version on the last step's
+    inputs."""
+    out = {}
+    for arch in (ZAMBA_ARCH, XLSTM_ARCH):
+        cfg = get_config(arch).replace(dtype="float32")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_zero_counts()
+        res = train_mod.train(cfg, rounds=REC_TRAIN_ROUNDS, lr=LM_LR, device=DEV,
+                              log_every=0, remat=True, **REC_TRAIN)
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n = (zamba.num_attn_sites(cfg) if cfg.family == "hybrid" else 0) * REC_TRAIN_ROUNDS
+        want = {"flash_attention": 2 * n, "flash_attention_bwd": n, "union_segsum": 0}
+        check(launches == want, f"[53] (a) {arch}: launches {launches}, want {want}")
+        check(all(math.isfinite(x) for x in res.losses), f"[53] (a) {arch}: loss not finite")
+        steady = statistics.median(res.ms_per_round[1:])
+        n_params = sum(p.numel() for p in res.params.values())
+        print(f"  (a) {cfg.name}: {n_params / 1e9:.3f} B params (f32), {REC_TRAIN}, lr "
+              f"{LM_LR}, remat on; reduced: none. loss {[round(x, 5) for x in res.losses]}; "
+              f"ms/round: first {res.ms_per_round[0]:.1f}, steady {steady:.1f} (median of "
+              f"rounds 2-{REC_TRAIN_ROUNDS}); peak device memory {peak / 1e9:.2f} GB; "
+              f"launches {launches}")
+        out[arch] = {"losses": res.losses, "ms_per_round": res.ms_per_round,
+                     "steady_ms_per_round": steady, "peak_gb": peak / 1e9,
+                     "launches": launches}
+        del res
+    torch.cuda.empty_cache()
+
+    steps, cohort, clients = 3, 4, 64
+    out["k1_err"] = 0.0
+    for arch in (ZAMBA_ARCH, XLSTM_ARCH):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=64,
+                               samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
+        batches = lm_step_batches(ds, cohort, steps, stacked=True)
+        params, axes = lm_params(cfg, DEV)
+        api = build_model(cfg)
+        fed = FedConfig(num_clients=clients, clients_per_round=cohort, local_iters=2,
+                        lr=LM_LR, algorithm="fedsubavg")
+        card_step = make_round_step(api.loss, params, axes, fed, mode="sparse_replicated")
+        host_step = make_round_step(api.loss, {k: v.cpu() for k, v in params.items()}, axes,
+                                    fed, mode="sparse_replicated")
+        captured, losses, lines = {}, [], []
+        lm_zero_counts()
+        for i, b in enumerate(batches):
+            before = {k: v.to("cpu", copy=True) for k, v in params.items()}
+            hb = {k: torch.from_numpy(v) for k, v in b.items()}
+            with capture_k1(captured):
+                params, m = card_step(params, {k: v.to(DEV) for k, v in hb.items()})
+            launches = lm_counts()
+            h_params, hm = host_step({k: v.clone() for k, v in before.items()}, hb)
+            spread = host_spread(host_step, before, h_params, hb)
+            check(lm_counts() == launches, f"[53] (b) {arch}: the host step launched a kernel")
+            losses.append(float(m["loss"]))
+            check(math.isclose(losses[-1], float(hm["loss"]), rel_tol=LM_STEP_TOL,
+                               abs_tol=LM_STEP_TOL),
+                  f"[53] (b) {arch}: card loss {losses[-1]} against host {float(hm['loss'])}")
+            step_err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
+            check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=0, atol=LM_STEP_TOL
+                                     + LM_UPDATE_TOL * float((h_params[k] - before[k]).abs().max()))
+                      for k in h_params),
+                  f"[53] (b) {arch} step {i}: card and host parameters differ by {step_err}, "
+                  f"the host's own spread {spread}")
+            # the mLSTM's input-gate bias has an exact gradient of 0 (the
+            # stabilised cell is invariant to a per-head shift of log i): its
+            # update is rounding noise on either side, held by the parameters
+            upd = max(float(torch.linalg.vector_norm((params[k].cpu() - h_params[k]).double())
+                            / torch.linalg.vector_norm((h_params[k] - before[k]).double())
+                            .clamp(min=1e-30)) for k in h_params
+                      if not (torch.equal(h_params[k], before[k]) or k.endswith(".b_i")))
+            check(upd <= LM_UPDATE_TOL, f"[53] (b) {arch} step {i}: an update differs by {upd} "
+                  "in relative norm")
+            lines.append(f"step {i}: |param diff| {step_err:.3g} (host's own spread "
+                         f"{spread:.3g}), update {upd:.3g} in relative norm")
+        check(launches["union_segsum"] == steps,
+              f"[53] (b) {arch}: K1 launched {launches['union_segsum']} times in {steps} steps")
+        args = captured["args"]
+        ids, v = args[0], args[5]
+        union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+        k1_err = check_k1(f"union_segsum[{arch} smoke sparse_replicated step]", args,
+                          captured["kw"]["scale"], union)
+        out["k1_err"] = max(out["k1_err"], k1_err)
+        print(f"  (b) {cfg.name} sparse_replicated, {steps} steps: loss "
+              f"{[round(x, 4) for x in losses]}, launches {launches}; K1 at the last step V={v} "
+              f"T={ids.numel()} union={union} max_abs_err={k1_err:.3g}; card against host, "
+              f"step by step (parameters within {LM_STEP_TOL} + {LM_UPDATE_TOL} of the update, "
+              f"updates within {LM_UPDATE_TOL} in relative norm): " + "; ".join(lines))
+        out[f"{arch} smoke"] = {"launches": launches}
+        del params, h_params
+    return out
+
+
+def phase_rec_slice(kernels: list, rng) -> list:
+    """[49]-[53], each timed; adds [49]'s errors to K3's, K4's and K3
+    backward's entries and returns this slice's rows of the kernels line."""
+    print("[49] K3, K4 and K3's backward vs plain versions at Zamba2's attention shape "
+          "(H = KV = 32, hd 64)")
+    t0 = time.perf_counter()
+    shapes = phase_rec_shapes(rng)
+    by_name = {e["name"]: e for e in kernels}
+    for name, key in (("flash_attention", "k3"), ("flash_decode", "k4"),
+                      ("flash_attention_bwd", "bwd")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], shapes[key])
+    print(f"  [49] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[50] serving path: {ZAMBA_ARCH} at its published config, {REC_BATCH} x "
+          f"{REC_PROMPT} prompts, {REC_GEN} steps")
+    t0 = time.perf_counter()
+    served = phase_rec_serve(ZAMBA_ARCH, "[50]")
+    rows = attention_timing(served.pop("captured"), served["launches"], shapes["k3"],
+                            shapes["k4"], names=("flash_attention (zamba2 prefill)",
+                                                 "flash_decode (zamba2 step)"),
+                            k3_target_ms=None)
+    print(f"  [50] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[51] serving path: {XLSTM_ARCH} at its published config, {REC_BATCH} x "
+          f"{REC_PROMPT} prompts, {REC_GEN} steps (no repo kernel on its path)")
+    t0 = time.perf_counter()
+    phase_rec_serve(XLSTM_ARCH, "[51]")
+    print(f"  [51] took {time.perf_counter() - t0:.1f} s")
+
+    print("[52] card vs host at full width, f32: Zamba2's first 6 layers, xLSTM's first 8")
+    t0 = time.perf_counter()
+    phase_rec_card_vs_host()
+    print(f"  [52] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[53] federated training: both models at their published widths, f32, remat on, "
+          f"{REC_TRAIN_ROUNDS} rounds; make_round_step sparse_replicated on both smoke "
+          f"configs, card vs host")
+    t0 = time.perf_counter()
+    trained = phase_rec_training()
+    by_name["union_segsum"]["max_abs_err"] = max(by_name["union_segsum"]["max_abs_err"],
+                                                 trained["k1_err"])
+    by_name["union_segsum"].setdefault("launches_by_path", {}).update({
+        f"{arch} smoke make_round_step sparse_replicated":
+            trained[f"{arch} smoke"]["launches"]["union_segsum"]
+        for arch in (ZAMBA_ARCH, XLSTM_ARCH)})
+    rows.append({"name": "flash_attention_bwd (zamba2 training)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/models/layers.py:154",
+                 "launches": trained[ZAMBA_ARCH]["launches"]["flash_attention_bwd"],
+                 **shapes["bwd_timed"]})
+    print(f"  [53] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4400,6 +4786,7 @@ def main() -> int:
     kernels += phase_lm_training(kernels, rng, k1)
     kernels += phase_moe_slice(kernels, rng)
     kernels += phase_vlm_slice(kernels, rng)
+    kernels += phase_rec_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,8 +4,9 @@
 ``ShapeConfig`` and ``SHAPES`` (the four assigned input shapes) and
 ``FedConfig`` (paper Algorithm 1) keep the reference's fields, defaults
 and construction-time validation. The registry (``get_config``,
-``get_smoke_config``, ``ARCH_IDS``, ``all_arch_ids``) covers the
-architectures ported so far; any other raises ``NotImplementedError``.
+``get_smoke_config``, ``ARCH_IDS``, ``all_arch_ids``) covers every
+architecture of the reference but Whisper (``whisper_large_v3``, not
+ported yet), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -242,8 +243,10 @@ ARCH_IDS = (
     "mistral_large_123b",
     "qwen3_32b",
     "qwen2_5_14b",
+    "zamba2_1_2b",
     "qwen2_vl_7b",
     "deepseek_67b",
+    "xlstm_350m",
 )
 
 

@@ -12,7 +12,12 @@ port's form on ``device``:
   experts ``(L, E, ., .)`` among them): the port's ``Transformer`` module,
   one entry of its ``layers`` per slice of L, and its logical axes; with
   ``flat=True`` the flat training dict of ``transformer.train_params``
-  (``layers.{i}.attn.wq.w`` and so on) instead of the module.
+  (``layers.{i}.attn.wq.w`` and so on) instead of the module;
+- Zamba2's tree (``repro.models.zamba.make_params``: ``mamba.*`` stacked on
+  L, ``shared_attn.*`` once): a ``layers.ModelTree`` (``mamba.{i}.*``), and
+  xLSTM's (``repro.models.xlstm_model.make_params``: a ``runs`` tuple of
+  ``{"m": ...}`` or ``{"s": ...}``, each stacked on its run's length): an
+  ``layers.ModelTree`` (``runs.{r}.{m|s}.{i}.*``); ``flat=True`` as above.
 
 ``server_state_from_jax`` carries a recsys trainer's whole ``ServerState``
 across: parameters, the server optimizer's slots and the round count.
@@ -29,8 +34,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.algorithms import ServerState
+from repro_torch.models.api import build_model
 from repro_torch.models.recsys import DIN_AXES, LR_AXES, lstm_axes
-from repro_torch.models.transformer import make_params, train_params, unstack_layers
+from repro_torch.models.transformer import train_params, unstack_layers
 
 
 def _model_axes(names) -> Optional[Dict[str, Tuple]]:
@@ -56,8 +62,9 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _is_transformer(flat: Mapping[str, np.ndarray]) -> bool:
-    return "embedding" in flat and "layers.attn.wq.w" in flat
+def _is_lm(flat: Mapping[str, np.ndarray]) -> bool:
+    """An LLM's tree, of any family: only they have an ``lm_head``."""
+    return "embedding" in flat and "lm_head" in flat
 
 
 def _writable_copy(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -72,15 +79,15 @@ def _writable_copy(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def params_from_jax(np_tree: Mapping, device=None, cfg: Optional[ModelConfig] = None,
                     flat: bool = False) -> Tuple[object, Dict[str, Tuple]]:
     """``(params, axes)`` for a JAX parameter tree given as numpy arrays.
-    The transformer's tree needs its ``cfg``; ``params`` is then the model,
-    or with ``flat=True`` its flat training dict."""
+    An LLM's tree needs its ``cfg``; ``params`` is then the model, or with
+    ``flat=True`` its flat training dict."""
     leaves = _flatten(np_tree)
-    if _is_transformer(leaves):
+    if _is_lm(leaves):
         if cfg is None:
-            raise ValueError("params_from_jax: the transformer's tree needs its "
+            raise ValueError("params_from_jax: an LLM's tree needs its "
                              "ModelConfig (cfg=...)")
         state = unstack_layers(_writable_copy(leaves))
-        model = make_params(cfg, device=device, state=state)
+        model = build_model(cfg).init(device=device, state=state)
         if set(state) != set(model.axes):
             raise ValueError(f"params_from_jax: the tree does not fit {cfg.name}: "
                              f"{sorted(set(state) ^ set(model.axes))}")

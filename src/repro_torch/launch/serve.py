@@ -1,13 +1,17 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-Port of ``repro/launch/serve.py`` for every registered architecture of the
-transformer families (dense, MoE and VLM; ``configs.base.ARCH_IDS``):
+Port of ``repro/launch/serve.py`` for every registered architecture
+(``configs.base.ARCH_IDS``): the transformer families (dense, MoE, VLM),
+Zamba2 (hybrid) and xLSTM (SSM):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \\
         --scale full --batch 4 --prompt 1024 --gen 32
 
-runs on the card (``--device cpu`` runs on the host at a small ``--scale``;
-``--layers`` cuts the depth to what the card holds).
+runs on the card (``--device cpu`` runs on the host at a small ``--scale``,
+which leaves an SSM configuration's ``d_ff`` as it is, as the reference's
+launcher does; ``--layers`` cuts the depth to what the card holds).
+xLSTM's prefill takes a prompt no longer than its chunk (256 at full size)
+or a multiple of it.
 Weights are drawn from seed 0 and the prompts from seed 1, as the
 reference's ``PRNGKey(0)`` and ``PRNGKey(1)``. A configuration with a
 vision frontend gets the reference launcher's inputs unless the caller
@@ -186,7 +190,10 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
 
     cfg = get_config(args.arch)
     if SCALES[args.scale]:
-        cfg = cfg.replace(**SCALES[args.scale])
+        over = dict(SCALES[args.scale])
+        if cfg.family == "ssm":
+            over.pop("d_ff", None)
+        cfg = cfg.replace(**over)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     res = serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen,

@@ -4,8 +4,8 @@ the plan flags of ``examples/federated_llm.py``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_14b \\
         --scale tiny --rounds 50 [--sparse] [--topk 256] [--int8]
 
-builds the transformer of any registered architecture (dense, MoE or VLM),
-draws a Zipf-heat federated corpus (``make_lm_federated``) and runs FedSGD
+builds the model of any registered architecture (the transformer's dense,
+MoE and VLM families, Zamba2 or xLSTM), draws a Zipf-heat federated corpus (``make_lm_federated``) and runs FedSGD
 rounds (``FedSgdLocal``: one gradient of the cohort's pooled batch) through
 ``make_round_step`` on the dense transport, or on the row-sparse one with
 ``--sparse`` (``--topk`` and ``--int8`` imply it), with the heat read from
@@ -18,7 +18,8 @@ It runs on the card unless ``--device cpu``. ``--layers`` cuts the depth;
 ``--smoke`` is ``examples/federated_llm.py``'s CPU-sized model and corpus.
 Weights are drawn from seed 0 and the cohorts from ``default_rng(0)`` as
 the reference draws them; ``--ckpt`` saves the final parameters in the
-reference's npz layout. The sharded LLM step (``jax.sharding`` rules in the
+reference's npz layout (each family's layers stacked as the reference
+stacks them: ``transformer.stack_layers``). The sharded LLM step (``jax.sharding`` rules in the
 reference) is not ported. ``train`` is the body, for callers that want its
 numbers.
 """

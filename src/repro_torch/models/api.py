@@ -4,11 +4,13 @@
 reference's signatures, so the serving and training launchers treat every
 ported family the same way:
 
-    init(generator=None, device=None)      -> parameters (a ``Transformer``)
+    init(generator=None, device=None, *, state=None)
+                                           -> parameters (a ``Transformer``,
+                                              a ``layers.ModelTree`` for Zamba2, xLSTM)
     abstract_params()                      -> the same tree on ``meta``
     loss(params, batch, remat=True)        -> scalar (the module, or the flat
                                               dict of ``transformer.train_params``)
-    init_cache(batch, max_seq, device=None) -> KVCache
+    init_cache(batch, max_seq, device=None) -> KVCache, ZambaCache or XLSTMCache
     prefill(params, batch, cache)          -> (logits, cache)
     decode_step(params, cache, batch)      -> (logits, cache)
     input_specs(shape_name)                -> batch dict of ``meta`` tensors
@@ -16,9 +18,11 @@ ported family the same way:
 ``abstract_params`` and ``input_specs`` stand in for the reference's
 ``ShapeDtypeStruct`` trees: tensors on the ``meta`` device carry a shape and
 a dtype and no storage, so a 123B configuration exists on any host. The
-dense, MoE and VLM families are ported (patch embeddings and M-RoPE ride in
-the batch as ``patch_embeds`` and ``mrope_pos``); the hybrid, SSM and
-audio families are not yet (ROADMAP Queue 1 item 9).
+dense, MoE and VLM families (``models/transformer.py``; patch embeddings
+and M-RoPE ride in the batch as ``patch_embeds`` and ``mrope_pos``), the
+hybrid family (Zamba2, ``models/zamba.py``) and the SSM family (xLSTM,
+``models/xlstm_model.py``) are ported; the audio family (Whisper) is not
+yet (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm_model as XM
+from repro_torch.models import zamba as Z
 
 META = torch.device("meta")
 
@@ -75,32 +81,48 @@ def _common_specs(cfg: ModelConfig, sc: ShapeConfig, kind: str) -> Dict[str, tor
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        mod = T
 
-    def init(generator=None, device=None):
-        return T.make_params(cfg, generator, device)
-
-    def init_cache(batch: int, max_seq: int, device=None):
-        return T.init_cache(cfg, batch, max_seq, device)
-
-    def prefill(params, batch, cache):
-        return T.prefill(cfg, params, batch["tokens"], cache,
-                         patch_embeds=batch.get("patch_embeds"),
-                         mrope_pos=batch.get("mrope_pos"))
-
-    def decode_step(params, cache, batch):
-        return T.decode_step(cfg, params, cache, batch["tokens"],
+        def prefill(params, batch, cache):
+            return T.prefill(cfg, params, batch["tokens"], cache,
+                             patch_embeds=batch.get("patch_embeds"),
                              mrope_pos=batch.get("mrope_pos"))
 
+        def decode_step(params, cache, batch):
+            return T.decode_step(cfg, params, cache, batch["tokens"],
+                                 mrope_pos=batch.get("mrope_pos"))
+
+    elif fam in ("hybrid", "ssm"):
+        mod = Z if fam == "hybrid" else XM
+
+        def prefill(params, batch, cache):
+            return mod.prefill(cfg, params, batch["tokens"], cache)
+
+        def decode_step(params, cache, batch):
+            return mod.decode_step(cfg, params, cache, batch["tokens"])
+
+    elif fam == "audio":
+        raise NotImplementedError(
+            f"family {fam!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+
+    def init(generator=None, device=None, *, state=None):
+        return mod.make_params(cfg, generator, device, state=state)
+
+    def init_cache(batch: int, max_seq: int, device=None):
+        return mod.init_cache(cfg, batch, max_seq, device)
+
     def loss(params, batch, remat: bool = True):
-        return T.loss_fn(cfg, params, batch, remat=remat)
+        return mod.loss_fn(cfg, params, batch, remat=remat)
 
     def input_specs(shape_name: str) -> Dict[str, torch.Tensor]:
         sc = SHAPES[shape_name]
         return _common_specs(cfg, sc, sc.kind)
 
-    return ModelApi(cfg=cfg, init=init, abstract_params=lambda: T.make_params(cfg, device=META),
+    return ModelApi(cfg=cfg, init=init,
+                    abstract_params=lambda: mod.make_params(cfg, device=META),
                     loss=loss, prefill=prefill, decode_step=decode_step,
                     init_cache=init_cache, input_specs=input_specs)

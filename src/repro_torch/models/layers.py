@@ -1,4 +1,5 @@
-"""Shared building blocks of the transformer: port of ``repro/models/layers.py``.
+"""Shared building blocks of the transformer and of Zamba2's shared attention
+block: port of ``repro/models/layers.py``.
 
 The public functions keep the reference's layouts: activations
 ``(B, S, H, hd)``, caches ``(L, B, KV, S, hd)``, weights ``(d_in, d_out)``.
@@ -11,8 +12,8 @@ arithmetic.
 
 ``moe`` is the reference's dropping MoE: its routing, capacity and drop
 order, with the expert products as batched matmuls (cuBLAS), outside any
-kernel as in the reference. Not ported yet: ``sinusoidal_positions``
-(Whisper, ROADMAP Queue 1 item 9.5).
+kernel as in the reference. Not ported yet: ``sinusoidal_positions``, which
+only Whisper uses (ROADMAP Queue 1 item 9.5).
 """
 from __future__ import annotations
 
@@ -42,6 +43,16 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+
+class ModelTree(ParamTree):
+    """A whole model's parameters (Zamba2's, xLSTM's) that also carries
+    ``axes``: each ``state_dict`` name's logical axes, the reference's
+    without the stacked "layers" axis, as ``transformer.Transformer`` does."""
+
+    def __init__(self, items: Mapping[str, object], axes: Mapping[str, Tuple]):
+        super().__init__(items)
+        self.axes = dict(axes)
 
 
 # ---------------------------------------------------------------------------

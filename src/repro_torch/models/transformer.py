@@ -28,13 +28,16 @@ tensors) and whose backward runs the layer again under ``torch.func.vjp``.
 ``torch.utils.checkpoint`` cannot serve here: the round plans differentiate
 through ``torch.func.grad`` and ``vmap``, which refuse saved-tensor hooks
 (``use_reentrant=False``) and a Function without ``setup_context``
-(``use_reentrant=True``). Remat changes no number; on the card K3 then runs
-twice per layer (the forward, and the recompute that asks for the
-log-sum-exp) and its backward once.
+(``use_reentrant=True``). Zamba2's and xLSTM's layers go through it too,
+each with its own layer function. Remat changes no number; on the card K3
+then runs twice per layer (the forward, and the recompute that asks for
+the log-sum-exp) and its backward once.
 """
 from __future__ import annotations
 
+import functools
 import math
+import re
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -96,12 +99,12 @@ class FlatParams:
 Params = Union[Transformer, Mapping[str, torch.Tensor]]
 
 
-def as_tree(params: Params):
-    """The module as it is, a flat dict behind ``FlatParams``."""
-    return params if isinstance(params, Transformer) else FlatParams(params)
+def as_tree(params):
+    """The module (any family's) as it is, a flat dict behind ``FlatParams``."""
+    return params if isinstance(params, nn.Module) else FlatParams(params)
 
 
-def train_params(model: Transformer) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
+def train_params(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
     """``(params, axes)`` for the round step: the module's tensors under their
     ``state_dict`` names (the same storage, not a copy) and their logical
     axes. ``lm_head``'s vocabulary axis is axis 1: it stays dense on the
@@ -109,17 +112,32 @@ def train_params(model: Transformer) -> Tuple[Dict[str, torch.Tensor], Dict[str,
     return dict(model.state_dict()), dict(model.axes)
 
 
+#: the prefixes whose leaves the reference stacks on a leading layer axis:
+#: the transformer's ``layers``, Zamba2's ``mamba`` and each run of xLSTM
+#: blocks (``runs.{r}.m`` or ``runs.{r}.s``)
+_STACKED = r"(layers|mamba|runs\.\d+\.[ms])"
+_PER_LAYER_NAME = re.compile(_STACKED + r"\.(\d+)\.(.+)")
+_STACKED_NAME = re.compile(_STACKED + r"\.(.+)")
+
+
 def stack_layers(flat: Mapping[str, torch.Tensor], axes: Optional[Mapping[str, Tuple]] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Tuple]]]:
-    """The flat training dict in the reference's stacked layout: each layer
-    leaf ``layers.{i}.attn.wq.w`` goes, in layer order, into one ``(L, ...)``
-    tensor under ``layers.attn.wq.w``, its axes led by ``"layers"``:
-    ``save_checkpoint`` of the two writes the reference's LLM checkpoint."""
+    """The flat training dict of any family in the reference's stacked
+    layout: each layer leaf ``layers.{i}.attn.wq.w`` (``mamba.{i}.in_proj``,
+    ``runs.{r}.m.{i}.up_z``) goes, in layer order, into one ``(L, ...)``
+    tensor under ``layers.attn.wq.w`` (``mamba.in_proj``,
+    ``runs.{r}.m.up_z``), its axes led by ``"layers"``; the other leaves
+    (``shared_attn.*`` among them) stay as they are. ``save_checkpoint`` of
+    the two writes the reference's LLM checkpoint."""
     out: Dict[str, object] = {}
+    per_layer: Dict[str, str] = {}
     for name, t in flat.items():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            out.setdefault(f"layers.{rest}", {})[int(i)] = t
+        m = _PER_LAYER_NAME.fullmatch(name)
+        if m:
+            prefix, i, rest = m.groups()
+            key = f"{prefix}.{rest}"
+            out.setdefault(key, {})[int(i)] = t
+            per_layer[key] = f"{prefix}.0.{rest}"
         else:
             out[name] = t
     for name, by_layer in out.items():
@@ -129,24 +147,30 @@ def stack_layers(flat: Mapping[str, torch.Tensor], axes: Optional[Mapping[str, T
             out[name] = torch.stack([by_layer[i] for i in range(len(by_layer))])
     if axes is None:
         return out, None
-    return out, {name: (("layers",) + tuple(axes[f"layers.0.{name[len('layers.'):]}"])
-                        if name.startswith("layers.") else tuple(axes[name]))
-                 for name in out}
+    return out, {name: (("layers",) + tuple(axes[per_layer[name]]) if name in per_layer
+                        else tuple(axes[name])) for name in out}
 
 
 def unstack_layers(stacked: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``stack_layers``'s inverse: ``layers.attn.wq.w`` ``(L, ...)`` back to
-    ``layers.{i}.attn.wq.w`` (a view of each slice; numpy arrays too), in
+    ``layers.{i}.attn.wq.w`` (a view of each slice; numpy arrays too), each
+    stacked prefix's layers at the place of its first leaf, in
     ``train_params``'s key order."""
+    groups: Dict[str, List[str]] = {}
+    for name in stacked:
+        m = _STACKED_NAME.fullmatch(name)
+        if m:
+            groups.setdefault(m.group(1), []).append(name)
     out: Dict[str, torch.Tensor] = {}
-    names = [n for n in stacked if n.startswith("layers.")]
     for name, t in stacked.items():
-        if not name.startswith("layers."):
+        m = _STACKED_NAME.fullmatch(name)
+        if m is None:
             out[name] = t
-        elif name == names[0]:
+        elif name == groups[m.group(1)][0]:
+            prefix = m.group(1)
             for i in range(t.shape[0]):
-                for n in names:
-                    out[f"layers.{i}.{n[len('layers.'):]}"] = stacked[n][i]
+                for n in groups[prefix]:
+                    out[f"{prefix}.{i}.{n[len(prefix) + 1:]}"] = stacked[n][i]
     return out
 
 
@@ -162,8 +186,9 @@ DRAW_SLICE = 1 << 28
 class _Factory:
     """Makes each parameter as ``repro/sharding/logical.py::ParamFactory``
     draws it (``normal``: 0.02 * N(0, 1); ``fan_in``: N(0, 1) /
-    sqrt(shape[-2]); ``ones``; ``zeros``; drawn in f32, then cast; above
-    ``DRAW_WHOLE_MAX`` elements in slices along axis 0), or takes it from
+    sqrt(shape[-2]) of the unstacked shape; ``ones``; ``zeros``; drawn in
+    f32, then cast; above ``DRAW_WHOLE_MAX`` elements in slices along axis
+    0; ``ssm_a``: Mamba2's A_log, log U[1, 16], kept in f32), or takes it from
     ``state`` by name; records its logical axes. On the ``meta`` device it
     draws nothing: the tensor has a shape and a dtype only."""
 
@@ -193,6 +218,10 @@ class _Factory:
         elif init in ("ones", "zeros"):
             value = (torch.ones if init == "ones" else torch.zeros)(
                 shape, dtype=dtype, device=self.device)
+        elif init == "ssm_a":
+            u = torch.rand(shape, generator=self.generator, dtype=torch.float32,
+                           device=self.device)
+            value = torch.log(u * 15.0 + 1.0).to(dtype)
         else:
             std = 0.02 if init == "normal" else 1.0 / math.sqrt(max(shape[-2], 1))
             value = self._draw(shape, std, dtype)
@@ -238,10 +267,13 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     On ``device="meta"`` the tree has shapes and dtypes only
     (``api.abstract_params``).
     """
+    if cfg.family in ("hybrid", "ssm"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family's parameters come from "
+                         "models/zamba.py or models/xlstm_model.py (api.build_model)")
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and VLM families are ported "
-            "(ROADMAP Queue 1 item 9)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (Whisper; ROADMAP "
+            "Queue 1 item 9)")
     dev = resolve_device(device)
     if generator is None and state is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -403,8 +435,13 @@ def _split(tensors, layer_names) -> List[tuple]:
 class _Remat(torch.autograd.Function):
     """Consecutive layers (``layer_names``: each layer's parameter names, its
     tensors in that order after ``mrope_pos``) that keep only their inputs
-    for the backward: ``jax.checkpoint`` for ``torch.func``. Returns
-    ``(x,)``, or ``(x, aux per layer)`` for the MoE.
+    for the backward: ``jax.checkpoint`` for ``torch.func``. ``layer_fn``
+    makes each layer's function from its names: ``layer_fn(names)(x,
+    positions, mrope_pos, *tensors)`` returns ``(x,)`` or ``(x, aux)``, aux
+    a (1,) tensor (``_layer_fn`` here; Zamba2's and xLSTM's layers in their
+    modules). Returns ``(x,)``, or ``(x, aux per layer)`` when the layers
+    give one (the MoE). A tensor given to several applications (Zamba2's
+    shared block at each of its sites) gets the sum of their gradients.
 
     The backward runs each layer again under ``torch.func.vjp`` and takes
     its vector-Jacobian product. Over several layers (a group of the
@@ -421,24 +458,24 @@ class _Remat(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(cfg, layer_names, x, positions, mrope_pos, *tensors):
+    def forward(layer_fn, layer_names, x, positions, mrope_pos, *tensors):
         auxes = []
         for names, ts in zip(layer_names, _split(tensors, layer_names)):
-            got = _layer_fn(cfg, names)(x, positions, mrope_pos, *ts)
+            got = layer_fn(names)(x, positions, mrope_pos, *ts)
             x = got[0]
             auxes.extend(got[1:])
-        return (x, torch.cat(auxes)) if cfg.is_moe else (x,)
+        return (x, torch.cat(auxes)) if auxes else (x,)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.cfg, ctx.layer_names = inputs[:2]
+        ctx.layer_fn, ctx.layer_names = inputs[:2]
         ctx.save_for_backward(*inputs[2:])
 
     @staticmethod
     def backward(ctx, gx, *gaux):
-        cfg, layer_names = ctx.cfg, ctx.layer_names
+        layer_names = ctx.layer_names
         x, positions, mrope_pos, *tensors = ctx.saved_tensors
-        fns = [_layer_fn(cfg, names) for names in layer_names]
+        fns = [ctx.layer_fn(names) for names in layer_names]
         per_layer = _split(tensors, layer_names)
         inputs = [x]
         with torch.no_grad():
@@ -450,7 +487,7 @@ class _Remat(torch.autograd.Function):
                 return fn(xj, positions, mrope_pos, *ts)
 
             _, vjp_fn = torch.func.vjp(rerun, inputs[j], *per_layer[j])
-            got = vjp_fn((gx, gaux[0][j:j + 1]) if cfg.is_moe else (gx,))
+            got = vjp_fn((gx, gaux[0][j:j + 1]) if gaux else (gx,))
             # torch.func.grad differentiates with create_graph, so this
             # backward is recorded and each op takes the differentiable
             # formula it takes without remat (under no_grad the fused silu
@@ -488,7 +525,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         per = nl // g if g > 1 and nl % g == 0 else 1
         for start in range(0, nl, per):
             group = leaves[start:start + per]
-            got = _Remat.apply(cfg, tuple(tuple(names) for names, _ in group), x, positions,
+            got = _Remat.apply(functools.partial(_layer_fn, cfg),
+                               tuple(tuple(names) for names, _ in group), x, positions,
                                mrope_pos, *(t for _, ts in group for t in ts))
             x = got[0]
             if cfg.is_moe:
@@ -530,15 +568,9 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
-            remat: bool = True) -> torch.Tensor:
-    """Causal LM loss, the mean over the batch's unmasked tokens, plus
-    ``router_aux_weight`` times the MoE aux loss. ``labels`` default to the
-    tokens shifted left and padded with 0, ``mask`` to ones; the batch's
-    ``patch_embeds`` and ``mrope_pos``, when present, go to ``forward``, as
-    does ``remat`` (on by default, as the reference's). A dense model has no
-    router: the reference adds ``router_aux_weight * 0``, which changes no
-    bit, and the port adds nothing."""
+def lm_targets(batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """``(tokens, labels, mask)`` of an LM batch: ``labels`` default to the
+    tokens shifted left and padded with 0, ``mask`` to ones."""
     tokens = batch["tokens"]
     targets = batch.get("labels")
     if targets is None:
@@ -546,6 +578,18 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    return tokens, targets, mask
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
+    """Causal LM loss, the mean over the batch's unmasked tokens
+    (``lm_targets``), plus ``router_aux_weight`` times the MoE aux loss. The
+    batch's ``patch_embeds`` and ``mrope_pos``, when present, go to
+    ``forward``, as does ``remat`` (on by default, as the reference's). A
+    dense model has no router: the reference adds ``router_aux_weight * 0``,
+    which changes no bit, and the port adds nothing."""
+    tokens, targets, mask = lm_targets(batch)
     out = forward(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"),
                   mrope_pos=batch.get("mrope_pos"), remat=remat)
     ce = chunked_xent(cfg, params, out.hidden, targets, mask)

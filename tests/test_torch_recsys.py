@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from repro.models import recsys as jr
 from repro.sharding.logical import is_param, unbox
 
-from repro_torch.convert import _flatten, _is_transformer, params_from_jax
+from repro_torch.convert import _flatten, _is_lm, params_from_jax
 from repro_torch.models import recsys as tr
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -97,7 +97,7 @@ def test_lstm_cells_tuple_round_trip():
         for leaf, value in cell.items():
             np.testing.assert_array_equal(params[f"cells.{i}.{leaf}"].numpy(), value)
     np.testing.assert_array_equal(params["embedding"].numpy(), j_params["embedding"])
-    assert not _is_transformer(_flatten(j_params))
+    assert not _is_lm(_flatten(j_params))
 
 
 def _ref_layout(tree):

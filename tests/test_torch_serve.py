@@ -80,8 +80,8 @@ def test_configs_match_the_reference():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.param_counts() == tc.param_counts()
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_config("zamba2_1_2b")
-    for family in ("hybrid", "ssm", "audio"):
+        get_config("whisper_large_v3")
+    for family in ("audio",):
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             build_model(get_smoke_config(ARCH).replace(family=family))
 
