@@ -267,6 +267,42 @@ Phases, each of which asserts; any failure exits non-zero:
     smoke model's ``make_round_step`` with patches and ``heat_expert`` in
     four modes, card against host within 1e-5, K1 once per
     ``sparse_replicated`` step
+49.-53. Zamba2-1.2B and xLSTM-350M: K3, K4 and K3's backward at Zamba2's
+    attention shape; both served whole (bf16, 4 x 1,024, 32 steps); card
+    against host at 6 / 8 full-width f32 layers; both trained whole in f32
+    (5 rounds, remat); their smoke models' ``sparse_replicated`` steps card
+    against host, step by step
+54. K3 (bf16 and f32) at Whisper large-v3's three attention shapes (H = KV
+    = 20, hd 64): the encoder's 4 x 1,500 frames non-causal, cross-attention
+    of a 224-token prompt to them (Sq 224, Sk 1,500, non-causal) and the
+    decoder's causal 224; K4 (bf16 and f32) at its two decode attentions:
+    the cross-attention cache of 1,500 slots, every one valid (the last
+    tile holds 28), also as the first and the last layer's slice of a
+    stacked (L, ...) cache, and the self-attention cache of 256 slots, full
+    and part-filled; K3's backward (f32, cluster 1) at its training shapes
+    (B 8: 1,500 x 1,500 and 448 x 1,500 non-causal, 448 causal). Each held
+    to its plain version and timed beside it, SDPA (its backward for the
+    backward) and the bound
+55. Whisper large-v3 served whole (32 + 32 layers, 2,020,789,760 parameters,
+    bf16, seed 0) through ``launch.serve``: 4 requests of 1,500 frames from
+    a numpy seed and 224 prompt tokens, 32 greedy steps; K3 96 launches a
+    prefill (32 layers x 3 uses), K4 64 a step; the prefill split into the
+    encoder and the decoder, ms per step and tok/s, peak memory; the step
+    against its read bound (the decoder's weights but cross-attention's
+    ``wk`` and ``wv``, ``lm_head``, the cross-attention cache and the
+    self-attention cache's valid slots), device ops and the busy share
+56. card against host: 2 encoder and 2 decoder layers at full width, f32,
+    1 x 1,500 frames, a 64-token prompt and 8 steps; logits within 1e-4,
+    greedy tokens identical
+57. Whisper large-v3 trained whole in f32 with remat through
+    ``launch.train.train``: ``make_lm_federated(256 clients, 448 tokens,
+    zipf 1.3)``, cohort 8, lr 0.05, 5 rounds, each with frames (8, 1,500,
+    1,280) from a numpy seed; K3 192 launches a round (each of its 96 uses
+    twice: the forward and remat's recompute), its backward 96, K1 none;
+    losses finite; ms per round and the peak
+58. the Whisper smoke model's ``make_round_step`` with frames under
+    ``fedsgd`` and ``sparse_replicated``, card against host step by step
+    as [53] (b); K1 once per ``sparse_replicated`` step
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -277,7 +313,9 @@ mesh's partial and union combine; K3's its launches on the training path
 and its times at the training shape; K3-backward's entry its launches on
 [35] and its share of a round; three rows more for [40]'s K3 and K4 and
 K3's backward at Mixtral's training shape; seven for [45]'s and [46]'s K3
-and K4 and [44]'s three backward shapes), the card line and, last,
+and K4 and [44]'s three backward shapes; three for [50]'s and [53]'s; eight
+for Whisper's three K3 shapes, two K4 shapes and three backward shapes),
+the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -326,6 +364,7 @@ from repro_torch.federated.server import FederatedTrainer  # noqa: E402
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, _rows  # noqa: E402
 from repro_torch.kernels.flash_attention import (FlashAttention,  # noqa: E402
+                                                 FlashAttentionBackward,
                                                  bwd_cluster, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_torch,
@@ -336,7 +375,7 @@ from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch  #
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models import zamba  # noqa: E402
+from repro_torch.models import whisper, zamba  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import cache_slot_positions  # noqa: E402
 from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
@@ -1421,7 +1460,7 @@ def matmul_us(by_name: dict) -> float:
 
 def phase_prefill_profile(params, prefill_ms: float, cfg=None, batch: int = SERVE_BATCH,
                           prompt: int = SERVE_PROMPT, inputs: dict | None = None,
-                          label: str = "[10]") -> dict:
+                          label: str = "[10]", k3_launches: int | None = None) -> dict:
     """Where one prefill's time goes at a serving shape (by default [10]'s):
     device time by op over one warm prefill of ``batch`` x ``prompt`` tokens
     (and ``inputs``' patches and streams; torch.profiler), K3's total over
@@ -1445,16 +1484,17 @@ def phase_prefill_profile(params, prefill_ms: float, cfg=None, batch: int = SERV
     device_ms = sum(by_name.values()) / 1e3
     k3 = [t for name, t in by_name.items() if "attention_kernel" in name]
     k3_ms = sum(k3) / 1e3
+    n3 = cfg.num_layers if k3_launches is None else k3_launches
     gemm_ms = matmul_us(by_name) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {"prefill_ms": prefill_ms, "device_ms": device_ms, "device_ops": ops,
-           "k3_ms": k3_ms, "k3_ms_per_launch": k3_ms / cfg.num_layers,
+           "k3_ms": k3_ms, "k3_ms_per_launch": k3_ms / n3,
            "matmul_ms": gemm_ms, "other_ms": device_ms - k3_ms - gemm_ms,
            "busy_share": device_ms / prefill_ms if prefill_ms else None}
     print(f"  prefill {batch} x {prompt}: {prefill_ms:.1f} ms (host clock, {label}); "
           f"device busy {device_ms:.2f} ms ({device_ms / prefill_ms * 100:.1f}%), {ops} "
           f"device ops; matmuls {gemm_ms:.2f} ms, K3 {k3_ms:.3f} ms "
-          f"({k3_ms / cfg.num_layers * 1e3:.1f} us x {cfg.num_layers}), the rest "
+          f"({k3_ms / n3 * 1e3:.1f} us x {n3}), the rest "
           f"{out['other_ms']:.2f} ms")
     for name, t in top:
         print(f"    {t / 1e3:.4f} ms  {name[:90]}")
@@ -2835,13 +2875,15 @@ def phase_lm_card_vs_host() -> dict:
         check(loss_err <= LM_HOST_TOL * max(1.0, abs(rh.losses[0])),
               f"{label}: card and host losses differ by {loss_err}")
         err, upd = 0.0, {}
+        # compared on the card: the same f32 arithmetic, and the (152,064,
+        # 5,120) tables take seconds per elementwise pass on the host
         for name, want in rh.params.items():
-            got = rc.params[name].cpu()
-            err = max(err, float((got - want).abs().max()))
+            got, want, before = rc.params[name], want.to(DEV), p0[name].to(DEV)
+            diff = float((got - want).abs().max())
+            err = max(err, diff)
             check(torch.allclose(got, want, rtol=LM_HOST_TOL, atol=LM_HOST_TOL),
-                  f"{label}: {name} differs between card and host by "
-                  f"{float((got - want).abs().max())}")
-            d_host, d_card = want - p0[name], got - p0[name]
+                  f"{label}: {name} differs between card and host by {diff}")
+            d_host, d_card = want - before, got - before
             norm = float(torch.linalg.vector_norm(d_host))
             rel = (float(torch.linalg.vector_norm(d_card - d_host)) / norm if norm
                    else (0.0 if not d_card.any() else math.inf))
@@ -3028,41 +3070,44 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
             "round_matmul_tflop": mm_flops / 1e12}
 
 
-def train_attention_timing(shape, seed: int, label: str) -> tuple:
+def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
+                           causal: bool = True) -> tuple:
     """K3 and its backward at a training shape ``(B, S, H, KV, hd)``, f32,
-    causal, on random inputs from ``seed``: each first held to its plain
-    version there, then timed by CUDA events beside their plain versions,
-    SDPA (its backward: autograd of ``scaled_dot_product_attention``, its
-    forward subtracted) and the bound. Returns K3's and its backward's
-    numbers."""
+    causal (or, with ``causal=False``, not; ``sk`` keys where it is given),
+    on random inputs from ``seed``: each first held to its plain version
+    there, then timed by CUDA events beside their plain versions, SDPA (its
+    backward: autograd of ``scaled_dot_product_attention``, its forward
+    subtracted) and the bound. Returns K3's and its backward's numbers."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(seed)
     b, s, h, kvh, hd = shape
+    sk = s if sk is None else sk
     dtype = torch.float32
-    q, k, v = normal(rng, (b, s, h, hd), dtype), normal(rng, (b, s, kvh, hd), dtype), normal(
-        rng, (b, s, kvh, hd), dtype)
-    o, lse = flash_attention(q, k, v, return_lse=True)
-    o_plain, lse_plain = flash_attention_torch(q, k, v, return_lse=True)
+    q, k, v = normal(rng, (b, s, h, hd), dtype), normal(rng, (b, sk, kvh, hd), dtype), normal(
+        rng, (b, sk, kvh, hd), dtype)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_plain, lse_plain = flash_attention_torch(q, k, v, causal=causal, return_lse=True)
     err_fwd = max(compare(f"flash_attention[{label}]", o, o_plain, dtype),
                   compare_lse(f"flash_attention lse[{label}]", lse, lse_plain, dtype))
+    del o_plain, lse_plain
     do = normal(rng, o.shape, dtype)
     err_bwd = compare_grads(f"flash_attention_bwd[{label}]",
-                            flash_attention_bwd(q, k, v, o, do, lse=lse),
-                            flash_attention_bwd_torch(q, k, v, o, do), dtype)
+                            flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse),
+                            flash_attention_bwd_torch(q, k, v, o, do, causal=causal), dtype)
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
     vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous().requires_grad_()
     dot = do.transpose(1, 2).contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
-    fwd = lambda: flash_attention(q, k, v)                                  # noqa: E731
-    fwd_plain = lambda: flash_attention_torch(q, k, v)                      # noqa: E731
-    bwd = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse)              # noqa: E731
-    bwd_plain = lambda: flash_attention_bwd_torch(q, k, v, o, do)           # noqa: E731
+    fwd = lambda: flash_attention(q, k, v, causal=causal)                   # noqa: E731
+    fwd_plain = lambda: flash_attention_torch(q, k, v, causal=causal)       # noqa: E731
+    bwd = lambda: flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)  # noqa: E731
+    bwd_plain = lambda: flash_attention_bwd_torch(q, k, v, o, do, causal=causal)  # noqa: E731
     with torch.no_grad():
         f_p1, f1, f2, f_p2 = (cuda_ms(fwd_plain, 5, 1), cuda_ms(fwd, 20), cuda_ms(fwd, 20),
                               cuda_ms(fwd_plain, 5, 1))
@@ -3070,8 +3115,8 @@ def train_attention_timing(shape, seed: int, label: str) -> tuple:
     b_p1, b1, b2, b_p2 = (cuda_ms(bwd_plain, 5, 1), cuda_ms(bwd, 20), cuda_ms(bwd, 20),
                           cuda_ms(bwd_plain, 5, 1))
     b_lib = cuda_ms(sdpa_fwd_bwd, 20) - f_lib
-    pairs = s * (s + 1) // 2
-    fbytes, fops = attention_work(b, s, h, kvh, hd, s, pairs, dtype)
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    fbytes, fops = attention_work(b, s, h, kvh, hd, sk, pairs, dtype)
     f_bound, f_by = attention_bound(fbytes, fops, dtype)
     # the gradient reads q, k, v, o, dout and lse and writes dq, dk and dv:
     # twice the forward's bytes and the lse; five products per valid pair:
@@ -3082,7 +3127,9 @@ def train_attention_timing(shape, seed: int, label: str) -> tuple:
     b_route = max(b_bytes / HBM_BYTES_PER_S, 3 * b_ops / TF32_OPS_PER_S) * 1e3
     b_route_by = "bytes" if b_bytes / HBM_BYTES_PER_S >= 3 * b_ops / TF32_OPS_PER_S \
         else "operations"
-    print(f"  K3 at the {label} B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} causal: "
+    mask = "causal" if causal else "non-causal"
+    print(f"  K3 at the {label} B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} KV={kvh} "
+          f"hd={hd} {dtype} {mask}: "
           f"max_abs_err {err_fwd:.3g}; kernel {f1:.4f}/{f2:.4f} ms, plain {f_p1:.4f}/"
           f"{f_p2:.4f} ms, SDPA {f_lib:.4f} ms, "
           f"bound {f_bound:.5f} ms ({f_by})")
@@ -3092,10 +3139,13 @@ def train_attention_timing(shape, seed: int, label: str) -> tuple:
           f"({b_route_by}; 3xTF32 at {TF32_OPS_PER_S / 3e12:.0f} TFLOP/s effective, "
           f"{b_bytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {b_bound:.5f} ms on "
           f"the f32 CUDA cores ({b_by}; {OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s)")
-    return ({"shape": [b, s, h, kvh, hd], "dtype": "float32", "ms": min(f1, f2),
+    shape_key = {"shape": [b, s, h, kvh, hd]}
+    if sk != s or not causal:
+        shape_key.update(sk=sk, causal=causal)
+    return ({**shape_key, "dtype": "float32", "ms": min(f1, f2),
              "plain_ms": min(f_p1, f_p2), "library_ms": f_lib, "bound_ms": f_bound,
              "bound_by": f_by, "max_abs_err": err_fwd},
-            {"shape": [b, s, h, kvh, hd], "max_abs_err": err_bwd, "ms": min(b1, b2),
+            {**shape_key, "max_abs_err": err_bwd, "ms": min(b1, b2),
              "plain_ms": min(b_p1, b_p2), "bound_ms": b_bound, "bound_by": b_by,
              "bound_ms_route": b_route, "bound_by_route": b_route_by, "library_ms": b_lib})
 
@@ -3523,9 +3573,17 @@ def phase_moe_training() -> dict:
 
 def uncounted_params(cfg) -> int:
     """The parameters the reference's ``param_counts`` leaves out of its
-    total, which its tree holds: the final norm, QKV biases and QK norms."""
+    total, which its tree holds: the final norm, QKV biases and QK norms;
+    for Whisper, the decoder's cross-attention and its norm, the biases of
+    every attention's ``wq``, ``wv`` and ``wo``, and the encoder's final
+    norm (``tests/test_torch_configs.py::_uncounted``)."""
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     per_layer = (q + 2 * kv) * cfg.qkv_bias + 2 * cfg.head_dim * cfg.qk_norm
+    if cfg.family == "audio":
+        d = cfg.d_model
+        biases = q + kv + d
+        per_layer = 2 * d * q + 2 * d * kv + d + 2 * biases
+        return 2 * d + cfg.num_layers * per_layer + cfg.encoder_layers * biases
     return cfg.d_model + cfg.num_layers * per_layer
 
 
@@ -3583,9 +3641,10 @@ def phase_dense_configs() -> dict:
         total, extra = cfg.param_counts()["total"], uncounted_params(cfg)
         check(n == total + extra, f"{arch}: abstract_params holds {n} parameters, "
               f"param_counts {total} + {extra} uncounted")
+        left_out = ("cross-attention, its norms, the attention biases, the final norms"
+                    if cfg.family == "audio" else "final norm, QKV biases, QK norms")
         print(f"  abstract_params {arch}: {cfg.num_layers} layers, {n} parameters on meta = "
-              f"param_counts()['total'] {total} + {extra} it leaves out (final norm, QKV "
-              "biases, QK norms)")
+              f"param_counts()['total'] {total} + {extra} it leaves out ({left_out})")
     return out
 
 
@@ -3657,11 +3716,12 @@ L4_HOST_TOL = 1e-5
 #: [48] (a): Qwen2-VL at its published widths in f32, 4 layers, cohort 4 at
 #: seq 2,048 (each sequence opens with the 32 x 32 image), 3 rounds per remat
 #: setting; then the deepest depth a round trains at, 4 tries per setting,
-#: the first at the depth one round was seen to train at on an H100 80GB
-#: (5 layers without remat, 22 with)
+#: the first at the deepest depth one round was seen to train at on an H100
+#: 80GB (5 layers without remat, 23 with: PRs 23 and 25), so that two tries
+#: settle it there
 VLM_TRAIN_LAYERS, VLM_TRAIN_ROUNDS, VLM_DEPTH_TRIES = 4, 3, 4
 VLM_TRAIN = dict(clients=64, cohort=4, seq=2048, zipf_a=1.3)
-VLM_DEPTH_GUESS = {False: 5, True: 22}
+VLM_DEPTH_GUESS = {False: 5, True: 23}
 #: [48] (b): microbatches 2 against 1, the reference test's tolerances
 VLM_MB_TOL = dict(rtol=2e-4, atol=2e-5)
 #: [44]'s K3 cases (name, B, S, H, KV) at the two prefills, bf16
@@ -3969,7 +4029,7 @@ def vlm_round_fits(layers: int, remat: bool) -> tuple:
 def deepest_depth(remat: bool) -> dict:
     """The deepest Qwen2-VL depth at which one round trains, in at most
     ``VLM_DEPTH_TRIES`` tries from ``VLM_DEPTH_GUESS`` (the known fit is
-    ``VLM_TRAIN_LAYERS``): two layers up while it fits, then halving the
+    ``VLM_TRAIN_LAYERS``): one layer up while it fits, then halving the
     gap."""
     lo, hi, tries = VLM_TRAIN_LAYERS, None, []
     cand = VLM_DEPTH_GUESS[remat]
@@ -3985,7 +4045,7 @@ def deepest_depth(remat: bool) -> dict:
             hi = cand if hi is None else min(hi, cand)
         if hi is not None and hi - lo <= 1:
             break
-        cand = (lo + hi) // 2 if hi is not None else cand + 2
+        cand = (lo + hi) // 2 if hi is not None else cand + 1
     return {"deepest_trained": lo, "shallowest_refused": hi, "tries": tries}
 
 
@@ -4435,68 +4495,88 @@ def phase_rec_training() -> dict:
         del res
     torch.cuda.empty_cache()
 
-    steps, cohort, clients = 3, 4, 64
     out["k1_err"] = 0.0
     for arch in (ZAMBA_ARCH, XLSTM_ARCH):
-        cfg = get_smoke_config(arch).replace(dtype="float32")
-        ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=64,
-                               samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
-        batches = lm_step_batches(ds, cohort, steps, stacked=True)
-        params, axes = lm_params(cfg, DEV)
-        api = build_model(cfg)
-        fed = FedConfig(num_clients=clients, clients_per_round=cohort, local_iters=2,
-                        lr=LM_LR, algorithm="fedsubavg")
-        card_step = make_round_step(api.loss, params, axes, fed, mode="sparse_replicated")
-        host_step = make_round_step(api.loss, {k: v.cpu() for k, v in params.items()}, axes,
-                                    fed, mode="sparse_replicated")
-        captured, losses, lines = {}, [], []
-        lm_zero_counts()
-        for i, b in enumerate(batches):
-            before = {k: v.to("cpu", copy=True) for k, v in params.items()}
-            hb = {k: torch.from_numpy(v) for k, v in b.items()}
-            with capture_k1(captured):
-                params, m = card_step(params, {k: v.to(DEV) for k, v in hb.items()})
-            launches = lm_counts()
-            h_params, hm = host_step({k: v.clone() for k, v in before.items()}, hb)
-            spread = host_spread(host_step, before, h_params, hb)
-            check(lm_counts() == launches, f"[53] (b) {arch}: the host step launched a kernel")
-            losses.append(float(m["loss"]))
-            check(math.isclose(losses[-1], float(hm["loss"]), rel_tol=LM_STEP_TOL,
-                               abs_tol=LM_STEP_TOL),
-                  f"[53] (b) {arch}: card loss {losses[-1]} against host {float(hm['loss'])}")
-            step_err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
-            check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=0, atol=LM_STEP_TOL
-                                     + LM_UPDATE_TOL * float((h_params[k] - before[k]).abs().max()))
-                      for k in h_params),
-                  f"[53] (b) {arch} step {i}: card and host parameters differ by {step_err}, "
-                  f"the host's own spread {spread}")
-            # the mLSTM's input-gate bias has an exact gradient of 0 (the
-            # stabilised cell is invariant to a per-head shift of log i): its
-            # update is rounding noise on either side, held by the parameters
-            upd = max(float(torch.linalg.vector_norm((params[k].cpu() - h_params[k]).double())
-                            / torch.linalg.vector_norm((h_params[k] - before[k]).double())
-                            .clamp(min=1e-30)) for k in h_params
-                      if not (torch.equal(h_params[k], before[k]) or k.endswith(".b_i")))
-            check(upd <= LM_UPDATE_TOL, f"[53] (b) {arch} step {i}: an update differs by {upd} "
-                  "in relative norm")
-            lines.append(f"step {i}: |param diff| {step_err:.3g} (host's own spread "
-                         f"{spread:.3g}), update {upd:.3g} in relative norm")
-        check(launches["union_segsum"] == steps,
-              f"[53] (b) {arch}: K1 launched {launches['union_segsum']} times in {steps} steps")
+        got = smoke_steps_card_vs_host(get_smoke_config(arch).replace(dtype="float32"),
+                                       "sparse_replicated", "[53] (b)")
+        out["k1_err"] = max(out["k1_err"], got["k1_err"])
+        out[f"{arch} smoke"] = {"launches": got["launches"]}
+    return out
+
+
+def smoke_steps_card_vs_host(cfg, mode: str, label: str, extra=None, steps: int = 3,
+                             cohort: int = 4, clients: int = 64) -> dict:
+    """``make_round_step`` in ``mode`` on ``cfg`` (a smoke config, f32), card
+    against host step by step ([53] (b)): each host step starts from the
+    card's parameters before that step; the loss within ``LM_STEP_TOL``,
+    each leaf's update within ``LM_UPDATE_TOL`` in relative norm and each
+    parameter within ``LM_STEP_TOL`` plus ``LM_UPDATE_TOL`` of the leaf's
+    largest update element. ``extra(lead)`` gives numpy leaves to add to a
+    batch whose tokens lead with the axes ``lead``. On a ``sparse`` mode K1
+    once a step, held to its plain version on the last step's inputs; on a
+    dense one none. Returns the launches and K1's error."""
+    ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=64,
+                           samples_per_client=4, zipf_a=LM_CORPUS["zipf_a"])
+    batches = lm_step_batches(ds, cohort, steps, stacked=mode != "fedsgd")
+    for b in batches:
+        b.update(extra(b["tokens"].shape[:-1]) if extra else {})
+    params, axes = lm_params(cfg, DEV)
+    api = build_model(cfg)
+    fed = FedConfig(num_clients=clients, clients_per_round=cohort, local_iters=2,
+                    lr=LM_LR, algorithm="fedsubavg")
+    card_step = make_round_step(api.loss, params, axes, fed, mode=mode)
+    host_step = make_round_step(api.loss, {k: v.cpu() for k, v in params.items()}, axes,
+                                fed, mode=mode)
+    captured, losses, lines = {}, [], []
+    lm_zero_counts()
+    for i, b in enumerate(batches):
+        before = {k: v.to("cpu", copy=True) for k, v in params.items()}
+        hb = {k: torch.from_numpy(v) for k, v in b.items()}
+        with capture_k1(captured):
+            params, m = card_step(params, {k: v.to(DEV) for k, v in hb.items()})
+        launches = lm_counts()
+        h_params, hm = host_step({k: v.clone() for k, v in before.items()}, hb)
+        spread = host_spread(host_step, before, h_params, hb)
+        check(lm_counts() == launches, f"{label} {cfg.name}: the host step launched a kernel")
+        losses.append(float(m["loss"]))
+        check(math.isclose(losses[-1], float(hm["loss"]), rel_tol=LM_STEP_TOL,
+                           abs_tol=LM_STEP_TOL),
+              f"{label} {cfg.name}: card loss {losses[-1]} against host {float(hm['loss'])}")
+        step_err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
+        check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=0, atol=LM_STEP_TOL
+                                 + LM_UPDATE_TOL * float((h_params[k] - before[k]).abs().max()))
+                  for k in h_params),
+              f"{label} {cfg.name} step {i}: card and host parameters differ by {step_err}, "
+              f"the host's own spread {spread}")
+        # the mLSTM's input-gate bias has an exact gradient of 0 (the
+        # stabilised cell is invariant to a per-head shift of log i): its
+        # update is rounding noise on either side, held by the parameters
+        upd = max(float(torch.linalg.vector_norm((params[k].cpu() - h_params[k]).double())
+                        / torch.linalg.vector_norm((h_params[k] - before[k]).double())
+                        .clamp(min=1e-30)) for k in h_params
+                  if not (torch.equal(h_params[k], before[k]) or k.endswith(".b_i")))
+        check(upd <= LM_UPDATE_TOL, f"{label} {cfg.name} step {i}: an update differs by {upd} "
+              "in relative norm")
+        lines.append(f"step {i}: |param diff| {step_err:.3g} (host's own spread "
+                     f"{spread:.3g}), update {upd:.3g} in relative norm")
+    sparse = "sparse" in mode
+    check(launches["union_segsum"] == (steps if sparse else 0),
+          f"{label} {cfg.name}: K1 launched {launches['union_segsum']} times in {steps} steps")
+    k1_err, k1_line = 0.0, "no K1"
+    if sparse:
         args = captured["args"]
         ids, v = args[0], args[5]
         union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
-        k1_err = check_k1(f"union_segsum[{arch} smoke sparse_replicated step]", args,
+        k1_err = check_k1(f"union_segsum[{cfg.name} {mode} step]", args,
                           captured["kw"]["scale"], union)
-        out["k1_err"] = max(out["k1_err"], k1_err)
-        print(f"  (b) {cfg.name} sparse_replicated, {steps} steps: loss "
-              f"{[round(x, 4) for x in losses]}, launches {launches}; K1 at the last step V={v} "
-              f"T={ids.numel()} union={union} max_abs_err={k1_err:.3g}; card against host, "
-              f"step by step (parameters within {LM_STEP_TOL} + {LM_UPDATE_TOL} of the update, "
-              f"updates within {LM_UPDATE_TOL} in relative norm): " + "; ".join(lines))
-        out[f"{arch} smoke"] = {"launches": launches}
-        del params, h_params
-    return out
+        k1_line = f"K1 at the last step V={v} T={ids.numel()} union={union} " \
+                  f"max_abs_err={k1_err:.3g}"
+    print(f"  {label} {cfg.name} {mode}, {steps} steps: loss "
+          f"{[round(x, 4) for x in losses]}, launches {launches}; {k1_line}; card against "
+          f"host, step by step (parameters within {LM_STEP_TOL} + {LM_UPDATE_TOL} of the "
+          f"update, updates within {LM_UPDATE_TOL} in relative norm): " + "; ".join(lines))
+    del params, h_params
+    return {"launches": launches, "k1_err": k1_err}
 
 
 def phase_rec_slice(kernels: list, rng) -> list:
@@ -4550,6 +4630,471 @@ def phase_rec_slice(kernels: list, rng) -> list:
                  "launches": trained[ZAMBA_ARCH]["launches"]["flash_attention_bwd"],
                  **shapes["bwd_timed"]})
     print(f"  [53] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# [54]-[58]: Whisper large-v3, served and trained
+# ---------------------------------------------------------------------------
+
+WH_ARCH = "whisper_large_v3"
+#: [55]: the whole model in bf16, weights from seed ``SEED``; 4 requests of
+#: 30 s of audio (1,500 frames) and a 224-token prompt (half the decoder's
+#: 448-token context, the longest previous-text prompt Whisper's decoding
+#: takes), then 32 greedy steps
+WH_BATCH, WH_PROMPT, WH_GEN = 4, 224, 32
+WH_PARAMS = 2_020_789_760
+#: [54]'s K3 cases at [55]'s prefill (name, B, Sq, Sk, causal), H = KV = 20,
+#: hd 64: the encoder, cross-attention to the frames, the decoder
+WH_K3_CASES = (("whisper encoder", WH_BATCH, 1500, 1500, False),
+               ("whisper cross-attention", WH_BATCH, WH_PROMPT, 1500, False),
+               ("whisper decoder", WH_BATCH, WH_PROMPT, WH_PROMPT, True))
+#: [54]'s K4 cases at [55]'s last step (name, B, slots): the self-attention
+#: cache, every slot written, and the frames' cache, every slot valid
+WH_K4_CASES = (("whisper self step", WH_BATCH, WH_PROMPT + WH_GEN),
+               ("whisper cross step", WH_BATCH, 1500))
+#: [57]: the corpus, cohort and rounds; [54]'s backward cases at its shapes
+#: (name, Sq, Sk, causal), B = the cohort
+WH_TRAIN = dict(clients=256, cohort=8, seq=448, zipf_a=1.3)
+WH_TRAIN_ROUNDS = 5
+WH_BWD_CASES = (("whisper encoder training", 1500, 1500, False),
+                ("whisper cross-attention training", WH_TRAIN["seq"], 1500, False),
+                ("whisper decoder training", WH_TRAIN["seq"], WH_TRAIN["seq"], True))
+#: [56]: layers on each side, prompt, steps; [11]'s bound
+WH_HOST_LAYERS, WH_HOST_PROMPT, WH_HOST_GEN, WH_HOST_TOL = 2, 64, 8, 1e-4
+
+
+@contextlib.contextmanager
+def attention_tally():
+    """Counts the calls that reach K3, its backward and K4 while it is open,
+    by shape: ``("k3" | "bwd", Sq, Sk, causal)`` and ``("k4", slots)``. On
+    the card each such call launches its kernel; the kernels' own counters
+    are untouched. The wrappers are ``FlashAttention``'s and
+    ``FlashAttentionBackward``'s forwards and ``layers``' name for K4, as
+    ``capture_attention_inputs`` wraps them."""
+    tally: dict = {}
+    k3_forward, bwd_forward = FlashAttention.forward, FlashAttentionBackward.forward
+
+    def add(key):
+        tally[key] = tally.get(key, 0) + 1
+
+    def count_k3(q, k, v, causal, window, q_offset, query_chunk, kv_chunk, need_lse=True):
+        add(("k3", q.shape[1], k.shape[1], bool(causal)))
+        return k3_forward(q, k, v, causal, window, q_offset, query_chunk, kv_chunk, need_lse)
+
+    def count_bwd(q, k, v, out, dout, lse, causal, window, q_offset):
+        add(("bwd", q.shape[1], k.shape[1], bool(causal)))
+        return bwd_forward(q, k, v, out, dout, lse, causal, window, q_offset)
+
+    def count_k4(q, k_cache, *args, **kw):
+        add(("k4", k_cache.shape[2]))
+        return flash_decode(q, k_cache, *args, **kw)
+
+    FlashAttention.forward = staticmethod(count_k3)
+    FlashAttentionBackward.forward = staticmethod(count_bwd)
+    layers_mod.flash_decode = count_k4
+    try:
+        yield tally
+    finally:
+        FlashAttention.forward = staticmethod(k3_forward)
+        FlashAttentionBackward.forward = staticmethod(bwd_forward)
+        layers_mod.flash_decode = flash_decode
+
+
+def wh_frames(cfg, batch: int, seed: int = SEED) -> torch.Tensor:
+    """Frame embeddings ``(batch, encoder_seq, d)``, N(0, 1) from a numpy
+    seed, in the model's dtype, on the card."""
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(x).to(DEV, transformer.model_dtype(cfg))
+
+
+def wh_k3_timing(q, k, v, causal: bool, name: str) -> dict:
+    """K3 on ``q, k, v`` held to its plain version, then timed by CUDA
+    events beside it (plain, kernel, kernel, plain), SDPA on the same
+    inputs (heads laid out and repeated outside the timed call) and the
+    bound over the valid (query, key) pairs."""
+    import torch.nn.functional as F
+
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    err = compare(f"flash_attention[{name}]", flash_attention(q, k, v, causal=causal).float(),
+                  flash_attention_torch(q, k, v, causal=causal).float(), q.dtype)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
+    k3 = lambda: flash_attention(q, k, v, causal=causal)                      # noqa: E731
+    plain = lambda: flash_attention_torch(q, k, v, causal=causal)             # noqa: E731
+    p1, m1, m2, p2 = cuda_ms(plain, 3, 1), cuda_ms(k3, 20), cuda_ms(k3, 20), cuda_ms(plain, 3, 1)
+    lib_ms = cuda_ms(lib, 20)
+    backend = sdpa_backend(lib)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    nbytes, ops = attention_work(b, sq, h, kvh, hd, sk, pairs, q.dtype)
+    bound_ms, by = attention_bound(nbytes, ops, q.dtype)
+    ms = min(m1, m2)
+    print(f"  K3 {name} B={b} Sq={sq} Sk={sk} H={h} KV={kvh} hd={hd} {q.dtype} "
+          f"{'causal' if causal else 'non-causal'}: max_abs_err {err:.3g}; kernel {m1:.4f}/"
+          f"{m2:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {p1:.4f}/{p2:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms ({backend}; {ops / lib_ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.5f} "
+          f"ms ({by})")
+    return {"shape": [b, sq, sk, h, kvh, hd], "causal": causal, "dtype": str(q.dtype),
+            "max_abs_err": err, "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "library": f"SDPA, {backend}"}
+
+
+def wh_k4_timing(q, kc, vc, kpos, qpos: int, name: str) -> dict:
+    """K4 held to its plain version, then timed as ``wh_k3_timing`` times
+    K3, beside SDPA with the slots' mask; the bound reads q and the valid
+    slots' K and V once and writes the output."""
+    import torch.nn.functional as F
+
+    b, h, hd = q.shape
+    kvh = kc.shape[1]
+    valid = (kpos >= 0) & (kpos <= qpos)
+    n_valid = int(valid.sum())
+    err = compare(f"flash_decode[{name}]", flash_decode(q, kc, vc, kpos, qpos).float(),
+                  flash_decode_torch(q, kc, vc, kpos, qpos).float(), q.dtype)
+    g = h // kvh
+    q4, kct, vct = q[:, :, None], kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
+    mask = valid[None, None, None]
+    lib = lambda: F.scaled_dot_product_attention(q4, kct, vct, attn_mask=mask)  # noqa: E731
+    k4 = lambda: flash_decode(q, kc, vc, kpos, qpos)                           # noqa: E731
+    plain = lambda: flash_decode_torch(q, kc, vc, kpos, qpos)                  # noqa: E731
+    o1, n1, n2, o2 = cuda_ms(plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(plain)
+    lib_ms = cuda_ms(lib)
+    backend = sdpa_backend(lib)
+    nbytes, ops = attention_work(b, 1, h, kvh, hd, n_valid, n_valid, q.dtype,
+                                 extra_bytes=4 * kpos.numel())
+    bound_ms, by = attention_bound(nbytes, ops, q.dtype)
+    ms = min(n1, n2)
+    print(f"  K4 {name} B={b} H={h} KV={kvh} S={kc.shape[2]} valid={n_valid} hd={hd} "
+          f"{q.dtype}: max_abs_err {err:.3g}; kernel {n1:.4f}/{n2:.4f} ms ({nbytes / ms / 1e9:.2f} "
+          f"TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA {lib_ms:.4f} ms ({backend}; "
+          f"{nbytes / lib_ms / 1e9:.2f} TB/s), bound {bound_ms:.5f} ms ({by})")
+    return {"shape": [b, h, kvh, kc.shape[2], hd], "valid": n_valid, "dtype": str(q.dtype),
+            "max_abs_err": err, "ms": ms, "plain_ms": min(o1, o2), "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "library": f"SDPA, {backend}"}
+
+
+def phase_wh_shapes(rng) -> dict:
+    """[54] K3, K4 and K3's backward at Whisper's shapes against their plain
+    versions: each K3 and K4 case in bf16 (timed: [55]'s dtype) and f32; K4
+    also on the first and the last layer's slice of a stacked cache (the
+    last one's end is the allocation's: a tile past it must not be read
+    from outside) and on a part-filled self-attention cache; the backward
+    in f32 at cluster 1 (a GQA group of 1), timed beside SDPA's. Returns the
+    worst errors and the timings by case name."""
+    worst = {"k3": 0.0, "k4": 0.0, "bwd": 0.0}
+    timed = {}
+    h = kv = 20
+    hd = 64
+    for name, b, sq, sk, causal in WH_K3_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal(rng, (b, sq, h, hd), dtype)
+            k, v = normal(rng, (b, sk, kv, hd), dtype), normal(rng, (b, sk, kv, hd), dtype)
+            if dtype == torch.bfloat16:
+                timed[name] = wh_k3_timing(q, k, v, causal, name)
+                err = timed[name]["max_abs_err"]
+            else:
+                err = compare(f"flash_attention[{name}, f32]",
+                              flash_attention(q, k, v, causal=causal),
+                              flash_attention_torch(q, k, v, causal=causal), dtype)
+                print(f"  K3 {name} B={b} Sq={sq} Sk={sk} H=KV={h} hd={hd} {dtype} "
+                      f"{'causal' if causal else 'non-causal'}: max_abs_err {err:.3g}")
+            worst["k3"] = max(worst["k3"], err)
+            del q, k, v
+    for name, b, slots in WH_K4_CASES:
+        full = cache_slot_positions(slots, slots, False, DEV)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal(rng, (b, h, hd), dtype)
+            kc, vc = normal(rng, (b, kv, slots, hd), dtype), normal(rng, (b, kv, slots, hd), dtype)
+            if dtype == torch.bfloat16:
+                timed[name] = wh_k4_timing(q, kc, vc, full, slots - 1, name)
+                err = timed[name]["max_abs_err"]
+            else:
+                err = compare(f"flash_decode[{name}, f32]",
+                              flash_decode(q, kc, vc, full, slots - 1),
+                              flash_decode_torch(q, kc, vc, full, slots - 1), dtype)
+                print(f"  K4 {name} B={b} H=KV={h} S={slots} hd={hd} {dtype}: max_abs_err "
+                      f"{err:.3g}")
+            worst["k4"] = max(worst["k4"], err)
+            # the first and the last layer of a stacked (L, B, KV, S, hd) cache
+            kst, vst = (normal(rng, (2, b, kv, slots, hd), dtype) for _ in range(2))
+            for layer in (0, 1):
+                err = compare(f"flash_decode[{name}, layer {layer} of 2, {dtype}]",
+                              flash_decode(q, kst[layer], vst[layer], full, slots - 1).float(),
+                              flash_decode_torch(q, kst[layer], vst[layer], full,
+                                                 slots - 1).float(), dtype)
+                worst["k4"] = max(worst["k4"], err)
+            # a part-filled cache: the self-attention cache mid-decode
+            part = cache_slot_positions(slots - 27, slots, False, DEV)
+            err = compare(f"flash_decode[{name}, {slots - 27} of {slots} slots, {dtype}]",
+                          flash_decode(q, kc, vc, part, slots - 28).float(),
+                          flash_decode_torch(q, kc, vc, part, slots - 28).float(), dtype)
+            worst["k4"] = max(worst["k4"], err)
+            print(f"  K4 {name} {dtype}: layers 0 and 1 of a stacked cache and {slots - 27} "
+                  f"of {slots} slots filled agree with the plain version (worst "
+                  f"{worst['k4']:.3g})")
+            del q, kc, vc, kst, vst
+    for name, sq, sk, causal in WH_BWD_CASES:
+        cluster = bwd_cluster(h, kv)
+        check(cluster == 1, f"{name}: cluster {cluster}, want 1 (a GQA group of 1)")
+        fwd, bwd = train_attention_timing((WH_TRAIN["cohort"], sq, h, kv, hd), SEED + 54, name,
+                                          sk=sk, causal=causal)
+        worst["k3"] = max(worst["k3"], fwd["max_abs_err"])
+        worst["bwd"] = max(worst["bwd"], bwd["max_abs_err"])
+        timed[name] = bwd
+    return {**worst, "timed": timed}
+
+
+def wh_step_bytes(cfg, params, batch: int, prompt: int, gen: int) -> tuple:
+    """What one decode step must read and write, in bytes, averaged over the
+    ``gen`` steps: (weights, caches). Weights: the decoder's but
+    cross-attention's ``wk`` and ``wv`` (the frames' K and V are cached),
+    the final norm, ``lm_head`` and the step's embedding rows. Caches: the
+    frames' K and V, the self-attention cache's valid slots (step i reads
+    ``prompt + i + 1``) and the token's K and V written."""
+    size = lambda t: t.numel() * t.element_size()                         # noqa: E731
+    weights = sum(size(p) for name, p in params.named_parameters()
+                  if name.startswith("decoder.")
+                  and ".cross_attn.wk." not in name and ".cross_attn.wv." not in name)
+    weights += size(params.final_norm.scale) + size(params.lm_head)
+    esize = params.lm_head.element_size()
+    weights += batch * cfg.d_model * esize
+    row = cfg.num_layers * batch * cfg.num_kv_heads * cfg.head_dim * esize * 2   # K and V
+    caches = row * (cfg.encoder_seq + prompt + (gen + 1) / 2 + 1)
+    return weights, caches
+
+
+def phase_wh_serve() -> dict:
+    """[55] Whisper large-v3 whole through ``launch.serve`` with frames from a
+    numpy seed: an untimed request first (the per-shape tally of its K3
+    and K4 calls); then the timed one, the counts set to 0 just before;
+    the encoder alone by CUDA events; the step against its read bound;
+    where a step's and a prefill's time goes."""
+    cfg = get_config(WH_ARCH)
+    b, prompt, gen = WH_BATCH, WH_PROMPT, WH_GEN
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == WH_PARAMS, f"[55]: {n_params} parameters, want {WH_PARAMS}")
+    frames = wh_frames(cfg, b)
+    print(f"  {cfg.name}: {cfg.encoder_layers} encoder and {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, H = KV = {cfg.num_heads}, hd {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.encoder_seq} frames; {n_params:,} params "
+          f"({cfg.dtype}), random init from seed {SEED} in {init_s:.1f} s; reduced: none")
+    kw = dict(batch=b, prompt=prompt, gen=gen, device=DEV, seed=SEED, params=params,
+              frames=frames)
+    with attention_tally() as tally:
+        serve_mod.serve(cfg, **kw)
+    ne, nl = cfg.encoder_layers, cfg.num_layers
+    want = {("k3", cfg.encoder_seq, cfg.encoder_seq, False): ne,
+            ("k3", prompt, cfg.encoder_seq, False): nl, ("k3", prompt, prompt, True): nl,
+            ("k4", prompt + gen): nl * gen, ("k4", cfg.encoder_seq): nl * gen}
+    check(tally == want, f"[55]: attention calls by shape {tally}, want {want}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    res = serve_mod.serve(cfg, **kw)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(res.launches_prefill == {"flash_attention": ne + 2 * nl, "flash_decode": 0},
+          f"[55]: prefill launches {res.launches_prefill}, want {ne + 2 * nl} of K3")
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": 2 * nl * gen},
+          f"[55]: decode launches {res.launches_decode}, want {2 * nl} of K4 a step")
+    check(launches == {"flash_attention": ne + 2 * nl, "flash_decode": 2 * nl * gen},
+          f"[55]: serving run launches {launches}")
+    check(res.cache_pos == prompt + gen, f"[55]: the cache is at {res.cache_pos}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits), "[55]: non-finite logits")
+    check(all(lg.shape == (b, cfg.vocab_size) for lg in res.logits), "[55]: logits shape")
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: whisper.encode(cfg, params, frames), 3, 1)
+    weight_bytes, cache_bytes = wh_step_bytes(cfg, params, b, prompt, gen)
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"  prefill {b} x ({cfg.encoder_seq} frames + {prompt} tokens): {res.prefill_ms:.1f} "
+          f"ms (host clock), the encoder alone {enc_ms:.2f} ms (CUDA events), the rest "
+          f"{res.prefill_ms - enc_ms:.2f} ms; decode {gen} steps: {res.decode_ms_per_token:.2f} "
+          f"ms/step, {res.tok_per_s:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; launches: "
+          f"prefill {res.launches_prefill}, decode {res.launches_decode}")
+    print(f"  decode step against its read bound: {res.decode_ms_per_token:.2f} ms against "
+          f"{bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of weights, {cache_bytes / 1e9:.3f} "
+          f"GB of caches at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{res.decode_ms_per_token / bound_ms:.1f}x)")
+    print(f"  card: {card_line()}")
+    print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
+    inputs = {"frames": frames}
+    step = phase_decode_profile(params, res.decode_ms_per_token, cfg, b, prompt, gen, n=3,
+                                read_bytes=weight_bytes + cache_bytes, split_target_us=None,
+                                label="[55]", inputs=inputs, k4_per_step=2 * nl)
+    pre = phase_prefill_profile(params, res.prefill_ms, cfg, b, prompt, inputs=inputs,
+                                label="[55]", k3_launches=ne + 2 * nl)
+    del params, frames
+    torch.cuda.empty_cache()
+    return {"tally": tally, "launches": launches, "prefill_ms": res.prefill_ms,
+            "encoder_ms": enc_ms, "decode_ms_per_token": res.decode_ms_per_token,
+            "tok_per_s": res.tok_per_s, "peak_gb": peak / 1e9, "decode_bound_ms": bound_ms,
+            "decode_profile": step, "prefill_profile": pre}
+
+
+def phase_wh_card_vs_host() -> float:
+    """[56] card against host from the same weights: ``WH_HOST_LAYERS``
+    encoder and decoder layers at full width, f32, 1 x 1,500 frames,
+    ``WH_HOST_PROMPT`` tokens and ``WH_HOST_GEN`` steps through
+    ``launch.serve``; logits within ``WH_HOST_TOL``, greedy tokens
+    identical."""
+    n = WH_HOST_LAYERS
+    cfg = get_config(WH_ARCH).replace(num_layers=n, encoder_layers=n, dtype="float32")
+    api = build_model(cfg)
+    card = api.init(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    host = api.init(device="cpu", state={k: v.cpu() for k, v in card.state_dict().items()})
+    frames = wh_frames(cfg, 1, SEED + 56)
+    kw = dict(batch=1, prompt=WH_HOST_PROMPT, gen=WH_HOST_GEN, seed=SEED)
+    rc = serve_mod.serve(cfg, device=DEV, params=card, frames=frames, **kw)
+    t0 = time.perf_counter()
+    rh = serve_mod.serve(cfg, device="cpu", params=host, frames=frames.cpu(), **kw)
+    host_s = time.perf_counter() - t0
+    check(rc.launches_prefill["flash_attention"] == 3 * n
+          and rc.launches_decode["flash_decode"] == 2 * n * WH_HOST_GEN,
+          f"[56]: card launches {rc.launches_prefill}, {rc.launches_decode}")
+    check(sum(rh.launches_prefill.values()) + sum(rh.launches_decode.values()) == 0,
+          "[56]: the host run launched a kernel")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(rc.logits, rh.logits))
+    check(all(torch.allclose(a.cpu(), b, rtol=WH_HOST_TOL, atol=WH_HOST_TOL)
+              for a, b in zip(rc.logits, rh.logits)),
+          f"[56]: card and host logits differ by {err}")
+    check(torch.equal(rc.tokens.cpu(), rh.tokens), "[56]: card and host tokens differ")
+    print(f"  {n} encoder + {n} decoder layers x d_model {cfg.d_model}, f32, 1 x "
+          f"{cfg.encoder_seq} frames, {WH_HOST_PROMPT} tokens, {WH_HOST_GEN} steps: max |logit "
+          f"diff| {err:.3g} (tolerance {WH_HOST_TOL}); tokens identical {rc.tokens[0].tolist()}; "
+          f"host run {host_s:.1f} s")
+    del card, host
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_wh_training() -> dict:
+    """[57] Whisper large-v3 at its published widths, whole, in f32 through
+    ``launch.train.train`` with remat (``WH_TRAIN``, lr ``LM_LR``), every
+    round's batch with the same frames from a numpy seed; the counts set to
+    0 just before: K3 twice for each of a round's 96 attention uses (the
+    forward and remat's recompute, the encoder's always and the decoder's
+    under ``remat``), its backward once each, K1 none; the calls tallied by
+    shape. Losses finite."""
+    cfg = get_config(WH_ARCH).replace(dtype="float32")
+    frames = wh_frames(cfg, WH_TRAIN["cohort"], SEED + 57)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_zero_counts()
+    with attention_tally() as tally:
+        res = train_mod.train(cfg, rounds=WH_TRAIN_ROUNDS, lr=LM_LR, device=DEV, log_every=0,
+                              remat=True, inputs={"frames": frames}, **WH_TRAIN)
+    launches = lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    r, s, e = WH_TRAIN_ROUNDS, WH_TRAIN["seq"], cfg.encoder_seq
+    ne, nl = cfg.encoder_layers, cfg.num_layers
+    uses = ne + 2 * nl
+    want = {"flash_attention": 2 * uses * r, "flash_attention_bwd": uses * r, "union_segsum": 0}
+    check(launches == want, f"[57]: launches {launches}, want {want}")
+    want_tally = {("k3", e, e, False): 2 * ne * r, ("k3", s, e, False): 2 * nl * r,
+                  ("k3", s, s, True): 2 * nl * r, ("bwd", e, e, False): ne * r,
+                  ("bwd", s, e, False): nl * r, ("bwd", s, s, True): nl * r}
+    check(tally == want_tally, f"[57]: attention calls by shape {tally}, want {want_tally}")
+    check(all(math.isfinite(x) for x in res.losses), "[57]: loss not finite")
+    steady = statistics.median(res.ms_per_round[1:])
+    n_params = sum(p.numel() for p in res.params.values())
+    check(n_params == WH_PARAMS, f"[57]: {n_params} parameters, want {WH_PARAMS}")
+    print(f"  {cfg.name}: {n_params:,} params (f32), {WH_TRAIN}, frames ({WH_TRAIN['cohort']}, "
+          f"{e}, {cfg.d_model}), lr {LM_LR}, remat on; reduced: none. loss "
+          f"{[round(x, 5) for x in res.losses]}; ms/round: first {res.ms_per_round[0]:.1f}, "
+          f"steady {steady:.1f} (median of rounds 2-{r}); peak device memory "
+          f"{peak / 1e9:.2f} GB; launches {launches}")
+    print(f"  card: {card_line()}")
+    out = {"losses": res.losses, "ms_per_round": res.ms_per_round, "steady_ms_per_round": steady,
+           "peak_gb": peak / 1e9, "launches": launches, "tally": tally}
+    del res, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wh_steps() -> dict:
+    """[58] the Whisper smoke model's ``make_round_step`` with frames (from a
+    numpy seed, shaped as each batch's tokens) under ``fedsgd`` and
+    ``sparse_replicated``, card against host step by step as [53] (b)."""
+    cfg = get_smoke_config(WH_ARCH).replace(dtype="float32")
+    rng = np.random.default_rng(SEED + 58)
+
+    def frames(lead):
+        return {"frames": rng.standard_normal(tuple(lead) + (cfg.encoder_seq, cfg.d_model),
+                                              dtype=np.float32)}
+
+    return {mode: smoke_steps_card_vs_host(cfg, mode, "[58]", extra=frames)
+            for mode in ("fedsgd", "sparse_replicated")}
+
+
+def phase_whisper_slice(kernels: list, rng) -> list:
+    """[54]-[58], each timed; adds [54]'s errors to K3's, K4's and K3
+    backward's entries and [58]'s K1 to K1's, and returns this slice's rows
+    of the kernels line: K3 and K4 at [55]'s shapes and K3's backward at
+    [57]'s, each with its launches on that path."""
+    by_name = {e["name"]: e for e in kernels}
+    print("[54] K3, K4 and K3's backward vs plain versions at Whisper large-v3's shapes "
+          "(H = KV = 20, hd 64; 1,500 frames)")
+    t0 = time.perf_counter()
+    shapes = phase_wh_shapes(rng)
+    for name, key in (("flash_attention", "k3"), ("flash_decode", "k4"),
+                      ("flash_attention_bwd", "bwd")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], shapes[key])
+    print(f"  [54] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[55] serving path: {WH_ARCH} whole, bf16, {WH_BATCH} x (1,500 frames + "
+          f"{WH_PROMPT} tokens), {WH_GEN} steps")
+    t0 = time.perf_counter()
+    served = phase_wh_serve()
+    print(f"  [55] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[56] card vs host: {WH_HOST_LAYERS} + {WH_HOST_LAYERS} layers at full width, f32")
+    t0 = time.perf_counter()
+    phase_wh_card_vs_host()
+    print(f"  [56] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[57] federated training: {WH_ARCH} whole, f32, remat on, {WH_TRAIN_ROUNDS} rounds")
+    t0 = time.perf_counter()
+    trained = phase_wh_training()
+    print(f"  [57] took {time.perf_counter() - t0:.1f} s")
+
+    print("[58] make_round_step on the Whisper smoke model with frames, fedsgd and "
+          "sparse_replicated, card vs host")
+    t0 = time.perf_counter()
+    steps = phase_wh_steps()
+    k1 = by_name["union_segsum"]
+    for mode, got in steps.items():
+        k1["max_abs_err"] = max(k1["max_abs_err"], got["k1_err"])
+        k1.setdefault("launches_by_path", {})[f"whisper smoke make_round_step {mode}"] = \
+            got["launches"]["union_segsum"]
+    print(f"  [58] took {time.perf_counter() - t0:.1f} s")
+
+    def row(kernel: str, name: str, launches: int) -> dict:
+        source, replaces = {
+            "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:100"),
+            "flash_decode": ("flash_decode.cu", "src/repro/kernels/flash_decode.py:88"),
+            "flash_attention_bwd": ("flash_attention_bwd.cu", "src/repro/models/layers.py:154"),
+        }[kernel]
+        return {"name": f"{kernel} ({name})", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+                "launches": launches, **shapes["timed"][name]}
+
+    rows = [row("flash_attention", name, served["tally"][("k3", sq, sk, causal)])
+            for name, _, sq, sk, causal in WH_K3_CASES]
+    rows += [row("flash_decode", name, served["tally"][("k4", slots)])
+             for name, _, slots in WH_K4_CASES]
+    rows += [row("flash_attention_bwd", name, trained["tally"][("bwd", sq, sk, causal)])
+             for name, sq, sk, causal in WH_BWD_CASES]
+    check(all(r["launches"] > 0 for r in rows), "[55]/[57]: a Whisper shape was not launched")
     return rows
 
 
@@ -4787,6 +5332,7 @@ def main() -> int:
     kernels += phase_moe_slice(kernels, rng)
     kernels += phase_vlm_slice(kernels, rng)
     kernels += phase_rec_slice(kernels, rng)
+    kernels += phase_whisper_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

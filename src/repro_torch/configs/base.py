@@ -5,8 +5,8 @@
 ``FedConfig`` (paper Algorithm 1) keep the reference's fields, defaults
 and construction-time validation. The registry (``get_config``,
 ``get_smoke_config``, ``ARCH_IDS``, ``all_arch_ids``) covers every
-architecture of the reference but Whisper (``whisper_large_v3``, not
-ported yet), which raises ``NotImplementedError``.
+architecture of the reference, in its order; an unknown name raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -236,9 +236,10 @@ class FedConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-#: architectures the port runs, in the reference's order (it registers ten)
+#: architectures the port runs: the reference's ten, in its order
 ARCH_IDS = (
     "mixtral_8x22b",
+    "whisper_large_v3",
     "llama4_maverick_400b_a17b",
     "mistral_large_123b",
     "qwen3_32b",
@@ -257,9 +258,7 @@ def _canon(name: str) -> str:
 def _module(name: str):
     arch = _canon(name)
     if arch not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}); "
-            "see ROADMAP.md Queue 1 item 9")
+        raise ValueError(f"unknown architecture {name!r} (registered: {ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -17,7 +17,11 @@ port's form on ``device``:
   L, ``shared_attn.*`` once): a ``layers.ModelTree`` (``mamba.{i}.*``), and
   xLSTM's (``repro.models.xlstm_model.make_params``: a ``runs`` tuple of
   ``{"m": ...}`` or ``{"s": ...}``, each stacked on its run's length): an
-  ``layers.ModelTree`` (``runs.{r}.{m|s}.{i}.*``); ``flat=True`` as above.
+  ``layers.ModelTree`` (``runs.{r}.{m|s}.{i}.*``); Whisper's
+  (``repro.models.whisper.make_params``: ``encoder`` and ``decoder``
+  stacked on their depths; ``encoder_norm``, ``final_norm``, ``embedding``
+  and ``lm_head`` once): a ``layers.ModelTree`` (``encoder.{i}.*``,
+  ``decoder.{i}.*``); ``flat=True`` as above.
 
 ``server_state_from_jax`` carries a recsys trainer's whole ``ServerState``
 across: parameters, the server optimizer's slots and the round count.

@@ -2,7 +2,7 @@
 
 Port of ``repro/launch/serve.py`` for every registered architecture
 (``configs.base.ARCH_IDS``): the transformer families (dense, MoE, VLM),
-Zamba2 (hybrid) and xLSTM (SSM):
+Zamba2 (hybrid), xLSTM (SSM) and Whisper (audio):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \\
         --scale full --batch 4 --prompt 1024 --gen 32
@@ -14,9 +14,11 @@ xLSTM's prefill takes a prompt no longer than its chunk (256 at full size)
 or a multiple of it.
 Weights are drawn from seed 0 and the prompts from seed 1, as the
 reference's ``PRNGKey(0)`` and ``PRNGKey(1)``. A configuration with a
-vision frontend gets the reference launcher's inputs unless the caller
-gives its own: patch embeddings of 0.02 and, with M-RoPE, the prompt's
-positions on all three streams (where M-RoPE equals RoPE). ``serve`` is the
+vision or audio frontend gets the reference launcher's inputs unless the
+caller gives its own: patch embeddings or frames of 0.02 and, with M-RoPE,
+the prompt's positions on all three streams (where M-RoPE equals RoPE).
+Whisper's cache holds the prompt and the generated tokens for the decoder,
+and its own ``encoder_seq`` frames for cross-attention. ``serve`` is the
 body, for callers that want its numbers.
 """
 from __future__ import annotations
@@ -79,19 +81,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def default_frames(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    """The reference launcher's audio frames: ``(B, encoder_seq, d)`` of
+    0.02 in the model's dtype, on the host."""
+    return torch.full((batch, cfg.encoder_seq, cfg.d_model), 0.02, dtype=model_dtype(cfg))
+
+
 def prompt_inputs(cfg: ModelConfig, batch: int, prompt: int, device,
                   patch_embeds: Optional[torch.Tensor] = None,
-                  mrope_pos: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                  mrope_pos: Optional[torch.Tensor] = None,
+                  frames: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The prefill's inputs besides the tokens: ``patch_embeds`` (B, P, d)
-    for a vision frontend and ``mrope_pos`` (3, B, S) int32 for M-RoPE, the
-    caller's or else the reference launcher's (0.02 everywhere; the prompt's
-    positions on all three streams)."""
+    for a vision frontend, ``frames`` (B, encoder_seq, d) for an audio one
+    and ``mrope_pos`` (3, B, S) int32 for M-RoPE, the caller's or else the
+    reference launcher's (0.02 everywhere; the prompt's positions on all
+    three streams)."""
     out = {}
     if cfg.frontend == "vision_patches":
         if patch_embeds is None:
             patch_embeds = torch.full((batch, cfg.num_patches, cfg.d_model), 0.02,
                                       dtype=model_dtype(cfg))
         out["patch_embeds"] = patch_embeds.to(device, model_dtype(cfg))
+    if cfg.frontend == "audio_frames":
+        if frames is None:
+            frames = default_frames(cfg, batch)
+        out["frames"] = frames.to(device, model_dtype(cfg))
     if cfg.mrope:
         if mrope_pos is None:
             mrope_pos = torch.arange(prompt, dtype=torch.int32).expand(3, batch, prompt)
@@ -129,10 +143,11 @@ def decode_mrope_pos(mrope_pos: torch.Tensor, gen: int) -> torch.Tensor:
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
           device=None, seed: int = 0, params=None,
           patch_embeds: Optional[torch.Tensor] = None,
-          mrope_pos: Optional[torch.Tensor] = None) -> ServeResult:
+          mrope_pos: Optional[torch.Tensor] = None,
+          frames: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens, then ``gen``
     greedy decode steps. ``params`` (on ``device``) skips the random init;
-    ``patch_embeds`` and ``mrope_pos`` replace the launcher's own
+    ``patch_embeds``, ``mrope_pos`` and ``frames`` replace the launcher's own
     (``prompt_inputs``); decode continues the streams (``decode_mrope_pos``)."""
     dev = resolve_device(device)
     api = build_model(cfg)
@@ -141,7 +156,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
     prompt_gen = torch.Generator().manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=prompt_gen,
                          dtype=torch.int32).to(dev)
-    extra = prompt_inputs(cfg, batch, prompt, dev, patch_embeds, mrope_pos)
+    extra = prompt_inputs(cfg, batch, prompt, dev, patch_embeds, mrope_pos, frames)
     steps_pos = decode_mrope_pos(extra["mrope_pos"], gen) if cfg.mrope else None
     cache = api.init_cache(batch, prompt + gen, dev)
 

@@ -5,15 +5,19 @@ the plan flags of ``examples/federated_llm.py``.
         --scale tiny --rounds 50 [--sparse] [--topk 256] [--int8]
 
 builds the model of any registered architecture (the transformer's dense,
-MoE and VLM families, Zamba2 or xLSTM), draws a Zipf-heat federated corpus (``make_lm_federated``) and runs FedSGD
+MoE and VLM families, Zamba2, xLSTM or Whisper), draws a Zipf-heat
+federated corpus (``make_lm_federated``) and runs FedSGD
 rounds (``FedSgdLocal``: one gradient of the cohort's pooled batch) through
 ``make_round_step`` on the dense transport, or on the row-sparse one with
 ``--sparse`` (``--topk`` and ``--int8`` imply it), with the heat read from
 the batch's ``heat_vocab``. As the reference's, the batch carries no
 ``heat_expert``, so the experts' leaves go uncorrected, and no patch
 embeddings or M-RoPE streams unless ``train``'s caller adds them
-(``inputs``). ``remat`` (on, as the reference's ``loss_fn``) recomputes
-each layer in the backward.
+(``inputs``). Whisper's loss reads the batch's ``frames``, which the
+reference's launcher does not give (it cannot train Whisper): without the
+caller's, every round carries the serving launcher's frames of 0.02
+(``serve.default_frames``, ``(cohort, encoder_seq, d)``). ``remat`` (on,
+as the reference's ``loss_fn``) recomputes each layer in the backward.
 It runs on the card unless ``--device cpu``. ``--layers`` cuts the depth;
 ``--smoke`` is ``examples/federated_llm.py``'s CPU-sized model and corpus.
 Weights are drawn from seed 0 and the cohorts from ``default_rng(0)`` as
@@ -41,14 +45,16 @@ from repro_torch.data.synthetic import make_lm_federated
 from repro_torch.federated.plan import (DenseTransport, FedSgdLocal, RoundPlan,
                                         RowSparseTransport, ServerUpdate, plan_comm_meta)
 from repro_torch.federated.simulation import make_round_step
-from repro_torch.launch.serve import SCALES
+from repro_torch.launch.serve import SCALES, default_frames
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import stack_layers, train_params
 
 #: examples/federated_llm.py's --smoke model (its corpus: 32 clients, 32
-#: tokens, zipf 1.3, cohort 8)
+#: tokens, zipf 1.3, cohort 8), with Whisper's encoder cut as ``--scale
+#: tiny`` cuts it (the fields touch no other family)
 SMOKE = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-             d_ff=128, vocab_size=512, dtype="float32", query_chunk=64, kv_chunk=64)
+             d_ff=128, vocab_size=512, dtype="float32", query_chunk=64, kv_chunk=64,
+             encoder_layers=2, encoder_seq=64)
 
 
 @dataclass
@@ -87,7 +93,9 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     corpus of ``seq``-token sequences. ``params``/``axes`` (the flat training
     dict on ``device``) skip the random init. ``remat`` goes to ``loss_fn``;
     ``inputs`` are added to every round's cohort batch (``patch_embeds``
-    ``(cohort, P, d)``, ``mrope_pos`` ``(3, cohort, seq)``)."""
+    ``(cohort, P, d)``, ``mrope_pos`` ``(3, cohort, seq)``, ``frames``
+    ``(cohort, encoder_seq, d)``; an audio model's ``frames`` default to
+    ``serve.default_frames``)."""
     dev = resolve_device(device)
     api = build_model(cfg)
     if params is None:
@@ -100,6 +108,8 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     step = make_round_step(functools.partial(api.loss, remat=remat), params, axes, fed,
                            mode=plan)
     extra = {k: v.to(dev) for k, v in (inputs or {}).items()}
+    if cfg.frontend == "audio_frames" and "frames" not in extra:
+        extra["frames"] = default_frames(cfg, cohort).to(dev)
     heat = torch.as_tensor(ds.heat.counts, dtype=torch.float32).to(dev)
     meta = plan_comm_meta(params, axes) if plan.transport.sparse else None
     tokens = ds.client_data["tokens"]

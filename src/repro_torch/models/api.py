@@ -6,11 +6,13 @@ ported family the same way:
 
     init(generator=None, device=None, *, state=None)
                                            -> parameters (a ``Transformer``,
-                                              a ``layers.ModelTree`` for Zamba2, xLSTM)
+                                              a ``layers.ModelTree`` for Zamba2,
+                                              xLSTM and Whisper)
     abstract_params()                      -> the same tree on ``meta``
     loss(params, batch, remat=True)        -> scalar (the module, or the flat
                                               dict of ``transformer.train_params``)
-    init_cache(batch, max_seq, device=None) -> KVCache, ZambaCache or XLSTMCache
+    init_cache(batch, max_seq, device=None) -> KVCache, ZambaCache, XLSTMCache
+                                              or WhisperCache
     prefill(params, batch, cache)          -> (logits, cache)
     decode_step(params, cache, batch)      -> (logits, cache)
     input_specs(shape_name)                -> batch dict of ``meta`` tensors
@@ -20,9 +22,10 @@ ported family the same way:
 a dtype and no storage, so a 123B configuration exists on any host. The
 dense, MoE and VLM families (``models/transformer.py``; patch embeddings
 and M-RoPE ride in the batch as ``patch_embeds`` and ``mrope_pos``), the
-hybrid family (Zamba2, ``models/zamba.py``) and the SSM family (xLSTM,
-``models/xlstm_model.py``) are ported; the audio family (Whisper) is not
-yet (ROADMAP Queue 1 item 9).
+hybrid family (Zamba2, ``models/zamba.py``), the SSM family (xLSTM,
+``models/xlstm_model.py``) and the audio family (Whisper,
+``models/whisper.py``; its prefill reads the batch's ``frames``) are
+ported: every family of the reference.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models import xlstm_model as XM
 from repro_torch.models import zamba as Z
 
@@ -104,8 +108,14 @@ def build_model(cfg: ModelConfig) -> ModelApi:
             return mod.decode_step(cfg, params, cache, batch["tokens"])
 
     elif fam == "audio":
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP Queue 1 item 9)")
+        mod = W
+
+        def prefill(params, batch, cache):
+            return W.prefill(cfg, params, batch["tokens"], batch["frames"], cache)
+
+        def decode_step(params, cache, batch):
+            return W.decode_step(cfg, params, cache, batch["tokens"])
+
     else:
         raise ValueError(f"unknown family {fam!r}")
 

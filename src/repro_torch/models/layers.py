@@ -12,11 +12,12 @@ arithmetic.
 
 ``moe`` is the reference's dropping MoE: its routing, capacity and drop
 order, with the expert products as batched matmuls (cuBLAS), outside any
-kernel as in the reference. Not ported yet: ``sinusoidal_positions``, which
-only Whisper uses (ROADMAP Queue 1 item 9.5).
+kernel as in the reference. ``sinusoidal_positions`` is Whisper's fixed
+position table.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
@@ -130,6 +131,34 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _sinusoid_table(seq: int, d: int) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32)[None, :]
+    # 10000^(dim/d) correctly rounded to f32, as the reference's f32 power
+    # gives it; torch's f32 pow is an ulp off on 11 of d 1,280's 640
+    # exponents, which moves position 1,500's angle by up to 3e-5
+    div = torch.pow(torch.tensor(10000.0, dtype=torch.float64), (dim / d).double()).float()
+    angle = pos / div
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_on(seq: int, d: int, device: torch.device) -> torch.Tensor:
+    return _sinusoid_table(seq, d).to(device)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings, ``(seq, d)`` f32:
+    ``[sin(angle), cos(angle)]`` with ``angle = pos / 10000^(dim / d)`` for
+    even ``dim``, in the reference's order (power, divide, sin and cos,
+    concatenate). The angles equal the reference's bit for bit; sin and cos
+    are within an ulp of its. Built on the host and moved to ``device``
+    once per ``(seq, d, device)``, so the card reads the host's bits and a
+    decode step sends nothing: the same tensor is returned to every caller,
+    who must not write to it."""
+    return _sinusoid_on(int(seq), int(d), torch.device(device or "cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,8 @@ tensors) and whose backward runs the layer again under ``torch.func.vjp``.
 ``torch.utils.checkpoint`` cannot serve here: the round plans differentiate
 through ``torch.func.grad`` and ``vmap``, which refuse saved-tensor hooks
 (``use_reentrant=False``) and a Function without ``setup_context``
-(``use_reentrant=True``). Zamba2's and xLSTM's layers go through it too,
-each with its own layer function. Remat changes no number; on the card K3
+(``use_reentrant=True``). Zamba2's, xLSTM's and Whisper's layers go
+through it too, each with its own layer function. Remat changes no number; on the card K3
 then runs twice per layer (the forward, and the recompute that asks for
 the log-sum-exp) and its backward once.
 """
@@ -113,9 +113,10 @@ def train_params(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, T
 
 
 #: the prefixes whose leaves the reference stacks on a leading layer axis:
-#: the transformer's ``layers``, Zamba2's ``mamba`` and each run of xLSTM
-#: blocks (``runs.{r}.m`` or ``runs.{r}.s``)
-_STACKED = r"(layers|mamba|runs\.\d+\.[ms])"
+#: the transformer's ``layers``, Zamba2's ``mamba``, each run of xLSTM
+#: blocks (``runs.{r}.m`` or ``runs.{r}.s``) and Whisper's ``encoder`` and
+#: ``decoder``
+_STACKED = r"(layers|mamba|encoder|decoder|runs\.\d+\.[ms])"
 _PER_LAYER_NAME = re.compile(_STACKED + r"\.(\d+)\.(.+)")
 _STACKED_NAME = re.compile(_STACKED + r"\.(.+)")
 
@@ -126,8 +127,9 @@ def stack_layers(flat: Mapping[str, torch.Tensor], axes: Optional[Mapping[str, T
     layout: each layer leaf ``layers.{i}.attn.wq.w`` (``mamba.{i}.in_proj``,
     ``runs.{r}.m.{i}.up_z``) goes, in layer order, into one ``(L, ...)``
     tensor under ``layers.attn.wq.w`` (``mamba.in_proj``,
-    ``runs.{r}.m.up_z``), its axes led by ``"layers"``; the other leaves
-    (``shared_attn.*`` among them) stay as they are. ``save_checkpoint`` of
+    ``runs.{r}.m.up_z``, ``encoder.attn.wq.w``), its axes led by
+    ``"layers"``; the other leaves (``shared_attn.*``, ``encoder_norm.scale``
+    among them) stay as they are. ``save_checkpoint`` of
     the two writes the reference's LLM checkpoint."""
     out: Dict[str, object] = {}
     per_layer: Dict[str, str] = {}
@@ -270,10 +272,11 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.family in ("hybrid", "ssm"):
         raise ValueError(f"{cfg.name}: the {cfg.family} family's parameters come from "
                          "models/zamba.py or models/xlstm_model.py (api.build_model)")
+    if cfg.family == "audio":
+        from repro_torch.models import whisper
+        return whisper.make_params(cfg, generator, device, state=state)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (Whisper; ROADMAP "
-            "Queue 1 item 9)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     dev = resolve_device(device)
     if generator is None and state is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -438,10 +441,11 @@ class _Remat(torch.autograd.Function):
     for the backward: ``jax.checkpoint`` for ``torch.func``. ``layer_fn``
     makes each layer's function from its names: ``layer_fn(names)(x,
     positions, mrope_pos, *tensors)`` returns ``(x,)`` or ``(x, aux)``, aux
-    a (1,) tensor (``_layer_fn`` here; Zamba2's and xLSTM's layers in their
-    modules). Returns ``(x,)``, or ``(x, aux per layer)`` when the layers
+    a (1,) tensor (``_layer_fn`` here; Zamba2's, xLSTM's and Whisper's layers
+    in their modules). Returns ``(x,)``, or ``(x, aux per layer)`` when the layers
     give one (the MoE). A tensor given to several applications (Zamba2's
-    shared block at each of its sites) gets the sum of their gradients.
+    shared block at each of its sites, Whisper's encoder output at each
+    decoder layer) gets the sum of their gradients.
 
     The backward runs each layer again under ``torch.func.vjp`` and takes
     its vector-Jacobian product. Over several layers (a group of the

@@ -2,8 +2,8 @@
 ``CONFIG``, its smoke config and ``SHAPES`` equal to the JAX package's field
 for field (``param_counts`` too); ``input_specs`` against the reference's
 ``ShapeDtypeStruct``s for every arch x shape; ``abstract_params`` on the
-``meta`` device at full size against the reference's abstract tree; the
-one unported architecture (Whisper, the audio family) still raising; and
+``meta`` device at full size against the reference's abstract tree
+(Whisper's among them); an unknown name or family raising; and
 Qwen3-32B's, DeepSeek-67B's
 and Mistral Large 123B's smoke configs through ``repro_torch`` against
 ``repro.models.build_model`` on the weights of ``PRNGKey(0)`` (carried
@@ -38,23 +38,26 @@ TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32,
 
 
 def test_registry_is_the_reference_order_less_the_unported():
-    assert all_arch_ids() == ARCH_IDS
-    assert ARCH_IDS == tuple(a for a in j_all_arch_ids() if a in ARCH_IDS)
-    assert set(ARCH_IDS) == {"mixtral_8x22b", "llama4_maverick_400b_a17b",
-                             "mistral_large_123b", "qwen3_32b", "qwen2_5_14b",
-                             "zamba2_1_2b", "qwen2_vl_7b", "deepseek_67b", "xlstm_350m"}
-    assert {j_get_config(a).family for a in set(j_all_arch_ids()) - set(ARCH_IDS)} == {
-        "audio"}
+    """Every architecture of the reference is ported: the registry is the
+    reference's, in its order, and leaves none out."""
+    assert all_arch_ids() == ARCH_IDS == tuple(j_all_arch_ids())
+    assert {get_config(a).family for a in ARCH_IDS} == {"moe", "audio", "dense", "hybrid",
+                                                        "vlm", "ssm"}
 
 
-@pytest.mark.parametrize("arch", sorted(set(j_all_arch_ids()) - set(ARCH_IDS)))
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_config(arch)
-    # the reference's smoke config, field for field, as the port's type
-    cfg = ModelConfig(**dataclasses.asdict(j_get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_model(cfg)
+def test_unknown_architecture_raises():
+    """A name the registry does not hold raises from ``get_config`` and
+    ``get_smoke_config``; a config of a family no module builds raises from
+    ``build_model``."""
+    for lookup in (get_config, get_smoke_config):
+        with pytest.raises(ValueError, match="unknown architecture 'whisper_tiny'"):
+            lookup("whisper_tiny")
+    # the reference's Whisper smoke config, field for field, as the port's
+    # type, with a family no module builds
+    cfg = ModelConfig(**dataclasses.asdict(j_get_smoke_config("whisper_large_v3")))
+    assert build_model(cfg).cfg == cfg
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
+        build_model(cfg.replace(family="speech"))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -91,10 +94,18 @@ def test_input_specs_match_the_reference(arch):
 
 def _uncounted(cfg) -> int:
     """The parameters ``param_counts`` leaves out of ``total``: the final
-    norm, the QKV biases and the QK norms (the reference's analytic count
-    omits them; its parameter tree holds them)."""
+    norm, the QKV biases and the QK norms, and Whisper's cross-attention
+    (the reference's analytic count omits them; its parameter tree holds
+    them)."""
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     per_layer = (q + 2 * kv) * cfg.qkv_bias + 2 * cfg.head_dim * cfg.qk_norm
+    if cfg.family == "audio":
+        # Whisper: the decoder's cross-attention and its norm, the biases of
+        # wq, wv and wo in every attention, the encoder's final norm
+        d = cfg.d_model
+        biases = q + kv + d
+        per_layer = 2 * d * q + 2 * d * kv + d + 2 * biases
+        return 2 * d + cfg.num_layers * per_layer + cfg.encoder_layers * biases
     return cfg.d_model + cfg.num_layers * per_layer
 
 

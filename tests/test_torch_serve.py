@@ -79,11 +79,10 @@ def test_configs_match_the_reference():
                    (j_get_smoke_config(ARCH), get_smoke_config(ARCH))):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.param_counts() == tc.param_counts()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_config("whisper_large_v3")
-    for family in ("audio",):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            build_model(get_smoke_config(ARCH).replace(family=family))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("qwen2_5_15b")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_smoke_config(ARCH).replace(family="speech"))
 
 
 def test_attention_is_mea_only(f32_pair):

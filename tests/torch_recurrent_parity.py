@@ -55,27 +55,36 @@ def stacked_numpy(flat) -> dict:
     return {k: v.float().numpy() for k, v in got.items()}
 
 
-def round_steps_match(japi, jp, tapi, tcfg, mode: str, steps: int = 2) -> None:
-    """``steps`` FedSubAvg rounds of ``make_round_step`` in both packages,
-    each from the JAX package's parameters: losses, metrics and parameters
-    within 1e-5. Each round starts from the same parameters because these
-    models' gradients move ~25x a last-ulp parameter difference after a
+def round_steps_match(japi, jp, tapi, tcfg, mode: str, steps: int = 2,
+                      algorithm: str = "fedsubavg", extra=None) -> dict:
+    """``steps`` rounds of ``make_round_step`` under ``algorithm`` (FedSubAvg,
+    or FedAvg: no heat correction) in both packages, each from the JAX
+    package's parameters, with ``extra(rng)``'s numpy leaves added to each
+    round's batch: losses, metrics and parameters within 1e-5. Returns the
+    last round's port parameters in the reference's stacked layout. Each
+    round starts from the same parameters because these models' gradients
+    move ~25x a last-ulp parameter difference after a
     heat-corrected first update (xLSTM's embedding moves by 0.54): at the
     two packages' parameters after one round, JAX's own embedding gradient
     differs by 7.6e-5 of its scale, while the port's and JAX's at the same
     parameters agree to 4.9e-6."""
     fed = dict(num_clients=10, clients_per_round=2, local_iters=2, lr=0.05,
-               algorithm="fedsubavg")
-    jstep = jax.jit(j_make_round_step(japi.loss, jp, JFedConfig(**fed), mode=mode))
+               algorithm=algorithm)
+    correct = algorithm == "fedsubavg"
+    jstep = jax.jit(j_make_round_step(japi.loss, jp, JFedConfig(**fed), mode=mode,
+                                      correct=correct))
     params, axes = params_from_jax(jax.tree.map(np.asarray, unbox(jp)), device="cpu",
                                    cfg=tcfg, flat=True)
-    step = make_round_step(tapi.loss, params, axes, FedConfig(**fed), mode=mode)
+    step = make_round_step(tapi.loss, params, axes, FedConfig(**fed), mode=mode,
+                           correct=correct)
     rng = np.random.default_rng(7)
     for _ in range(steps):
         params, _ = params_from_jax(jax.tree.map(np.asarray, unbox(jp)), device="cpu",
                                     cfg=tcfg, flat=True)
         b = {"tokens": rng.integers(0, 512, (4, 32)).astype(np.int32),
              "heat_vocab": rng.integers(0, 8, 512).astype(np.float32)}
+        if extra is not None:
+            b.update(extra(rng))
         jp, jm = jstep(jp, {k: jnp.asarray(x) for k, x in b.items()})
         params, tm = step(params, {k: torch.from_numpy(x) for k, x in b.items()})
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **F32_TOL)
@@ -87,3 +96,4 @@ def round_steps_match(japi, jp, tapi, tcfg, mode: str, steps: int = 2) -> None:
         got = stacked_numpy(params)
         for name, w in want.items():
             np.testing.assert_allclose(got[name], w, err_msg=name, **F32_TOL)
+    return got
