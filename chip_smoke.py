@@ -303,6 +303,26 @@ Phases, each of which asserts; any failure exits non-zero:
 58. the Whisper smoke model's ``make_round_step`` with frames under
     ``fedsgd`` and ``sparse_replicated``, card against host step by step
     as [53] (b); K1 once per ``sparse_replicated`` step
+59. the kernel audit (``repro_torch.analysis.kernel_audit``): every
+    registry entry (``kernels/introspect.py``) at its audit shapes, the
+    reference's and the main paths': each launched instance's registers,
+    spills (ptxas), static and dynamic shared memory, occupancy against its
+    ``__launch_bounds__``, cooperative grid or cluster against what can be
+    resident; the plans' coverage; K1 and K2 at two cooperative grids, K4
+    at two split counts, K3 and its backward twice, bit for bit; registry
+    coverage; each planted breaker failing its gate
+60. PERF.md §6's bounds from ``cost_model`` (``SECTION6_BOUNDS``), and
+    ``common/hw.py``'s ``HW`` against the card's properties
+61. the memory contract (``analysis/hlo_audit.py``): the LR, DIN and LSTM
+    sparse rounds at full width (K 100) against their budget, the
+    reference's six components plus one client's working set measured at
+    one and two clients; the dense-replica round against the same budget
+    must trip it
+62. dense intermediates (``analysis/jaxpr_audit.py``): an LR sparse round
+    at MovieLens-1M width builds no float (V, ...) output; the dense
+    round's are listed
+63. comm drift: [33]'s counted combine bytes, every rank and step, against
+    ``sparse.comm.sharded_combine_bytes`` within 10% plus 64 B
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -382,6 +402,11 @@ from repro_torch.kernels.heat_scatter import (rowsparse_scatter,  # noqa: E402
                                               rowsparse_scatter_torch)
 from repro_torch.kernels.union_segsum import (union_segsum,  # noqa: E402
                                               union_segsum_torch)
+from repro_torch.analysis import hlo_audit, kernel_audit  # noqa: E402
+from repro_torch.analysis.hlo_audit import comm_drift  # noqa: E402
+from repro_torch.analysis.jaxpr_audit import find_dense_intermediates  # noqa: E402
+from repro_torch.analysis.kernel_audit import cost_model, roofline  # noqa: E402
+from repro_torch.common.hw import HW  # noqa: E402
 from repro_torch.federated import plan as plan_mod  # noqa: E402
 from repro_torch.sparse import aggregate as aggregate_mod  # noqa: E402
 from repro_torch.sparse.aggregate import aggregate_rowsparse_dense, pick_combine  # noqa: E402
@@ -389,11 +414,6 @@ from repro_torch.sparse.rowsparse import RowSparse, unique_ids_padded  # noqa: E
 from tools.aggregation_times import N_CLIENTS, SHAPES, cohort, cuda_ms  # noqa: E402
 from tools.paper_tables import DIN_DATA, print_tables, tables, task_bindings  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
-OPS_PER_S = {torch.float32: F32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14-15
 BF16_REL_TOL = 1e-2            # ||got - want|| / ||want|| for bf16 comparisons
 SEED = 0
@@ -833,11 +853,6 @@ def phase_profile(ds, steady_ms: float, n: int = 5, label: str = "fedsubavg",
     return out
 
 
-def bound(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 #: targets of the kernels' redesign: ms per call at the trainer's round, and
 #: the least share of the bound at the heavy shape
 K1_TARGET_MS, K1_TARGET_SHARE = 0.03, 0.25
@@ -928,7 +943,6 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
     ids, rows, heat, total, cap, v = k1_args
     flat_ids, flat_rows = ids.reshape(-1), rows.reshape(ids.numel(), -1)
     t, d = flat_rows.shape
-    esize = flat_rows.element_size()
     n_union = int(torch.unique(flat_ids[(flat_ids >= 0) & (flat_ids < v)]).numel())
     fns = {
         "k1": (lambda: union_segsum(*k1_args, scale=scale),
@@ -939,14 +953,11 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
                                                scale=scale),
                lambda: k2_library(flat_ids, flat_rows, heat, total, v, scale)),
     }
-    # least bytes each function must move: ids and rows read once, heat (if
-    # any) at the union's rows, outputs written once; ops: one add per row
-    # element and one scale per output element
-    heat_bytes = 4 * n_union if heat is not None else 0
-    bounds = {"k1": bound(4 * t + esize * t * d + heat_bytes + 4 * cap + 4 * cap * d,
-                          t * d + cap * d),
-              "k2": bound(4 * t + esize * t * d + 4 * n_union + 4 * v * d,
-                          t * d + 2 * v * d)}
+    # least bytes and operations of each function (cost_model)
+    costs = {"k1": cost_model("union_segsum", t=t, d=d, cap=cap, n_union=n_union,
+                              dtype=flat_rows.dtype, heat=heat is not None),
+             "k2": cost_model("rowsparse_scatter", t=t, d=d, v=v, n_union=n_union,
+                              dtype=flat_rows.dtype)}
     out = {"shape": f"V={v} T={t} D={d} cap={cap} union={n_union} "
                     f"{str(flat_rows.dtype).replace('torch.', '')}"}
     for key in keys:
@@ -959,7 +970,7 @@ def time_k1_k2(k1_args, scale: float, label: str, keys=("k1", "k2"),
             ops, dev_ms, names = profile_calls(kernel)
         else:
             (ops, dev_ms), names = profiled[key], ["from the round's profile"]
-        b, by = bounds[key]
+        b, by = costs[key].bound_ms, costs[key].bound_by
         out[key] = {"ms": min(m1, m2), "plain_ms": min(p1, p2), "library_ms": lib,
                     "bound_ms": b, "bound_by": by, "share": b / min(m1, m2),
                     "device_ops_per_call": ops, "device_ms_per_call": dev_ms}
@@ -977,8 +988,8 @@ def k1_scratch_bytes(k1_args, scale: float) -> tuple:
     """Device bytes one K1 call requests beyond its two outputs (the peak of
     the caching allocator's requested bytes, which a reused cached block
     does not inflate; out_ids and the scratch share one allocation, with
-    up to 4 bytes of alignment between them), and what the launch plan says
-    it needs."""
+    up to 4 bytes of alignment between them), the launch plan, and the
+    scratch the cost model prices for that plan."""
     ids, rows, heat, total, cap, v = k1_args
     flat_rows = rows.reshape(ids.numel(), -1)
     t, d = flat_rows.shape
@@ -991,7 +1002,9 @@ def k1_scratch_bytes(k1_args, scale: float) -> tuple:
     out_ids, out_rows = union_segsum(*k1_args, scale=scale)
     torch.cuda.synchronize()
     peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
-    return peak - base - 4 * out_ids.numel() - 4 * out_rows.numel(), plan
+    scratch = cost_model("union_segsum", t=t, d=d, cap=cap, n_union=0, num_rows=v,
+                         blocks=plan.blocks).extra["scratch_bytes"]
+    return peak - base - 4 * out_ids.numel() - 4 * out_rows.numel(), plan, scratch
 
 
 def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
@@ -1007,11 +1020,11 @@ def phase_timing(k1_args, launches_k1: int, launches_k2: int, err_k1: float,
         hids, hrows, hheat = cohort(rng, hk, hr, hv, hd, dtype, DEV)
         args = (hids, hrows, hheat, float(N_CLIENTS), min(hv, hk * hr), hv)
         res[str(dtype)] = time_k1_k2(args, 1.0 / hk, "heavy")
-        extra, plan = k1_scratch_bytes(args, 1.0 / hk)
+        extra, plan, scratch = k1_scratch_bytes(args, 1.0 / hk)
         print(f"  K1 heavy {dtype}: {extra} bytes requested beyond the outputs (plan "
-              f"{plan.scratch_bytes}: {plan.words} words and {plan.blocks} blocks; V/4 = "
+              f"{scratch}: {plan.words} words and {plan.blocks} blocks; V/4 = "
               f"{hv / 4:.0f}, a V-sized int32 array {4 * hv})")
-        check(extra <= plan.scratch_bytes + 4, f"K1 heavy: {extra} bytes of scratch")
+        check(extra <= scratch + 4, f"K1 heavy: {extra} bytes of scratch")
         del hids, hrows, hheat, args
     tr, hf, hb = res["trainer"], res[str(torch.float32)], res[str(torch.bfloat16)]
     for key, ms_target, share_target in (("k1", K1_TARGET_MS, K1_TARGET_SHARE),
@@ -1226,23 +1239,6 @@ def phase_serve_card_vs_host() -> dict:
     return {"max_logit_diff": err}
 
 
-def attention_work(b, sq, h, kv, hd, keys, pairs, dtype, extra_bytes=0) -> tuple:
-    """(bytes, flops) attention must move and do: q and o (sq rows), k and v
-    (``keys`` rows) and ``extra_bytes`` moved once, and two products of
-    2 * hd flops for each of ``pairs`` valid (query, key) pairs per (batch,
-    head)."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    return (esize * 2 * b * hd * (sq * h + keys * kv) + extra_bytes,
-            4 * b * h * hd * pairs)
-
-
-def attention_bound(nbytes, ops, dtype) -> tuple:
-    """Least time for that work: the larger of bytes at the HBM rate and
-    flops at the dtype's peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def sdpa_backend(fn, attempts: int = 3, calls: int = 10) -> str:
     """Which of ``scaled_dot_product_attention``'s backends ``fn`` took,
     read from the names of the device kernels of ``calls`` profiled calls
@@ -1311,8 +1307,9 @@ def attention_timing(captured, launches: dict, err_k3: float, err_k4: float,
                       cuda_ms(k3_plain, 5, 1))
     lib3 = cuda_ms(k3_lib, 20)
     backend3 = sdpa_backend(k3_lib)
-    bytes3, ops3 = attention_work(b, sq, h, kvh, hd, sk, pairs3, q.dtype)
-    b3, by3 = attention_bound(bytes3, ops3, q.dtype)
+    c3 = cost_model("flash_attention", b=b, sq=sq, h=h, kv=kvh, hd=hd, keys=sk, pairs=pairs3,
+                    dtype=q.dtype)
+    ops3, b3, by3 = c3.flops, c3.bound_ms, c3.bound_by
 
     (q4, kc, vc, kpos, qpos4), kw4 = captured["k4"]
     valid = (kpos >= 0) & (kpos <= qpos4)
@@ -1334,20 +1331,20 @@ def attention_timing(captured, launches: dict, err_k3: float, err_k4: float,
     lib4 = cuda_ms(k4_lib)
     backend4 = sdpa_backend(k4_lib)
     hk = kc.shape[1]
-    bytes4, ops4 = attention_work(q4.shape[0], 1, q4.shape[1], hk, hd, n_valid, n_valid,
-                                  q4.dtype, extra_bytes=4 * kpos.numel())
-    b4, by4 = attention_bound(bytes4, ops4, q4.dtype)
+    c4 = cost_model("flash_decode", b=q4.shape[0], h=q4.shape[1], kv=hk, hd=hd,
+                    n_valid=n_valid, slots=kpos.numel(), dtype=q4.dtype)
+    bytes4, b4, by4 = c4.bytes, c4.bound_ms, c4.bound_by
     ms3, ms4 = min(m1, m2), min(n1, n2)
     print(f"  K3 {names[0]} B={b} S={sq} H={h} KV={kvh} hd={hd} {q.dtype} causal window="
           f"{window} ({pairs3} valid pairs per (b, h)): kernel {m1:.4f}/{m2:.4f} ms "
           f"({ops3 / ms3 / 1e9:.1f} TFLOP/s), plain {p1:.4f}/{p2:.4f} ms, SDPA {lib3:.4f} ms "
           f"({backend3}; {ops3 / lib3 / 1e9:.1f} TFLOP/s), bound {b3:.5f} ms ({by3}; "
-          f"{OPS_PER_S[q.dtype] / 1e12:.0f} TFLOP/s)")
+          f"{c3.peak / 1e12:.0f} TFLOP/s)")
     print(f"  K4 {names[1]} B={q4.shape[0]} H={q4.shape[1]} KV={hk} S={kc.shape[2]} "
           f"valid={n_valid} window={w4} {q4.dtype}: kernel {n1:.4f}/"
           f"{n2:.4f} ms ({bytes4 / ms4 / 1e9:.2f} TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA "
           f"{lib4:.4f} ms ({backend4}; {bytes4 / lib4 / 1e9:.2f} TB/s), bound {b4:.5f} ms "
-          f"({by4}; {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+          f"({by4}; {HW['hbm_bandwidth'] / 1e12:.2f} TB/s)")
     if k3_target_ms is not None:
         check(ms3 <= k3_target_ms, f"K3 at the serving prefill: {ms3:.4f} ms > the "
               f"{k3_target_ms} ms target")
@@ -1422,7 +1419,7 @@ def phase_decode_profile(params, steady_ms: float, cfg=None, batch: int = SERVE_
            "k4_split_us_per_launch": split_us_per_launch,
            "matmul_ms_per_step": gemm_ms,
            "busy_share": device_ms / steady_ms if steady_ms else None,
-           "weight_read_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3}
+           "weight_read_bound_ms": roofline(read_bytes, 0)[0]}
     print(f"  decode step: {steady_ms:.2f} ms steady (host clock, {label}); device busy "
           f"{device_ms:.3f} ms ({device_ms / steady_ms * 100:.1f}%), {ops / n:.0f} device "
           f"ops per step; matmuls {gemm_ms:.3f} ms, K4 {k4_ms:.4f} ms (split pass "
@@ -2379,7 +2376,8 @@ def mesh_steps_job(mesh, job: dict) -> dict:
     """[33]: ``make_round_step`` on the LSTM's inputs, each mode of
     ``MESH_STEP_MODES`` 3 steps on the mesh; rank 0 also runs the unsharded
     step on the same batches. K1 and the collective counters per step, the
-    counters held to ``round_collective_budget``."""
+    counters held to ``round_collective_budget`` and, on the sparse
+    transport, their drift from ``sharded_combine_bytes`` ([63])."""
     ds = job["ds"]
     make_params, loss_fn, _ = task_bindings(ds, SEED)
     params0, axes = make_params(mesh.device)
@@ -2409,6 +2407,9 @@ def mesh_steps_job(mesh, job: dict) -> dict:
             res["launches"].append(union_segsum.launches)
             res["counters_equal_budget"].append(mesh.counters == budget["components"])
             res["by_op"] = mesh.by_op()
+            if sharded.transport.sparse:
+                res.setdefault("drift", []).append(comm_drift(
+                    sharded, axes, ps, cfg, batch, measured=res["by_op"]).to_dict())
             if mesh.rank == 0:
                 pu, mu = plain(pu, batch)
                 res["plain_loss"].append(float(mu["loss"]))
@@ -2558,11 +2559,12 @@ def phase_mesh_din(plain: dict, ranks: list) -> list:
     return check_mesh_trainer(ranks, "din fedsubavg auto", plain["din fedsubavg"])["launches"]
 
 
-def phase_mesh_steps(ranks: list) -> dict:
+def phase_mesh_steps(ranks: list) -> tuple:
     """[33]: ``make_round_step`` on the mesh, two ranks, each mode of
     ``MESH_STEP_MODES`` against its unsharded step on the card; every
-    rank's collective counters equal the budget's components."""
-    out = {}
+    rank's collective counters equal the budget's components. Returns K1's
+    launches by mode and rank, and every rank's comm drift by mode ([63])."""
+    out, drift = {}, {}
     for label, mode, stacked, k, debug in MESH_STEP_MODES:
         r0 = ranks[0]["steps"][label]
         want = 1 if mode == "sparse_replicated" else 0
@@ -2579,11 +2581,13 @@ def phase_mesh_steps(ranks: list) -> dict:
         spread = max(params_diff(rk["steps"][label]["params"], r0["params"]) for rk in ranks)
         check(spread == 0.0, f"{label}: ranks differ by {spread}")
         out[label] = [rk["steps"][label]["launches"] for rk in ranks]
+        if "drift" in r0:
+            drift[label] = [rk["steps"][label]["drift"] for rk in ranks]
         print(f"  {label}: loss err {loss_err:.3g}, params err "
               f"{params_diff(r0['params'], r0['plain_params']):.3g}, ranks equal; K1 per "
               f"rank per step {out[label]}; counters = budget on every rank; bytes per "
               f"rank by op {r0['by_op']}; ms/step (rank 0) {[round(x, 1) for x in r0['ms']]}")
-    return out
+    return out, drift
 
 
 # ---------------------------------------------------------------------------
@@ -3052,7 +3056,7 @@ def phase_lm_profile(steady_ms: float, err_bwd: float, launches_bwd: int,
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
     print(f"  matmuls: {mm_flops / 1e12:.2f} TFLOP per round from the shapes, "
           f"{mm_flops / split['matmuls'] / 1e9:.1f} TFLOP/s (f32 without TF32; "
-          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s peak)")
+          f"{HW['peak_flops_f32'] / 1e12:.0f} TFLOP/s peak)")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {t / 1e3:.4f} ms  {name[:90]}")
 
@@ -3116,17 +3120,13 @@ def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
                           cuda_ms(bwd_plain, 5, 1))
     b_lib = cuda_ms(sdpa_fwd_bwd, 20) - f_lib
     pairs = s * (s + 1) // 2 if causal else s * sk
-    fbytes, fops = attention_work(b, s, h, kvh, hd, sk, pairs, dtype)
-    f_bound, f_by = attention_bound(fbytes, fops, dtype)
-    # the gradient reads q, k, v, o, dout and lse and writes dq, dk and dv:
-    # twice the forward's bytes and the lse; five products per valid pair:
-    # 2.5 times its flops. Its route runs each product as 3 TF32 products
-    # (the 3xTF32 split), an effective third of the TF32 rate
-    b_bytes, b_ops = 2 * fbytes + lse.numel() * 4, 2.5 * fops
-    b_bound, b_by = attention_bound(b_bytes, b_ops, dtype)
-    b_route = max(b_bytes / HBM_BYTES_PER_S, 3 * b_ops / TF32_OPS_PER_S) * 1e3
-    b_route_by = "bytes" if b_bytes / HBM_BYTES_PER_S >= 3 * b_ops / TF32_OPS_PER_S \
-        else "operations"
+    work = dict(b=b, sq=s, h=h, kv=kvh, hd=hd, keys=sk, pairs=pairs, dtype=dtype)
+    cf, cb = cost_model("flash_attention", **work), cost_model("flash_attention_bwd", **work)
+    f_bound, f_by = cf.bound_ms, cf.bound_by
+    # the gradient: twice the forward's bytes and the lse, 2.5 times its
+    # flops; its route runs each product as 3 TF32 products (cost_model)
+    b_bytes, b_ops, b_bound, b_by = cb.bytes, cb.flops, cb.bound_ms, cb.bound_by
+    b_route, b_route_by = cb.extra["route_ms"], cb.extra["route_by"]
     mask = "causal" if causal else "non-causal"
     print(f"  K3 at the {label} B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} KV={kvh} "
           f"hd={hd} {dtype} {mask}: "
@@ -3136,9 +3136,9 @@ def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
     print(f"  K3 backward: max_abs_err {err_bwd:.3g}; kernel {b1:.4f}/{b2:.4f} ms "
           f"({b_ops / min(b1, b2) / 1e9:.1f} TFLOP/s on its 5 products), plain {b_p1:.4f}/"
           f"{b_p2:.4f} ms, SDPA backward {b_lib:.4f} ms; bound {b_route:.5f} ms on its route "
-          f"({b_route_by}; 3xTF32 at {TF32_OPS_PER_S / 3e12:.0f} TFLOP/s effective, "
-          f"{b_bytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {b_bound:.5f} ms on "
-          f"the f32 CUDA cores ({b_by}; {OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s)")
+          f"({b_route_by}; 3xTF32 at {HW['peak_flops_tf32'] / 3e12:.0f} TFLOP/s effective, "
+          f"{b_bytes / 1e6:.1f} MB at {HW['hbm_bandwidth'] / 1e12:.2f} TB/s), {b_bound:.5f} ms "
+          f"on the f32 CUDA cores ({b_by}; {cb.peak / 1e12:.0f} TFLOP/s)")
     shape_key = {"shape": [b, s, h, kvh, hd]}
     if sk != s or not causal:
         shape_key.update(sk=sk, causal=causal)
@@ -3371,7 +3371,7 @@ def phase_moe_serve() -> tuple:
     weight_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
                        if name != "embedding")
     cache_bytes = nl * 2 * b * cfg.num_kv_heads * cfg.sliding_window * cfg.head_dim * 2
-    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = roofline(weight_bytes + cache_bytes, 0)[0]
     out = {"params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
            "decode_ms_per_token": res.decode_ms_per_token, "tok_per_s": res.tok_per_s,
            "peak_gb": peak / 1e9, "launches": launches, "expert_tokens": expert_tokens,
@@ -3382,7 +3382,7 @@ def phase_moe_serve() -> tuple:
           f"{cfg.sliding_window} slots)")
     print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
           f"against {bound_ms:.2f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f} GB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
+          f"{HW['hbm_bandwidth'] / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
     print(f"  launches: prefill {res.launches_prefill}, decode {res.launches_decode}")
     for i, t in enumerate(expert_tokens):
         print(f"    layer {i} prefill expert_tokens {t}")
@@ -3842,17 +3842,17 @@ def phase_vlm_serve() -> dict:
                        if name != "embedding")
     cache_bytes = nl * 2 * b * cfg.num_kv_heads * (prompt + gen) * cfg.head_dim * 2
     all_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    bound_ms = all_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = roofline(all_bytes, 0)[0]
     print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
           f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
           f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
           f"{res.launches_decode}")
     print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
           f"against {bound_ms:.2f} ms ({all_bytes / 1e9:.2f} GB of weights at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x); "
+          f"{HW['hbm_bandwidth'] / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x); "
           f"what a step reads (every weight but the embedding table, the valid cache) "
           f"{(weight_bytes + cache_bytes) / 1e9:.2f} GB, "
-          f"{(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.2f} ms")
+          f"{roofline(weight_bytes + cache_bytes, 0)[0]:.2f} ms")
     print(f"  card: {card_line()}")
     print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
     out = {"params": n_params, "prefill_ms": res.prefill_ms,
@@ -3912,14 +3912,14 @@ def phase_l4_serve() -> dict:
     weight_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
                        if name != "embedding")
     cache_bytes = nl * 2 * b * cfg.num_kv_heads * (prompt + gen) * cfg.head_dim * 2
-    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = roofline(weight_bytes + cache_bytes, 0)[0]
     print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
           f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
           f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
           f"{res.launches_decode}")
     print(f"  decode step against its weight-read bound: {res.decode_ms_per_token:.2f} ms "
           f"against {bound_ms:.2f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f} GB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
+          f"{HW['hbm_bandwidth'] / 1e12:.2f} TB/s; {res.decode_ms_per_token / bound_ms:.2f}x)")
     for i, t in enumerate(expert_tokens):
         busy = sum(1 for x in t if x)
         print(f"    layer {i} prefill expert_tokens ({busy} of {cfg.num_experts} experts "
@@ -4366,7 +4366,7 @@ def phase_rec_serve(arch: str, label: str) -> dict:
     cache = build_model(cfg).init_cache(b, prompt + gen, DEV)
     weight_bytes, state_bytes = rec_step_bytes(cfg, params, cache)
     del cache
-    bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = roofline(weight_bytes + state_bytes, 0)[0]
     print(f"  prefill {b} x {prompt}: {res.prefill_ms:.1f} ms; decode {gen} steps: "
           f"{res.decode_ms_per_token:.2f} ms/step, {res.tok_per_s:.1f} tok/s; peak memory "
           f"{peak / 1e9:.2f} GB; launches: prefill {res.launches_prefill}, decode "
@@ -4374,7 +4374,7 @@ def phase_rec_serve(arch: str, label: str) -> dict:
     print(f"  decode step against its read bound: {res.decode_ms_per_token:.2f} ms against "
           f"{bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of weights"
           + (" with the shared block at each site" if hybrid else "")
-          + f", {state_bytes / 1e9:.3f} GB of state at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          + f", {state_bytes / 1e9:.3f} GB of state at {HW['hbm_bandwidth'] / 1e12:.2f} TB/s; "
           f"{res.decode_ms_per_token / bound_ms:.1f}x)")
     print(f"  card: {card_line()}")
     print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
@@ -4730,8 +4730,9 @@ def wh_k3_timing(q, k, v, causal: bool, name: str) -> dict:
     lib_ms = cuda_ms(lib, 20)
     backend = sdpa_backend(lib)
     pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    nbytes, ops = attention_work(b, sq, h, kvh, hd, sk, pairs, q.dtype)
-    bound_ms, by = attention_bound(nbytes, ops, q.dtype)
+    cost = cost_model("flash_attention", b=b, sq=sq, h=h, kv=kvh, hd=hd, keys=sk, pairs=pairs,
+                      dtype=q.dtype)
+    ops, bound_ms, by = cost.flops, cost.bound_ms, cost.bound_by
     ms = min(m1, m2)
     print(f"  K3 {name} B={b} Sq={sq} Sk={sk} H={h} KV={kvh} hd={hd} {q.dtype} "
           f"{'causal' if causal else 'non-causal'}: max_abs_err {err:.3g}; kernel {m1:.4f}/"
@@ -4764,9 +4765,9 @@ def wh_k4_timing(q, kc, vc, kpos, qpos: int, name: str) -> dict:
     o1, n1, n2, o2 = cuda_ms(plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(plain)
     lib_ms = cuda_ms(lib)
     backend = sdpa_backend(lib)
-    nbytes, ops = attention_work(b, 1, h, kvh, hd, n_valid, n_valid, q.dtype,
-                                 extra_bytes=4 * kpos.numel())
-    bound_ms, by = attention_bound(nbytes, ops, q.dtype)
+    cost = cost_model("flash_decode", b=b, h=h, kv=kvh, hd=hd, n_valid=n_valid,
+                      slots=kpos.numel(), dtype=q.dtype)
+    nbytes, bound_ms, by = cost.bytes, cost.bound_ms, cost.bound_by
     ms = min(n1, n2)
     print(f"  K4 {name} B={b} H={h} KV={kvh} S={kc.shape[2]} valid={n_valid} hd={hd} "
           f"{q.dtype}: max_abs_err {err:.3g}; kernel {n1:.4f}/{n2:.4f} ms ({nbytes / ms / 1e9:.2f} "
@@ -4915,7 +4916,7 @@ def phase_wh_serve() -> dict:
     with torch.no_grad():
         enc_ms = cuda_ms(lambda: whisper.encode(cfg, params, frames), 3, 1)
     weight_bytes, cache_bytes = wh_step_bytes(cfg, params, b, prompt, gen)
-    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = roofline(weight_bytes + cache_bytes, 0)[0]
     print(f"  prefill {b} x ({cfg.encoder_seq} frames + {prompt} tokens): {res.prefill_ms:.1f} "
           f"ms (host clock), the encoder alone {enc_ms:.2f} ms (CUDA events), the rest "
           f"{res.prefill_ms - enc_ms:.2f} ms; decode {gen} steps: {res.decode_ms_per_token:.2f} "
@@ -4923,7 +4924,7 @@ def phase_wh_serve() -> dict:
           f"prefill {res.launches_prefill}, decode {res.launches_decode}")
     print(f"  decode step against its read bound: {res.decode_ms_per_token:.2f} ms against "
           f"{bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of weights, {cache_bytes / 1e9:.3f} "
-          f"GB of caches at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"GB of caches at {HW['hbm_bandwidth'] / 1e12:.2f} TB/s; "
           f"{res.decode_ms_per_token / bound_ms:.1f}x)")
     print(f"  card: {card_line()}")
     print(f"  greedy tokens of sequence 0: {res.tokens[0][:16].tolist()}")
@@ -5096,6 +5097,226 @@ def phase_whisper_slice(kernels: list, rng) -> list:
              for name, sq, sk, causal in WH_BWD_CASES]
     check(all(r["launches"] > 0 for r in rows), "[55]/[57]: a Whisper shape was not launched")
     return rows
+
+# ---------------------------------------------------------------------------
+# [59]-[63]: the checking planes
+# ---------------------------------------------------------------------------
+
+#: [60]: PERF.md §6's bounds, each from cost_model at its row's shape: (row,
+#: kernel, shape, the bound's key, ms to the 4th decimal, what bounds it)
+SECTION6_BOUNDS = (
+    ("K3 at Whisper's encoder", "flash_attention",
+     dict(b=4, sq=1500, h=20, kv=20, hd=64, keys=1500, pairs=1500 * 1500, dtype="bf16"),
+     "bound_ms", 0.0466, "operations"),
+    ("K3 at Mixtral's prefill", "flash_attention",
+     dict(b=2, sq=8192, h=48, kv=8, hd=128, keys=8192, pairs=25167872, dtype="bf16"),
+     "bound_ms", 1.2508, "operations"),
+    ("K4 at Qwen2.5-14B's step", "flash_decode",
+     dict(b=4, h=40, kv=8, hd=128, n_valid=1056, slots=1056, dtype="bf16"), "bound_ms",
+     0.0052, "bytes"),
+    ("K3's backward at the training shape, on its route", "flash_attention_bwd",
+     dict(b=16, sq=128, h=40, kv=8, hd=128, keys=128, pairs=128 * 129 // 2, dtype="f32"),
+     "route_ms", 0.0602, "bytes"),
+    ("K3's backward at the training shape, on the f32 CUDA cores", "flash_attention_bwd",
+     dict(b=16, sq=128, h=40, kv=8, hd=128, keys=128, pairs=128 * 129 // 2, dtype="f32"),
+     "bound_ms", 0.1009, "operations"),
+    ("K1 at the heavy shape, f32", "union_segsum",
+     dict(t=512000, d=18, cap=512000, n_union=258137, dtype="f32"), "bound_ms", 0.0235,
+     "bytes"),
+    ("K1 at the heavy shape, bf16", "union_segsum",
+     dict(t=512000, d=18, cap=512000, n_union=258137, dtype="bf16"), "bound_ms", 0.0180,
+     "bytes"),
+    ("K2 at the heavy shape, f32", "rowsparse_scatter",
+     dict(t=512000, d=18, v=1 << 22, n_union=258137, dtype="f32"), "bound_ms", 0.1021,
+     "bytes"),
+)
+
+
+def section6_bound(kernel: str, shape: dict, key: str) -> tuple:
+    """(ms, what bounds it, bytes, flops) of one §6 row from cost_model."""
+    c = cost_model(kernel, **shape)
+    if key == "bound_ms":
+        return c.bound_ms, c.bound_by, c.bytes, c.flops
+    return c.extra[key], c.extra["route_by"], c.bytes, c.flops
+
+
+def phase_kernel_audit() -> list:
+    """[59]: every registry entry at its audit shapes on the card: resource,
+    state and coverage contracts, each planted breaker failing its gate."""
+    reports = kernel_audit.audit_all()
+    coverage = kernel_audit.registry_coverage()
+    kernel_audit.print_reports(reports, coverage)
+    bad = [f for r in reports for f in r.failures] + coverage
+    check(not bad, f"[59]: {len(bad)} contract failures: {bad[:4]}")
+    tags = {"cluster": "[cluster]", "grid": "[cooperative-grid]", "spill": "[spill]",
+            "coverage": "[coverage]"}
+    for kind in kernel_audit.PLANTS:
+        planted = kernel_audit.planted_failures(reports, kind)
+        check(planted and all(tags[kind] in f for f in planted),
+              f"[59]: the planted {kind} breaker drew {planted[:2]}")
+        print(f"  planted {kind}: {len(planted)} failures, e.g. {planted[0][:110]}")
+    return reports
+
+
+def phase_cost_and_constants() -> None:
+    """[60]: §6's bounds from ``cost_model``; ``HW`` against the card."""
+    for label, kernel, shape, key, want, want_by in SECTION6_BOUNDS:
+        got, by, nbytes, flops = section6_bound(kernel, shape, key)
+        print(f"  {label}: {got:.5f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+              f"GFLOP); PERF.md §6: {want} ({want_by})")
+        check(round(got, 4) == want and by == want_by,
+              f"[60]: {label}: {got:.5f} ms ({by}), §6 says {want} ({want_by})")
+    props = torch.cuda.get_device_properties(0)
+    print(f"  HW is the one object chip_smoke, kernel_audit and introspect read: "
+          f"{HW is kernel_audit.HW}")
+    check(HW is kernel_audit.HW, "[60]: kernel_audit reads another HW")
+    rows = (("sms", "multi_processor_count"), ("regs_per_sm", "regs_per_multiprocessor"),
+            ("smem_per_block", "shared_memory_per_block_optin"),
+            ("smem_per_sm", "shared_memory_per_multiprocessor"), ("l2_bytes", "L2_cache_size"),
+            ("threads_per_block", "max_threads_per_block"))
+    for key, attr in rows:
+        have = getattr(props, attr, None)
+        check(have is not None, f"[60]: the card's properties do not expose {attr}")
+        print(f"  HW[{key!r}] = {HW[key]}, the card's {attr} = {have}")
+        check(have == HW[key], f"[60]: HW[{key!r}] is {HW[key]}, the card says {have}")
+    total = props.total_memory
+    print(f"  HW['hbm_bytes'] = {HW['hbm_bytes']} (the data sheet's 80 GB), the card's "
+          f"total_memory = {total} (the memory CUDA reports)")
+    check(0.95 * HW["hbm_bytes"] <= total <= 1.08 * HW["hbm_bytes"],
+          f"[60]: the card has {total} bytes, HW says {HW['hbm_bytes']}")
+    clock, width = getattr(props, "memory_clock_rate", None), getattr(props, "memory_bus_width",
+                                                                       None)
+    check(clock and width, "[60]: the card's properties expose no memory clock and bus")
+    rate = 2 * clock * 1e3 * width / 8
+    print(f"  HW['hbm_bandwidth'] = {HW['hbm_bandwidth']:.4g} B/s, the card's memory "
+          f"clock and bus give {rate:.4g} B/s")
+    check(abs(rate - HW["hbm_bandwidth"]) <= 0.02 * HW["hbm_bandwidth"],
+          f"[60]: the card's memory moves {rate:.4g} B/s, HW says {HW['hbm_bandwidth']}")
+
+
+def round_inputs(ds, k: int = 100, seed: int = SEED + 61) -> tuple:
+    """The trainer's round at full width on the card: parameters, axes,
+    loss, config, feature keys and one cohort batch of ``k`` clients (5
+    local steps of 5 samples) with the heat as ``heat_vocab``."""
+    make_params, loss_fn, _ = task_bindings(ds, SEED)
+    params, axes = make_params(DEV)
+    cfg = FedConfig(num_clients=ds.num_clients, clients_per_round=k, local_iters=5,
+                    local_batch=5, lr=0.5, seed=SEED)
+    keys = (ds.feature_key,) + (("target",) if ds.feature_key == "hist" else ())
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(ds.num_clients, size=k, replace=False)
+    batch = {key: torch.from_numpy(np.ascontiguousarray(v)).to(DEV)
+             for key, v in sample_cohort_batch(ds, ids, 5, 5, rng).items()}
+    batch["heat_vocab"] = torch.as_tensor(ds.heat.counts, dtype=torch.float32, device=DEV)
+    return params, axes, loss_fn, cfg, keys, batch
+
+
+def round_plan(mode: str, cfg, keys):
+    return dataclasses.replace(resolve_plan(mode, cfg), feature_keys=keys)
+
+
+def phase_memory_contract(tasks: dict) -> None:
+    """[61]: each sparse round at full width against its memory budget: LR
+    and DIN within the reference's six components, every round within the
+    six plus each client's dense leaves and activations, priced from the
+    plan's shapes (``memory_budget(clients=True)``). Two plants must trip
+    that budget: the round's own peak plus one f32 copy of the tables per
+    client (a client that densified its table), and the dense-replica
+    round."""
+    for task, ds in tasks.items():
+        params, axes, loss_fn, cfg, keys, batch = round_inputs(ds)
+        lean_plan = round_plan("sparse_replicated", cfg, keys)
+        budget = hlo_audit.memory_budget(lean_plan, axes, params, cfg, batch, clients=True)
+        lean = hlo_audit.memory_contract(lean_plan, loss_fn, axes,
+                                         {n: v.clone() for n, v in params.items()}, cfg,
+                                         batch, budget=budget)
+        six = hlo_audit.memory_contract(lean_plan, loss_fn, axes, params, cfg, batch,
+                                        measured=lean.measured_bytes)
+        copies = cfg.clients_per_round * budget["tables_scratch"]
+        densified = hlo_audit.memory_contract(lean_plan, loss_fn, axes, params, cfg, batch,
+                                              measured=lean.measured_bytes + int(copies),
+                                              budget=budget)
+        fat = hlo_audit.memory_contract(round_plan("replicated", cfg, keys), loss_fn, axes,
+                                        {n: v.clone() for n, v in params.items()}, cfg, batch,
+                                        budget=budget)
+        print(f"  {task} (V {ds.num_features}, K {cfg.clients_per_round}): sparse round peak "
+              f"{lean.measured_bytes / 1e6:.2f} MB against {lean.budget_bytes / 1e6:.2f} MB "
+              f"allowed ({'ok' if lean.ok else 'FAIL'}); the six reference components "
+              f"allow {six.budget_bytes / 1e6:.2f} MB ({'within' if six.ok else 'over'}); "
+              "budget " + ", ".join(f"{k} {v / 1e6:.2f}" for k, v in budget.items()) + " MB")
+        print(f"  {task} plants against that budget: a table copy per client "
+              f"{densified.measured_bytes / 1e6:.2f} MB "
+              f"({'trips' if not densified.ok else 'DOES NOT TRIP'}), the dense-replica round "
+              f"{fat.measured_bytes / 1e6:.2f} MB ({'trips' if not fat.ok else 'DOES NOT TRIP'})")
+        check(lean.ok, f"[61] {task}: {lean.failures}")
+        if task != "lstm":      # the LSTM's cells outgrow the six terms: ROADMAP Queue 3
+            check(six.ok, f"[61] {task}, the reference's six terms: {six.failures}")
+        for plant in (densified, fat):
+            check(not plant.ok and any("peak live bytes" in f for f in plant.failures),
+                  f"[61] {task}: a planted {plant.measured_bytes} B did not trip the budget")
+        del params, batch
+        torch.cuda.empty_cache()
+
+
+def phase_dense_intermediates(tasks: dict) -> None:
+    """[62]: one sparse round step under the dispatch mode, LR at
+    MovieLens-1M width with [61]'s 100 clients and the LSTM with 25: no
+    (V, ...) float output; their dense plans: hits, each listed. The
+    detector reads shapes, so it sees a densification only while the
+    round's union capacity, min(V, the cohort's ids), is below V: the
+    LSTM's 100 clients read 60,000 ids of 20,000 rows, and there the union
+    rows are (V, D) in both packages
+    (``tests/test_torch_analysis.py::test_union_at_capacity_v_is_flagged_in_both``)."""
+    for task, (ds, k) in tasks.items():
+        params, axes, loss_fn, cfg, keys, batch = round_inputs(ds, k=k)
+        v = ds.num_features
+        cap = plan_mod.round_capacity(v, sum(batch[key].numel() for key in keys))
+        print(f"  {task}, {k} clients: union capacity {cap} of V {v}")
+        check(cap < v, f"[62] {task}: a union of capacity V hides a densification")
+        for mode in ("sparse_replicated", "replicated"):
+            step = build_round_step(round_plan(mode, cfg, keys), loss_fn, axes, params, cfg)
+            state = ServerState({n: x.clone() for n, x in params.items()}, (), 0)
+            hits = find_dense_intermediates(step, state, batch, dim0=v)
+            print(f"  {task} {mode}: {len(hits)} dense (V = {v}, ...) float outputs")
+            for h in hits:
+                print(f"    {h}")
+            if mode == "sparse_replicated":
+                check(not hits, f"[62] {task}: the sparse round built {len(hits)} dense "
+                      "intermediates")
+            else:
+                check(hits, f"[62] {task}: the dense round shows no dense intermediate")
+        del params, batch
+        torch.cuda.empty_cache()
+
+
+def phase_comm_drift(mesh_drift: dict) -> None:
+    """[63]: [33]'s counted combine bytes, every rank and step, against
+    ``sharded_combine_bytes`` within 10% plus 64 B."""
+    check(mesh_drift, "[63]: [33] recorded no drift")
+    for label, per_rank in mesh_drift.items():
+        for r, steps in enumerate(per_rank):
+            for d in steps:
+                check(d["ok"], f"[63] {label} rank {r}: {d['failures']}")
+        d = per_rank[0][-1]
+        print(f"  {label}: counted {d['measured_by_op']} against predicted "
+              f"{d['predicted_by_op']} on {len(per_rank)} ranks x {len(per_rank[0])} steps")
+
+
+def phase_checking_planes(kernels: list, lr_ds, din_ds, lstm_ds, mesh_drift: dict) -> None:
+    """[59]-[63], each timed."""
+    for n, title, fn in (
+            (59, "kernel audit: resources, state and coverage of every registry entry",
+             phase_kernel_audit),
+            (60, "cost model and constants", phase_cost_and_constants),
+            (61, "memory contract: LR, DIN and the LSTM sparse rounds at full width",
+             lambda: phase_memory_contract({"lr": lr_ds, "din": din_ds, "lstm": lstm_ds})),
+            (62, "dense intermediates of the LR and LSTM rounds at full width",
+             lambda: phase_dense_intermediates({"lr": (lr_ds, 100), "lstm": (lstm_ds, 25)})),
+            (63, "comm drift of [33]'s sharded steps", lambda: phase_comm_drift(mesh_drift))):
+        print(f"[{n}] {title}")
+        t0 = time.perf_counter()
+        fn()
+        print(f"  [{n}] took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5324,7 +5545,8 @@ def main() -> int:
 
     print("[33] make_round_step on the mesh, 2 ranks, on the LSTM's inputs: four modes, a "
           "cohort that does not divide, debug checks; collectives against the budget")
-    for label, per_rank in phase_mesh_steps(mesh_ranks[2]).items():
+    step_launches, mesh_drift = phase_mesh_steps(mesh_ranks[2])
+    for label, per_rank in step_launches.items():
         k1["launches_by_path"][f"lstm mesh x2 make_round_step {label}"] = per_rank
     del plain, mesh_ranks
 
@@ -5333,6 +5555,7 @@ def main() -> int:
     kernels += phase_vlm_slice(kernels, rng)
     kernels += phase_rec_slice(kernels, rng)
     kernels += phase_whisper_slice(kernels, rng)
+    phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -94,6 +94,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "introspect.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -840,6 +842,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
 using Launch = int (*)(const void*, const void*, const void*, void*, void*, int, int, int,
                        int, int, float, int, int, int, cudaStream_t);
 
+template <int HD>
+int query_instance(bool bf16, int* out, const char** name) {
+  if (bf16)
+    return introspect::query(reinterpret_cast<const void*>(attention_kernel<HD>), kThreads,
+                             Tile<HD>::kSmem, 1, out, name);
+  return introspect::query(reinterpret_cast<const void*>(attention_kernel_f32<HD>),
+                           kF32Threads, f32_smem_floats<HD>() * sizeof(float), 1, out, name);
+}
+
 Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
   switch (hd) {
     case 16: return l16;
@@ -858,6 +869,22 @@ Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
 // (b, h, sq) f32 and takes each row's log-sum-exp of its scaled scores over
 // its valid keys (+inf on a row with none), for K3's backward; the serving
 // path passes null. Each returns the CUDA error of its launch, 0 if none.
+
+// Instance i at its launch configuration, for the kernel audit
+// (introspect.cuh): 0-3 the tensor-core kernel at hd 16, 32, 64, 128, 4-7 the
+// CUDA-core kernel at the same; arg unused.
+extern "C" int flash_attention_instance(int i, int arg, int* out, const char** name) {
+  (void)arg;
+  if (i < 0 || i >= 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = i < 4;
+  switch (i % 4) {
+    case 0: return query_instance<16>(bf16, out, name);
+    case 1: return query_instance<32>(bf16, out, name);
+    case 2: return query_instance<64>(bf16, out, name);
+    case 3: return query_instance<128>(bf16, out, name);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // bf16 inputs, 16-byte aligned: the tensor-core kernel
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v,

@@ -93,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "introspect.cuh"
+
 namespace {
 
 constexpr int kRows = 64;      // resident rows a block keeps: query rows or keys
@@ -434,18 +436,26 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const typename P::T* a,
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < HD; kk += kC * P::kK) {
+    // Each n-tile loads its own B, so one chain step's B is live at a time
+    // (twice the ldmatrix): with every chain's B fragments live, the 3xTF32
+    // dK/dV kernel at hd 128 sat at the 255-register cap and spilled (the
+    // kernel audit, src/repro_torch/analysis/kernel_audit.py). At hd 32 and
+    // in bf16 it times as the chained loads did, at hd 64 in f32 ~1% slower
+    // on the mean (about either's spread), with the same gradients bit for
+    // bit (tools/attention_bwd_times.py on an "NVIDIA H100 80GB HBM3,
+    // 700.00 W").
     typename P::A fa[kC];
-    typename P::B fb[kC][2];
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      fa[c] = P::template load_a<LD>(a + kk + c * P::kK, lane);
-      P::template load_b2_nk<LD, PRE>(fb[c], b + kk + c * P::kK, b_small + kk + c * P::kK, lane);
-    }
+    for (int c = 0; c < kC; ++c) fa[c] = P::template load_a<LD>(a + kk + c * P::kK, lane);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < kC; ++c) P::template mma<SWAP>(part, fa[c], fb[c][nt]);
+      for (int c = 0; c < kC; ++c) {
+        typename P::B fb[2];
+        P::template load_b2_nk<LD, PRE>(fb, b + kk + c * P::kK, b_small + kk + c * P::kK, lane);
+        P::template mma<SWAP>(part, fa[c], fb[nt]);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] += part[e];
     }
@@ -872,6 +882,28 @@ using Launch = int (*)(const void*, const void*, const void*, const void*, const
                        const void*, void*, void*, void*, void*, int, int, int, int, int,
                        float, int, int, int, int, cudaStream_t);
 
+// the dQ (dkv false) or dK/dV kernel at its launch configuration; cluster:
+// the dK/dV launch's cluster size, for its resident clusters
+template <int HD, class P>
+int query_instance(bool dkv, int cluster, int* out, const char** name) {
+  if (dkv)
+    return introspect::query(reinterpret_cast<const void*>(dkv_kernel<HD, P>), kThreads,
+                             Smem<HD, P>::kDkv, cluster, out, name);
+  return introspect::query(reinterpret_cast<const void*>(dq_kernel<HD, P>), kThreads,
+                           Smem<HD, P>::kDq, 1, out, name);
+}
+
+template <class P>
+int query_hd(int hd, bool dkv, int cluster, int* out, const char** name) {
+  switch (hd) {
+    case 16: return query_instance<16, P>(dkv, cluster, out, name);
+    case 32: return query_instance<32, P>(dkv, cluster, out, name);
+    case 64: return query_instance<64, P>(dkv, cluster, out, name);
+    case 128: return query_instance<128, P>(dkv, cluster, out, name);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <class P>
 Launch pick(int hd) {
   switch (hd) {
@@ -893,6 +925,19 @@ Launch pick(int hd) {
 // h / kvh, at most 8. Query row i sits at position
 // q_offset + i, key j at position j; window <= 0 means no window. Each
 // returns the CUDA error of its launches, 0 if none.
+
+// Instance i at its launch configuration, for the kernel audit
+// (introspect.cuh): i = 8 * bf16 + 2 * (0-3 for hd 16, 32, 64, 128) + (0 dQ,
+// 1 dK/dV); cluster: the dK/dV launch's cluster size (at most 8).
+extern "C" int flash_attention_bwd_instance(int i, int cluster, int* out,
+                                            const char** name) {
+  if (i < 0 || i >= 16 || cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = 16 << ((i % 8) / 2);
+  const bool dkv = i % 2 == 1;
+  return i < 8 ? query_hd<Tf32x3>(hd, dkv, cluster, out, name)
+               : query_hd<Bf16>(hd, dkv, cluster, out, name);
+}
 
 extern "C" int flash_attention_bwd_f32_launch(const void* q, const void* k, const void* v,
                                               const void* o, const void* dout, const void* lse,

@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "introspect.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -682,6 +684,33 @@ int launch(const void* q, const void* kc, const void* vc, const int* kpos, int b
   return static_cast<int>(cudaGetLastError());
 }
 
+// the split pass (tensor cores for bf16, CUDA cores for f32) with `chunk`
+// slots a slice, or the merge, at its launch configuration
+template <typename T, int HD>
+int query_instance(bool merge, int chunk, int* out, const char** name) {
+  if (merge)
+    return introspect::query(reinterpret_cast<const void*>(merge_kernel<T, HD>),
+                             HD < 32 ? 32 : HD, 0, 1, out, name);
+  const int list = 4 * ((chunk + kTile - 1) / kTile);
+  if constexpr (sizeof(T) == 2)
+    return introspect::query(reinterpret_cast<const void*>(split_kernel_tc<HD>), kThreads,
+                             SwizzledTile<HD>::kStageBytes + 1024 + list, 1, out, name);
+  else
+    return introspect::query(reinterpret_cast<const void*>(split_kernel<T, HD>), kThreads,
+                             Rows<T, HD>::kStageBytes + list, 1, out, name);
+}
+
+template <typename T>
+int query_hd(int hd, bool merge, int chunk, int* out, const char** name) {
+  switch (hd) {
+    case 16: return query_instance<T, 16>(merge, chunk, out, name);
+    case 32: return query_instance<T, 32>(merge, chunk, out, name);
+    case 64: return query_instance<T, 64>(merge, chunk, out, name);
+    case 128: return query_instance<T, 128>(merge, chunk, out, name);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int dispatch(int hd, const void* q, const void* kc, const void* vc, const int* kpos,
              int b, int h, int kvh, int s_len, int q_position, int window, int nsplit,
@@ -703,6 +732,17 @@ int dispatch(int hd, const void* q, const void* kc, const void* vc, const int* k
 // is cut into nsplit slices of chunk slots; part is f32 scratch of b * h *
 // nsplit * (hd + 2). window <= 0 means no window. Returns the CUDA error of
 // the launches.
+// Instance i at its launch configuration, for the kernel audit
+// (introspect.cuh): i = 8 * merge + 4 * bf16 + (0-3 for hd 16, 32, 64, 128);
+// chunk: the split pass's slots a slice (split_plan), which sizes its list.
+extern "C" int flash_decode_instance(int i, int chunk, int* out, const char** name) {
+  if (i < 0 || i >= 16 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = 16 << (i % 4);
+  const bool merge = i >= 8, bf16 = (i / 4) % 2 == 1;
+  return bf16 ? query_hd<__nv_bfloat16>(hd, merge, chunk, out, name)
+              : query_hd<float>(hd, merge, chunk, out, name);
+}
+
 extern "C" int flash_decode_launch(const void* q, const void* k_cache,
                                    const void* v_cache, const void* k_positions,
                                    int is_bf16, int b, int h, int kvh, int s_len,

@@ -81,6 +81,15 @@ rowsparse_scatter_kernel(Args a) {
 
 }  // namespace
 
+// Instance i of the kernel (0-5: f32 rows at vec 1, 2, 4, then bf16 rows) at
+// its launch configuration, for the kernel audit (introspect.cuh); arg unused.
+extern "C" int rowsparse_scatter_instance(int i, int arg, int* out, const char** name) {
+  (void)arg;
+  if (i < 0 || i >= 6) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = ROWSUM_PICK(rowsparse_scatter_kernel, i / 3, 1 << (i % 3));
+  return introspect::query(reinterpret_cast<const void*>(kernel), kThreads, 0, 1, out, name);
+}
+
 // Blocks of the kernel instance for (rows_bf16, vec) that fit on the current
 // device at once, or a negated CUDA error.
 extern "C" int rowsparse_scatter_max_blocks(int rows_bf16, int vec) {

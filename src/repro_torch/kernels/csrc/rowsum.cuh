@@ -19,6 +19,8 @@
 
 #include <type_traits>
 
+#include "introspect.cuh"
+
 namespace rowsum {
 
 constexpr int kThreads = 512;  // threads per block (THREADS in kernels/_rows.py)
@@ -76,9 +78,13 @@ __device__ __forceinline__ unsigned team_mask(int team) {
   return ((1u << team) - 1u) << first;
 }
 
-// Rows whose loads are in flight before their atomic adds: kGroup float2
-// loads per lane, or half as many float4 loads in the same registers.
-constexpr int kGroup = 8;
+// Rows whose loads are in flight before their atomic adds, per lane: kGroup
+// loads of one or two floats, or kGroupVec4 float4 loads. Two 512-thread
+// blocks an SM leave a thread 64 registers; at eight rows of float2 (K1) and
+// of floats (K2) ptxas spilled, which the kernel audit
+// (src/repro_torch/analysis/kernel_audit.py) fails, so a group is six rows.
+constexpr int kGroup = 6;
+constexpr int kGroupVec4 = 4;
 
 // out[dst(t)] += f(t) * rows[t] for every row t in [0, t_count), by the
 // whole grid. Each team takes `team` consecutive rows at a time: lane i
@@ -92,7 +98,7 @@ template <typename T, int VEC, typename Resolve>
 __device__ __forceinline__ void add_rows(const T* rows, float* out, int64_t t_count, int d,
                                          int team, int64_t gt, int64_t gs,
                                          Resolve resolve) {
-  constexpr int G = VEC == 4 ? kGroup / 2 : kGroup;
+  constexpr int G = VEC == 4 ? kGroupVec4 : kGroup;
   const int lane = threadIdx.x & (team - 1);
   const unsigned mask = team_mask(team);
   for (int64_t base = gt - lane; base < t_count; base += gs) {

@@ -117,7 +117,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     sqrt_hd = float(np.sqrt(np.float32(hd)))           # the reference's f32 sqrt(hd)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.launcher("flash_decode")(
+        err = _build.launcher("flash_decode", "flash_decode_launch")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_positions.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, kvh, s, hd, int(q_position),
             int(window), nsplit, chunk, sqrt_hd, part.data_ptr(), out.data_ptr(), stream)

@@ -10,6 +10,7 @@ launch and no scale pass after it. It is bound by bytes on the H100 (ids
 and rows read once, the dense output written once); the source note says
 what the design does about it.
 
+``heat_scatter`` is its ``scale=1`` case, as in the reference.
 ``rowsparse_scatter`` launches the kernel for CUDA tensors and runs
 ``rowsparse_scatter_torch``, the plain PyTorch version, for CPU tensors
 only. It never falls back from one to the other.
@@ -84,3 +85,11 @@ def rowsparse_scatter(ids: torch.Tensor, rows: torch.Tensor, heat: torch.Tensor,
 
 #: kernel launches so far (one per call that reached the card)
 rowsparse_scatter.launches = 0
+
+
+def heat_scatter(ids: torch.Tensor, rows: torch.Tensor, heat: torch.Tensor,
+                 total: float, vocab: int) -> torch.Tensor:
+    """K2 at ``scale=1``: ``sum_{t: ids[t]=v} rows[t] * total / max(heat[v], 1)``
+    into a dense ``(vocab, D)`` f32 table (the reference's ``heat_scatter``).
+    CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    return rowsparse_scatter(ids, rows, heat, total, vocab, scale=1.0)

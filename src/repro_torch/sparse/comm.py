@@ -2,15 +2,19 @@
 
 Prices a round in bytes — dense baseline vs the sparse plane, uplink and
 downlink — from static shapes plus the actual non-padding id counts, so the
-numbers are exact. Same formulas as ``repro/sparse/comm.py``.
+numbers are exact, and prices an update tree's wire bytes and a sharded
+round's combine. Same formulas as ``repro/sparse/comm.py``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Set
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Set
 
 import numpy as np
 import torch
+
+from repro_torch.sparse.compress import QuantRows
+from repro_torch.sparse.rowsparse import is_rowsparse
 
 _ID_BYTES = 4          # int32 row ids
 _SCALE_BYTES = 4       # f32 per-row dequant scale
@@ -78,6 +82,92 @@ class CommStats:
             "bytes_down_sparse": self.bytes_down_sparse,
             "density": self.density, "up_ratio": self.up_ratio,
         }
+
+
+def _row_payload_bytes(shape: Sequence[int], itemsize: int) -> int:
+    """Bytes of one row of a (V, ...) leaf."""
+    n = 1
+    for d in shape[1:]:
+        n *= int(d)
+    return max(n, 1) * itemsize
+
+
+def _valid_rows(ids: torch.Tensor) -> int:
+    return int((ids >= 0).sum())
+
+
+def _sub_leaves(tree: Any) -> list:
+    """The leaves of a container (dict values in key order, list and tuple
+    items), RowSparse and QuantRows kept whole; ``None`` has none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _sub_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for x in tree for l in _sub_leaves(x)]
+    return [tree]
+
+
+def leaf_wire_bytes(leaf: Any) -> float:
+    """On-wire bytes of one update leaf in its current representation.
+
+    RowSparse and QuantRows leaves ship their valid rows with an int32 id
+    each (QuantRows at 1 byte an element plus an f32 scale a row); tensors
+    and numpy arrays ship whole; a Python scalar as numpy holds it; a
+    container is the sum of its leaves (0 bytes when empty).
+    """
+    if isinstance(leaf, QuantRows):
+        per_row = _row_payload_bytes((0,) + tuple(leaf.q.shape[leaf.ids.dim():]), 1)
+        return _valid_rows(leaf.ids) * (_ID_BYTES + per_row + _SCALE_BYTES)
+    if is_rowsparse(leaf):
+        per_row = _row_payload_bytes((0,) + tuple(leaf.rows.shape[leaf.ids.dim():]),
+                                     leaf.rows.element_size())
+        return _valid_rows(leaf.ids) * (_ID_BYTES + per_row)
+    if isinstance(leaf, torch.Tensor):
+        return float(leaf.numel()) * leaf.element_size()
+    if isinstance(leaf, np.ndarray) or isinstance(leaf, np.generic):
+        return float(np.prod(leaf.shape)) * leaf.dtype.itemsize
+    sub = _sub_leaves(leaf)
+    if len(sub) == 1 and sub[0] is leaf:        # atomic scalar (int/float)
+        arr = np.asarray(leaf)
+        return float(np.prod(arr.shape)) * arr.dtype.itemsize
+    return float(sum(leaf_wire_bytes(l) for l in sub))
+
+
+def tree_wire_bytes(tree: Any) -> float:
+    """Total on-wire bytes of an update tree (RowSparse/QuantRows aware)."""
+    return sum((leaf_wire_bytes(leaf) for leaf in _sub_leaves(tree)), 0.0)
+
+
+def sharded_combine_bytes(meta: CommMeta, vocab: int, union_capacity: int,
+                          num_shards: int, mode: str, *, num_tables: int = 1,
+                          count_gather_ids: bool = False) -> Dict[str, float]:
+    """Predicted cross-rank combine bytes of one cohort-sharded sparse round.
+
+    The comm-plane half of ``repro_torch.analysis.hlo_audit.comm_drift``:
+    per rank and per collective kind, the combine that
+    ``combine_rowsparse_partials`` makes, priced from the same
+    :class:`CommMeta` that prices the client wire. ``mode`` is the resolved
+    combine ("psum": an all-reduce of the densified ``(V, row)`` partial;
+    "union": an all-gather of every rank's ``union_capacity`` ids and
+    rows); ``count_gather_ids`` adds the flat path's ``used_ids``
+    all-gather. The dense non-table leaves ride an all-reduce; payloads are
+    priced as f32. The loss and sub-row scalars (4 B each) are not priced:
+    the drift check's absolute tolerance absorbs them.
+    """
+    out = {"all-reduce": 0.0, "all-gather": 0.0}
+    row_bytes = float(meta.row_elems) * 4.0
+    if mode == "psum":
+        out["all-reduce"] += float(vocab) * row_bytes
+    elif mode == "union":
+        out["all-gather"] += float(num_shards) * float(union_capacity) * (
+            float(num_tables) * _ID_BYTES + row_bytes)
+    else:
+        raise ValueError(f"unknown combine mode: {mode!r}")
+    out["all-reduce"] += float(meta.sparse_static_bytes)
+    if count_gather_ids:
+        out["all-gather"] += float(num_shards) * float(union_capacity) * _ID_BYTES
+    return out
 
 
 def round_comm_stats(rnd: int, dense_model_bytes: float,

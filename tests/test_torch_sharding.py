@@ -369,6 +369,28 @@ def test_collective_counters_equal_budget(runs, mode, combine):
         assert comps["combine:embedding"]["op"] == op
 
 
+@pytest.mark.parametrize("mode", ["sparse", "sparse_replicated"])
+@pytest.mark.parametrize("combine", ["psum", "union"])
+def test_comm_drift_holds_on_sharded_plans(runs, mode, combine):
+    """``hlo_audit.comm_drift``: every step's counted bytes by collective
+    kind equal ``sharded_combine_bytes`` of ``plan_comm_meta`` within 10%
+    plus 64 B (the reference's tolerance), at 2 and 3 ranks, and the
+    combine's own kind was priced and moved."""
+    for world in (2, 3):
+        keys = ([f"steps/{mode}/True", f"steps/{mode}/False", f"combine/{mode}/{combine}"]
+                if world == 2 else [f"combine/{combine}", "non_divisible"])
+        if world == 3 and mode != "sparse_replicated":
+            continue
+        for res in runs[world]:
+            for key in keys:
+                assert len(res[key]["drift"]) == 3, (world, key)
+                for d in res[key]["drift"]:
+                    assert d["ok"], (world, key, d["failures"])
+    d = runs[2][0][f"combine/{mode}/{combine}"]["drift"][-1]
+    dominant = "all-reduce" if combine == "psum" else "all-gather"
+    assert d["predicted_by_op"][dominant] > 0 and d["measured_by_op"][dominant] > 0
+
+
 def _budget_batch(mode: str, shards: int) -> dict:
     return ranks.mode_batch(mode, 7, k=shards + 1)
 

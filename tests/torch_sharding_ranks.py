@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.analysis.hlo_audit import comm_drift
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.algorithms import ServerState
 from repro_torch.data.synthetic import make_movielens_like
@@ -90,14 +91,15 @@ def _run_steps(mesh, params0, axes, mode, correct=True, combine="auto", k=3, rou
                telemetry=False) -> dict:
     """``rounds`` sharded ``make_round_step`` steps on the
     ``tests/test_shard_parity.py`` batches; per step the loss, sub_rows,
-    telemetry and whether the mesh's counters equal the budget."""
+    telemetry, whether the mesh's counters equal the budget and, on the
+    sparse transport, their drift from ``sharded_combine_bytes``."""
     cfg = fed(k)
     plan = dataclasses.replace(resolve_plan(mode, cfg, correct=correct),
                                sharding=CohortSharding(mesh, combine=combine))
     step = make_round_step(lstm_loss, params0, axes, cfg, mode=plan, telemetry=telemetry)
     params = _host(params0)
     out = {"loss": [], "sub_rows": [], "telemetry": [], "counters_equal_budget": [],
-           "counters": [], "budget": []}
+           "counters": [], "budget": [], "drift": []}
     for r in range(rounds):
         batch = _tensors(mode_batch(mode, 100 + r, k))
         budget = round_collective_budget(plan, axes, params, cfg, batch)
@@ -111,6 +113,9 @@ def _run_steps(mesh, params0, axes, mode, correct=True, combine="auto", k=3, rou
             out["counters"].append(dict(mesh.counters))
             out["budget"].append(budget["components"])
             out["counters_equal_budget"].append(mesh.counters == budget["components"])
+            if plan.transport.sparse:
+                out["drift"].append(comm_drift(plan, axes, params, cfg, batch,
+                                               measured=mesh.by_op()).to_dict())
     out["params"] = _host(params)
     return out
 
