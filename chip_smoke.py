@@ -323,6 +323,22 @@ Phases, each of which asserts; any failure exits non-zero:
     round's are listed
 63. comm drift: [33]'s counted combine bytes, every rank and step, against
     ``sparse.comm.sharded_combine_bytes`` within 10% plus 64 B
+64. the sharded LLM step: Qwen2.5-14B at its widths (f32, fedsubavg, cohort
+    8 x 128, 2 rounds, remat) through ``launch.train.train`` on one device,
+    then with ``mesh=`` on (1, 2) at 2 layers and (2, 2) and (1, 4) at 1
+    layer, gloo ranks sharing the card (NCCL refuses two ranks on one
+    device); losses and every parameter within 1e-4 of one device's, each
+    leaf's update within 1e-3 in relative norm, K3 and its backward as
+    often on each rank as on one device, every whole leaf the same bits on
+    every model rank after each round; ms per round and each rank's peak
+65. Mixtral at its widths, 1 layer, f32: the tensor-parallel baseline and
+    expert parallelism on (1, 2) against one device, as [64], the routing
+    identical
+66. each rank's collective counters against ``tp_collective_budget`` in
+    every round; a 1-rank NCCL (1, 1) mesh at the 100m scale within 1e-5 of
+    one device; K3 and its backward at [64]'s per-rank shapes (m = 2: H 20,
+    KV 4; m = 4: H 10, KV 2; B 8, S 128, hd 128, f32) against their plain
+    versions, timed beside SDPA and the bound
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -334,8 +350,9 @@ and its times at the training shape; K3-backward's entry its launches on
 [35] and its share of a round; three rows more for [40]'s K3 and K4 and
 K3's backward at Mixtral's training shape; seven for [45]'s and [46]'s K3
 and K4 and [44]'s three backward shapes; three for [50]'s and [53]'s; eight
-for Whisper's three K3 shapes, two K4 shapes and three backward shapes),
-the card line and, last,
+for Whisper's three K3 shapes, two K4 shapes and three backward shapes;
+four for K3 and its backward at [64]'s per-rank shapes, each with its
+launches per rank), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -376,7 +393,8 @@ from repro_torch.federated.plan import (CohortSharding, FedSgdLocal,  # noqa: E4
                                         RoundPlan, RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal, build_round_step,
                                         resolve_plan, round_collective_budget)
-from repro_torch.launch.mesh import make_cohort_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import make_cohort_mesh, make_device_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.shardings import local_part, param_specs  # noqa: E402
 from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
 from repro_torch.sparse import compress  # noqa: E402
@@ -5319,6 +5337,324 @@ def phase_checking_planes(kernels: list, lr_ds, din_ds, lstm_ds, mesh_drift: dic
         print(f"  [{n}] took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# [64]-[66]: the sharded LLM step on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: [64]-[65]'s corpus, cohort and rounds: a cohort of 8 sequences of 128
+#: tokens, so that a rank of a (1, m) mesh runs K3 at B 8, S 128
+TP_RUN = dict(clients=64, cohort=8, seq=128, zipf_a=1.3, lr=LM_LR, algorithm="fedsubavg")
+TP_ROUNDS = 2
+#: [64]: Qwen2.5-14B at its widths on these meshes of gloo ranks sharing the
+#: card, each at this depth (one single-device run per depth)
+TP_QWEN_MESHES = (((1, 2), 2), ((2, 2), 1), ((1, 4), 1))
+TP_QWEN_REDUCED = ("layers 48 -> 2 on (1, 2) and 1 on (2, 2) and (1, 4): 2 layers are "
+                   "2.11 B f32 parameters (8.43 GB, 6.23 GB of them the embedding and "
+                   "lm_head), each rank draws them whole before it keeps its part, and "
+                   "2 or 4 ranks share the one card")
+#: [65]: Mixtral at its widths, 1 layer, both MoE layouts on (1, 2)
+TP_MOE_LAYERS = 1
+TP_MOE_REDUCED = ("layers 56 -> 1: 2.91 B f32 parameters (11.6 GB), drawn whole by each "
+                  "of 2 ranks sharing the card")
+TP_TIMEOUT_S = 600.0
+#: [66]: the 1-rank NCCL mesh's model (the launcher's 100m scale)
+TP_NCCL_SCALE = "100m"
+#: the per-rank shapes of [64]'s K3 rows: (1, 2) and (1, 4) at B 8, S 128
+TP_K3_CASES = (("m = 2", (8, 128, 20, 4, 128), (1, 2)), ("m = 4", (8, 128, 10, 2, 128), (1, 4)))
+
+
+@contextlib.contextmanager
+def record_routes(out: list):
+    """Wrap ``layers.moe_route``: each call appends its expert ids and kept
+    assignments (the caller's tokens')."""
+    inner = layers_mod.moe_route
+
+    def route(*a, **kw):
+        r = inner(*a, **kw)
+        out.append((r.expert_ids.tolist(), r.keep.tolist()))
+        return r
+
+    layers_mod.moe_route = route
+    try:
+        yield out
+    finally:
+        layers_mod.moe_route = inner
+
+
+def tp_reference(cfg, label: str) -> dict:
+    """The single-device run a mesh is held to: ``train`` on the card from
+    the seed's weights, ``TP_ROUNDS`` rounds of ``TP_RUN``. Its final
+    parameters go to a file under ``build/`` that the ranks map; each
+    leaf's update norm, its losses, K3's counts and the MoE's routing stay
+    here."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p0, axes = lm_params(cfg, DEV)
+    lm_zero_counts()
+    with record_routes([]) as routes:
+        res = train_mod.train(cfg, rounds=TP_ROUNDS, device=DEV, params=dict(p0), axes=axes,
+                              log_every=0, **TP_RUN)
+    launches = lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    update = {n: float((res.params[n] - p0[n]).float().norm()) for n in p0}
+    del p0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = OUT_DIR / f"tp_reference_{label}.pt"
+    torch.save({n: t.cpu() for n, t in res.params.items()}, path)
+    check(all(math.isfinite(x) for x in res.losses), f"{label}: a loss is not finite")
+    print(f"  one device, {cfg.name} {cfg.num_layers} layer(s): loss "
+          f"{[round(x, 6) for x in res.losses]}, ms/round {[round(x, 1) for x in res.ms_per_round]}"
+          f", peak {peak / 1e9:.2f} GB, launches {launches} ({card_line()})")
+    out = {"path": str(path), "losses": res.losses, "ms": res.ms_per_round, "update": update,
+           "launches": launches, "routes": routes, "peak_gb": peak / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_job(mesh, job: dict) -> dict:
+    """One run of ``train(mesh=...)`` on a rank: losses, ms, peak, K3's
+    counts, each round's counters and ``tp_collective_budget``, whether
+    every leaf the rules leave whole has the same bits on every model rank
+    after each round, the routing, and each leaf's part against the
+    single-device run's (``job["ref"]``, mapped from its file)."""
+    cfg = job["cfg"]
+    rules = train_mod.mesh_rules(cfg, mesh, job["ep"])
+    meta = build_model(cfg).abstract_params()
+    full = {n: tuple(t.shape) for n, t in meta.state_dict().items()}
+    specs = param_specs(meta.axes, full, mesh, rules)
+    whole = [n for n, spec in specs.items() if not any(spec)]
+    model = mesh.axis("model")
+    same: list = []
+
+    def on_round(r, local, metrics):
+        if model.size > 1:
+            same.append(all(bool((g == g[0]).all()) for g in (
+                model.all_gather(local[n], "check") for n in whole)))
+
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lm_zero_counts()
+    with record_routes([]) as routes:
+        res = train_mod.train(cfg, rounds=TP_ROUNDS, device=mesh.device, mesh=mesh,
+                              expert_parallel=job["ep"], log_every=0, on_round=on_round,
+                              **TP_RUN)
+    launches = lm_counts()
+    peak = torch.cuda.max_memory_allocated() if mesh.device.type == "cuda" else 0
+    budget = plan_mod.tp_collective_budget(
+        cfg, mesh, {"tokens": torch.zeros(TP_RUN["cohort"], TP_RUN["seq"])}, rules=res.rules)
+    ref = torch.load(job["ref"], mmap=True, weights_only=True)
+    err, sq = {}, {}
+    for n, got in res.params.items():
+        want = local_part(ref[n], mesh, specs[n]).to(mesh.device)
+        diff = (got - want).double()
+        err[n], sq[n] = float(diff.abs().max()), float((diff * diff).sum())
+        del want, diff
+    out = {"losses": res.losses, "ms": res.ms_per_round, "peak_gb": peak / 1e9,
+           "launches": launches, "counters": res.counters, "budget": budget["axes"],
+           "same": same, "routes": routes, "err": err, "sq": sq, "coords": mesh.coords,
+           "data": mesh.shape["data"], "split": sorted(n for n in specs if n not in whole)}
+    del ref, res
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str, jobs: list, device: str) -> None:
+    """One gloo rank sharing the card: each job on its own mesh laid over
+    the world; its results saved for the parent."""
+    import torch.distributed as dist
+
+    global DEV
+    DEV = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        results = {}
+        for job in jobs:
+            mesh = make_device_mesh(job["shape"], device=DEV)
+            results[job["label"]] = tp_job(mesh, job)
+        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp(world: int, jobs: list) -> list:
+    """Spawn ``world`` gloo ranks of ``tp_rank`` on the card; their results."""
+    out_dir = Path(tempfile.mkdtemp(prefix=f"tp{world}_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(tp_rank, world, args=(world, str(out_dir / "store"), str(out_dir), jobs,
+                                          str(DEV)), timeout_s=TP_TIMEOUT_S)
+        res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  {world} gloo ranks on the card: spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def check_tp(label: str, ranks: list, ref: dict) -> dict:
+    """[64]/[65]'s checks of one job on every rank: losses and every leaf
+    within ``LM_HOST_TOL`` of the single-device run, each leaf's update
+    within ``LM_UPDATE_TOL`` in relative norm (the squared differences of
+    one data row's model ranks summed), K3 and its backward as often per
+    rank as on one device, whole leaves the same bits on every model rank,
+    and the routing the single device's."""
+    first = ranks[0][label]
+    for r, per in enumerate(ranks):
+        got = per[label]
+        check(np.allclose(got["losses"], ref["losses"], rtol=LM_HOST_TOL, atol=LM_HOST_TOL),
+              f"{label} rank {r}: losses {got['losses']} against one device's {ref['losses']}")
+        worst = max(got["err"].values())
+        check(worst <= LM_HOST_TOL, f"{label} rank {r}: a parameter is {worst:.3g} from one "
+              "device's")
+        check(got["launches"] == ref["launches"],
+              f"{label} rank {r}: launches {got['launches']}, one device {ref['launches']}")
+        check(all(got["same"]), f"{label} rank {r}: a whole leaf differs across model ranks")
+        if got["data"] == 1:
+            check(got["routes"] == ref["routes"], f"{label} rank {r}: routing differs")
+    rel = {}
+    for n, norm in ref["update"].items():
+        sq = sum(per[label]["sq"][n] for per in ranks if per[label]["coords"][0] == 0)
+        if n not in first["split"]:
+            sq = first["sq"][n]
+        rel[n] = math.sqrt(sq) / norm if norm > 0 else math.sqrt(sq)
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= LM_UPDATE_TOL, f"{label}: the update of {worst} is {rel[worst]:.3g} "
+          "from one device's in relative norm")
+    ms = [statistics.median(per[label]["ms"][1:] or per[label]["ms"]) for per in ranks]
+    print(f"  {label}: loss {[round(x, 6) for x in first['losses']]} (one device "
+          f"{[round(x, 6) for x in ref['losses']]}); max |param diff| "
+          f"{max(max(p[label]['err'].values()) for p in ranks):.3g}; worst update "
+          f"{rel[worst]:.3g} ({worst}); ms/round {[round(x, 1) for x in ms]} by rank (one "
+          f"device {statistics.median(ref['ms'][1:] or ref['ms']):.1f}); peak "
+          f"{[round(p[label]['peak_gb'], 2) for p in ranks]} GB by rank; launches per rank "
+          f"{first['launches']}; {card_line()}")
+    return {"launches": first["launches"], "ms": ms}
+
+
+def tp_nccl(cfg) -> None:
+    """[66] (b): a 1-rank NCCL ``(1, 1)`` mesh in this process, its rounds
+    within ``LM_STEP_TOL`` of the single-device rounds (the mesh changes no
+    arithmetic, but two runs of one device already differ in the embedding
+    gradient's unordered adds), its counters the budget's."""
+    single = train_mod.train(cfg, rounds=TP_ROUNDS, device=DEV, log_every=0, **TP_RUN)
+    store = Path(tempfile.mkdtemp(prefix="nccl_", dir=ROOT / "build"))
+    mesh = make_device_mesh((1, 1), device=DEV, backend="nccl", init_method=f"file://{store / 's'}",
+                     rank=0, world_size=1)
+    try:
+        res = train_mod.train(cfg, rounds=TP_ROUNDS, device=DEV, log_every=0, mesh=mesh,
+                              **TP_RUN)
+        budget = plan_mod.tp_collective_budget(
+            cfg, mesh, {"tokens": torch.zeros(TP_RUN["cohort"], TP_RUN["seq"])},
+            rules=res.rules)["axes"]
+    finally:
+        mesh.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    err = max(float((res.params[n] - single.params[n]).abs().max()) for n in single.params)
+    check(np.allclose(res.losses, single.losses, rtol=LM_STEP_TOL, atol=LM_STEP_TOL),
+          f"NCCL (1, 1): losses {res.losses} against one device's {single.losses}")
+    check(err <= LM_STEP_TOL, f"NCCL (1, 1): a parameter is {err:.3g} from one device's")
+    check(all(c == budget for c in res.counters),
+          f"NCCL (1, 1): counters {res.counters[-1]} against {budget}")
+    print(f"  NCCL (1, 1), {cfg.name} at the {TP_NCCL_SCALE} scale: loss "
+          f"{[round(x, 6) for x in res.losses]}, one device's {[round(x, 6) for x in single.losses]}"
+          f", max |param diff| {err:.3g}; counters "
+          f"{res.counters[-1]} equal the budget; {card_line()}")
+
+
+def phase_tp_slice(kernels: list, rng) -> list:
+    """[64]-[66], each timed; adds the errors of K3 and its backward at the
+    ranks' shapes to their entries and returns their rows: K3 and its
+    backward at [64]'s per-rank shapes, each with its launches per rank."""
+    by_name = {e["name"]: e for e in kernels}
+    print(f"[64] {LM_ARCH} at its widths, f32, fedsubavg, {TP_ROUNDS} rounds of "
+          f"{TP_RUN}: one device, then (data, model) meshes of gloo ranks sharing the card; "
+          f"[65]'s runs ride the same spawn of 2 ranks")
+    t0 = time.perf_counter()
+    print(f"  reduced: {TP_QWEN_REDUCED}")
+    refs, jobs, want = {}, {2: [], 4: []}, {}
+
+    def add(label: str, shape: tuple, cfg, ep: bool, ref: dict) -> None:
+        jobs[math.prod(shape)].append({"label": label, "shape": shape, "cfg": cfg, "ep": ep,
+                                       "ref": ref["path"]})
+        want[label] = (math.prod(shape), ref)
+
+    for shape, layers in TP_QWEN_MESHES:
+        if layers not in refs:
+            refs[layers] = tp_reference(lm_config(layers), f"qwen{layers}")
+        add(f"{LM_ARCH} {shape}", shape, lm_config(layers), False, refs[layers])
+    print(f"  [65]'s single-device run, {MOE_ARCH} at {TP_MOE_LAYERS} layer; reduced: "
+          f"{TP_MOE_REDUCED}")
+    moe_cfg = moe_serve_config(TP_MOE_LAYERS, dtype="float32")
+    refs["moe"] = tp_reference(moe_cfg, "mixtral")
+    check(refs["moe"]["routes"], "[65]: the single-device run recorded no routing")
+    moe_labels = [f"{MOE_ARCH} {name} (1, 2)" for name in ("tp", "ep")]
+    for label, ep in zip(moe_labels, (False, True)):
+        add(label, (1, 2), moe_cfg, ep, refs["moe"])
+    try:
+        ranks = {world: run_tp(world, js) for world, js in jobs.items()}
+    finally:
+        for ref in refs.values():
+            Path(ref["path"]).unlink(missing_ok=True)
+    tp = {}
+
+    def held(label: str) -> None:
+        world, ref = want[label]
+        tp[label] = dict(check_tp(label, ranks[world], ref), ranks=ranks[world])
+
+    for label in want:
+        if label not in moe_labels:
+            held(label)
+    print(f"  [64] took {time.perf_counter() - t0:.1f} s (with [65]'s runs)")
+
+    print(f"[65] {MOE_ARCH} at its widths, {TP_MOE_LAYERS} layer, f32: the tensor-parallel "
+          "baseline and expert parallelism on (1, 2) against one device (run in [64]'s "
+          "spawn of 2 ranks)")
+    for label in moe_labels:
+        held(label)
+
+    print("[66] each rank's collectives against tp_collective_budget; a 1-rank NCCL (1, 1) "
+          "mesh; K3 and its backward at the ranks' shapes")
+    t0 = time.perf_counter()
+    for label, got in tp.items():
+        for r, per in enumerate(got["ranks"]):
+            run = per[label]
+            check(all(c == run["budget"] for c in run["counters"]),
+                  f"{label} rank {r}: counters {run['counters'][-1]} against the budget "
+                  f"{run['budget']}")
+        b = got["ranks"][0][label]["budget"]
+        print(f"  {label}: every rank's counters equal the budget each round; per rank per "
+              f"round {sum(c['bytes'] for c in b['model'].values()) / 1e6:.2f} MB over "
+              f"'model' in {len(b['model'])} tags, "
+              f"{sum(c['bytes'] for c in b['data'].values()) / 1e6:.2f} MB over 'data'")
+    tp_nccl(get_config(LM_ARCH).replace(**serve_mod.SCALES[TP_NCCL_SCALE]))
+    rows = []
+    for name, shape, mesh_shape in TP_K3_CASES:
+        fwd, bwd = train_attention_timing(shape, SEED + 64, f"rank of {mesh_shape}")
+        per_rank = tp[f"{LM_ARCH} {mesh_shape}"]["launches"]
+        for kernel, timed, source in (
+                ("flash_attention", fwd, ("flash_attention.cu",
+                                          "src/repro/kernels/flash_attention.py:100")),
+                ("flash_attention_bwd", bwd, ("flash_attention_bwd.cu",
+                                              "src/repro/models/layers.py:154"))):
+            by_name[kernel]["max_abs_err"] = max(by_name[kernel]["max_abs_err"],
+                                                 timed["max_abs_err"])
+            rows.append({"name": f"{kernel} (Qwen2.5-14B training, rank of {mesh_shape}, "
+                                 f"{name})", "route": "cuda",
+                         "source": f"src/repro_torch/kernels/csrc/{source[0]}",
+                         "replaces": source[1], "launches": per_rank[kernel],
+                         "launches_per_round": per_rank[kernel] // TP_ROUNDS, **timed})
+    check(all(r["launches"] > 0 for r in rows), "[64]: a rank's shape was not launched")
+    print(f"  [66] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5556,6 +5892,7 @@ def main() -> int:
     kernels += phase_rec_slice(kernels, rng)
     kernels += phase_whisper_slice(kernels, rng)
     phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
+    kernels += phase_tp_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -450,6 +450,106 @@ def round_collective_budget(plan: RoundPlan, axes: Dict[str, Tuple],
             "allowed_ops": sorted(by_op)}
 
 
+def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None,
+                         remat: bool = True) -> Dict:
+    """Per-rank collectives of one FedSGD round of a transformer on a
+    ``(data, model)`` :class:`~repro_torch.launch.mesh.DeviceMesh`.
+
+    The round step's on the ``data`` axis (``CohortSharding``'s flat shard,
+    dense transport): the ``loss`` all-reduce (4 B) and ``dense_tree``, an
+    all-reduce of every leaf of the rank's gradient. The model's on the
+    ``model`` axis, under the rules' split (``transformer.model_split``),
+    per layer and pass over ``T = B / data`` ranks' tokens of width ``d`` in
+    the model's dtype:
+
+    - a forward pass: ``attn_out`` (T x d), ``mlp_out`` or ``moe_out`` (T x
+      d), and under expert parallelism ``router_logits``, an all-gather of
+      T x E; once more for remat's recompute of the layer in the backward,
+      and once more again for each layer but a group's last under two-level
+      remat (``cfg.remat_groups``);
+    - the backward: ``attn_in``, ``mlp_in`` or ``moe_in`` (T x d),
+      ``moe_gates`` (T x k), ``router_in`` (T x d), and where the KV heads
+      are whole on every rank the gradients of ``wk`` and ``wv``
+      (``attn_kv``), of the QK norms (``qk_norm``);
+    - a MoE layer with more than one ``data`` rank routes the whole batch:
+      per forward pass ``moe_counts`` (an all-gather of each rank's int32
+      counts per expert) and ``moe_aux`` (f32 2 x E) on the data axis;
+    - outside the layers, split over the vocabulary: ``embed`` (T x d,
+      forward), ``xent_in`` (T x d, backward), and per sequence chunk
+      ``xent_max`` (f32 B x c) and ``xent_sum`` (f32 2 x B x c).
+
+    ``batch`` is the round's whole batch (its ``tokens`` give B and S).
+    ``rules`` default to the installed ones. Returns ``{"axes": {axis: {tag:
+    {"op", "bytes"}}}, "by_op": {axis: {op: bytes}}}``, laid out as
+    ``DeviceMesh.counters`` after a round that started from zero.
+    """
+    from repro_torch.launch.shardings import local_shapes
+    from repro_torch.models.transformer import model_dtype, model_split
+    from repro_torch.sharding.context import get_rules, set_rules
+
+    installed = get_rules()
+    rules = installed[1] if rules is None else rules
+    if rules is None:
+        raise ValueError("tp_collective_budget: no rules installed or given")
+    set_rules(mesh, rules)
+    try:
+        split = model_split(cfg)
+    finally:
+        set_rules(*installed)
+    b, s = (int(n) for n in batch["tokens"].shape)
+    t = b // int(mesh.shape.get("data", 1)) * s
+    d, a = cfg.d_model, torch.empty((), dtype=model_dtype(cfg)).element_size()
+    axes: Dict[str, Dict[str, Dict]] = {name: {} for name in mesh.axis_names}
+
+    def add(axis, tag, op, nbytes):
+        if nbytes > 0:
+            c = axes[axis].setdefault(tag, {"op": op, "bytes": 0.0})
+            c["bytes"] += float(nbytes)
+
+    shapes = local_shapes(cfg, mesh, rules)
+    add("data", "loss", "all-reduce", 4)
+    add("data", "dense_tree", "all-reduce",
+        sum(math.prod(shape) * size for shape, size in shapes.values()))
+    nl = cfg.num_layers
+    g = cfg.remat_groups
+    per = nl // g if remat and g > 1 and nl % g == 0 else 1
+    for i in range(nl):
+        fwd = 1 if not remat else 2 + (per > 1 and i % per != per - 1)
+        if split.heads is not None:
+            add("model", "attn_out", "all-reduce", fwd * t * d * a)
+            add("model", "attn_in", "all-reduce", t * d * a)
+            if split.kv is None:
+                kv = cfg.num_kv_heads * cfg.head_dim
+                add("model", "attn_kv", "all-reduce",
+                    2 * (d * kv + (kv if cfg.qkv_bias else 0)) * a)
+            if cfg.qk_norm:
+                add("model", "qk_norm", "all-reduce", 2 * cfg.head_dim * 4)
+        if not cfg.is_moe:
+            if split.ffn is not None:
+                add("model", "mlp_out", "all-reduce", fwd * t * d * a)
+                add("model", "mlp_in", "all-reduce", t * d * a)
+        if split.batch is not None:
+            add("data", "moe_counts", "all-gather", fwd * split.batch.size * cfg.num_experts * 4)
+            add("data", "moe_aux", "all-reduce", fwd * 2 * cfg.num_experts * 4)
+        if cfg.is_moe and (split.experts is not None or split.ffn is not None):
+            add("model", "moe_out", "all-reduce", fwd * t * d * a)
+            add("model", "moe_in", "all-reduce", t * d * a)
+            add("model", "moe_gates", "all-reduce", t * cfg.experts_per_token * a)
+            if split.experts is not None:
+                add("model", "router_logits", "all-gather", fwd * t * cfg.num_experts * a)
+                add("model", "router_in", "all-reduce", t * d * a)
+    if split.vocab is not None:
+        add("model", "embed", "all-reduce", t * d * a)
+        add("model", "xent_in", "all-reduce", t * d * a)
+        add("model", "xent_max", "all-reduce", t * 4)
+        add("model", "xent_sum", "all-reduce", 2 * t * 4)
+    by_op = {axis: {} for axis in axes}
+    for axis, comps in axes.items():
+        for c in comps.values():
+            by_op[axis][c["op"]] = by_op[axis].get(c["op"], 0.0) + c["bytes"]
+    return {"axes": axes, "by_op": by_op}
+
+
 # ---------------------------------------------------------------------------
 # the compiler: plan -> round step
 # ---------------------------------------------------------------------------

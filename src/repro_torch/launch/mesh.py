@@ -23,13 +23,22 @@ Every collective adds its kind and payload bytes (an all-gather's whole
 output) to ``counters`` under the caller's tag, the component names of
 ``repro_torch.federated.plan.round_collective_budget``; a sharded round step
 resets them when it starts.
+
+A :class:`DeviceMesh` is the 2-D (or, under ``multi_pod``, 3-D) mesh of the
+reference's launchers: axes ``("data", "model")``, one process group per row
+and per column, each axis a :class:`CohortMesh` (``mesh.axis("data")``) that
+``CohortSharding`` and the model-axis collectives of
+``repro_torch.sharding.parallel`` take. ``make_host_mesh`` lays it over the
+ranks of the process group, ``make_production_mesh`` at the reference's
+16x16 and 2x16x16.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,6 +95,13 @@ class CohortMesh:
         """Mean of ``x`` over the ranks."""
         return self.psum(x, tag) / self.size
 
+    def pmax(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """Elementwise max of ``x`` over the ranks (counted as an all-reduce)."""
+        buf = x.contiguous().clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        self._count(tag, "all-reduce", buf)
+        return buf
+
     def all_gather(self, x: torch.Tensor, tag: str) -> torch.Tensor:
         """Every rank's ``x`` stacked rank-major: ``(size,) + x.shape``."""
         out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -122,10 +138,19 @@ def make_cohort_mesh(axis: str = "data", *, device=None, backend: Optional[str] 
     default to ``RANK`` and ``WORLD_SIZE``. A process group that is already
     initialised is joined as it is.
     """
+    device = _join("make_cohort_mesh", device, backend, init_method, rank, world_size)
+    return CohortMesh(rank=dist.get_rank(), size=dist.get_world_size(), device=device,
+                      axis=axis)
+
+
+def _join(caller: str, device, backend: Optional[str], init_method: Optional[str],
+          rank: Optional[int], world_size: Optional[int]) -> torch.device:
+    """Resolve the rank's device and join (or start) the default process
+    group, as ``make_cohort_mesh`` documents."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "make_cohort_mesh runs on CUDA by default and no CUDA device is "
+                f"{caller} runs on CUDA by default and no CUDA device is "
                 "available: pass device='cpu' for gloo ranks on the host")
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     device = torch.device(device)
@@ -140,8 +165,132 @@ def make_cohort_mesh(axis: str = "data", *, device=None, backend: Optional[str] 
         dist.init_process_group(
             backend, init_method=init_method or "env://",
             rank=_env_int("RANK", rank), world_size=_env_int("WORLD_SIZE", world_size))
-    return CohortMesh(rank=dist.get_rank(), size=dist.get_world_size(), device=device,
-                      axis=axis)
+    return device
+
+
+@dataclass(eq=False)
+class DeviceMesh:
+    """A mesh of ranks with named axes, laid out row-major (the last axis
+    fastest, as ``jax.make_mesh`` lays out devices): the rank at coordinates
+    ``(d, m)`` of a ``(D, M)`` mesh is ``ranks[d * M + m]``.
+
+    ``axis(name)`` is the :class:`CohortMesh` over the ranks that differ
+    from this one on that axis alone, with this rank's coordinate as its
+    rank. ``shape`` and ``axis_names`` read as a JAX mesh's do. ``counters``
+    are each axis's, keyed by axis name.
+    """
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    ranks: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    axes: Dict[str, CohortMesh] = field(default_factory=dict)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's coordinate on each axis."""
+        flat, out = self.ranks.index(self.rank), []
+        for n in reversed(self.sizes):
+            out.append(flat % n)
+            flat //= n
+        return tuple(reversed(out))
+
+    def axis(self, name: str) -> CohortMesh:
+        if name not in self.axes:
+            raise ValueError(f"mesh axes are {self.axis_names}, not {name!r}")
+        return self.axes[name]
+
+    @property
+    def counters(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
+        return {name: dict(m.counters) for name, m in self.axes.items()}
+
+    def reset_counters(self) -> None:
+        for m in self.axes.values():
+            m.reset_counters()
+
+    def destroy(self) -> None:
+        """Tear the process group down (the mesh is unusable afterwards)."""
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("data", "model"), *,
+                     device=None, backend: Optional[str] = None,
+                     init_method: Optional[str] = None, rank: Optional[int] = None,
+                     world_size: Optional[int] = None) -> DeviceMesh:
+    """Join the process group (as ``make_cohort_mesh``) and return this
+    rank's :class:`DeviceMesh` of ``shape``. The world is cut into
+    consecutive blocks of ``prod(shape)`` ranks, each a mesh of its own
+    (sub-meshes of one world: a 4-rank world holds two ``(1, 2)`` meshes);
+    it must be a whole number of them. Every rank makes every block's
+    groups, in one order, as ``dist.new_group`` asks."""
+    shape = tuple(int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    if len(shape) != len(axis_names) or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} does not fit axes {axis_names}")
+    device = _join("make_device_mesh", device, backend, init_method, rank, world_size)
+    world, me = dist.get_world_size(), dist.get_rank()
+    per = math.prod(shape)
+    if world % per:
+        raise ValueError(f"a world of {world} ranks is not a whole number of "
+                         f"{shape} meshes")
+    mine = None
+    for base in range(0, world, per):
+        grid = torch.arange(base, base + per).reshape(shape)
+        axes = {}
+        for i, name in enumerate(axis_names):
+            lines = grid.movedim(i, -1).reshape(-1, shape[i]).tolist()
+            for line in lines:
+                group = dist.new_group(line)
+                if me in line:
+                    axes[name] = CohortMesh(rank=line.index(me), size=len(line),
+                                            device=device, group=group, axis=name)
+        if base <= me < base + per:
+            mine = DeviceMesh(axis_names, shape, tuple(range(base, base + per)), me,
+                              device, axes)
+    return mine
+
+
+def make_host_mesh(model_parallel: int = 1, **kw) -> DeviceMesh:
+    """A ``(world / model_parallel, model_parallel)`` mesh of axes
+    ``("data", "model")`` over the process group's ranks (``kw`` as
+    ``make_device_mesh``: the card and torchrun's environment by default)."""
+    world = kw.get("world_size")
+    if world is None:
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else _env_int("WORLD_SIZE", None))
+    if world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide the "
+                         f"{world} ranks")
+    return make_device_mesh((world // model_parallel, model_parallel), **kw)
+
+
+def production_mesh_shape(multi_pod: bool = False) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The reference's production mesh: (16, 16) over ``("data", "model")``,
+    or (2, 16, 16) over ``("pod", "data", "model")``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, **kw) -> DeviceMesh:
+    """The reference's production mesh over a world of exactly its size
+    (256 or 512 ranks); raises unless ``WORLD_SIZE`` (or ``world_size``)
+    is that product."""
+    shape, names = production_mesh_shape(multi_pod)
+    world = kw.get("world_size")
+    if world is None:
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "0")))
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs {math.prod(shape)} ranks, "
+                         f"the world has {world}")
+    return make_device_mesh(shape, names, **kw)
 
 
 def spawn_ranks(fn: Callable, world_size: int, args: Sequence = (),

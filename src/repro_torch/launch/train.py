@@ -23,9 +23,26 @@ It runs on the card unless ``--device cpu``. ``--layers`` cuts the depth;
 Weights are drawn from seed 0 and the cohorts from ``default_rng(0)`` as
 the reference draws them; ``--ckpt`` saves the final parameters in the
 reference's npz layout (each family's layers stacked as the reference
-stacks them: ``transformer.stack_layers``). The sharded LLM step (``jax.sharding`` rules in the
-reference) is not ported. ``train`` is the body, for callers that want its
-numbers.
+stacks them: ``transformer.stack_layers``). ``train`` is the body, for
+callers that want its numbers.
+
+On a mesh (``train(..., mesh=...)``, or ``--model-parallel m`` under
+torchrun: ``make_host_mesh(m)``, a ``(ranks / m, m)`` mesh of axes
+``("data", "model")``) the transformer families train as the reference's
+launcher trains them under ``set_rules(mesh, make_rules("train"))``: the
+rules completed for the architecture (``complete_rules``), every rank draws
+the full model from the seed and keeps its part (``shard_params``), the
+round step splits the cohort batch over ``data`` (``CohortSharding``) and
+the layers over ``model`` (``transformer.model_split``; ``--expert-parallel``
+splits the experts instead of their columns), and the heat is each rank's
+slice of ``heat_vocab``. ``--ckpt`` gathers the parameters whole
+(``unshard_params``) and rank 0 writes them. One process per rank:
+
+    torchrun --nproc_per_node=4 -m repro_torch.launch.train --arch qwen2_5_14b \
+        --scale tiny --model-parallel 2 [--expert-parallel]
+
+On the card each rank takes ``cuda:LOCAL_RANK`` (NCCL); ``--device cpu``
+runs gloo ranks on the host.
 """
 from __future__ import annotations
 
@@ -33,7 +50,7 @@ import argparse
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -42,12 +59,16 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.base import FedConfig, ModelConfig, get_config
 from repro_torch.data.synthetic import make_lm_federated
-from repro_torch.federated.plan import (DenseTransport, FedSgdLocal, RoundPlan,
-                                        RowSparseTransport, ServerUpdate, plan_comm_meta)
+from repro_torch.federated.plan import (CohortSharding, DenseTransport, FedSgdLocal,
+                                        RoundPlan, RowSparseTransport, ServerUpdate,
+                                        plan_comm_meta)
 from repro_torch.federated.simulation import make_round_step
 from repro_torch.launch.serve import SCALES, default_frames
+from repro_torch.launch.shardings import shard_batch, shard_params, unshard_params
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import stack_layers, train_params
+from repro_torch.sharding.context import get_rules, set_rules
+from repro_torch.sharding.rules import complete_rules, make_rules
 
 #: examples/federated_llm.py's --smoke model (its corpus: 32 clients, 32
 #: tokens, zipf 1.3, cohort 8), with Whisper's encoder cut as ``--scale
@@ -71,15 +92,32 @@ class TrainResult:
     ms_per_round: List[float]
     bytes_up_sparse: List[float] = field(default_factory=list)
     bytes_up_dense: List[float] = field(default_factory=list)
+    #: on a mesh: the rules the run installed, and each round's collectives
+    #: per axis (``DeviceMesh.counters``); ``params`` are then the rank's part
+    rules: Optional[Dict] = None
+    counters: List[Dict] = field(default_factory=list)
 
 
 def make_plan(algorithm: str = "fedsubavg", sparse: bool = False, topk: int = 0,
-              int8: bool = False) -> RoundPlan:
+              int8: bool = False, mesh=None) -> RoundPlan:
     """``FedSgdLocal`` on the dense transport, or on the row-sparse one
-    (``topk`` and ``int8`` imply it), under ``ServerUpdate(algorithm)``."""
+    (``topk`` and ``int8`` imply it), under ``ServerUpdate(algorithm)``;
+    with ``mesh``, its cohort split over the ``data`` axis."""
     sparse = sparse or topk > 0 or int8
     transport = RowSparseTransport(topk=topk, int8=int8) if sparse else DenseTransport()
-    return RoundPlan(FedSgdLocal(), transport, ServerUpdate(algorithm))
+    sharding = None if mesh is None else CohortSharding(mesh.axis("data"))
+    return RoundPlan(FedSgdLocal(), transport, ServerUpdate(algorithm), sharding=sharding)
+
+
+def mesh_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
+    """``make_rules("train")`` completed for ``cfg`` on ``mesh``'s model
+    axis, as the reference's launcher and dry run install them."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not train on a mesh yet; the "
+            "transformer families (dense, MoE, VLM) do")
+    return complete_rules(cfg, make_rules("train", expert_parallel=expert_parallel),
+                          int(mesh.shape["model"]))
 
 
 def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int = 8,
@@ -88,60 +126,98 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
           device=None, params: Optional[Dict[str, torch.Tensor]] = None,
           axes: Optional[Dict[str, tuple]] = None, ckpt: str = "",
           log_every: int = 10, remat: bool = True,
-          inputs: Optional[Mapping[str, torch.Tensor]] = None) -> TrainResult:
+          inputs: Optional[Mapping[str, torch.Tensor]] = None, mesh=None,
+          expert_parallel: bool = False,
+          on_round: Optional[Callable[[int, Dict, Dict], None]] = None) -> TrainResult:
     """``rounds`` FedSGD rounds of ``cohort`` clients on ``clients`` clients'
     corpus of ``seq``-token sequences. ``params``/``axes`` (the flat training
-    dict on ``device``) skip the random init. ``remat`` goes to ``loss_fn``;
-    ``inputs`` are added to every round's cohort batch (``patch_embeds``
-    ``(cohort, P, d)``, ``mrope_pos`` ``(3, cohort, seq)``, ``frames``
-    ``(cohort, encoder_seq, d)``; an audio model's ``frames`` default to
-    ``serve.default_frames``)."""
+    dict on ``device``; whole, also on a mesh) skip the random init.
+    ``remat`` goes to ``loss_fn``; ``inputs`` are added to every round's
+    cohort batch (``patch_embeds`` ``(cohort, P, d)``, ``mrope_pos`` ``(3,
+    cohort, seq)``, ``frames`` ``(cohort, encoder_seq, d)``; an audio
+    model's ``frames`` default to ``serve.default_frames``).
+
+    ``mesh`` (a ``launch.mesh.DeviceMesh``, its device the run's) trains on
+    it, as the module docstring says, with ``expert_parallel`` choosing the
+    MoE's split; the result's ``params`` are the rank's part and its
+    ``counters`` each round's collectives. ``on_round(r, params, metrics)``
+    is called after each round."""
+    rules = None
+    if mesh is not None:
+        if (sparse or topk or int8) and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                "the row-sparse transport on a vocabulary split over 'model' is not "
+                "ported yet: train on the dense transport")
+        rules = mesh_rules(cfg, mesh, expert_parallel)
+        device = mesh.device
     dev = resolve_device(device)
     api = build_model(cfg)
     if params is None:
         params, axes = train_params(api.init(torch.Generator(device=dev).manual_seed(0), dev))
+    full_shapes = {name: tuple(t.shape) for name, t in params.items()}
+    if mesh is not None:
+        params = shard_params(params, axes, mesh, rules)
     ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=seq,
                            samples_per_client=4, zipf_a=zipf_a)
     fed = FedConfig(num_clients=ds.num_clients, clients_per_round=cohort, lr=lr,
                     algorithm=algorithm)
-    plan = make_plan(algorithm, sparse, topk, int8)
+    plan = make_plan(algorithm, sparse, topk, int8, mesh)
     step = make_round_step(functools.partial(api.loss, remat=remat), params, axes, fed,
                            mode=plan)
     extra = {k: v.to(dev) for k, v in (inputs or {}).items()}
     if cfg.frontend == "audio_frames" and "frames" not in extra:
         extra["frames"] = default_frames(cfg, cohort).to(dev)
     heat = torch.as_tensor(ds.heat.counts, dtype=torch.float32).to(dev)
+    if mesh is not None:
+        heat = shard_batch({"heat_vocab": heat}, mesh, rules)["heat_vocab"]
     meta = plan_comm_meta(params, axes) if plan.transport.sparse else None
     tokens = ds.client_data["tokens"]
     rng = np.random.default_rng(0)
     # the result takes the parameters at the end: holding the initial ones
     # through the run would keep a second copy of the model alive
-    res = TrainResult(dev, {}, plan.describe(), [], [])
-    for r in range(rounds):
-        t0 = time.perf_counter()
-        ids = rng.choice(ds.num_clients, size=cohort, replace=False)
-        sample = rng.integers(0, tokens.shape[1], size=cohort)
-        batch = {"tokens": torch.from_numpy(tokens[ids, sample]).to(dev),
-                 "heat_vocab": heat, **extra}
-        params, metrics = step(params, batch)
-        res.losses.append(float(metrics["loss"]))
-        res.ms_per_round.append((time.perf_counter() - t0) * 1e3)
-        if meta is not None:
-            stats = plan.transport.round_comm(r, meta, np.asarray([int(metrics["sub_rows"])]),
-                                              cfg.vocab_size)
-            res.bytes_up_sparse.append(stats.bytes_up_sparse)
-            res.bytes_up_dense.append(stats.bytes_up_dense)
-        if log_every and ((r + 1) % log_every == 0 or r + 1 == rounds):
-            line = (f"round {r + 1:4d} loss={res.losses[-1]:.4f} "
-                    f"{res.ms_per_round[-1]:.1f} ms")
+    res = TrainResult(dev, {}, plan.describe(), [], [], rules=rules)
+    talk = log_every and (mesh is None or mesh.rank == mesh.ranks[0])
+    installed = get_rules()
+    if mesh is not None:
+        set_rules(mesh, rules)
+    try:
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            ids = rng.choice(ds.num_clients, size=cohort, replace=False)
+            sample = rng.integers(0, tokens.shape[1], size=cohort)
+            batch = {"tokens": torch.from_numpy(tokens[ids, sample]).to(dev),
+                     "heat_vocab": heat, **extra}
+            if mesh is not None:
+                mesh.reset_counters()
+            params, metrics = step(params, batch)
+            res.losses.append(float(metrics["loss"]))
+            res.ms_per_round.append((time.perf_counter() - t0) * 1e3)
+            if mesh is not None:
+                res.counters.append(mesh.counters)
+            if on_round is not None:
+                on_round(r, params, metrics)
             if meta is not None:
-                line += f" density={float(metrics['density']):.3f}"
-            print(line, flush=True)
+                stats = plan.transport.round_comm(
+                    r, meta, np.asarray([int(metrics["sub_rows"])]), cfg.vocab_size)
+                res.bytes_up_sparse.append(stats.bytes_up_sparse)
+                res.bytes_up_dense.append(stats.bytes_up_dense)
+            if talk and ((r + 1) % log_every == 0 or r + 1 == rounds):
+                line = (f"round {r + 1:4d} loss={res.losses[-1]:.4f} "
+                        f"{res.ms_per_round[-1]:.1f} ms")
+                if meta is not None:
+                    line += f" density={float(metrics['density']):.3f}"
+                print(line, flush=True)
+    finally:
+        set_rules(*installed)
     res.params = params
     if ckpt:
-        stacked, stacked_axes = stack_layers(params, axes)
-        save_checkpoint(ckpt, stacked, step=rounds, axes=stacked_axes,
-                        extra={"arch": cfg.name, "algorithm": algorithm})
+        whole = params if mesh is None else unshard_params(params, full_shapes, axes, mesh,
+                                                           rules)
+        if mesh is None or mesh.rank == 0:
+            stacked, stacked_axes = stack_layers(whole, axes)
+            save_checkpoint(ckpt, stacked, step=rounds, axes=stacked_axes,
+                            extra={"arch": cfg.name, "algorithm": algorithm})
+        del whole
     return res
 
 
@@ -165,6 +241,11 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     ap.add_argument("--ckpt", default="", help="checkpoint path (without .npz)")
     ap.add_argument("--device", default=None,
                     help="torch device; the card when omitted (raises without one)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="split the layers over this many ranks of a (data, model) mesh "
+                         "over torchrun's ranks")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="on the mesh, split the MoE's experts rather than their columns")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -176,11 +257,23 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
         cfg = cfg.replace(**SCALES[args.scale])
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
-    res = train(cfg, rounds=args.rounds, clients=clients, cohort=cohort, seq=seq,
-                lr=args.lr, algorithm=args.algorithm, sparse=args.sparse, topk=args.topk,
-                int8=args.int8, zipf_a=zipf_a, device=args.device, ckpt=args.ckpt)
+    mesh = None
+    if args.model_parallel:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(args.model_parallel, device=args.device)
+    try:
+        res = train(cfg, rounds=args.rounds, clients=clients, cohort=cohort, seq=seq,
+                    lr=args.lr, algorithm=args.algorithm, sparse=args.sparse,
+                    topk=args.topk, int8=args.int8, zipf_a=zipf_a, device=args.device,
+                    ckpt=args.ckpt, mesh=mesh, expert_parallel=args.expert_parallel)
+    finally:
+        if mesh is not None:
+            mesh.destroy()
+    if mesh is not None and mesh.rank != 0:
+        return res
     n = sum(p.numel() for p in res.params.values())
-    print(f"arch={cfg.name} layers={cfg.num_layers} params={n / 1e6:.1f}M "
+    where = "" if mesh is None else f" (rank 0's part) mesh={mesh.shape}"
+    print(f"arch={cfg.name} layers={cfg.num_layers} params={n / 1e6:.1f}M{where} "
           f"device={res.device} plan: {res.plan}")
     steady = res.ms_per_round[1:] or res.ms_per_round
     print(f"{len(res.losses)} rounds: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "

@@ -14,11 +14,20 @@ arithmetic.
 order, with the expert products as batched matmuls (cuBLAS), outside any
 kernel as in the reference. ``sinusoidal_positions`` is Whisper's fixed
 position table.
+
+Split over the ``model`` ranks (the caller passes the model axis's mesh,
+``transformer.model_split``), a weight of axes ``("embed", "heads"|"kv"|
+"ffn")`` is column-parallel: the rank holds some output columns and
+computes them from the whole input. One of axes ``("heads"|"ffn",
+"embed")`` is row-parallel: the rank's rows give a partial sum, which
+``linear(..., reduce=mesh)`` sums over the ranks before the bias. ``mlp``
+and ``moe`` take ``mesh`` for their split (``moe`` by each expert's columns,
+or by whole experts with ``expert_parallel``).
 """
 from __future__ import annotations
 
 import functools
-from typing import List, Mapping, NamedTuple, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +35,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import NEG_INF, FlashAttention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.sharding.parallel import (copy_to_model, gather_from_model, mean_over,
+                                           reduce_from_model)
 
 
 class ParamTree(nn.Module):
@@ -75,8 +86,13 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> tor
     return ((xf * torch.rsqrt(var + eps)) * scale).to(x.dtype)
 
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
+def linear(p, x: torch.Tensor, reduce=None, tag: str = "") -> torch.Tensor:
+    """``x @ w + b``. ``reduce`` (the model axis's mesh): ``w`` holds this
+    rank's rows of a row-parallel weight, and the partial products are
+    summed over the ranks (counted under ``tag``) before the bias."""
     y = x @ p["w"]
+    if reduce is not None:
+        y = reduce_from_model(y, reduce, tag)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -284,9 +300,15 @@ def make_mlp(pf, d: int, ff: int) -> "ParamTree":
     })
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The gated MLP; with ``mesh`` (the model axis) ``wi``/``wg`` hold this
+    rank's columns and ``wo`` its rows, and the output is reduced."""
+    if mesh is not None:
+        x = copy_to_model(x, mesh, "mlp_in")
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    if mesh is None:
+        return h @ p["wo"]
+    return reduce_from_model(h @ p["wo"], mesh, "mlp_out")
 
 
 def make_moe(pf, d: int, ff: int, num_experts: int) -> "ParamTree":
@@ -320,34 +342,50 @@ class MoERoute(NamedTuple):
 
 
 def moe_route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int, top_k: int,
-              capacity_factor: float, deterministic_capacity: int = 0) -> MoERoute:
+              capacity_factor: float, deterministic_capacity: int = 0,
+              logits: Optional[torch.Tensor] = None, batch=None) -> MoERoute:
     """The routing of ``moe`` for tokens ``xt`` (T, d): top-k experts by
     router probability and the capacity's drops. ``C = int(max(1, cf * k *
     T / E))``, a floor as the reference computes it, or
     ``deterministic_capacity``; the drops follow the order of the flattened
-    (token, k) assignments."""
+    (token, k) assignments. ``logits`` (T, E), when given, stand for
+    ``xt @ router`` (the expert-parallel router's, gathered).
+
+    ``batch`` (the ``data`` axis's mesh; each rank holds one block of the
+    batch's tokens, in rank order) routes the whole batch: T is the whole
+    count, each assignment's position counts the earlier ranks' assignments
+    to its expert (their counts are gathered), and ``expert_tokens`` are the
+    whole batch's; the positions stay the rank's own tokens'."""
     t, e = xt.shape[0], num_experts
+    if logits is None:
+        logits = xt @ router
     # the router product in the model's dtype, then f32, as the reference
     # computes it: in bf16 a router computed in f32 routes differently
-    probs = torch.softmax((xt @ router).float(), dim=-1)                  # (T, E)
+    probs = torch.softmax(logits.float(), dim=-1)                         # (T, E)
     # lax.top_k: the larger value first, the lower expert index first among
     # equals; a stable descending sort promises that order, torch.topk not
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_ids = gate_vals[:, :top_k], expert_ids[:, :top_k]  # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-    cap = deterministic_capacity or int(max(1, capacity_factor * top_k * t / e))
     # position of each token-major assignment within its expert: a running
     # count over the one-hot, so that the drops follow the assignment order
     onehot = (expert_ids.reshape(-1, 1) == torch.arange(e, device=xt.device)
               ).to(torch.int32)                                           # (T*k, E)
     pos_in_expert = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    counts = onehot.sum(dim=0, dtype=torch.int32)
+    if batch is not None:
+        every = gather_from_model(counts[None], batch, "moe_counts", dim=0)   # (D, E)
+        pos_in_expert = pos_in_expert + every[:batch.rank].sum(0)[expert_ids.reshape(-1)]
+        counts = every.sum(dim=0, dtype=torch.int32)
+        t = t * batch.size
+    cap = deterministic_capacity or int(max(1, capacity_factor * top_k * t / e))
     return MoERoute(probs, gate_vals, expert_ids, pos_in_expert, pos_in_expert < cap,
-                    onehot.sum(dim=0, dtype=torch.int32), cap)
+                    counts, cap)
 
 
 def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int, capacity_factor: float,
-        deterministic_capacity: int = 0, token_chunk: int = 0
-        ) -> Tuple[torch.Tensor, MoEStats]:
+        deterministic_capacity: int = 0, token_chunk: int = 0, mesh=None,
+        expert_parallel: bool = False, batch=None) -> Tuple[torch.Tensor, MoEStats]:
     """Dropping MoE with scatter-based dispatch: ``repro/models/layers.py::moe``.
 
     x: (B, S, d). Tokens go where ``moe_route`` sends them; the overflow of
@@ -358,13 +396,40 @@ def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int, capacity_factor: fl
 
     Out of place throughout (``index_add``, never ``index_add_``), so that
     autograd and ``torch.func.vmap`` take it as the training plans do.
+
+    ``mesh`` (the model axis) splits it over the model ranks. Every rank
+    routes from the same full router logits, so routing, drops and the aux
+    loss are the same bits on each. The tensor-parallel baseline holds each
+    expert's ``d_ff`` columns (``wi``/``wg``) and rows (``wo``) in part, and
+    the router whole. ``expert_parallel`` holds whole experts, E/m of them
+    (rank r the r-th block), and the router's columns for them: the logits
+    are gathered before routing. Either way the rank's experts give a
+    partial output per token, which is summed over the ranks after the
+    combine; the gates' gradient is summed too, each rank holding the part
+    its experts give.
+
+    ``batch`` (the ``data`` axis's mesh, ``x`` the rank's block of the
+    batch) keeps the whole batch's routing: capacity and drop order as
+    ``moe_route`` gives them over the whole batch, and the aux loss of the
+    whole batch's means (``mean_over``). The rank fills the dispatch
+    buffer's slots of its own tokens only. With ``token_chunk``, chunks of
+    the whole batch must not straddle two ranks' blocks, and each routes on
+    its own rank.
     """
     b, s, d = x.shape
+    if batch is not None and token_chunk and b * s * batch.size > token_chunk and (
+            b * s * batch.size) % token_chunk == 0:
+        if (b * s) % token_chunk:
+            raise NotImplementedError(
+                f"moe: chunks of {token_chunk} tokens straddle the data ranks' blocks of "
+                f"{b * s}")
+        batch = None
     if token_chunk and b * s > token_chunk and (b * s) % token_chunk == 0:
         chunks = x.reshape(-1, token_chunk, d)
         outs = [moe(p, xc[None], num_experts=num_experts, top_k=top_k,
                     capacity_factor=capacity_factor,
-                    deterministic_capacity=deterministic_capacity) for xc in chunks]
+                    deterministic_capacity=deterministic_capacity, mesh=mesh,
+                    expert_parallel=expert_parallel) for xc in chunks]
         out = torch.cat([y[0] for y, _ in outs]).reshape(b, s, d)
         return out, MoEStats(torch.stack([st.aux_loss for _, st in outs]).mean(),
                              torch.stack([st.expert_tokens for _, st in outs]).sum(
@@ -372,30 +437,50 @@ def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int, capacity_factor: fl
     t = b * s
     xt = x.reshape(t, d)
     e = num_experts
+    logits = None
+    if mesh is not None and expert_parallel:
+        logits = gather_from_model(copy_to_model(xt, mesh, "router_in") @ p["router"],
+                                   mesh, "router_logits", dim=-1)
     r = moe_route(p["router"], xt, num_experts=e, top_k=top_k,
                   capacity_factor=capacity_factor,
-                  deterministic_capacity=deterministic_capacity)
+                  deterministic_capacity=deterministic_capacity, logits=logits, batch=batch)
 
     # load-balance aux loss (Switch/Mixtral): E * sum_e f_e * p_e
     me = r.probs.mean(dim=0)                                              # (E,)
     fe = (r.expert_ids[:, :1] == torch.arange(e, device=x.device)).float().mean(dim=0)
+    if batch is not None:
+        fe, me = mean_over(torch.stack([fe, me]), batch, "moe_aux").unbind(0)
     aux = e * torch.sum(fe * me)
 
     # dispatch into an (E, C, d) buffer; a dropped assignment adds 0 * x
     # into slot (e, 0) as the reference's does, which changes no bit there
     flat_tok = torch.arange(t, device=x.device).repeat_interleave(top_k)
-    slot = r.expert_ids.reshape(-1) * r.capacity + torch.where(r.keep, r.pos_in_expert, 0)
-    src = r.keep.to(x.dtype)[:, None] * xt[flat_tok]
-    buf = torch.zeros((e * r.capacity, d), dtype=x.dtype, device=x.device).index_add(
-        0, slot, src).reshape(e, r.capacity, d)
+    keep, ids, el = r.keep, r.expert_ids.reshape(-1), e
+    if mesh is not None:
+        xt = copy_to_model(xt, mesh, "moe_in")
+        if expert_parallel:
+            # this rank's experts; another's assignment is dropped here
+            el = e // mesh.size
+            ids = ids - mesh.rank * el
+            keep = keep & (ids >= 0) & (ids < el)
+            ids = torch.where(keep, ids, 0)
+    slot = ids * r.capacity + torch.where(keep, r.pos_in_expert, 0)
+    src = keep.to(x.dtype)[:, None] * xt[flat_tok]
+    buf = torch.zeros((el * r.capacity, d), dtype=x.dtype, device=x.device).index_add(
+        0, slot, src).reshape(el, r.capacity, d)
 
     # the expert products, batched over experts (cuBLAS)
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
-    y = torch.bmm(h, p["wo"]).reshape(e * r.capacity, d)                 # (E*C, d)
+    y = torch.bmm(h, p["wo"]).reshape(el * r.capacity, d)                # (E*C, d)
 
     # combine: gather back and weight. At top-2 each token sums exactly two
     # terms into a zero row, and a + b == b + a in floating point: the
     # combine is exact in any order of the adds
-    weighted = y[slot] * (r.gate_vals.reshape(-1) * r.keep).to(y.dtype)[:, None]
+    gates = (r.gate_vals.reshape(-1) * r.keep).to(y.dtype)
+    if mesh is not None:
+        gates = copy_to_model(gates, mesh, "moe_gates") * keep.to(y.dtype)
+    weighted = y[slot] * gates[:, None]
     out = torch.zeros((t, d), dtype=y.dtype, device=x.device).index_add(0, flat_tok, weighted)
+    if mesh is not None:
+        out = reduce_from_model(out, mesh, "moe_out")
     return out.reshape(b, s, d), MoEStats(aux, r.expert_tokens)

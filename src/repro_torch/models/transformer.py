@@ -9,8 +9,18 @@ early-fusion patch embeddings (``embed_tokens``). The parameters are a
 ``Transformer`` module whose layers sit in an ``nn.ModuleList``; every level
 is a ``layers.ParamTree`` under the reference's keys, so the functions below
 read ``lp["attn"]["wq"]["w"]`` as the reference does. The reference's
-``lax.scan`` and ``fori_loop`` over stacked layers become a Python loop, and
-its sharding constraints go (one card).
+``lax.scan`` and ``fori_loop`` over stacked layers become a Python loop.
+
+Split over a mesh: with rules installed (``repro_torch.sharding.set_rules``
+on a ``launch.mesh.DeviceMesh``), ``forward`` and ``loss_fn`` read the
+rank's part of the flat dict (``launch.shardings.shard_params``) and split
+the layers over the ``model`` ranks as the rules split the weights
+(``model_split``): each rank attends with its whole query heads through K3
+(and K3's backward), the MLP and the experts are column- then
+row-parallel, the embedding and ``lm_head`` are vocabulary-parallel. The
+reference's ``constrain`` sites stay, each checking the rank's local shape.
+The batch's split over ``data`` is the round step's (``CohortSharding``).
+Serving (``prefill``, ``decode_step``) runs on one device only.
 
 Serving: ``prefill`` and ``decode_step`` run under ``torch.no_grad`` and
 write the KV cache in place; decode's MoE is drop-free (capacity ``B * k``).
@@ -48,6 +58,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
+from repro_torch.sharding.context import constrain, get_rules, split_mesh
+from repro_torch.sharding.logical import axes_tree, unbox
+from repro_torch.sharding.parallel import (copy_to_model, max_from_model,
+                                           reduce_from_model)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -109,7 +123,7 @@ def train_params(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, T
     ``state_dict`` names (the same storage, not a copy) and their logical
     axes. ``lm_head``'s vocabulary axis is axis 1: it stays dense on the
     sparse transport and is heat-corrected on the dense one."""
-    return dict(model.state_dict()), dict(model.axes)
+    return unbox(model), axes_tree(model)
 
 
 #: the prefixes whose leaves the reference stacks on a leading layer axis:
@@ -310,19 +324,101 @@ def make_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 # ---------------------------------------------------------------------------
+# The split over the model ranks
+# ---------------------------------------------------------------------------
+
+
+class Split(NamedTuple):
+    """Which dims of the layers the installed rules split over the model
+    ranks: each the model axis's ``CohortMesh``, or None where whole."""
+
+    heads: object = None         # wq's columns, wo's rows: whole query heads
+    kv: object = None            # wk's and wv's columns: whole KV heads
+    ffn: object = None           # the MLP's (or each expert's) d_ff
+    experts: object = None       # whole experts, and the router's columns
+    vocab: object = None         # the embedding's rows, lm_head's columns
+    batch: object = None         # the data axis, for the MoE's whole-batch routing
+
+
+NO_SPLIT = Split()
+
+
+def model_split(cfg: ModelConfig) -> Split:
+    """The split of ``cfg``'s layers under the installed rules (none off the
+    mesh). It follows ``rules.param_rules`` as ``launch.shardings`` does,
+    so it is the split of the rank's parameters: KV heads only with query
+    heads, each only where its count divides the model axis."""
+    mesh, rules = get_rules()
+    if mesh is None:
+        return NO_SPLIT
+    hd = cfg.head_dim
+    heads = split_mesh("heads", cfg.num_heads * hd)
+    batch = None
+    if cfg.is_moe and int(mesh.shape.get("data", 1)) > 1:
+        if tuple(rules.get("batch") or ()) != ("data",):
+            raise NotImplementedError(f"the MoE's batch over {rules.get('batch')}")
+        batch = mesh.axis("data")
+    return Split(heads=heads,
+                 kv=split_mesh("kv", cfg.num_kv_heads * hd) if heads is not None else None,
+                 ffn=split_mesh("ffn", cfg.d_ff),
+                 experts=split_mesh("experts", cfg.num_experts) if cfg.is_moe else None,
+                 vocab=split_mesh("vocab", cfg.vocab_size), batch=batch)
+
+
+def _copied(p, mesh, tag: str):
+    """A linear's weight and bias through ``copy_to_model``: whole on every
+    rank, but used in part, so its gradient is summed over the ranks."""
+    return {name: copy_to_model(p[name], mesh, tag) for name in ("w", "b") if name in p}
+
+
+def _rank_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, rank: int, hl: int):
+    """The KV heads that query heads ``[rank * hl, (rank + 1) * hl)`` attend
+    with, from whole K and V: their whole groups, the one group they lie
+    in, or (groups cut unevenly) one KV head per query head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    h0 = rank * hl
+    if hl % g == 0 or g % hl == 0:
+        lo, n = h0 // g, max(hl // g, 1)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), g, rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+# ---------------------------------------------------------------------------
 # Attention block (shared by prefill / decode)
 # ---------------------------------------------------------------------------
 
 
 def _project_qkv(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor,
-                 mrope_pos: Optional[torch.Tensor] = None):
+                 mrope_pos: Optional[torch.Tensor] = None, split: Split = NO_SPLIT):
+    """Q, K and V ``(B, S, heads, hd)``, RoPE'd. Split, Q holds the rank's
+    query heads and K/V its KV heads, or all of them where the KV heads are
+    whole (their weights, and the QK norms, then take ``copy_to_model``)."""
     b, s = x.shape[:2]
-    q = L.linear(ap["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = L.linear(ap["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = L.linear(ap["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    wk, wv = ap["wk"], ap["wv"]
+    q_norm = ap["q_norm"] if cfg.qk_norm else None
+    k_norm = ap["k_norm"] if cfg.qk_norm else None
+    mesh = split.heads
+    hl, kvl = cfg.num_heads, cfg.num_kv_heads
+    if mesh is not None:
+        x = copy_to_model(x, mesh, "attn_in")
+        hl //= mesh.size
+        if split.kv is not None:
+            kvl //= mesh.size
+        else:
+            wk, wv = _copied(wk, mesh, "attn_kv"), _copied(wv, mesh, "attn_kv")
+        if cfg.qk_norm:
+            q_norm = copy_to_model(q_norm, mesh, "qk_norm")
+            k_norm = copy_to_model(k_norm, mesh, "qk_norm")
+    q = L.linear(ap["wq"], x).reshape(b, s, hl, cfg.head_dim)
+    k = L.linear(wk, x).reshape(b, s, kvl, cfg.head_dim)
+    v = L.linear(wv, x).reshape(b, s, kvl, cfg.head_dim)
+    constrain(q, ("batch", None, "heads_act", None), (None, s, cfg.num_heads, cfg.head_dim))
+    constrain(k, ("batch", None, "kv_act", None), (None, s, cfg.num_kv_heads, cfg.head_dim))
+    constrain(v, ("batch", None, "kv_act", None), (None, s, cfg.num_kv_heads, cfg.head_dim))
     if cfg.qk_norm:
-        q = L.head_rmsnorm(ap["q_norm"], q, cfg.norm_eps)
-        k = L.head_rmsnorm(ap["k_norm"], k, cfg.norm_eps)
+        q = L.head_rmsnorm(q_norm, q, cfg.norm_eps)
+        k = L.head_rmsnorm(k_norm, k, cfg.norm_eps)
     if cfg.mrope and mrope_pos is not None:
         q = L.apply_mrope(q, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
         k = L.apply_mrope(k, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
@@ -335,17 +431,21 @@ def _project_qkv(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention_block(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tensor,
-                    mrope_pos: Optional[torch.Tensor] = None):
+                    mrope_pos: Optional[torch.Tensor] = None, split: Split = NO_SPLIT):
     """Full-sequence (prefill) attention through ``mea_attention`` (K3 on
-    the card). Returns (out, (k, v))."""
+    the card; split, on the rank's query heads). Returns (out, (k, v))."""
     if cfg.attn_impl != "mea":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: the port's attention is 'mea' only")
-    q, k, v = _project_qkv(cfg, ap, x, positions, mrope_pos)
-    o = L.mea_attention(q, k, v, causal=True, window=cfg.sliding_window,
+    q, k, v = _project_qkv(cfg, ap, x, positions, mrope_pos, split)
+    ka, va = k, v
+    if split.heads is not None and split.kv is None:
+        ka, va = _rank_kv(cfg, k, v, split.heads.rank, q.shape[2])
+    o = L.mea_attention(q, ka, va, causal=True, window=cfg.sliding_window,
                         query_chunk=cfg.query_chunk, kv_chunk=cfg.kv_chunk)
     b, s = x.shape[:2]
-    out = L.linear(ap["wo"], o.reshape(b, s, cfg.num_heads * cfg.head_dim))
+    out = L.linear(ap["wo"], o.reshape(b, s, q.shape[2] * cfg.head_dim), reduce=split.heads,
+                   tag="attn_out")
     return out, (k, v)
 
 
@@ -355,15 +455,28 @@ def attention_block(cfg: ModelConfig, ap, x: torch.Tensor, positions: torch.Tens
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
-                 patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 patch_embeds: Optional[torch.Tensor] = None,
+                 split: Split = NO_SPLIT) -> torch.Tensor:
     """Token embeddings scaled by sqrt(d_model); with ``patch_embeds``
     ``(B, P, d)`` and ``cfg.num_patches > 0`` (early fusion) the first P
-    positions take the patch embeddings instead, unscaled, in x's dtype."""
+    positions take the patch embeddings instead, unscaled, in x's dtype.
+    Split over the vocabulary, each rank looks up the tokens in its rows,
+    zeroes the others, and the ranks' rows are summed (exact: one term is
+    not zero)."""
     emb = params["embedding"]
     # sqrt(d_model) in f32, then rounded to the table's dtype, as the
     # reference scales it (in bf16, sqrt(5120) = 71.55 becomes 71.5)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    x = emb[tokens] * float(scale.to(emb.dtype))
+    mesh = split.vocab
+    if mesh is None:
+        x = emb[tokens] * float(scale.to(emb.dtype))
+    else:
+        rows = emb.shape[0]
+        local = tokens - mesh.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = emb[torch.where(mine, local, 0)] * float(scale.to(emb.dtype))
+        x = reduce_from_model(torch.where(mine[..., None], x, 0.0), mesh, "embed")
+    constrain(x, ("batch", None, None), (None, tokens.shape[1], cfg.d_model))
     if patch_embeds is None or cfg.num_patches <= 0:
         return x
     p = patch_embeds.shape[1]
@@ -383,27 +496,32 @@ class ForwardOut(NamedTuple):
     kv: Optional[List[Tuple]]            # per layer (k, v), each (B, S, KV, hd)
 
 
-def ffn_block(cfg: ModelConfig, fp, x: torch.Tensor, capacity: int = 0):
+def ffn_block(cfg: ModelConfig, fp, x: torch.Tensor, capacity: int = 0,
+              split: Split = NO_SPLIT):
     """The gated MLP, or the MoE; returns (out, MoE aux loss or None).
     ``capacity`` > 0 sets the MoE's capacity and routes all tokens at once
     (decode); 0 takes the configured factor and token chunk (forward)."""
     if not cfg.is_moe:
-        return L.mlp(fp, x), None
+        return L.mlp(fp, x, mesh=split.ffn), None
     out, stats = L.moe(fp, x, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
                        capacity_factor=cfg.moe_capacity_factor,
                        deterministic_capacity=capacity,
-                       token_chunk=0 if capacity else cfg.moe_token_chunk)
+                       token_chunk=0 if capacity else cfg.moe_token_chunk,
+                       mesh=split.experts or split.ffn,
+                       expert_parallel=split.experts is not None, batch=split.batch)
     return out, stats.aux_loss
 
 
 def _layer(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
-           mrope_pos: Optional[torch.Tensor]):
+           mrope_pos: Optional[torch.Tensor], split: Split = NO_SPLIT):
     """One decoder layer: ``(x, MoE aux or None, (k, v))``."""
     h, kv = attention_block(cfg, lp["attn"], L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps),
-                            positions, mrope_pos)
+                            positions, mrope_pos, split)
     x = x + h
-    f, aux = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
-    return x + f, aux, kv
+    f, aux = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
+                       split=split)
+    x = constrain(x + f, ("batch", None, None), (None, x.shape[1], cfg.d_model))
+    return x, aux, kv
 
 
 def _layer_leaves(lp) -> Tuple[List[str], List[torch.Tensor]]:
@@ -416,13 +534,15 @@ def _layer_leaves(lp) -> Tuple[List[str], List[torch.Tensor]]:
     return [n for n, _ in named], [t for _, t in named]
 
 
-def _layer_fn(cfg: ModelConfig, names: Tuple[str, ...]) -> Callable:
+def _layer_fn(cfg: ModelConfig, names: Tuple[str, ...], split: Split = NO_SPLIT) -> Callable:
     """``run(x, positions, mrope_pos, *tensors)``: one layer whose parameter
     tensors come in the order of ``names``; returns ``(x,)``, or ``(x,
-    aux)`` with the MoE's aux loss as a (1,) tensor."""
+    aux)`` with the MoE's aux loss as a (1,) tensor. ``split`` is taken
+    when the layer is built: remat's recompute may run on autograd's
+    device thread, which does not see the installed rules."""
     def run(x, positions, mrope_pos, *tensors):
         x, aux, _ = _layer(cfg, FlatParams(dict(zip(names, tensors))), x, positions,
-                           mrope_pos)
+                           mrope_pos, split)
         return (x, aux.reshape(1)) if cfg.is_moe else (x,)
     return run
 
@@ -519,7 +639,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(cfg, p, tokens, patch_embeds)
+    split = model_split(cfg)
+    x = embed_tokens(cfg, p, tokens, patch_embeds, split)
     nl = cfg.num_layers
     kvs = [] if collect_kv else None
     auxes = []
@@ -529,7 +650,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         per = nl // g if g > 1 and nl % g == 0 else 1
         for start in range(0, nl, per):
             group = leaves[start:start + per]
-            got = _Remat.apply(functools.partial(_layer_fn, cfg),
+            got = _Remat.apply(functools.partial(_layer_fn, cfg, split=split),
                                tuple(tuple(names) for names, _ in group), x, positions,
                                mrope_pos, *(t for _, ts in group for t in ts))
             x = got[0]
@@ -538,7 +659,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         aux_all = torch.cat(auxes) if auxes else None
     else:
         for i in range(nl):
-            x, aux, kv = _layer(cfg, p["layers"][i], x, positions, mrope_pos)
+            x, aux, kv = _layer(cfg, p["layers"][i], x, positions, mrope_pos, split)
             if aux is not None:
                 auxes.append(aux)
             if collect_kv:
@@ -551,11 +672,20 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
-                 targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+                 targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512,
+                 split: Split = NO_SPLIT) -> torch.Tensor:
     """Next-token cross-entropy in sequence chunks against ``lm_head``: f32
     logits of one ``(B, c, V)`` chunk at a time, ``logsumexp - gold`` masked,
-    summed over chunks and divided by ``max(mask count, 1)``."""
+    summed over chunks and divided by ``max(mask count, 1)``.
+
+    Split over the vocabulary (``split.vocab``), each rank makes its
+    ``(B, c, V/m)`` logits; the max over the vocabulary is a max over the
+    ranks, the sum of exponentials and the gold logit (from the rank that
+    holds it, zero elsewhere) are summed over them in one all-reduce."""
     head = as_tree(params)["lm_head"]
+    mesh = split.vocab
+    if mesh is not None:
+        hidden = copy_to_model(hidden, mesh, "xent_in")
     s = hidden.shape[1]
     c = min(chunk, s)
     if s % c:
@@ -563,9 +693,20 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     losses, counts = [], []
     for i in range(s // c):
         piece = slice(i * c, (i + 1) * c)
-        logits = (hidden[:, piece] @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[:, piece, None].long())[..., 0]
+        logits = constrain((hidden[:, piece] @ head).float(), ("batch", None, "vocab"),
+                           (None, c, cfg.vocab_size))
+        if mesh is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, targets[:, piece, None].long())[..., 0]
+        else:
+            top = max_from_model(logits.amax(dim=-1), mesh, "xent_max")
+            local = targets[:, piece].long() - mesh.rank * logits.shape[-1]
+            mine = (local >= 0) & (local < logits.shape[-1])
+            gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+            sums = reduce_from_model(
+                torch.stack([torch.exp(logits - top[..., None]).sum(dim=-1),
+                             torch.where(mine, gold, 0.0)]), mesh, "xent_sum")
+            lse, gold = torch.log(sums[0]) + top, sums[1]
         m = mask[:, piece]
         losses.append(((lse - gold) * m).sum())
         counts.append(m.sum())
@@ -596,13 +737,20 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
     tokens, targets, mask = lm_targets(batch)
     out = forward(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"),
                   mrope_pos=batch.get("mrope_pos"), remat=remat)
-    ce = chunked_xent(cfg, params, out.hidden, targets, mask)
+    ce = chunked_xent(cfg, params, out.hidden, targets, mask, split=model_split(cfg))
     return ce + cfg.router_aux_weight * out.aux_loss if cfg.is_moe else ce
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
+
+
+def _single_device(what: str) -> None:
+    if get_rules()[0] is not None:
+        raise NotImplementedError(
+            f"{what}: sharded serving (make_rules('decode')) is not ported; serve on "
+            "one device, with no rules installed (sharding.clear_rules())")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> L.KVCache:
@@ -619,6 +767,7 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     M-RoPE on ``mrope_pos`` (3, B, S) when given), fill the cache (in
     place), return last-token logits (f32) and the cache at position
     ``S``."""
+    _single_device("prefill")
     out = forward(cfg, params, tokens, patch_embeds=patch_embeds, mrope_pos=mrope_pos,
                   collect_kv=True, remat=False)
     s = tokens.shape[1]
@@ -644,6 +793,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: L.KVCache,
     ``mrope_pos`` (3, B, 1) when given). Writes the token's K/V into the
     cache (in place) before attending, as the reference does; returns f32
     logits and the cache at ``pos + 1``."""
+    _single_device("decode_step")
     b = tokens.shape[0]
     pos = cache.pos
     ring = cfg.sliding_window > 0

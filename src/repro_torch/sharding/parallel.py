@@ -1,0 +1,139 @@
+"""The collectives of a model split over the ``model`` ranks.
+
+The JAX package states a layout (``constrain``) and GSPMD inserts the
+collectives that keep it. The port runs SPMD, one process per rank, and
+says each collective where the layout needs it, as Megatron-LM's tensor
+parallelism does:
+
+``copy_to_model``      identity forward, all-reduce of the gradient: the
+                       input of a split computation (a column-parallel
+                       linear), whose gradient each rank holds in part
+``reduce_from_model``  all-reduce forward, identity backward: the output
+                       of a row-parallel linear, a partial sum on each rank
+``gather_from_model``  all-gather on a dim forward, this rank's slice of
+                       the gradient backward (the MoE router's logits)
+``max_from_model``     max all-reduce, no gradient (the vocabulary-parallel
+                       cross-entropy's shift)
+``mean_over``          the mean over an axis's ranks whose gradient passes
+                       unchanged: a statistic of the whole batch (the MoE's
+                       load-balance means) on ranks that each hold part of
+                       it, under a round step that averages their gradients
+
+Each is a ``torch.autograd.Function`` with ``setup_context``, so that
+``torch.func.grad_and_value`` (the round step) and ``torch.func.vjp`` (remat's
+recompute) reach through it; its forward gets plain tensors, which the
+collective may read. They do not support ``vmap``. ``mesh`` is an axis's
+:class:`~repro_torch.launch.mesh.CohortMesh` (the model axis, but for the
+MoE's routing over the ``data`` ranks); each collective is counted on it
+under ``tag``. A backward all-reduce receives the gradient the
+rank holds: every rank must run the same backward, which the round step's
+replicated loss gives.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, tag):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.tag = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduce.apply(g, ctx.mesh, ctx.tag), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over the model ranks whose gradient passes unchanged (the
+    upstream gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(x, mesh, tag):
+        return mesh.psum(x, tag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, tag, dim):
+        parts = mesh.all_gather(x, tag)                       # (m,) + x.shape
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, mesh, _, dim = inputs
+        ctx.mesh, ctx.dim, ctx.width = mesh, dim, x.shape[dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.mesh.rank * ctx.width, ctx.width), None, None, None
+
+
+class _MaxFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, tag):
+        return mesh.pmax(x, tag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, tag):
+        return mesh.pmean(x, tag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """``x`` (a copy) whose gradient is summed over the model ranks."""
+    return _CopyToModel.apply(x, mesh, tag)
+
+
+def reduce_from_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """The sum of every model rank's ``x``; the gradient passes unchanged."""
+    return _AllReduce.apply(x, mesh, tag)
+
+
+def gather_from_model(x: torch.Tensor, mesh, tag: str, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated on ``dim`` in rank order; the
+    gradient of this rank's part is its slice."""
+    return _GatherFromModel.apply(x, mesh, tag, dim % x.dim())
+
+
+def max_from_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """The elementwise max over the model ranks, with no gradient. A max
+    is exact in any order, so gloo's and NCCL's agree bit for bit."""
+    return _MaxFromModel.apply(x.detach(), mesh, tag)
+
+
+def mean_over(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """The mean of ``x`` over ``mesh``'s ranks, its gradient passed to each
+    unchanged. Each rank's loss takes the mean, and the round step averages
+    the ranks' gradients; the gradient of the mean through rank r's ``x`` is
+    then the upstream gradient, not its 1/size share."""
+    return _MeanOver.apply(x, mesh, tag)
