@@ -339,6 +339,33 @@ Phases, each of which asserts; any failure exits non-zero:
     one device; K3 and its backward at [64]'s per-rank shapes (m = 2: H 20,
     KV 4; m = 4: H 10, KV 2; B 8, S 128, hd 128, f32) against their plain
     versions, timed beside SDPA and the bound
+67. K4's log-sum-exp instance (``flash_decode(..., return_lse=True)``) at
+    the ranks' slices of Qwen2.5-14B's cache (2,064 and 1,032 of 4,128
+    slots), Mixtral's ring (4,096 in 2) and slices with no valid slot,
+    against its plain version, f32 and bf16; the in-process merge of 2 and
+    4 slices (``merge_decode_slices``) against whole-cache K4 and the plain
+    version (2e-5; 2e-2 and 1e-2 in relative norm); K3 at the ranks'
+    prefill shapes of [68] (f32: Qwen2.5-14B's B 2 and 4, S 1,024, H 20 /
+    KV 4 and H 10 / KV 2; Mixtral's B 2, S 4,160, H 24, KV 4, window 4,096)
+    and [69] (bf16, B 4, S 4,096, H 20 / KV 4 and H 10 / KV 2) against its
+    plain version, timed beside SDPA and the bound
+68. sharded serving (``launch.serve.serve(mesh=...)`` under
+    ``make_rules("decode")``) in f32 on gloo ranks sharing the card against
+    one device: Qwen2.5-14B's widths at 2 layers, 2 x 1,024 + 16 steps on
+    (1, 2) and 4 x 1,024 on (1, 4); Mixtral's at 1 layer, TP and EP on
+    (1, 2), 2 x 4,160 (past the 4,096-slot window: the ring split); logits
+    within 1e-4, greedy tokens identical, every rank's counters of the
+    prefill and each step equal to ``serve_collective_budget``; a 1-rank
+    NCCL (1, 1) mesh at the 100m scale equal to one device
+69. bf16 timing at Qwen2.5-14B's widths, 8 layers, 4 x 4,096 + 32 steps, on
+    one device, (1, 2) and (1, 4): prefill ms, ms per step, the serving's
+    peak and the cache's bytes per rank (1/m of one device's), K3 8 a
+    prefill and K4's log-sum-exp instance 8 a step on every rank; the
+    prefill's and first step's logits no further from the f32 run's than
+    1.25 x one bf16 device's; K4's log-sum-exp instance at the ranks'
+    slices timed beside its plain version and SDPA (o alone)
+
+[68]-[69]'s ranks run in one spawn of 4 gloo ranks (``run_tp``).
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -352,7 +379,9 @@ K3's backward at Mixtral's training shape; seven for [45]'s and [46]'s K3
 and K4 and [44]'s three backward shapes; three for [50]'s and [53]'s; eight
 for Whisper's three K3 shapes, two K4 shapes and three backward shapes;
 four for K3 and its backward at [64]'s per-rank shapes, each with its
-launches per rank), the card line and, last,
+launches per rank; two for K4's log-sum-exp instance at [69]'s rank
+slices and five for K3 at [67]'s rank prefill shapes, each with its
+launches per rank from [68]/[69]), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -1208,9 +1237,10 @@ def phase_serve() -> tuple:
                 "flash_decode": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
     nl = cfg.num_layers
-    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0, "flash_decode_lse": 0},
           f"prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
-    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * SERVE_GEN},
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * SERVE_GEN,
+                                  "flash_decode_lse": 0},
           f"decode launches {res.launches_decode}, want {nl} of K4 per step")
     check(launches == {"flash_attention": nl, "flash_decode": nl * SERVE_GEN},
           f"serving run launches {launches}")
@@ -3374,9 +3404,10 @@ def phase_moe_serve() -> tuple:
     launches = {"flash_attention": flash_attention.launches,
                 "flash_decode": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
-    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0, "flash_decode_lse": 0},
           f"prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
-    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen},
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen,
+                                  "flash_decode_lse": 0},
           f"decode launches {res.launches_decode}, want {nl} of K4 per step")
     check(launches == {"flash_attention": nl, "flash_decode": nl * gen},
           f"serving run launches {launches}")
@@ -3625,8 +3656,10 @@ def phase_dense_configs() -> dict:
         res = serve_mod.serve(cfg, gen=DENSE_GEN, **kw)
         peak = torch.cuda.max_memory_allocated()
         nl = cfg.num_layers
-        check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0}
-              and res.launches_decode == {"flash_attention": 0, "flash_decode": nl * DENSE_GEN},
+        check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0,
+                                       "flash_decode_lse": 0}
+              and res.launches_decode == {"flash_attention": 0, "flash_decode": nl * DENSE_GEN,
+                                          "flash_decode_lse": 0},
               f"{arch}: launches {res.launches_prefill}, {res.launches_decode}")
         check(res.cache_pos == DENSE_PROMPT + DENSE_GEN, f"{arch}: cache at {res.cache_pos}")
         check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
@@ -3812,9 +3845,10 @@ def phase_vlm_shapes(rng) -> dict:
 
 def vlm_serve_checks(label: str, res, launches: dict, nl: int, prompt: int, gen: int, b: int,
                      vocab: int) -> None:
-    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0},
+    check(res.launches_prefill == {"flash_attention": nl, "flash_decode": 0, "flash_decode_lse": 0},
           f"{label}: prefill launches {res.launches_prefill}, want {nl} of K3 and none of K4")
-    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen},
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": nl * gen,
+                                  "flash_decode_lse": 0},
           f"{label}: decode launches {res.launches_decode}, want {nl} of K4 per step")
     check(launches == {"flash_attention": nl, "flash_decode": nl * gen},
           f"{label}: serving run launches {launches}")
@@ -4371,9 +4405,11 @@ def phase_rec_serve(arch: str, label: str) -> dict:
                 "flash_decode": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
     sites = zamba.num_attn_sites(cfg) if hybrid else 0
-    check(res.launches_prefill == {"flash_attention": sites, "flash_decode": 0},
+    check(res.launches_prefill == {"flash_attention": sites, "flash_decode": 0,
+                                   "flash_decode_lse": 0},
           f"{label}: prefill launches {res.launches_prefill}, want {sites} of K3")
-    check(res.launches_decode == {"flash_attention": 0, "flash_decode": sites * gen},
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": sites * gen,
+                                  "flash_decode_lse": 0},
           f"{label}: decode launches {res.launches_decode}, want {sites} of K4 a step")
     check(launches == {"flash_attention": sites, "flash_decode": sites * gen},
           f"{label}: serving run launches {launches}")
@@ -4922,9 +4958,11 @@ def phase_wh_serve() -> dict:
     launches = {"flash_attention": flash_attention.launches,
                 "flash_decode": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
-    check(res.launches_prefill == {"flash_attention": ne + 2 * nl, "flash_decode": 0},
+    check(res.launches_prefill == {"flash_attention": ne + 2 * nl, "flash_decode": 0,
+                                   "flash_decode_lse": 0},
           f"[55]: prefill launches {res.launches_prefill}, want {ne + 2 * nl} of K3")
-    check(res.launches_decode == {"flash_attention": 0, "flash_decode": 2 * nl * gen},
+    check(res.launches_decode == {"flash_attention": 0, "flash_decode": 2 * nl * gen,
+                                  "flash_decode_lse": 0},
           f"[55]: decode launches {res.launches_decode}, want {2 * nl} of K4 a step")
     check(launches == {"flash_attention": ne + 2 * nl, "flash_decode": 2 * nl * gen},
           f"[55]: serving run launches {launches}")
@@ -5138,6 +5176,12 @@ SECTION6_BOUNDS = (
     ("K3's backward at the training shape, on the f32 CUDA cores", "flash_attention_bwd",
      dict(b=16, sq=128, h=40, kv=8, hd=128, keys=128, pairs=128 * 129 // 2, dtype="f32"),
      "bound_ms", 0.1009, "operations"),
+    ("K4's log-sum-exp instance at Qwen2.5-14B's rank slice, m = 2", "flash_decode",
+     dict(b=4, h=40, kv=8, hd=128, n_valid=2064, slots=2064, dtype="bf16", lse=True),
+     "bound_ms", 0.0101, "bytes"),
+    ("K4's log-sum-exp instance at Qwen2.5-14B's rank slice, m = 4", "flash_decode",
+     dict(b=4, h=40, kv=8, hd=128, n_valid=1032, slots=1032, dtype="bf16", lse=True),
+     "bound_ms", 0.0051, "bytes"),
     ("K1 at the heavy shape, f32", "union_segsum",
      dict(t=512000, d=18, cap=512000, n_union=258137, dtype="f32"), "bound_ms", 0.0235,
      "bytes"),
@@ -5463,7 +5507,9 @@ def tp_job(mesh, job: dict) -> dict:
 
 def tp_rank(rank: int, world: int, store: str, out_dir: str, jobs: list, device: str) -> None:
     """One gloo rank sharing the card: each job on its own mesh laid over
-    the world; its results saved for the parent."""
+    the world; its results saved for the parent. A job with ``blocks`` runs
+    its i-th entry on the world's i-th mesh (None: that mesh's ranks wait);
+    a job of ``kind`` "serve" is ``serve_job``'s, else ``tp_job``'s."""
     import torch.distributed as dist
 
     global DEV
@@ -5476,7 +5522,12 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str, jobs: list, device:
         results = {}
         for job in jobs:
             mesh = make_device_mesh(job["shape"], device=DEV)
-            results[job["label"]] = tp_job(mesh, job)
+            if "blocks" in job:
+                job = job["blocks"][mesh.ranks[0] // len(mesh.ranks)]
+                if job is None:
+                    continue
+            run = serve_job if job.get("kind") == "serve" else tp_job
+            results[job["label"]] = run(mesh, job)
         torch.save(results, Path(out_dir) / f"rank{rank}.pt")
         dist.barrier()
     finally:
@@ -5653,6 +5704,497 @@ def phase_tp_slice(kernels: list, rng) -> list:
     check(all(r["launches"] > 0 for r in rows), "[64]: a rank's shape was not launched")
     print(f"  [66] took {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# [67]-[69]: sharded serving on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: [67]: K4's log-sum-exp form at the ranks' slices: (name, B, H, KV, hd,
+#: slots of the whole cache, positions written, ring, window, slices)
+SV_K4_CASES = (("Qwen2.5-14B, m = 2", 4, 40, 8, 128, 4128, 4097, False, 0, 2),
+               ("Qwen2.5-14B, m = 4", 4, 40, 8, 128, 4128, 4097, False, 0, 4),
+               ("Mixtral ring", 2, 48, 8, 128, 4096, 4161, True, 4096, 2),
+               ("an empty slice", 4, 40, 8, 128, 4128, 1000, False, 0, 4),
+               ("no valid slot", 2, 40, 8, 128, 2064, 0, False, 0, 2))
+#: [67]: K3 at the ranks' prefill shapes (B, S, H, KV, hd), causal, with the
+#: window, under the label of the [68]/[69] job whose ranks launch it there
+SV_K3_CASES = (("bf16 (1, 2)", (4, 4096, 20, 4, 128), torch.bfloat16, 0),
+               ("bf16 (1, 4)", (4, 4096, 10, 2, 128), torch.bfloat16, 0),
+               ("qwen (1, 2)", (2, 1024, 20, 4, 128), torch.float32, 0),
+               ("qwen (1, 4)", (4, 1024, 10, 2, 128), torch.float32, 0),
+               ("mixtral tp (1, 2)", (2, 4160, 24, 4, 128), torch.float32, 4096))
+#: [68]: served in f32 at these widths on gloo ranks sharing the card against
+#: one device: (label, arch, layers, mesh, expert_parallel, batch, prompt)
+SV_GEN = 16
+SV_HOST_TOL = 1e-4
+SV_F32_JOBS = (("qwen (1, 2)", LM_ARCH, 2, (1, 2), False, 2, 1024),
+               ("mixtral tp (1, 2)", MOE_ARCH, 1, (1, 2), False, 2, 4160),
+               ("mixtral ep (1, 2)", MOE_ARCH, 1, (1, 2), True, 2, 4160),
+               ("qwen (1, 4)", LM_ARCH, 2, (1, 4), False, 4, 1024))
+SV_F32_REDUCED = ("Qwen2.5-14B layers 48 -> 2 (8.43 GB f32, drawn whole by each rank before "
+                  "it keeps its part), Mixtral 56 -> 1 (11.6 GB f32); 2 or 4 ranks share "
+                  "the one card")
+#: [69]: bf16 timing at Qwen2.5-14B's widths. Two bf16 runs that round in
+#: another order part by ~1.5% in relative norm at 8 layers (measured on the
+#: host at d_model 512 and 1,024: a rank's row-parallel partial is rounded
+#: before the sum), as far as each is from the f32 run of the same weights
+#: (~1.6%): the ranks' logits are held to the f32 run, no further from it
+#: than SV_BF16_SLACK times one bf16 device's distance
+SV_BF16_LAYERS, SV_BF16_BATCH, SV_BF16_PROMPT, SV_BF16_GEN = 8, 4, 4096, 32
+SV_BF16_SLACK = 1.25
+SV_BF16_MESHES = ((1, 2), (1, 4))
+SV_BF16_REDUCED = ("layers 48 -> 8: 8 layers are 7.6 GB bf16 with the embedding and lm_head, "
+                   "each rank draws them whole before it keeps its part, and 2 or 4 ranks "
+                   "share the card's 80 GB")
+
+
+def sv_config(arch: str, layers: int, dtype: str = "float32"):
+    return get_config(arch).replace(num_layers=layers, dtype=dtype)
+
+
+def sv_reference(label: str, cfg, batch: int, prompt: int, gen: int) -> dict:
+    """One device's serving of a [68]/[69] job on the card, its logits and
+    tokens saved under ``build/`` for the ranks; its times stay here."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg).init(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    serve_mod.serve(cfg, batch=batch, prompt=prompt, gen=2, device=DEV, seed=SEED,
+                    params=params)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_mod.serve(cfg, batch=batch, prompt=prompt, gen=gen, device=DEV, seed=SEED,
+                          params=params)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = OUT_DIR / f"sv_reference_{re.sub(r'[^a-z0-9]+', '_', label)}.pt"
+    torch.save({"logits": [lg.cpu() for lg in res.logits], "tokens": res.tokens.cpu()}, path)
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+          f"{label}: one device's logits are not finite")
+    out = {"path": str(path), "prefill_ms": res.prefill_ms,
+           "step_ms": res.decode_ms_per_token, "peak_gb": peak / 1e9,
+           "cache_bytes": res.cache_bytes, "launches_prefill": res.launches_prefill,
+           "launches_decode": res.launches_decode}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_job(mesh, job: dict) -> dict:
+    """One ``serve(mesh=...)`` run on a rank: its rows of the logits against
+    one device's (``job["ref"]``), the greedy tokens, the counters of the
+    prefill and of each step and ``serve_collective_budget``, times, peak
+    memory while serving (``ServeResult.peak_bytes``: the rank's part of the
+    weights, its cache and the activations, not the whole model's draw), the
+    cache's bytes and K3's and K4's launches."""
+    cfg = job["cfg"]
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    kw = dict(batch=job["batch"], prompt=job["prompt"], gen=job["gen"], seed=SEED,
+              mesh=mesh, expert_parallel=job["ep"])
+    if job.get("warm"):
+        # cuBLAS's handles and the kernels' first loads, at a short prompt
+        serve_mod.serve(cfg, **dict(kw, prompt=min(job["prompt"], 256), gen=2))
+    flash_attention.launches = flash_decode.launches = flash_decode.lse_launches = 0
+    res = serve_mod.serve(cfg, **kw)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_decode": flash_decode.launches,
+                "flash_decode_lse": flash_decode.lse_launches}
+    budget = plan_mod.serve_collective_budget(cfg, mesh, job["batch"], job["prompt"],
+                                              job["gen"], rules=res.rules)
+    ref = torch.load(job["ref"], weights_only=True)
+    b = res.tokens.shape[0]
+    d = mesh.coords[0]
+    rows = slice(d * b, (d + 1) * b) if b < job["batch"] else slice(None)
+    err = [float((got.cpu() - want[rows]).abs().max())
+           for got, want in zip(res.logits, ref["logits"])]
+    rel_f32 = None
+    if job.get("ref_f32"):
+        f32 = torch.load(job["ref_f32"], weights_only=True)
+        rel_f32 = first_steps_rel([lg.cpu() for lg in res.logits[:2]], res.tokens.cpu(),
+                                  [lg[rows] for lg in f32["logits"]], f32["tokens"][rows])
+    rel_one = first_steps_rel([lg.cpu() for lg in res.logits[:2]], res.tokens.cpu(),
+                              [lg[rows] for lg in ref["logits"][:2]], ref["tokens"][rows])
+    out = {"err": err, "rel_one": rel_one, "rel_f32": rel_f32, "tokens": res.tokens.cpu(),
+           "want_tokens": ref["tokens"][rows],
+           "prefill_ms": res.prefill_ms, "step_ms": res.decode_ms_per_token,
+           "peak_gb": res.peak_bytes / 1e9, "cache_bytes": res.cache_bytes,
+           "launches": launches,
+           "launches_prefill": res.launches_prefill, "launches_decode": res.launches_decode,
+           "counters_prefill": res.counters_prefill, "counters_steps": res.counters_steps,
+           "budget": budget, "finite": all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+           "coords": mesh.coords}
+    del res, ref
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_norm(got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).float())
+                 / torch.linalg.vector_norm(want.float()).clamp(min=1e-30))
+
+
+def first_steps_rel(logits: list, tokens, want_logits: list, want_tokens) -> list:
+    """Relative-norm distance of the prefill's logits, and of the first
+    step's on the rows whose first greedy token agrees (None if none does)."""
+    out = [rel_norm(logits[0], want_logits[0])]
+    agree = tokens[:, 0] == want_tokens[:, 0]
+    out.append(rel_norm(logits[1][agree], want_logits[1][agree]) if bool(agree.any())
+               else None)
+    return out
+
+
+def lse_compare(name: str, got: tuple, want: tuple, dtype) -> float:
+    """K4's ``(o, lse)`` against another's: the same rows with no valid
+    slot (lse -inf), then o and the finite lse within the dtype's
+    tolerance (``compare``)."""
+    (o, lse), (wo, wlse) = got, want
+    empty = torch.isinf(wlse)
+    check(torch.equal(torch.isinf(lse), empty), f"{name}: rows with no valid slot differ")
+    err = compare(f"{name} o", o.float(), wo.float(), dtype)
+    if not bool(empty.all()):
+        err = max(err, compare(f"{name} lse", lse[~empty], wlse[~empty], torch.float32))
+    return err
+
+
+def k4_lse_timing(q, kc, vc, kpos, qpos: int, name: str, window: int = 0) -> dict:
+    """K4's log-sum-exp instance timed (two runs, the faster kept) beside
+    its plain version (plain, kernel, kernel, plain) and SDPA with the
+    slots' mask, which computes o alone: no PyTorch call returns the
+    log-sum-exp. The bound reads q and the valid slots' K and V once, and
+    writes o in f32 and the log-sum-exp."""
+    import torch.nn.functional as F
+
+    b, h, hd = q.shape
+    kvh = kc.shape[1]
+    valid = (kpos >= 0) & (kpos <= qpos)
+    if window > 0:
+        valid &= kpos > qpos - window
+    n_valid = int(valid.sum())
+    k4 = lambda: flash_decode(q, kc, vc, kpos, qpos, window=window, return_lse=True)  # noqa
+    plain = lambda: flash_decode_torch(q, kc, vc, kpos, qpos, window=window,  # noqa: E731
+                                       return_lse=True)
+    before = flash_decode.lse_launches
+    err = lse_compare(f"flash_decode return_lse[{name}]", k4(), plain(), q.dtype)
+    flash_decode.lse_launches = before                # a check, not the main path
+    g = h // kvh
+    q4, kct, vct = q[:, :, None], kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
+    mask = valid[None, None, None]
+    lib = lambda: F.scaled_dot_product_attention(q4, kct, vct, attn_mask=mask)  # noqa: E731
+    o1, n1, n2, o2 = cuda_ms(plain), cuda_ms(k4), cuda_ms(k4), cuda_ms(plain)
+    lib_ms = cuda_ms(lib)
+    flash_decode.lse_launches = before
+    cost = cost_model("flash_decode", b=b, h=h, kv=kvh, hd=hd, n_valid=n_valid,
+                      slots=kpos.numel(), dtype=q.dtype, lse=True)
+    ms = min(n1, n2)
+    print(f"  K4 return_lse {name} B={b} H={h} KV={kvh} S={kc.shape[2]} valid={n_valid} "
+          f"hd={hd} {q.dtype}: max_abs_err {err:.3g}; kernel {n1:.4f}/{n2:.4f} ms "
+          f"({cost.bytes / ms / 1e9:.2f} TB/s), plain {o1:.4f}/{o2:.4f} ms, SDPA (o alone) "
+          f"{lib_ms:.4f} ms, bound {cost.bound_ms:.5f} ms ({cost.bound_by}); {card_line()}")
+    return {"shape": [b, h, kvh, kc.shape[2], hd], "valid": n_valid, "dtype": str(q.dtype),
+            "max_abs_err": err, "ms": ms, "plain_ms": min(o1, o2), "bound_ms": cost.bound_ms,
+            "bound_by": cost.bound_by, "library_ms": lib_ms,
+            "library": "SDPA with the slots' mask, o alone (no PyTorch call returns the "
+                       "log-sum-exp)"}
+
+
+def k3_rank_timing(shape: tuple, dtype, window: int, label: str) -> dict:
+    """K3 at a rank's prefill shape ``(B, S, H, KV, hd)``, causal with
+    ``window``, on random inputs: held to its plain version, then timed
+    (plain, kernel, kernel, plain) beside SDPA on the same inputs (GQA heads
+    repeated outside the timed call; causal by its flag, or by an explicit
+    mask with a window) and the bound over the valid (query, key) pairs."""
+    import torch.nn.functional as F
+
+    b, s, h, kvh, hd = shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 67)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=DEV).to(dtype)
+               for n in (h, kvh, kvh))
+    kw = dict(causal=True, window=window)
+    before = flash_attention.launches
+    k3 = lambda: flash_attention(q, k, v, **kw)                            # noqa: E731
+    plain = lambda: flash_attention_torch(q, k, v, **kw)                   # noqa: E731
+    err = compare(f"flash_attention[{label}]", k3().float(), plain().float(), dtype)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous() for t in (k, v))
+    pos = torch.arange(s, device=DEV)
+    valid = pos[None] <= pos[:, None]
+    if window:
+        valid &= pos[None] > pos[:, None] - window
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid)  # noqa: E731
+    else:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    pairs = int(valid.sum())
+    p1, m1, m2, p2 = cuda_ms(plain, 5, 1), cuda_ms(k3, 20), cuda_ms(k3, 20), cuda_ms(plain, 5, 1)
+    lib_ms = cuda_ms(lib, 20)
+    backend = sdpa_backend(lib)
+    flash_attention.launches = before                 # checks, not the main path
+    cost = cost_model("flash_attention", b=b, sq=s, h=h, kv=kvh, hd=hd, keys=s, pairs=pairs,
+                      dtype=dtype)
+    ms = min(m1, m2)
+    print(f"  K3 at the {label} ranks' prefill B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
+          f"causal window={window}: max_abs_err {err:.3g}; kernel {m1:.4f}/{m2:.4f} ms "
+          f"({cost.flops / ms / 1e9:.1f} TFLOP/s), plain {p1:.4f}/{p2:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms ({backend}), bound {cost.bound_ms:.5f} ms ({cost.bound_by}); "
+          f"{card_line()}")
+    return {"shape": [b, s, h, kvh, hd], "window": window, "dtype": str(dtype),
+            "max_abs_err": err, "ms": ms, "plain_ms": min(p1, p2), "bound_ms": cost.bound_ms,
+            "bound_by": cost.bound_by, "library_ms": lib_ms, "library": f"SDPA, {backend}"}
+
+
+def phase_k4_lse(rng) -> float:
+    """[67]: K4's log-sum-exp instance against its plain version at the
+    ranks' slices, and the in-process merge of 2 and 4 slices against
+    whole-cache K4 and the plain version."""
+    from repro_torch.sharding.parallel import merge_decode_slices
+
+    worst = 0.0
+    before = (flash_decode.launches, flash_decode.lse_launches)
+    for name, b, h, kv, hd, slots, written, ring, window, n in SV_K4_CASES:
+        kpos = cache_slot_positions(written, slots, ring, DEV)
+        qpos = max(written - 1, 0) if written else -1
+        width = slots // n
+        for dtype in (torch.float32, torch.bfloat16):
+            q = normal(rng, (b, h, hd), dtype)
+            kc, vc = normal(rng, (b, kv, slots, hd), dtype), normal(rng, (b, kv, slots, hd), dtype)
+            parts, plains = [], []
+            for i in range(n):
+                cut = slice(i * width, (i + 1) * width)
+                args = (q, kc[:, :, cut].contiguous(), vc[:, :, cut].contiguous(),
+                        kpos[cut].contiguous(), qpos)
+                parts.append(flash_decode(*args, window=window, return_lse=True))
+                plains.append(flash_decode_torch(*args, window=window, return_lse=True))
+                worst = max(worst, lse_compare(f"K4 return_lse[{name}, slice {i}]", parts[-1],
+                                               plains[-1], dtype))
+            merged = merge_decode_slices([o for o, _ in parts], [l for _, l in parts], dtype)
+            whole = flash_decode(q, kc, vc, kpos, qpos, window=window)
+            plain = flash_decode_torch(q, kc, vc, kpos, qpos, window=window)
+            e1 = compare(f"merge of {n} slices [{name}] against whole-cache K4", merged.float(),
+                         whole.float(), dtype)
+            e2 = compare(f"merge of {n} slices [{name}] against the plain version",
+                         merged.float(), plain.float(), dtype)
+            worst = max(worst, e1, e2)
+            empty = sum(bool(torch.isinf(l).all()) for _, l in parts)
+            print(f"  K4 return_lse {name:18s} {str(dtype):14s} B={b} H={h} KV={kv} "
+                  f"S={slots} in {n} slices of {width}, written {written}, window {window}: "
+                  f"{empty} slice(s) with no valid slot; merged against whole-cache K4 "
+                  f"{e1:.3g}, against the plain version {e2:.3g}")
+    flash_decode.launches, flash_decode.lse_launches = before
+    return worst
+
+
+def check_serve(label: str, per_rank: list, tol: float = 0.0, f32_bound=None) -> dict:
+    """[68]/[69]'s checks of one job on every rank that ran it: the logits
+    within ``tol`` of one device's and the same greedy tokens, or (bf16,
+    ``f32_bound``) the prefill's and first step's logits no further from
+    the f32 run's than ``f32_bound`` each."""
+    runs = [r[label] for r in per_rank if label in r]
+    check(runs, f"{label}: no rank ran it")
+    for i, run in enumerate(runs):
+        check(run["finite"], f"{label} rank {i}: logits are not finite")
+        if f32_bound is not None:
+            for got, bound, what in zip(run["rel_f32"], f32_bound, ("prefill", "first step")):
+                check(got is not None and bound is not None,
+                      f"{label} rank {i}: no row's first greedy token agrees with the f32 "
+                      f"run's (rank {got}, one bf16 device {bound}): the {what} is not held")
+                check(got <= bound,
+                      f"{label} rank {i}: the {what}'s logits are {got:.4g} from the f32 "
+                      f"run's in relative norm, one bf16 device {bound / SV_BF16_SLACK:.4g}")
+        else:
+            check(max(run["err"]) <= tol, f"{label} rank {i}: logits {max(run['err']):.3g} "
+                  "from one device's")
+            check(torch.equal(run["tokens"], run["want_tokens"]),
+                  f"{label} rank {i}: greedy tokens differ from one device's")
+        check(run["counters_prefill"] == run["budget"]["prefill"],
+              f"{label} rank {i}: prefill counters {run['counters_prefill']} against "
+              f"{run['budget']['prefill']}")
+        check(all(c == run["budget"]["step"] for c in run["counters_steps"]),
+              f"{label} rank {i}: step counters against {run['budget']['step']}")
+    return {"runs": runs}
+
+
+def sv_prepare(rng) -> dict:
+    """[67]'s kernel checks, then [68]-[69]'s single-device runs and their
+    jobs for the shared spawn of 4 ranks."""
+    print("[67] K4's log-sum-exp instance at the ranks' slices against its plain version; "
+          "the merge of 2 and 4 slices against whole-cache K4; K3 at the ranks' prefill shapes")
+    t0 = time.perf_counter()
+    err_lse = phase_k4_lse(rng)
+    k3_timed = {label: k3_rank_timing(shape, dtype, window, label)
+                for label, shape, dtype, window in SV_K3_CASES}
+    print(f"  [67] took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[68] sharded serving in f32 on gloo ranks sharing the card against one device: "
+          f"{[j[0] for j in SV_F32_JOBS]}, {SV_GEN} greedy steps; the single-device runs "
+          "(the ranks ride one spawn of 4 with [69]'s)")
+    print(f"  reduced: {SV_F32_REDUCED}")
+    refs, jobs = {}, {}
+    for label, arch, layers, shape, ep, batch, prompt in SV_F32_JOBS:
+        cfg = sv_config(arch, layers)
+        key = (arch, batch, prompt)
+        if key not in refs:
+            refs[key] = sv_reference(label, cfg, batch, prompt, SV_GEN)
+        jobs[label] = {"kind": "serve", "label": label, "cfg": cfg, "ep": ep, "batch": batch,
+                       "prompt": prompt, "gen": SV_GEN, "ref": refs[key]["path"]}
+    bf_cfg = sv_config(LM_ARCH, SV_BF16_LAYERS, "bfloat16")
+    print(f"[69] one device, {LM_ARCH} at its widths, {SV_BF16_LAYERS} layers, bf16, "
+          f"{SV_BF16_BATCH} x {SV_BF16_PROMPT} + {SV_BF16_GEN} greedy steps; reduced: "
+          f"{SV_BF16_REDUCED}")
+    bf_ref = sv_reference("bf16", bf_cfg, SV_BF16_BATCH, SV_BF16_PROMPT, SV_BF16_GEN)
+    f32_ref = sv_reference("bf16's f32", bf_cfg.replace(dtype="float32"), SV_BF16_BATCH,
+                           SV_BF16_PROMPT, 1)
+    one = [torch.load(r["path"], weights_only=True) for r in (bf_ref, f32_ref)]
+    one_rel = first_steps_rel(one[0]["logits"][:2], one[0]["tokens"], one[1]["logits"],
+                              one[1]["tokens"])
+    f32_bound = [None if x is None else SV_BF16_SLACK * x for x in one_rel]
+    del one
+    for shape in SV_BF16_MESHES:
+        jobs[f"bf16 {shape}"] = {"kind": "serve", "label": f"bf16 {shape}", "cfg": bf_cfg,
+                                 "ep": False, "batch": SV_BF16_BATCH,
+                                 "prompt": SV_BF16_PROMPT, "gen": SV_BF16_GEN,
+                                 "ref": bf_ref["path"], "ref_f32": f32_ref["path"],
+                                 "warm": True}
+    spawn = [{"shape": (1, 2), "blocks": [jobs["qwen (1, 2)"], jobs["mixtral tp (1, 2)"]]},
+             {"shape": (1, 2), "blocks": [jobs["mixtral ep (1, 2)"], None]},
+             {"shape": (1, 4), **jobs["qwen (1, 4)"]},
+             {"shape": (1, 2), "blocks": [jobs["bf16 (1, 2)"], None]},
+             {"shape": (1, 4), **jobs["bf16 (1, 4)"]}]
+    return {"refs": list(refs.values()) + [bf_ref, f32_ref], "spawn": spawn, "jobs": jobs,
+            "bf_ref": bf_ref, "f32_bound": f32_bound, "one_rel": one_rel, "refs_by": refs,
+            "err_lse": err_lse, "k3": k3_timed}
+
+
+def sv_checks(prep: dict, ranks: list) -> list:
+    """[68]-[69]'s checks of the spawn's ranks, each timed; returns K4's
+    log-sum-exp rows (its instance at [69]'s rank slices) and K3's at
+    [67]'s prefill shapes, each with its launches per rank."""
+    print("[68] sharded serving in f32 against one device, on the shared spawn's ranks")
+    t0 = time.perf_counter()
+    refs, bf_ref = prep["refs_by"], prep["bf_ref"]
+    f32_bound, one_rel, err_lse = prep["f32_bound"], prep["one_rel"], prep["err_lse"]
+    for label, arch, layers, shape, ep, batch, prompt in SV_F32_JOBS:
+        got = check_serve(label, ranks, SV_HOST_TOL)
+        ref = refs[(arch, batch, prompt)]
+        r0 = got["runs"][0]
+        print(f"  {label}, {arch} at {layers} layer(s), {batch} x {prompt} + {SV_GEN}: max "
+              f"|logit diff| {max(max(r['err']) for r in got['runs']):.3g} (tolerance "
+              f"{SV_HOST_TOL}); tokens identical; prefill "
+              f"{[round(r['prefill_ms'], 1) for r in got['runs']]} ms, step "
+              f"{[round(r['step_ms'], 2) for r in got['runs']]} ms by rank (one device "
+              f"{ref['prefill_ms']:.1f} / {ref['step_ms']:.2f}); cache "
+              f"{r0['cache_bytes'] / 1e6:.2f} MB per rank (one device "
+              f"{ref['cache_bytes'] / 1e6:.2f}); launches per rank {r0['launches']}; "
+              f"counters equal the budget; {card_line()}")
+    sv_nccl(get_config(LM_ARCH).replace(**serve_mod.SCALES[TP_NCCL_SCALE]))
+    print(f"  [68] checks took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[69] bf16 on (1, 2) and (1, 4) against one device ({card_line()})")
+    t0 = time.perf_counter()
+    nl = SV_BF16_LAYERS
+    print(f"  one device: prefill {bf_ref['prefill_ms']:.1f} ms, {bf_ref['step_ms']:.2f} "
+          f"ms/step, peak {bf_ref['peak_gb']:.2f} GB, cache {bf_ref['cache_bytes'] / 1e6:.1f} "
+          f"MB, launches prefill {bf_ref['launches_prefill']}, decode "
+          f"{bf_ref['launches_decode']}")
+    rows = []
+    for shape in SV_BF16_MESHES:
+        label = f"bf16 {shape}"
+        runs = check_serve(label, ranks, f32_bound=f32_bound)["runs"]
+        m = shape[1]
+        for i, run in enumerate(runs):
+            check(run["launches_prefill"]["flash_attention"] == nl,
+                  f"{label} rank {i}: K3 {run['launches_prefill']} per prefill, want {nl}")
+            check(run["launches_decode"]["flash_decode_lse"] == nl * SV_BF16_GEN
+                  and run["launches_decode"]["flash_decode"] == 0,
+                  f"{label} rank {i}: K4 {run['launches_decode']} over the steps, want "
+                  f"{nl} of its log-sum-exp instance per step")
+            check(run["cache_bytes"] * m == bf_ref["cache_bytes"],
+                  f"{label} rank {i}: cache {run['cache_bytes']} B, one device's "
+                  f"{bf_ref['cache_bytes']} over {m}")
+        agree = [int((r["tokens"] == r["want_tokens"]).sum()) for r in runs]
+        print(f"  {label}: prefill {[round(r['prefill_ms'], 1) for r in runs]} ms, "
+              f"{[round(r['step_ms'], 2) for r in runs]} ms/step, peak while serving "
+              f"{[round(r['peak_gb'], 2) for r in runs]} GB, cache "
+              f"{[round(r['cache_bytes'] / 1e6, 1) for r in runs]} MB by rank (1/{m} of one "
+              f"device's); K3 {runs[0]['launches_prefill']['flash_attention']} per prefill and "
+              f"K4 {runs[0]['launches_decode']['flash_decode_lse'] // SV_BF16_GEN} per step "
+              f"on each rank; prefill logits {max(r['err'][0] for r in runs):.3g} from one "
+              f"device's (relative norm, prefill and first step on the rows whose first "
+              f"token agrees: {[r['rel_one'] for r in runs]}); against the f32 run "
+              f"{[r['rel_f32'] for r in runs]} (one bf16 device {one_rel}); "
+              f"greedy tokens agreeing with one device's {agree} of "
+              f"{runs[0]['tokens'].numel()} per rank; {card_line()}")
+        slots = (SV_BF16_PROMPT + SV_BF16_GEN) // m
+        g = torch.Generator(device=DEV).manual_seed(SEED + 69)
+        q = torch.randn(SV_BF16_BATCH, 40, 128, generator=g, device=DEV).to(torch.bfloat16)
+        kc, vc = (torch.randn(SV_BF16_BATCH, 8, slots, 128, generator=g,
+                              device=DEV).to(torch.bfloat16) for _ in range(2))
+        kpos = cache_slot_positions(SV_BF16_PROMPT + 1, SV_BF16_PROMPT + SV_BF16_GEN,
+                                    False, DEV)[:slots].contiguous()
+        timed = k4_lse_timing(q, kc, vc, kpos, SV_BF16_PROMPT, f"rank slice of {shape}")
+        timed["max_abs_err"] = max(timed["max_abs_err"], err_lse)
+        launches = runs[0]["launches_decode"]["flash_decode_lse"]
+        rows.append({"name": f"flash_decode return_lse (Qwen2.5-14B serving, rank slice of "
+                             f"{shape})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "replaces": "src/repro/kernels/flash_decode.py:88", "launches": launches,
+                     "launches_per_step": launches // SV_BF16_GEN, **timed})
+    for label, shape, dtype, window in SV_K3_CASES:
+        runs = [r[label] for r in ranks if label in r]
+        launches = runs[0]["launches"]["flash_attention"]
+        check(all(r["launches"]["flash_attention"] == launches for r in runs),
+              f"{label}: K3's launches differ across ranks")
+        rows.append({"name": f"flash_attention (sharded serving prefill, {label}, a rank's "
+                             "heads)", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:100",
+                     "launches": launches, **prep["k3"][label]})
+    check(all(r["launches"] > 0 for r in rows), "[68]/[69]: K3 or K4's log-sum-exp instance "
+          "was not launched on the main path at a rank's shape")
+    print(f"  [69] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_serve_tp_slice(kernels: list, rng) -> list:
+    """[67]-[69]: [67]'s kernel checks and the single-device runs, one spawn
+    of 4 gloo ranks for every serving job, then the checks; K4's
+    log-sum-exp rows."""
+    t0 = time.perf_counter()
+    sv = sv_prepare(rng)
+    k3 = next(e for e in kernels if e["name"] == "flash_attention")
+    k3["max_abs_err"] = max([k3["max_abs_err"]] + [t["max_abs_err"] for t in sv["k3"].values()])
+    try:
+        ranks = run_tp(4, sv["spawn"])
+    finally:
+        for ref in sv["refs"]:
+            Path(ref["path"]).unlink(missing_ok=True)
+    print(f"  [68]-[69]'s single-device runs and the spawn took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return sv_checks(sv, ranks)
+
+
+def sv_nccl(cfg) -> None:
+    """[68] (b): a 1-rank NCCL ``(1, 1)`` mesh in this process serving as
+    one device does, its counters the budget's."""
+    kw = dict(batch=2, prompt=256, gen=8, seed=SEED)
+    single = serve_mod.serve(cfg, device=DEV, **kw)
+    store = Path(tempfile.mkdtemp(prefix="nccl_", dir=ROOT / "build"))
+    mesh = make_device_mesh((1, 1), device=DEV, backend="nccl",
+                            init_method=f"file://{store / 's'}", rank=0, world_size=1)
+    try:
+        res = serve_mod.serve(cfg, mesh=mesh, **kw)
+        budget = plan_mod.serve_collective_budget(cfg, mesh, 2, 256, 8, rules=res.rules)
+    finally:
+        mesh.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    err = max(float((a - b).abs().max()) for a, b in zip(res.logits, single.logits))
+    check(err <= LM_STEP_TOL, f"NCCL (1, 1) serving: logits {err:.3g} from one device's")
+    check(torch.equal(res.tokens, single.tokens), "NCCL (1, 1) serving: tokens differ")
+    check(res.counters_prefill == budget["prefill"]
+          and all(c == budget["step"] for c in res.counters_steps),
+          f"NCCL (1, 1) serving: counters {res.counters_prefill} against {budget}")
+    print(f"  NCCL (1, 1), {cfg.name} at the {TP_NCCL_SCALE} scale, 2 x 256 + 8: max |logit "
+          f"diff| {err:.3g}; tokens identical; counters equal the budget; {card_line()}")
 
 
 def main() -> int:
@@ -5893,6 +6435,7 @@ def main() -> int:
     kernels += phase_whisper_slice(kernels, rng)
     phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
     kernels += phase_tp_slice(kernels, rng)
+    kernels += phase_serve_tp_slice(kernels, rng)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -436,17 +436,24 @@ def grid_invariance(e: KernelEntry, shape: Dict, device=None, seed: int = 0) -> 
         splits = [(nsplit, chunk), (nsplit, chunk), (-(-sl // other), other)]
         outs = []
         for ns, ch in splits:
-            out = torch.empty_like(q)
+            # the log-sum-exp instance writes f32 o beside the rows' lse
+            out = torch.empty(q.shape, dtype=torch.float32 if s.get("lse") else q.dtype,
+                              device=dev)
+            lse = torch.empty((b, h), device=dev) if s.get("lse") else None
             part = torch.empty((b, h, ns, hd + 2), device=dev)
             err = _build.launcher(e.source, "flash_decode_launch")(
                 q.data_ptr(), kc.data_ptr(), vc.data_ptr(), kpos.data_ptr(),
                 int(dt == torch.bfloat16), b, h, kvh, sl, hd, sl - 1, 0, ns, ch,
                 float(np.sqrt(np.float32(hd))),
-                part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                part.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
             _build.check(e.source, err)
-            outs.append(out)
+            outs.append(out if lse is None else torch.cat([out, lse[..., None]], dim=-1))
         torch.cuda.synchronize(dev)
         _, f = _same(f"{e.name} at {nsplit} slices", outs[0], outs[1])
+        # the log-sum-exp instance's o is f32, but another cut of the cache
+        # rounds p to bf16 against another slice's max: the inputs' dtype's
+        # tolerance, as the rounded output's
         err, f2 = _close(f"{e.name} at {nsplit} against {splits[2][0]} slices", outs[2],
                          outs[0], s["dtype"])
         return {"error": err, "failures": f + f2,
@@ -566,8 +573,10 @@ def cost_model(kernel: str, hw: Dict = HW, **s) -> CostReport:
       and two passes over the table.
     - ``flash_attention`` (b, sq, h, kv, hd, keys, pairs, dtype) at the
       dtype's peak (bf16: tensor cores; f32: CUDA cores).
-    - ``flash_decode`` (b, h, kv, hd, n_valid, slots, dtype): one query row
-      against ``n_valid`` slots, the ``slots`` positions read.
+    - ``flash_decode`` (b, h, kv, hd, n_valid, slots, dtype, lse=False): one
+      query row against ``n_valid`` slots, the ``slots`` positions read;
+      ``lse``: the log-sum-exp instance, o written in f32 and the rows'
+      log-sum-exp beside it.
     - ``flash_attention_bwd`` (b, sq, h, kv, hd, keys, pairs): the forward's
       bytes twice (q, k, v, o, dout read; dq, dk, dv written) and the
       log-sum-exp, five products a valid pair (2.5 times the forward's
@@ -594,8 +603,10 @@ def cost_model(kernel: str, hw: Dict = HW, **s) -> CostReport:
     dtype = _dtype(s.get("dtype", "f32"))
     esize = _ESIZE[dtype]
     if kernel == "flash_decode":
+        lse = 4 * s["b"] * s["h"] * (1 + s["hd"]) - esize * s["b"] * s["h"] * s["hd"] \
+            if s.get("lse") else 0
         nbytes, flops = _attention_work(s["b"], 1, s["h"], s["kv"], s["hd"], s["n_valid"],
-                                        s["n_valid"], esize, 4 * s["slots"])
+                                        s["n_valid"], esize, 4 * s["slots"] + lse)
         ms, by = roofline(nbytes, flops, dtype, hw)
         return CostReport(kernel, float(nbytes), float(flops), ms, by, dtype)
     fbytes, fflops = _attention_work(s["b"], s["sq"], s["h"], s["kv"], s["hd"], s["keys"],

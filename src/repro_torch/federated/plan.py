@@ -550,6 +550,100 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
     return {"axes": axes, "by_op": by_op}
 
 
+def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
+                            rules: Optional[Dict] = None) -> Dict:
+    """Per-rank collectives of sharded serving (``launch.serve.serve`` on a
+    ``(data, model)`` :class:`~repro_torch.launch.mesh.DeviceMesh` under
+    ``make_rules("decode")``): one prefill of ``batch`` prompts of
+    ``prompt`` tokens, and one decode step, whose collectives are the same
+    at every step. Over ``b`` = the rank's sequences (``batch / data``
+    where it divides) and the model's dtype size ``a``, by the split of
+    ``transformer.model_split`` and the cache's of
+    ``launch.shardings.cache_specs`` (its ``prompt + gen`` slots, or the
+    window, split over ``model`` where they divide):
+
+    - the prefill (``T = b * prompt`` tokens): ``embed`` (T x d); per
+      layer ``attn_out`` (T x d) where the heads are split, ``mlp_out`` or
+      ``moe_out`` (T x d) where the FFN or the experts are,
+      ``router_logits`` (an all-gather of T x E) under expert parallelism,
+      ``prefill_kv`` (an all-gather of K and V, 2 x T x KV x hd) where the
+      KV heads are split; ``logits`` (an all-gather of f32 b x V);
+    - a step: the same with ``T = b``, and per layer ``decode_q`` (an
+      all-gather of b x H x hd) where the heads are split, ``decode_kv``
+      (2 x b x KV x hd) where the KV heads are, and where the cache is split
+      by sequence the merge of K4's partials: ``decode_max`` (f32 b x H)
+      and ``decode_merge`` (f32 b x H x (hd + 1));
+    - a MoE layer on more than one ``data`` rank routes the whole batch:
+      ``moe_counts`` (an all-gather of int32 counts per expert) and
+      ``moe_aux`` (f32 2 x E) on ``data``, in the prefill and in each step.
+
+    ``rules`` default to the installed ones. Returns ``{"prefill": {axis:
+    {tag: {"op", "bytes"}}}, "step": ...}``, laid out as
+    ``DeviceMesh.counters`` after a prefill and after a step that each
+    started from zero."""
+    from repro_torch.launch.shardings import _fit_spec
+    from repro_torch.models.transformer import model_dtype, model_split
+    from repro_torch.sharding.context import get_rules, set_rules
+
+    if cfg.moe_token_chunk:
+        raise NotImplementedError("serve_collective_budget: a MoE routed in token chunks")
+    installed = get_rules()
+    rules = installed[1] if rules is None else rules
+    if rules is None:
+        raise ValueError("serve_collective_budget: no rules installed or given")
+    set_rules(mesh, rules)
+    try:
+        split = model_split(cfg)
+    finally:
+        set_rules(*installed)
+    data, m = int(mesh.shape.get("data", 1)), int(mesh.shape.get("model", 1))
+    b = batch // data if batch % data == 0 else batch
+    cap = prompt + gen
+    if cfg.sliding_window > 0:
+        cap = min(cfg.sliding_window, cap)
+    kv_seq = (rules.get("kv_seq") or (None,))[0]
+    seq = m > 1 and _fit_spec(mesh, (kv_seq,), (cap,))[0] == "model"
+    d, a = cfg.d_model, torch.empty((), dtype=model_dtype(cfg)).element_size()
+    hd, e = cfg.head_dim, cfg.num_experts
+
+    def one(t: int, step: bool) -> Dict:
+        axes: Dict[str, Dict[str, Dict]] = {name: {} for name in mesh.axis_names}
+
+        def add(axis, tag, op, nbytes):
+            c = axes[axis].setdefault(tag, {"op": op, "bytes": 0.0})
+            c["bytes"] += float(nbytes)
+
+        if split.vocab is not None:
+            add("model", "embed", "all-reduce", t * d * a)
+        for _ in range(cfg.num_layers):
+            if split.heads is not None:
+                if step:
+                    add("model", "decode_q", "all-gather", b * cfg.num_heads * hd * a)
+                add("model", "attn_out", "all-reduce", t * d * a)
+            if split.kv is not None:
+                add("model", "decode_kv" if step else "prefill_kv", "all-gather",
+                    2 * t * cfg.num_kv_heads * hd * a)
+            if step and seq:
+                add("model", "decode_max", "all-reduce", b * cfg.num_heads * 4)
+                add("model", "decode_merge", "all-reduce", b * cfg.num_heads * (hd + 1) * 4)
+            if not cfg.is_moe:
+                if split.ffn is not None:
+                    add("model", "mlp_out", "all-reduce", t * d * a)
+                continue
+            if split.batch is not None:
+                add("data", "moe_counts", "all-gather", split.batch.size * e * 4)
+                add("data", "moe_aux", "all-reduce", 2 * e * 4)
+            if split.experts is not None or split.ffn is not None:
+                add("model", "moe_out", "all-reduce", t * d * a)
+            if split.experts is not None:
+                add("model", "router_logits", "all-gather", t * e * a)
+        if split.vocab is not None:
+            add("model", "logits", "all-gather", b * cfg.vocab_size * 4)
+        return axes
+
+    return {"prefill": one(b * prompt, False), "step": one(b, True)}
+
+
 # ---------------------------------------------------------------------------
 # the compiler: plan -> round step
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ SIGNATURES = {
                             "flash_attention_bwd_instance": _INSTANCE},
     "flash_decode": {"flash_decode_launch":
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
-                      _P),
+                      _P, _P),
                      "flash_decode_instance": _INSTANCE},
 }
 

@@ -44,7 +44,14 @@
 //   pass 2  (merge_kernel) one block per (batch, query head) merges the
 //           slices by log-sum-exp: M = max m_i, L = sum l_i e^(m_i - M),
 //           out = sum acc_i e^(m_i - M) / L, in the inputs' dtype. The merge
-//           stays a second small launch.
+//           stays a second small launch. Its log-sum-exp instance (kLse,
+//           asked for by a non-null lse) is the per-rank form of a cache
+//           split by sequence over ranks: it writes out in f32, unrounded,
+//           and lse = M + log L, so that the ranks' partials merge once more
+//           across ranks (sharding/parallel.py::merge_decode_partials) and
+//           are rounded once, after that merge. A row with no valid slot in
+//           the rank's slice gets lse = -inf and the mean of V over the
+//           slice's slots.
 //
 // This is the split-K form the TPU kernel's docstring names for its sharded
 // path. Scores are q.k / sqrt(hd) in f32, as repro/models/layers.py::
@@ -68,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "introspect.cuh"
 
@@ -615,9 +624,13 @@ bool encode_cache(CUtensorMap* map, const void* ptr, int64_t rows) {
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int HD>
+// kLse: out is f32 and lse (b * h) gets M + log L, -inf for a row with no
+// valid slot; otherwise out is in the inputs' dtype and lse is unused
+template <typename T, int HD, bool kLse>
 __global__ void merge_kernel(const float* __restrict__ part, const T* __restrict__ vc,
-                             int h, int kvh, int s_len, int nsplit, T* __restrict__ out) {
+                             int h, int kvh, int s_len, int nsplit,
+                             std::conditional_t<kLse, float, T>* __restrict__ out,
+                             float* __restrict__ lse) {
   const int bh = blockIdx.x;   // b * h + head
   const int64_t stride = HD + 2;
   const float* pp = part + static_cast<int64_t>(bh) * nsplit * stride;
@@ -633,6 +646,7 @@ __global__ void merge_kernel(const float* __restrict__ part, const T* __restrict
       for (int s = 0; s < s_len; ++s) a += to_f32(vb[static_cast<int64_t>(s) * HD + d]);
       store(out + static_cast<int64_t>(bh) * HD + d, a / static_cast<float>(s_len));
     }
+    if (kLse && threadIdx.x == 0) lse[bh] = -INFINITY;
     return;
   }
   for (int d = threadIdx.x; d < HD; d += blockDim.x) {
@@ -643,13 +657,15 @@ __global__ void merge_kernel(const float* __restrict__ part, const T* __restrict
       a += f * pp[i * stride + 2 + d];
     }
     store(out + static_cast<int64_t>(bh) * HD + d, a / l);
+    if (kLse && d == 0) lse[bh] = mx + logf(l);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* kc, const void* vc, const int* kpos, int b,
            int h, int kvh, int s_len, int q_position, int window, int nsplit,
-           int chunk, float sqrt_hd, float* part, void* out, cudaStream_t stream) {
+           int chunk, float sqrt_hd, float* part, void* out, float* lse,
+           cudaStream_t stream) {
   const int gchunks = (h / kvh + kMaxG - 1) / kMaxG;
   const dim3 grid(nsplit, kvh * gchunks, b);
   const int list = 4 * ((chunk + kTile - 1) / kTile);   // bytes of the tile list
@@ -679,18 +695,27 @@ int launch(const void* q, const void* kc, const void* vc, const int* kpos, int b
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<T, HD><<<b * h, HD < 32 ? 32 : HD, 0, stream>>>(
-      part, static_cast<const T*>(vc), h, kvh, s_len, nsplit, static_cast<T*>(out));
+  if (lse != nullptr)
+    merge_kernel<T, HD, true><<<b * h, HD < 32 ? 32 : HD, 0, stream>>>(
+        part, static_cast<const T*>(vc), h, kvh, s_len, nsplit, static_cast<float*>(out),
+        lse);
+  else
+    merge_kernel<T, HD, false><<<b * h, HD < 32 ? 32 : HD, 0, stream>>>(
+        part, static_cast<const T*>(vc), h, kvh, s_len, nsplit, static_cast<T*>(out),
+        nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the split pass (tensor cores for bf16, CUDA cores for f32) with `chunk`
-// slots a slice, or the merge, at its launch configuration
+// slots a slice, or the merge (its log-sum-exp instance with lse), at its
+// launch configuration
 template <typename T, int HD>
-int query_instance(bool merge, int chunk, int* out, const char** name) {
+int query_instance(bool merge, bool lse, int chunk, int* out, const char** name) {
   if (merge)
-    return introspect::query(reinterpret_cast<const void*>(merge_kernel<T, HD>),
-                             HD < 32 ? 32 : HD, 0, 1, out, name);
+    return introspect::query(
+        lse ? reinterpret_cast<const void*>(merge_kernel<T, HD, true>)
+            : reinterpret_cast<const void*>(merge_kernel<T, HD, false>),
+        HD < 32 ? 32 : HD, 0, 1, out, name);
   const int list = 4 * ((chunk + kTile - 1) / kTile);
   if constexpr (sizeof(T) == 2)
     return introspect::query(reinterpret_cast<const void*>(split_kernel_tc<HD>), kThreads,
@@ -701,12 +726,12 @@ int query_instance(bool merge, int chunk, int* out, const char** name) {
 }
 
 template <typename T>
-int query_hd(int hd, bool merge, int chunk, int* out, const char** name) {
+int query_hd(int hd, bool merge, bool lse, int chunk, int* out, const char** name) {
   switch (hd) {
-    case 16: return query_instance<T, 16>(merge, chunk, out, name);
-    case 32: return query_instance<T, 32>(merge, chunk, out, name);
-    case 64: return query_instance<T, 64>(merge, chunk, out, name);
-    case 128: return query_instance<T, 128>(merge, chunk, out, name);
+    case 16: return query_instance<T, 16>(merge, lse, chunk, out, name);
+    case 32: return query_instance<T, 32>(merge, lse, chunk, out, name);
+    case 64: return query_instance<T, 64>(merge, lse, chunk, out, name);
+    case 128: return query_instance<T, 128>(merge, lse, chunk, out, name);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -714,12 +739,12 @@ int query_hd(int hd, bool merge, int chunk, int* out, const char** name) {
 template <typename T>
 int dispatch(int hd, const void* q, const void* kc, const void* vc, const int* kpos,
              int b, int h, int kvh, int s_len, int q_position, int window, int nsplit,
-             int chunk, float sqrt_hd, float* part, void* out, cudaStream_t s) {
+             int chunk, float sqrt_hd, float* part, void* out, float* lse, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, s);
-    case 32: return launch<T, 32>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, s);
-    case 64: return launch<T, 64>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, s);
-    case 128: return launch<T, 128>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, s);
+    case 16: return launch<T, 16>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, lse, s);
+    case 32: return launch<T, 32>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, lse, s);
+    case 64: return launch<T, 64>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, lse, s);
+    case 128: return launch<T, 128>(q, kc, vc, kpos, b, h, kvh, s_len, q_position, window, nsplit, chunk, sqrt_hd, part, out, lse, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -730,17 +755,20 @@ int dispatch(int hd, const void* q, const void* kc, const void* vc, const int* k
 // 16-byte aligned, f32 or bf16 (is_bf16 != 0); k_positions (s_len,) int32, -1
 // for an empty slot; h a multiple of kvh; hd in {16, 32, 64, 128}. The cache
 // is cut into nsplit slices of chunk slots; part is f32 scratch of b * h *
-// nsplit * (hd + 2). window <= 0 means no window. Returns the CUDA error of
-// the launches.
+// nsplit * (hd + 2). window <= 0 means no window. lse null: out in the
+// inputs' dtype; lse (b * h f32): out in f32 and lse the rows' log-sum-exp.
+// Returns the CUDA error of the launches.
 // Instance i at its launch configuration, for the kernel audit
-// (introspect.cuh): i = 8 * merge + 4 * bf16 + (0-3 for hd 16, 32, 64, 128);
-// chunk: the split pass's slots a slice (split_plan), which sizes its list.
+// (introspect.cuh): i = 8 * merge + 4 * bf16 + (0-3 for hd 16, 32, 64, 128)
+// for i < 16, and i = 16 + 4 * bf16 + (0-3) for the merge's log-sum-exp
+// instance; chunk: the split pass's slots a slice (split_plan), which sizes
+// its list.
 extern "C" int flash_decode_instance(int i, int chunk, int* out, const char** name) {
-  if (i < 0 || i >= 16 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (i < 0 || i >= 24 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = 16 << (i % 4);
-  const bool merge = i >= 8, bf16 = (i / 4) % 2 == 1;
-  return bf16 ? query_hd<__nv_bfloat16>(hd, merge, chunk, out, name)
-              : query_hd<float>(hd, merge, chunk, out, name);
+  const bool lse = i >= 16, merge = i >= 8, bf16 = (i / 4) % 2 == 1;
+  return bf16 ? query_hd<__nv_bfloat16>(hd, merge, lse, chunk, out, name)
+              : query_hd<float>(hd, merge, lse, chunk, out, name);
 }
 
 extern "C" int flash_decode_launch(const void* q, const void* k_cache,
@@ -748,14 +776,15 @@ extern "C" int flash_decode_launch(const void* q, const void* k_cache,
                                    int is_bf16, int b, int h, int kvh, int s_len,
                                    int hd, int q_position, int window, int nsplit,
                                    int chunk, float sqrt_hd, void* part, void* out,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kpos = static_cast<const int*>(k_positions);
   float* pp = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(hd, q, k_cache, v_cache, kpos, b, h, kvh, s_len,
                                    q_position, window, nsplit, chunk, sqrt_hd, pp,
-                                   out, s);
+                                   out, ls, s);
   return dispatch<float>(hd, q, k_cache, v_cache, kpos, b, h, kvh, s_len, q_position,
-                         window, nsplit, chunk, sqrt_hd, pp, out, s);
+                         window, nsplit, chunk, sqrt_hd, pp, out, ls, s);
 }

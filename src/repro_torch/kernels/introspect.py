@@ -156,16 +156,22 @@ def _attention_bwd_instances(s: Dict, max_blocks: Callable) -> Tuple[Launch, ...
 
 
 def _decode_instances(s: Dict, max_blocks: Callable) -> Tuple[Launch, ...]:
+    """The split pass and the merge; ``lse`` in the shape: the merge's
+    log-sum-exp instance (``return_lse``, a rank's slice of the cache)."""
     bf16 = s["dtype"] == "bf16"
     groups = s["H"] // s["KV"]
     nsplit, chunk = s.get("split") or split_plan(s["B"], s["KV"], groups, s["S"])
     i = _hd_index(s["hd"])
     t = "__nv_bfloat16" if bf16 else "float"
     split = f"split_kernel_tc<{s['hd']}>" if bf16 else f"split_kernel<float, {s['hd']}>"
+    if s.get("lse"):
+        merge = Launch(f"merge_kernel<{t}, {s['hd']}, true>", 16 + 4 * int(bf16) + i,
+                       arg=chunk, grid=(s["B"] * s["H"], 1, 1))
+    else:
+        merge = Launch(f"merge_kernel<{t}, {s['hd']}>", 8 + 4 * int(bf16) + i, arg=chunk,
+                       grid=(s["B"] * s["H"], 1, 1))
     return (Launch(split, 4 * int(bf16) + i, arg=chunk,
-                   grid=(nsplit, s["KV"] * -(-groups // 8), s["B"])),
-            Launch(f"merge_kernel<{t}, {s['hd']}>", 8 + 4 * int(bf16) + i, arg=chunk,
-                   grid=(s["B"] * s["H"], 1, 1)))
+                   grid=(nsplit, s["KV"] * -(-groups // 8), s["B"])), merge)
 
 
 #: PERF.md §6's main-path shapes, and the reference's audit shapes
@@ -248,14 +254,21 @@ REGISTRY = (
         ("split_kernel", "split_kernel_tc", "merge_kernel"),
         ("flash_decode_launch", "flash_decode_instance"),
         "the split pass writes each cache slice's (max, sum, acc) as f32 partials; "
-        "the merge combines them by log-sum-exp in slice order",
+        "the merge combines them by log-sum-exp in slice order (its log-sum-exp "
+        "instance writes f32 o and the rows' log-sum-exp for the merge across ranks)",
         True,
         (AuditShape("reference", dict(B=2, H=4, KV=2, S=4096, hd=128, dtype="f32"),
                     "src/repro/kernels/introspect.py:168"),
          AuditShape("Qwen2.5-14B step", dict(B=4, H=40, KV=8, S=1056, hd=128, dtype="bf16"),
                     "PERF.md §6, [12]"),
          AuditShape("Whisper cross step", dict(B=4, H=20, KV=20, S=1500, hd=64, dtype="bf16"),
-                    "PERF.md §6, [54]")),
+                    "PERF.md §6, [54]"),
+         AuditShape("Qwen2.5-14B rank slice, m = 2",
+                    dict(B=4, H=40, KV=8, S=2064, hd=128, dtype="bf16", lse=True),
+                    "PERF.md §6, [69]"),
+         AuditShape("Qwen2.5-14B rank slice, m = 4",
+                    dict(B=4, H=40, KV=8, S=1032, hd=128, dtype="bf16", lse=True),
+                    "PERF.md §6, [69]")),
         _decode_instances),
 )
 

@@ -20,6 +20,22 @@ the prompt's positions on all three streams (where M-RoPE equals RoPE).
 Whisper's cache holds the prompt and the generated tokens for the decoder,
 and its own ``encoder_seq`` frames for cross-attention. ``serve`` is the
 body, for callers that want its numbers.
+
+On a mesh (``serve(..., mesh=...)``, or ``--model-parallel m`` under
+torchrun: ``make_host_mesh(m)``, a ``(ranks / m, m)`` mesh of axes
+``("data", "model")``) the transformer families serve as the reference's
+launcher serves them under ``set_rules(mesh, make_rules("decode"))``
+(``src/repro/launch/serve.py:38-39``), the rules completed for the
+architecture: every rank draws the same weights and prompts, keeps its part
+of the parameters (``shard_params``) and its rows of the batch over
+``data``, and makes its part of the KV cache, split by sequence over
+``model`` (``shard_cache``); ``--expert-parallel`` splits the experts
+rather than their columns. One process per rank:
+
+    torchrun --nproc_per_node=4 -m repro_torch.launch.serve --arch qwen2_5_14b \
+        --scale tiny --model-parallel 2 [--expert-parallel] --device cpu
+
+Whisper, Zamba2 and xLSTM serve on one device only (ROADMAP item 9.9).
 """
 from __future__ import annotations
 
@@ -34,8 +50,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.launch.shardings import shard_batch, shard_cache, shard_params
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import model_dtype
+from repro_torch.models.transformer import model_dtype, train_params
+from repro_torch.sharding.context import get_rules, set_rules
+from repro_torch.sharding.rules import complete_rules, make_rules
 
 SCALES = {
     # overrides applied to the arch config for CPU-runnable scales
@@ -53,8 +72,9 @@ SCALES = {
 
 
 def _launches() -> Dict[str, int]:
-    return {"flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches}
+    """The kernels' counters: K3, K4 and K4's log-sum-exp instance."""
+    return {"flash_attention": flash_attention.launches, "flash_decode": flash_decode.launches,
+            "flash_decode_lse": flash_decode.lse_launches}
 
 
 @dataclass
@@ -63,7 +83,16 @@ class ServeResult:
     logits and then each decode step's, (B, V) f32 each; ``tokens`` the
     greedy tokens fed to the decode steps, (B, gen); ``cache_pos`` the
     cache's position at the end. Launch counts are the kernels' counters over
-    the prefill and over the whole decode loop."""
+    the prefill and over the whole decode loop.
+
+    On a mesh the tensors are the rank's rows of the batch (the vocabulary
+    whole); ``rules`` are the rules it installed, ``counters_prefill`` the
+    collectives of the prefill and ``counters_steps`` each step's
+    (``DeviceMesh.counters``). ``cache_bytes``: the bytes of the (rank's)
+    cache. ``peak_bytes``, on a mesh on the card: the device's peak
+    allocated bytes from once the rank's parameters are cut and its cache
+    made (its peak stats are reset there) to the run's end, so not the
+    whole model's draw; 0 otherwise."""
 
     device: torch.device
     tokens: torch.Tensor
@@ -74,6 +103,20 @@ class ServeResult:
     cache_pos: int = 0
     launches_prefill: Dict[str, int] = field(default_factory=dict)
     launches_decode: Dict[str, int] = field(default_factory=dict)
+    cache_bytes: int = 0
+    peak_bytes: int = 0
+    rules: Optional[Dict] = None
+    counters_prefill: Dict = field(default_factory=dict)
+    counters_steps: List[Dict] = field(default_factory=list)
+
+
+def _bytes(cache) -> int:
+    """The bytes of every tensor of a cache (nested states too)."""
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    if isinstance(cache, tuple):
+        return sum(_bytes(c) for c in cache)
+    return 0
 
 
 def _sync(device: torch.device) -> None:
@@ -85,6 +128,13 @@ def default_frames(cfg: ModelConfig, batch: int) -> torch.Tensor:
     """The reference launcher's audio frames: ``(B, encoder_seq, d)`` of
     0.02 in the model's dtype, on the host."""
     return torch.full((batch, cfg.encoder_seq, cfg.d_model), 0.02, dtype=model_dtype(cfg))
+
+
+def prompt_tokens(cfg: ModelConfig, batch: int, prompt: int, seed: int = 0) -> torch.Tensor:
+    """``serve``'s prompts: ``(batch, prompt)`` int32 tokens drawn on the
+    host from seed ``seed + 1``, the same on every rank of a mesh."""
+    return torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=torch.Generator().manual_seed(seed + 1), dtype=torch.int32)
 
 
 def prompt_inputs(cfg: ModelConfig, batch: int, prompt: int, device,
@@ -140,55 +190,104 @@ def decode_mrope_pos(mrope_pos: torch.Tensor, gen: int) -> torch.Tensor:
     return steps[:, None, :, None].expand(gen, 3, mrope_pos.shape[1], 1).to(torch.int32)
 
 
+def serve_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
+    """``make_rules("decode")`` completed for ``cfg`` on ``mesh``'s model
+    axis, as the reference's serving launcher and dry run install them."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not serve on a mesh yet (ROADMAP "
+            "item 9.9); the transformer families (dense, MoE, VLM) do")
+    return complete_rules(cfg, make_rules("decode", expert_parallel=expert_parallel),
+                          int(mesh.shape["model"]))
+
+
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
           device=None, seed: int = 0, params=None,
           patch_embeds: Optional[torch.Tensor] = None,
           mrope_pos: Optional[torch.Tensor] = None,
-          frames: Optional[torch.Tensor] = None) -> ServeResult:
+          frames: Optional[torch.Tensor] = None, mesh=None,
+          expert_parallel: bool = False) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens, then ``gen``
     greedy decode steps. ``params`` (on ``device``) skips the random init;
     ``patch_embeds``, ``mrope_pos`` and ``frames`` replace the launcher's own
-    (``prompt_inputs``); decode continues the streams (``decode_mrope_pos``)."""
+    (``prompt_inputs``); decode continues the streams (``decode_mrope_pos``).
+
+    ``mesh`` (a ``launch.mesh.DeviceMesh``, its device the run's) serves on
+    it, as the module docstring says, with ``expert_parallel`` choosing the
+    MoE's split; ``params`` are then whole (the module, or the flat dict
+    with its ``axes`` as ``(flat, axes)``) and each rank keeps its part."""
+    rules = None
+    if mesh is not None:
+        rules = serve_rules(cfg, mesh, expert_parallel)
+        device = mesh.device
     dev = resolve_device(device)
     api = build_model(cfg)
     if params is None:
         params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
-    prompt_gen = torch.Generator().manual_seed(seed + 1)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=prompt_gen,
-                         dtype=torch.int32).to(dev)
+    toks = prompt_tokens(cfg, batch, prompt, seed).to(dev)
     extra = prompt_inputs(cfg, batch, prompt, dev, patch_embeds, mrope_pos, frames)
+    installed = get_rules()
+    if mesh is None:
+        cache = api.init_cache(batch, prompt + gen, dev)
+    else:
+        flat, axes = params if isinstance(params, tuple) else train_params(params)
+        params = shard_params(flat, axes, mesh, rules)
+        del flat
+        inputs = shard_batch({"tokens": toks, **extra}, mesh, rules)
+        toks = inputs.pop("tokens")
+        extra = inputs
+        cache = shard_cache(api.init_cache, batch, prompt + gen, mesh, rules, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        set_rules(mesh, rules)
     steps_pos = decode_mrope_pos(extra["mrope_pos"], gen) if cfg.mrope else None
-    cache = api.init_cache(batch, prompt + gen, dev)
+    b = toks.shape[0]
+    res = ServeResult(device=dev, tokens=toks[:, :0], logits=[], prefill_ms=0.0,
+                      decode_ms_per_token=0.0, tok_per_s=0.0, rules=rules,
+                      cache_bytes=_bytes(cache))
+    try:
+        _sync(dev)
+        if mesh is not None:
+            mesh.reset_counters()
+        before = _launches()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": toks, **extra}, cache)
+        _sync(dev)
+        res.prefill_ms = (time.perf_counter() - t0) * 1e3
+        after_prefill = _launches()
+        if mesh is not None:
+            res.counters_prefill = mesh.counters
 
-    _sync(dev)
-    before = _launches()
-    t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": toks, **extra}, cache)
-    _sync(dev)
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    after_prefill = _launches()
-
-    out_logits, out_toks = [logits], []
-    t0 = time.perf_counter()
-    for i in range(gen):
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        step = {"tokens": nxt}
-        if steps_pos is not None:
-            step["mrope_pos"] = steps_pos[i]
-        logits, cache = api.decode_step(params, cache, step)
-        out_logits.append(logits)
-        out_toks.append(nxt)
-    _sync(dev)
-    dt = time.perf_counter() - t0
-    after = _launches()
-    return ServeResult(
-        device=dev,
-        tokens=torch.stack(out_toks, 1) if out_toks else toks[:, :0],
-        logits=out_logits, prefill_ms=prefill_ms,
-        decode_ms_per_token=dt / max(gen, 1) * 1e3,
-        tok_per_s=batch * gen / dt if gen else 0.0, cache_pos=cache.pos,
-        launches_prefill={k: after_prefill[k] - before[k] for k in before},
-        launches_decode={k: after[k] - after_prefill[k] for k in before})
+        out_logits, out_toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            step = {"tokens": nxt}
+            if steps_pos is not None:
+                step["mrope_pos"] = steps_pos[i]
+            if mesh is not None:
+                mesh.reset_counters()
+            logits, cache = api.decode_step(params, cache, step)
+            if mesh is not None:
+                res.counters_steps.append(mesh.counters)
+            out_logits.append(logits)
+            out_toks.append(nxt)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        after = _launches()
+    finally:
+        if mesh is not None:
+            set_rules(*installed)
+    res.tokens = torch.stack(out_toks, 1) if out_toks else toks[:, :0]
+    res.logits = out_logits
+    res.decode_ms_per_token = dt / max(gen, 1) * 1e3
+    res.tok_per_s = b * gen / dt if gen else 0.0
+    res.cache_pos = cache.pos
+    if mesh is not None and dev.type == "cuda":
+        res.peak_bytes = torch.cuda.max_memory_allocated(dev)
+    res.launches_prefill = {k: after_prefill[k] - before[k] for k in before}
+    res.launches_decode = {k: after[k] - after_prefill[k] for k in before}
+    return res
 
 
 def main(argv: Optional[List[str]] = None) -> ServeResult:
@@ -201,6 +300,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="torch device; the card when omitted (raises without one)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="split the layers and the KV cache's sequence over this many "
+                         "ranks of a (data, model) mesh over torchrun's ranks")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="on the mesh, split the MoE's experts rather than their columns")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -211,11 +315,23 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         cfg = cfg.replace(**over)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
-    res = serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen,
-                device=args.device)
+    mesh = None
+    if args.model_parallel:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(args.model_parallel, device=args.device)
+    try:
+        res = serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen,
+                    device=args.device, mesh=mesh, expert_parallel=args.expert_parallel)
+    finally:
+        if mesh is not None:
+            mesh.destroy()
+    if mesh is not None and mesh.rank != 0:
+        return res
+    where = "" if mesh is None else (f" mesh={mesh.shape} (rank 0's rows; its cache "
+                                     f"{res.cache_bytes / 1e6:.2f} MB)")
     print(f"arch={cfg.name} device={res.device} batch={args.batch} "
           f"prompt={args.prompt} gen={args.gen} prefill {res.prefill_ms:.1f} ms, "
-          f"{res.decode_ms_per_token:.1f} ms/token ({res.tok_per_s:.1f} tok/s)")
+          f"{res.decode_ms_per_token:.1f} ms/token ({res.tok_per_s:.1f} tok/s){where}")
     print("sample:", res.tokens[0][:16].tolist())
     return res
 

@@ -9,8 +9,14 @@ JAX package as numpy, then ``convert.params_from_jax(flat=True)``, then
 cuts a batch. Dims the mesh axes do not divide stay whole (``_fit_spec``:
 Whisper's 51,866-row vocabulary at 4 ranks, a batch of 1).
 
-The caches (``shard_cache_sds``) belong to sharded serving, which is not
-ported yet.
+The caches: ``cache_specs`` is ``shard_cache_sds``'s layout of every cache
+family (the KV caches' batch over ``data`` and sequence over ``kv_seq``'s
+axis, Zamba2's and xLSTM's states over ``model``), fitted as the reference
+fits it; ``local_cache`` cuts a rank's part of a whole cache and
+``shard_cache`` makes it directly, zeros of the local shapes. A KV cache
+split by sequence remembers its whole capacity and its slice's first slot
+(``layers.KVCache.slots``/``start``). Sharded serving runs the transformer
+families' cache; the other families' layouts are here for their own slice.
 """
 from __future__ import annotations
 
@@ -138,3 +144,89 @@ def shard_batch(batch: Mapping[str, torch.Tensor], mesh, rules) -> Dict[str, tor
     rules' batch axes, fitted: a dim the axes do not divide stays whole)."""
     ba = spec_for_axes(("batch",), rules)[0]
     return {k: local_part(v, mesh, batch_spec_for(k, v.dim(), ba)) for k, v in batch.items()}
+
+
+def cache_specs(mesh, rules, cache):
+    """``cache`` (any family's, whole, or on ``meta``) with each tensor
+    replaced by its fitted spec and ``pos`` by ``()``: the specs of
+    ``repro/launch/shardings.py::shard_cache_sds``. The batch goes over the
+    rules' batch axes; the KV caches' sequence over ``kv_seq``'s first axis;
+    Zamba2's SSM heads and conv channels and xLSTM's state dims over
+    ``model``."""
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.whisper import WhisperCache
+    from repro_torch.models.xlstm_model import XLSTMCache
+    from repro_torch.models.zamba import ZambaCache
+
+    ba = spec_for_axes(("batch",), rules)[0]
+    kv_seq = rules.get("kv_seq")
+    kv_seq = kv_seq[0] if kv_seq else None
+
+    def fit(x, *spec):
+        return _fit_spec(mesh, spec, tuple(x.shape))
+
+    def kv(x):          # (L or sites, B, KV, S, hd)
+        return fit(x, None, ba, None, kv_seq, None)
+
+    if isinstance(cache, KVCache):
+        return KVCache(kv(cache.k), kv(cache.v), ())
+    if isinstance(cache, WhisperCache):
+        return WhisperCache(kv(cache.k), kv(cache.v), kv(cache.ck), kv(cache.cv), ())
+    if isinstance(cache, ZambaCache):
+        return ZambaCache(fit(cache.ssm_state, None, ba, "model", None, None),
+                          fit(cache.conv_state, None, ba, None, "model"),
+                          kv(cache.k), kv(cache.v), ())
+    if isinstance(cache, XLSTMCache):
+        m_states = tuple(type(st)(fit(st.c, None, ba, None, "model", None),
+                                  fit(st.n, None, ba, None, "model"), fit(st.m, None, ba, None))
+                         for st in cache.m_states)
+        s_states = tuple(type(st)(*(fit(x, None, ba, "model") for x in st))
+                         for st in cache.s_states)
+        return XLSTMCache(m_states, s_states, ())
+    raise TypeError(type(cache))
+
+
+def _map_cache(fn, cache, specs):
+    """``fn(tensor, spec)`` on every tensor of a cache (nested states too);
+    the host ints (``pos``) as they are."""
+    if isinstance(cache, torch.Tensor):
+        return fn(cache, specs)
+    if isinstance(cache, tuple) and hasattr(cache, "_fields"):
+        return type(cache)(*(_map_cache(fn, c, sp) for c, sp in zip(cache, specs)))
+    if isinstance(cache, tuple):
+        return tuple(_map_cache(fn, c, sp) for c, sp in zip(cache, specs))
+    return cache
+
+
+def _with_slice(local, whole, mesh, specs):
+    """A KV cache's part that knows its whole capacity and its first slot."""
+    from repro_torch.models.layers import KVCache
+
+    if not isinstance(local, KVCache):
+        return local
+    names = specs.k[3]
+    cap = whole.k.shape[3]
+    start = 0 if names is None else _index(mesh, names) * (cap // _axis_size(mesh, names))
+    return local._replace(slots=cap, start=start)
+
+
+def local_cache(cache, mesh, rules):
+    """This rank's part of the whole ``cache`` under ``cache_specs`` (a
+    contiguous copy of each split tensor)."""
+    specs = cache_specs(mesh, rules, cache)
+    local = _map_cache(lambda t, spec: local_part(t, mesh, spec).contiguous(), cache, specs)
+    return _with_slice(local, cache, mesh, specs)
+
+
+def shard_cache(init_cache, batch: int, max_seq: int, mesh, rules, device=None):
+    """This rank's part of the cache ``init_cache(batch, max_seq, device)``
+    makes (``ModelApi.init_cache``), made directly as zeros of the local
+    shapes: the whole cache is laid out on ``meta`` only."""
+    whole = init_cache(batch, max_seq, device="meta")
+    specs = cache_specs(mesh, rules, whole)
+
+    def zeros(t, spec):
+        shape = [n // _axis_size(mesh, names) for n, names in zip(t.shape, spec)]
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    return _with_slice(_map_cache(zeros, whole, specs), whole, mesh, specs)

@@ -219,14 +219,17 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0, **_):
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      k_positions: torch.Tensor, q_position: int, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, return_lse: bool = False):
     """Single-token attention against a (possibly ring-buffer) KV cache.
 
     q: (B, H, hd); caches: (B, KV, S, hd); k_positions: (S,) int32 absolute
     positions of each cache slot (-1 for empty); ``q_position`` a host int.
-    K4 on the card, the reference's softmax on the host.
+    K4 on the card, the reference's softmax on the host. ``return_lse``: the
+    per-rank form of a cache split by sequence, ``(o f32, lse)`` over these
+    slots (``flash_decode``), for ``sharding.parallel.merge_decode_partials``.
     """
-    return flash_decode(q, k_cache, v_cache, k_positions, q_position, window=window)
+    return flash_decode(q, k_cache, v_cache, k_positions, q_position, window=window,
+                        return_lse=return_lse)
 
 
 # ---------------------------------------------------------------------------
@@ -241,15 +244,23 @@ class KVCache(NamedTuple):
     or the window size for SWA (ring buffer). ``pos``: number of tokens
     already written, a host int (the reference keeps a device int32), so the
     decode loop never waits on the card to read it.
+
+    On a mesh whose rules split the cache by sequence (``kv_seq`` over
+    ``model``), a rank's k and v hold slots ``[start, start + S_local)`` of
+    a cache of ``slots`` (``launch.shardings.local_cache``): ``capacity`` is
+    then the whole cache's, which the ring's slot and the slots' positions
+    are taken modulo. ``slots`` 0 means the tensors hold the whole cache.
     """
 
     k: torch.Tensor
     v: torch.Tensor
     pos: int
+    slots: int = 0
+    start: int = 0
 
     @property
     def capacity(self) -> int:
-        return self.k.shape[3]
+        return self.slots or self.k.shape[3]
 
 
 def make_kv_cache(num_layers: int, batch: int, kv_heads: int, capacity: int,
@@ -270,8 +281,8 @@ def cache_slot_positions(pos: int, capacity: int, ring: bool, device=None) -> to
 
 
 def cache_write(k_layer: torch.Tensor, v_layer: torch.Tensor, pos: int,
-                k_new: torch.Tensor, v_new: torch.Tensor,
-                ring: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                k_new: torch.Tensor, v_new: torch.Tensor, ring: bool,
+                capacity: int = 0, start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one token's K/V (B, KV, hd) at position ``pos`` (mod cap if ring).
 
     Writes the slot in place (a copy into the slot's view; ``pos`` is a host
@@ -279,8 +290,17 @@ def cache_write(k_layer: torch.Tensor, v_layer: torch.Tensor, pos: int,
     The reference selects over the whole sequence axis and relies on buffer
     donation; eagerly, that select would allocate a copy of the layer's cache
     every step, which at Qwen2.5-14B scale is the whole cache once per step.
+
+    ``capacity`` and ``start`` (a rank's slice of a cache split by sequence:
+    ``KVCache.slots`` and ``KVCache.start``): the slot is taken in the whole
+    cache of ``capacity`` slots, and only the rank whose slice holds it
+    writes it.
     """
-    slot = pos % k_layer.shape[2] if ring else pos
+    slot = pos % (capacity or k_layer.shape[2]) if ring else pos
+    if capacity:
+        slot -= start
+        if not 0 <= slot < k_layer.shape[2]:
+            return k_layer, v_layer
     k_layer[:, :, slot].copy_(k_new)
     v_layer[:, :, slot].copy_(v_new)
     return k_layer, v_layer

@@ -20,7 +20,9 @@ the layers over the ``model`` ranks as the rules split the weights
 row-parallel, the embedding and ``lm_head`` are vocabulary-parallel. The
 reference's ``constrain`` sites stay, each checking the rank's local shape.
 The batch's split over ``data`` is the round step's (``CohortSharding``).
-Serving (``prefill``, ``decode_step``) runs on one device only.
+Serving (``prefill``, ``decode_step``) splits the same way under
+``make_rules("decode")``, with the KV cache split by sequence over ``model``
+and K4's partials merged across the ranks by their log-sum-exp.
 
 Serving: ``prefill`` and ``decode_step`` run under ``torch.no_grad`` and
 write the KV cache in place; decode's MoE is drop-free (capacity ``B * k``).
@@ -60,8 +62,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
 from repro_torch.sharding.context import constrain, get_rules, split_mesh
 from repro_torch.sharding.logical import axes_tree, unbox
-from repro_torch.sharding.parallel import (copy_to_model, max_from_model,
-                                           reduce_from_model)
+from repro_torch.sharding.parallel import (copy_to_model, gather_from_model, max_from_model,
+                                           merge_decode_partials, reduce_from_model)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -746,11 +748,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _single_device(what: str) -> None:
+def refuse_sharded_serving(cfg: ModelConfig, what: str) -> None:
+    """Raise under installed rules for a family whose serving is not split
+    over a mesh yet (Whisper, Zamba2, xLSTM: ROADMAP item 9.9)."""
     if get_rules()[0] is not None:
         raise NotImplementedError(
-            f"{what}: sharded serving (make_rules('decode')) is not ported; serve on "
-            "one device, with no rules installed (sharding.clear_rules())")
+            f"{what}: sharded serving of the {cfg.family} family ({cfg.name}) is not ported "
+            "yet (ROADMAP item 9.9); serve it on one device, with no rules installed "
+            "(sharding.clear_rules())")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> L.KVCache:
@@ -759,60 +764,124 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> L.KVC
                            dtype=model_dtype(cfg), device=resolve_device(device))
 
 
+def _seq_mesh(cache: L.KVCache):
+    """The model axis's mesh when the cache is this rank's slice of a cache
+    split by sequence (``launch.shardings.local_cache``), else None."""
+    if cache.k.shape[3] == cache.capacity:
+        return None
+    mesh = get_rules()[0]
+    if mesh is None:
+        raise ValueError(f"a slice of {cache.k.shape[3]} of a {cache.capacity}-slot cache "
+                         "with no mesh installed")
+    return mesh.axis("model")
+
+
+def _whole_logits(p, hidden: torch.Tensor, split: Split) -> torch.Tensor:
+    """f32 logits of ``hidden`` (B, d), the vocabulary whole: gathered over
+    the model ranks where ``lm_head``'s columns are split."""
+    logits = (hidden @ p["lm_head"]).float()
+    if split.vocab is not None:
+        logits = gather_from_model(logits, split.vocab, "logits", dim=-1)
+    return logits
+
+
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache: L.KVCache, *, patch_embeds: Optional[torch.Tensor] = None,
             mrope_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, L.KVCache]:
     """Run the prompt (its first positions ``patch_embeds`` when given,
     M-RoPE on ``mrope_pos`` (3, B, S) when given), fill the cache (in
     place), return last-token logits (f32) and the cache at position
-    ``S``."""
-    _single_device("prefill")
+    ``S``.
+
+    Under installed rules (``make_rules("decode")``, the rank's part of the
+    flat dict and of the cache, ``launch.shardings.local_cache``): the
+    forward runs on the rank's query heads through K3 as training's does;
+    the rank's K/V heads are gathered over ``model`` where they are split,
+    and the rank keeps its slice of the cache's slots (after the ring's
+    roll); the logits are gathered whole over the vocabulary."""
+    p = as_tree(params)
+    split = model_split(cfg)
     out = forward(cfg, params, tokens, patch_embeds=patch_embeds, mrope_pos=mrope_pos,
                   collect_kv=True, remat=False)
     s = tokens.shape[1]
-    cap = cache.capacity
+    cap, width, lo = cache.capacity, cache.k.shape[3], cache.start
     for i, (k, v) in enumerate(out.kv):
+        if split.kv is not None:
+            k, v = gather_from_model(torch.stack([k, v]), split.kv, "prefill_kv",
+                                     dim=3).unbind(0)
         k, v = k.transpose(1, 2), v.transpose(1, 2)            # -> (B, KV, S, hd)
         if cfg.sliding_window > 0 and s > cap:
             # ring semantics: keep the last `cap` tokens at their mod-cap slots
             shift = s % cap
             k = torch.roll(k[:, :, -cap:], shift, dims=2)
             v = torch.roll(v[:, :, -cap:], shift, dims=2)
-        cache.k[i, :, :, :k.shape[2]] = k
-        cache.v[i, :, :, :v.shape[2]] = v
-    logits = (out.hidden[:, -1] @ params.lm_head).float()
-    return logits, L.KVCache(cache.k, cache.v, s)
+        hi = min(lo + width, k.shape[2])
+        if hi > lo:
+            cache.k[i, :, :, :hi - lo] = k[:, :, lo:hi]
+            cache.v[i, :, :, :hi - lo] = v[:, :, lo:hi]
+    return _whole_logits(p, out.hidden[:, -1], split), cache._replace(pos=s)
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: Transformer, cache: L.KVCache,
+def decode_step(cfg: ModelConfig, params: Params, cache: L.KVCache,
                 tokens: torch.Tensor, *, mrope_pos: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, L.KVCache]:
     """One decode step: tokens (B,) at position ``cache.pos`` (M-RoPE at
     ``mrope_pos`` (3, B, 1) when given). Writes the token's K/V into the
     cache (in place) before attending, as the reference does; returns f32
-    logits and the cache at ``pos + 1``."""
-    _single_device("decode_step")
+    logits and the cache at ``pos + 1``.
+
+    Under installed rules each rank projects its query heads and gathers q
+    over ``model`` (and the token's k and v where the KV heads are split);
+    the rank whose slice holds the token's slot writes it; every rank runs
+    K4 on all heads against its slice with the log-sum-exp out, and the
+    ranks' partials are merged (``merge_decode_partials``); the rank's
+    heads of the result go into the row-parallel ``wo``. A cache the rules
+    leave whole on every rank (a capacity ``model`` does not divide) is
+    written and read whole. The MoE routes the whole batch at its drop-free
+    capacity ``B * k`` (B the whole batch's)."""
+    p = as_tree(params)
+    split = model_split(cfg)
+    seq = _seq_mesh(cache)
     b = tokens.shape[0]
     pos = cache.pos
     ring = cfg.sliding_window > 0
     dev = tokens.device
     positions = torch.full((b, 1), pos, device=dev)
-    x = embed_tokens(cfg, params, tokens[:, None])
+    x = embed_tokens(cfg, p, tokens[:, None], split=split)
+    width = cache.k.shape[3]
     slot_pos = L.cache_slot_positions(pos + 1, cache.capacity, ring, dev)  # incl. current
-    for i, lp in enumerate(params.layers):
+    slot_pos = slot_pos[cache.start:cache.start + width].contiguous()
+    heads = split.heads
+    capacity = b * cfg.experts_per_token * (split.batch.size if split.batch is not None else 1)
+    for i in range(cfg.num_layers):
+        lp = p["layers"][i]
         ap = lp["attn"]
         q, k, v = _project_qkv(cfg, ap, L.rmsnorm(ap["norm"], x, cfg.norm_eps), positions,
-                               mrope_pos)
-        k_layer, v_layer = L.cache_write(cache.k[i], cache.v[i], pos, k[:, 0], v[:, 0], ring)
-        o = L.decode_attention(q[:, 0], k_layer, v_layer, slot_pos, pos,
-                               window=cfg.sliding_window)
-        x = x + L.linear(ap["wo"], o.reshape(b, -1))[:, None]
+                               mrope_pos, split)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        hl = q.shape[1]
+        if heads is not None:
+            q = gather_from_model(q, heads, "decode_q", dim=1)
+        if split.kv is not None:
+            k, v = gather_from_model(torch.stack([k, v]), split.kv, "decode_kv",
+                                     dim=2).unbind(0)
+        k_layer, v_layer = L.cache_write(cache.k[i], cache.v[i], pos, k, v, ring,
+                                         cache.slots, cache.start)
+        if seq is None:
+            o = L.decode_attention(q, k_layer, v_layer, slot_pos, pos,
+                                   window=cfg.sliding_window)
+        else:
+            o, lse = L.decode_attention(q, k_layer, v_layer, slot_pos, pos,
+                                        window=cfg.sliding_window, return_lse=True)
+            o = merge_decode_partials(o, lse, seq, k_layer.dtype)
+        if heads is not None:
+            o = o[:, heads.rank * hl:(heads.rank + 1) * hl]
+        x = x + L.linear(ap["wo"], o.reshape(b, -1), reduce=heads, tag="attn_out")[:, None]
         # decode's MoE is drop-free: one token per sequence, capacity B * k
         f, _ = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
-                         capacity=b * cfg.experts_per_token)
+                         capacity=capacity, split=split)
         x = x + f
-    hidden = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = (hidden[:, 0] @ params.lm_head).float()
-    return logits, L.KVCache(cache.k, cache.v, pos + 1)
+    hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return _whole_logits(p, hidden[:, 0], split), cache._replace(pos=pos + 1)

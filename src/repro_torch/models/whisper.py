@@ -218,6 +218,7 @@ def prefill(cfg: ModelConfig, params: L.ModelTree, tokens: torch.Tensor, frames:
     K and V from slot 0 and its cross-attention K and V of the frames into
     the cache (in place); return last-token logits (f32) and the cache at
     position ``S``."""
+    T.refuse_sharded_serving(cfg, "prefill")
     if frames.shape[1] != cache.ck.shape[3]:
         raise ValueError(f"whisper.prefill: {frames.shape[1]} frames for a cross-attention "
                          f"cache of {cache.ck.shape[3]}")
@@ -241,6 +242,7 @@ def decode_step(cfg: ModelConfig, params: L.ModelTree, cache: WhisperCache,
     self-attention cache before attending to it through K4, then attends
     through K4 to the frames' cache, every slot valid. The cache is updated
     in place; returns f32 logits and the cache at ``pos + 1``."""
+    T.refuse_sharded_serving(cfg, "decode_step")
     b = tokens.shape[0]
     pos = cache.pos
     dev = tokens.device

@@ -167,6 +167,7 @@ def prefill(cfg: ModelConfig, params: L.ModelTree, tokens: torch.Tensor, cache: 
             ) -> Tuple[torch.Tensor, XLSTMCache]:
     """Run the prompt from the cache's states, write the new ones into it
     (in place); return last-token logits (f32) and the cache at ``S``."""
+    T.refuse_sharded_serving(cfg, "prefill")
     hidden, new = forward(cfg, params, tokens, remat=False, cache=cache)
     _write(cache, new)
     logits = (hidden[:, -1] @ params.lm_head).float()
@@ -178,6 +179,7 @@ def decode_step(cfg: ModelConfig, params: L.ModelTree, cache: XLSTMCache, tokens
                 ) -> Tuple[torch.Tensor, XLSTMCache]:
     """One decode step: tokens (B,), each layer's single-step update; the
     cache updated in place; returns f32 logits and the cache at ``pos + 1``."""
+    T.refuse_sharded_serving(cfg, "decode_step")
     hidden, new = forward(cfg, params, tokens[:, None], remat=False, cache=cache,
                           single_step=True)
     _write(cache, new)

@@ -183,6 +183,7 @@ def prefill(cfg: ModelConfig, params: L.ModelTree, tokens: torch.Tensor, cache: 
     """Run the prompt; write each layer's SSM and conv states and each
     site's K and V from slot 0 into the cache (in place); return last-token
     logits (f32) and the cache at position ``S``."""
+    T.refuse_sharded_serving(cfg, "prefill")
     s = tokens.shape[1]
     out = forward(cfg, params, tokens, remat=False, collect_cache=True)
     for i, st in enumerate(out.states):
@@ -202,6 +203,7 @@ def decode_step(cfg: ModelConfig, params: L.ModelTree, cache: ZambaCache, tokens
     single-step Mamba2 update; at each site the token's K and V written into
     that site's cache before attending through K4. The cache is updated in
     place; returns f32 logits and the cache at ``pos + 1``."""
+    T.refuse_sharded_serving(cfg, "decode_step")
     b = tokens.shape[0]
     pos = cache.pos
     dev = tokens.device

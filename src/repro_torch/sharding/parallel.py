@@ -19,6 +19,13 @@ parallelism does:
                        load-balance means) on ranks that each hold part of
                        it, under a round step that averages their gradients
 
+and, for serving with the KV cache split by sequence over ``model``,
+``merge_decode_partials``: the ranks' K4 partials ``(o, lse)`` over their
+slices of the cache merged by log-sum-exp (no gradient), the distributed
+form the reference kernel's docstring names
+(``src/repro/kernels/flash_decode.py:8-9``); ``merge_decode_slices`` is the
+same merge over a list of slices in one process.
+
 Each is a ``torch.autograd.Function`` with ``setup_context``, so that
 ``torch.func.grad_and_value`` (the round step) and ``torch.func.vjp`` (remat's
 recompute) reach through it; its forward gets plain tensors, which the
@@ -137,3 +144,41 @@ def mean_over(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
     the ranks' gradients; the gradient of the mean through rank r's ``x`` is
     then the upstream gradient, not its 1/size share."""
     return _MeanOver.apply(x, mesh, tag)
+
+
+def _lse_weights(lse: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+    """Each slice's weight ``exp(lse - top)`` against the max over the
+    slices; where every slice is empty (``top`` -inf) each weighs 1, so
+    that the merge is the mean of the slices' o, the mean of V over every
+    slot (the slices are of equal length), as the reference gives a row
+    with no valid slot. No host sync."""
+    empty = top == float("-inf")
+    return torch.where(empty, 1.0, torch.exp(lse - torch.where(empty, 0.0, top)))
+
+
+def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor, mesh,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Merge the model ranks' single-token attention over their slices of
+    the cache: ``o`` ``(B, H, hd)`` f32 and ``lse`` ``(B, H)`` f32 from
+    ``flash_decode(..., return_lse=True)`` on this rank's slice. ``M =
+    pmax(lse)``, ``w = exp(lse - M)``, ``o = psum(w o) / psum(w)``, with
+    ``w o`` and ``w`` sent in one all-reduce of ``(B, H, hd + 1)`` f32; cast
+    to ``dtype`` (the cache's) once, after the merge. ``mesh`` is the model
+    axis's ``CohortMesh``; the collectives are counted under ``decode_max``
+    and ``decode_merge``."""
+    top = mesh.pmax(lse, "decode_max")
+    w = _lse_weights(lse, top)[..., None]
+    both = mesh.psum(torch.cat([o * w, w], dim=-1), "decode_merge")
+    return (both[..., :-1] / both[..., -1:]).to(dtype)
+
+
+def merge_decode_slices(os, lses, dtype: torch.dtype) -> torch.Tensor:
+    """``merge_decode_partials`` over a list of slices' ``(o, lse)`` in one
+    process (the slices in list order)."""
+    top = torch.stack(list(lses)).amax(dim=0)
+    num = den = None
+    for o, lse in zip(os, lses):
+        w = _lse_weights(lse, top)[..., None]
+        num = o * w if num is None else num + o * w
+        den = w if den is None else den + w
+    return (num / den).to(dtype)

@@ -175,8 +175,8 @@ def test_serve_runs_on_the_host():
     assert all(lg.shape == (2, 2048) and bool(torch.isfinite(lg).all())
                for lg in res.logits)
     # the host takes the plain versions: no kernel was launched
-    assert res.launches_prefill == {"flash_attention": 0, "flash_decode": 0}
-    assert res.launches_decode == {"flash_attention": 0, "flash_decode": 0}
+    assert res.launches_prefill == {"flash_attention": 0, "flash_decode": 0, "flash_decode_lse": 0}
+    assert res.launches_decode == {"flash_attention": 0, "flash_decode": 0, "flash_decode_lse": 0}
     again = serve.main(["--scale", "tiny", "--device", "cpu", "--batch", "2",
                         "--prompt", "16", "--gen", "4"])
     assert torch.equal(again.tokens, res.tokens)    # weights and prompt from the seed

@@ -477,17 +477,18 @@ def test_boxed_like_checks_names_and_ranks():
     assert port_unbox(params) == params
 
 
-def test_serving_refuses_installed_rules():
-    cfg = get_config("qwen2_5_14b").replace(**dict(ranks.SCALES["tiny"], num_layers=1))
-    api = build_model(cfg)
-    model = api.init(device="cpu")
-    cache = api.init_cache(1, 8, device="cpu")
-    set_rules(_stand_in_mesh((1, 2)), make_rules("train"))
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "zamba2_1_2b", "xlstm_350m"])
+def test_other_families_refuse_serving_under_installed_rules(arch):
+    """The transformer families serve on a mesh (``tests/test_torch_serve_tp.py``);
+    Whisper, Zamba2 and xLSTM refuse installed rules before touching their
+    inputs (ROADMAP item 9.9)."""
+    api = build_model(get_config(arch).replace(**ranks.SCALES["tiny"]))
+    set_rules(_stand_in_mesh((1, 2)), make_rules("decode"))
     try:
-        with pytest.raises(NotImplementedError, match="sharded serving"):
-            transformer.prefill(cfg, model, torch.zeros(1, 4, dtype=torch.long), cache)
-        with pytest.raises(NotImplementedError, match="sharded serving"):
-            transformer.decode_step(cfg, model, cache, torch.zeros(1, dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="item 9.9"):
+            api.prefill(None, {"tokens": None, "frames": None}, None)
+        with pytest.raises(NotImplementedError, match="item 9.9"):
+            api.decode_step(None, None, {"tokens": None})
     finally:
         clear_rules()
 

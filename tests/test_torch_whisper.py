@@ -392,4 +392,4 @@ def test_serve_takes_the_callers_frames():
     other = serve_mod.serve(cfg, frames=torch.ones((1, ENC_SEQ, D)), **kw)
     assert torch.equal(base.logits[0], same.logits[0])
     assert not torch.equal(base.logits[0], other.logits[0])
-    assert base.launches_prefill == {"flash_attention": 0, "flash_decode": 0}
+    assert base.launches_prefill == {"flash_attention": 0, "flash_decode": 0, "flash_decode_lse": 0}
