@@ -324,9 +324,9 @@ Phases, each of which asserts; any failure exits non-zero:
 63. comm drift: [33]'s counted combine bytes, every rank and step, against
     ``sparse.comm.sharded_combine_bytes`` within 10% plus 64 B
 64. the sharded LLM step: Qwen2.5-14B at its widths (f32, fedsubavg, cohort
-    8 x 128, 2 rounds, remat) through ``launch.train.train`` on one device,
-    then with ``mesh=`` on (1, 2) at 2 layers and (2, 2) and (1, 4) at 1
-    layer, gloo ranks sharing the card (NCCL refuses two ranks on one
+    8 x 128, remat) through ``launch.train.train`` on one device, then with
+    ``mesh=`` on (1, 2) at 2 layers and 2 rounds and (2, 2) and (1, 4) at 1
+    layer and 1 round, gloo ranks sharing the card (NCCL refuses two ranks on one
     device); losses and every parameter within 1e-4 of one device's, each
     leaf's update within 1e-3 in relative norm, K3 and its backward as
     often on each rank as on one device, every whole leaf the same bits on
@@ -364,8 +364,21 @@ Phases, each of which asserts; any failure exits non-zero:
     prefill's and first step's logits no further from the f32 run's than
     1.25 x one bf16 device's; K4's log-sum-exp instance at the ranks'
     slices timed beside its plain version and SDPA (o alone)
+70. the row-sparse transport on a vocabulary split over ``model``:
+    Qwen2.5-14B at its widths, 1 layer, f32, fedsubavg, [64]'s corpus for 2
+    rounds through ``train(mesh=..., sparse=True)`` on (1, 2) and (2, 2)
+    against one device's sparse run: as [64] (losses and parameters 1e-4,
+    updates 1e-3, whole leaves), ``sub_rows`` and the uplink bytes equal,
+    counters equal to ``tp_collective_budget(sparse=True)``, K1 once a
+    round on every rank (the union combine over ``data`` on the rank's
+    slice of 76,032 or 38,016 rows) and never on one device; K1 at the
+    (2, 2) rank's slice shape against its plain version (ids exact, rows
+    2e-5), timed beside ``torch.unique`` + ``index_add_`` and its bound
 
-[68]-[69]'s ranks run in one spawn of 4 gloo ranks (``run_tp``).
+[64]-[65]'s and [70]'s ranks run in one spawn of 4 gloo ranks (a (1, 2)
+job on one of the world's two (1, 2) meshes, Qwen2.5's two at once),
+[68]-[69]'s in another (``run_tp``); [70]'s single-device run is made in
+[64], and its checks are printed after [69].
 
 It ends with the kernels as one JSON line (K1's entry also carries its
 launches on the LR, DIN and LSTM paths, on the scaffold and fedadam paths,
@@ -381,7 +394,8 @@ for Whisper's three K3 shapes, two K4 shapes and three backward shapes;
 four for K3 and its backward at [64]'s per-rank shapes, each with its
 launches per rank; two for K4's log-sum-exp instance at [69]'s rank
 slices and five for K3 at [67]'s rank prefill shapes, each with its
-launches per rank from [68]/[69]), the card line and, last,
+launches per rank from [68]/[69]; one for K1 at [70]'s (2, 2) rank slice,
+with its launches per rank), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 """
@@ -5390,12 +5404,14 @@ def phase_checking_planes(kernels: list, lr_ds, din_ds, lstm_ds, mesh_drift: dic
 TP_RUN = dict(clients=64, cohort=8, seq=128, zipf_a=1.3, lr=LM_LR, algorithm="fedsubavg")
 TP_ROUNDS = 2
 #: [64]: Qwen2.5-14B at its widths on these meshes of gloo ranks sharing the
-#: card, each at this depth (one single-device run per depth)
-TP_QWEN_MESHES = (((1, 2), 2), ((2, 2), 1), ((1, 4), 1))
+#: card, each at this depth for this many rounds (one single-device run per
+#: depth and rounds); the 1-layer meshes take one round, which pays for [70]
+TP_QWEN_MESHES = (((1, 2), 2, 2), ((2, 2), 1, 1), ((1, 4), 1, 1))
 TP_QWEN_REDUCED = ("layers 48 -> 2 on (1, 2) and 1 on (2, 2) and (1, 4): 2 layers are "
                    "2.11 B f32 parameters (8.43 GB, 6.23 GB of them the embedding and "
                    "lm_head), each rank draws them whole before it keeps its part, and "
-                   "2 or 4 ranks share the one card")
+                   "2 or 4 ranks share the one card; rounds 2 on (1, 2), 1 on (2, 2) "
+                   "and (1, 4)")
 #: [65]: Mixtral at its widths, 1 layer, both MoE layouts on (1, 2)
 TP_MOE_LAYERS = 1
 TP_MOE_REDUCED = ("layers 56 -> 1: 2.91 B f32 parameters (11.6 GB), drawn whole by each "
@@ -5405,6 +5421,14 @@ TP_TIMEOUT_S = 600.0
 TP_NCCL_SCALE = "100m"
 #: the per-rank shapes of [64]'s K3 rows: (1, 2) and (1, 4) at B 8, S 128
 TP_K3_CASES = (("m = 2", (8, 128, 20, 4, 128), (1, 2)), ("m = 4", (8, 128, 10, 2, 128), (1, 4)))
+#: [70]: Qwen2.5-14B at its widths on the row-sparse transport (fedsubavg,
+#: ``TP_RUN``'s corpus, ``TP_ROUNDS`` rounds) on these meshes, its jobs in
+#: [64]'s spawn; the (2, 2) job's K1 is held and timed
+SP_MESHES = ((1, 2), (2, 2))
+SP_LAYERS = 1
+SP_REDUCED = ("layers 48 -> 1: one layer is 1.83 B f32 parameters (7.3 GB), drawn whole by "
+              "each rank before it keeps its part, and 2 or 4 ranks share the one card")
+SP_K1_MESH = (2, 2)
 
 
 @contextlib.contextmanager
@@ -5425,19 +5449,23 @@ def record_routes(out: list):
         layers_mod.moe_route = inner
 
 
-def tp_reference(cfg, label: str) -> dict:
+def tp_reference(cfg, label: str, rounds: int = TP_ROUNDS, sparse: bool = False) -> dict:
     """The single-device run a mesh is held to: ``train`` on the card from
-    the seed's weights, ``TP_ROUNDS`` rounds of ``TP_RUN``. Its final
-    parameters go to a file under ``build/`` that the ranks map; each
-    leaf's update norm, its losses, K3's counts and the MoE's routing stay
-    here."""
+    the seed's weights, ``rounds`` rounds of ``TP_RUN`` (on the row-sparse
+    transport with ``sparse``). Its final parameters go to a file under
+    ``build/`` that the ranks map; each leaf's update norm, its losses,
+    K3's counts, the MoE's routing, and on the sparse transport each
+    round's ``sub_rows`` and uplink bytes stay here."""
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     p0, axes = lm_params(cfg, DEV)
     lm_zero_counts()
+    subs: list = []
     with record_routes([]) as routes:
-        res = train_mod.train(cfg, rounds=TP_ROUNDS, device=DEV, params=dict(p0), axes=axes,
-                              log_every=0, **TP_RUN)
+        res = train_mod.train(cfg, rounds=rounds, device=DEV, params=dict(p0), axes=axes,
+                              log_every=0, sparse=sparse, on_round=sub_rows_into(subs),
+                              **TP_RUN)
     launches = lm_counts()
     peak = torch.cuda.max_memory_allocated()
     update = {n: float((res.params[n] - p0[n]).float().norm()) for n in p0}
@@ -5450,19 +5478,34 @@ def tp_reference(cfg, label: str) -> dict:
           f"{[round(x, 6) for x in res.losses]}, ms/round {[round(x, 1) for x in res.ms_per_round]}"
           f", peak {peak / 1e9:.2f} GB, launches {launches} ({card_line()})")
     out = {"path": str(path), "losses": res.losses, "ms": res.ms_per_round, "update": update,
-           "launches": launches, "routes": routes, "peak_gb": peak / 1e9}
+           "launches": launches, "routes": routes, "peak_gb": peak / 1e9, "sparse": sparse,
+           "sub_rows": subs, "bytes_up": res.bytes_up_sparse}
     del res
     torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
+
+
+def sub_rows_into(out: list):
+    """An ``on_round`` that appends each round's ``sub_rows`` (sparse rounds)."""
+    def on_round(r, params, metrics):
+        if "sub_rows" in metrics:
+            out.append(int(metrics["sub_rows"]))
+
+    return on_round
 
 
 def tp_job(mesh, job: dict) -> dict:
     """One run of ``train(mesh=...)`` on a rank: losses, ms, peak, K3's
-    counts, each round's counters and ``tp_collective_budget``, whether
-    every leaf the rules leave whole has the same bits on every model rank
-    after each round, the routing, and each leaf's part against the
-    single-device run's (``job["ref"]``, mapped from its file)."""
-    cfg = job["cfg"]
+    and K1's counts, each round's counters and ``tp_collective_budget``,
+    whether every leaf the rules leave whole has the same bits on every
+    model rank after each round, the routing, and each leaf's part against
+    the single-device run's (``job["ref"]``, mapped from its file). A
+    ``sparse`` job runs the row-sparse transport and adds each round's
+    ``sub_rows`` and uplink bytes; with ``capture`` the mesh's first rank
+    keeps the inputs of its last K1 call."""
+    t0 = time.perf_counter()
+    cfg, sparse, rounds = job["cfg"], job.get("sparse", False), job.get("rounds", TP_ROUNDS)
     rules = train_mod.mesh_rules(cfg, mesh, job["ep"])
     meta = build_model(cfg).abstract_params()
     full = {n: tuple(t.shape) for n, t in meta.state_dict().items()}
@@ -5471,7 +5514,11 @@ def tp_job(mesh, job: dict) -> dict:
     model = mesh.axis("model")
     same: list = []
 
+    subs: list = []
+    add_sub = sub_rows_into(subs)
+
     def on_round(r, local, metrics):
+        add_sub(r, local, metrics)
         if model.size > 1:
             same.append(all(bool((g == g[0]).all()) for g in (
                 model.all_gather(local[n], "check") for n in whole)))
@@ -5480,14 +5527,16 @@ def tp_job(mesh, job: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     lm_zero_counts()
-    with record_routes([]) as routes:
-        res = train_mod.train(cfg, rounds=TP_ROUNDS, device=mesh.device, mesh=mesh,
+    captured: dict = {}
+    with record_routes([]) as routes, capture_k1(captured):
+        res = train_mod.train(cfg, rounds=rounds, device=mesh.device, mesh=mesh,
                               expert_parallel=job["ep"], log_every=0, on_round=on_round,
-                              **TP_RUN)
+                              sparse=sparse, **TP_RUN)
     launches = lm_counts()
     peak = torch.cuda.max_memory_allocated() if mesh.device.type == "cuda" else 0
     budget = plan_mod.tp_collective_budget(
-        cfg, mesh, {"tokens": torch.zeros(TP_RUN["cohort"], TP_RUN["seq"])}, rules=res.rules)
+        cfg, mesh, {"tokens": torch.zeros(TP_RUN["cohort"], TP_RUN["seq"])}, rules=res.rules,
+        sparse=sparse)
     ref = torch.load(job["ref"], mmap=True, weights_only=True)
     err, sq = {}, {}
     for n, got in res.params.items():
@@ -5498,10 +5547,16 @@ def tp_job(mesh, job: dict) -> dict:
     out = {"losses": res.losses, "ms": res.ms_per_round, "peak_gb": peak / 1e9,
            "launches": launches, "counters": res.counters, "budget": budget["axes"],
            "same": same, "routes": routes, "err": err, "sq": sq, "coords": mesh.coords,
-           "data": mesh.shape["data"], "split": sorted(n for n in specs if n not in whole)}
-    del ref, res
+           "data": mesh.shape["data"], "split": sorted(n for n in specs if n not in whole),
+           "sub_rows": subs, "bytes_up": res.bytes_up_sparse, "rounds": rounds}
+    if job.get("capture") and mesh.rank == mesh.ranks[0] and "args" in captured:
+        out["k1_args"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                               for a in captured["args"])
+        out["k1_kw"] = captured["kw"]
+    del ref, res, captured
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -5564,8 +5619,18 @@ def check_tp(label: str, ranks: list, ref: dict) -> dict:
         worst = max(got["err"].values())
         check(worst <= LM_HOST_TOL, f"{label} rank {r}: a parameter is {worst:.3g} from one "
               "device's")
-        check(got["launches"] == ref["launches"],
-              f"{label} rank {r}: launches {got['launches']}, one device {ref['launches']}")
+        want = dict(ref["launches"])
+        if ref["sparse"]:
+            # one device's flat round calls no K1; the union combine calls it
+            # once a round on every rank, on the rank's slice
+            check(want["union_segsum"] == 0, f"{label}: one device launched K1")
+            want["union_segsum"] = len(ref["losses"])
+            check(got["sub_rows"] == ref["sub_rows"],
+                  f"{label} rank {r}: sub_rows {got['sub_rows']}, one device {ref['sub_rows']}")
+            check(got["bytes_up"] == ref["bytes_up"], f"{label} rank {r}: uplink bytes "
+                  f"{got['bytes_up']}, one device {ref['bytes_up']}")
+        check(got["launches"] == want,
+              f"{label} rank {r}: launches {got['launches']}, want {want}")
         check(all(got["same"]), f"{label} rank {r}: a whole leaf differs across model ranks")
         if got["data"] == 1:
             check(got["routes"] == ref["routes"], f"{label} rank {r}: routing differs")
@@ -5619,27 +5684,30 @@ def tp_nccl(cfg) -> None:
           f"{res.counters[-1]} equal the budget; {card_line()}")
 
 
-def phase_tp_slice(kernels: list, rng) -> list:
+def phase_tp_slice(kernels: list, rng) -> tuple:
     """[64]-[66], each timed; adds the errors of K3 and its backward at the
     ranks' shapes to their entries and returns their rows: K3 and its
-    backward at [64]'s per-rank shapes, each with its launches per rank."""
+    backward at [64]'s per-rank shapes, each with its launches per rank.
+    [70]'s single-device run is made here and its jobs ride [64]'s spawn;
+    their results are returned for [70]."""
     by_name = {e["name"]: e for e in kernels}
-    print(f"[64] {LM_ARCH} at its widths, f32, fedsubavg, {TP_ROUNDS} rounds of "
+    print(f"[64] {LM_ARCH} at its widths, f32, fedsubavg, rounds of "
           f"{TP_RUN}: one device, then (data, model) meshes of gloo ranks sharing the card; "
-          f"[65]'s runs ride the same spawn of 2 ranks")
+          f"[65]'s and [70]'s runs ride the same spawn of 4 ranks")
     t0 = time.perf_counter()
     print(f"  reduced: {TP_QWEN_REDUCED}")
-    refs, jobs, want = {}, {2: [], 4: []}, {}
+    refs, jobs, want = {}, {}, {}
 
-    def add(label: str, shape: tuple, cfg, ep: bool, ref: dict) -> None:
-        jobs[math.prod(shape)].append({"label": label, "shape": shape, "cfg": cfg, "ep": ep,
-                                       "ref": ref["path"]})
-        want[label] = (math.prod(shape), ref)
+    def add(label: str, shape: tuple, cfg, ep: bool, ref: dict, **kw) -> None:
+        jobs[label] = {"label": label, "shape": shape, "cfg": cfg, "ep": ep,
+                       "ref": ref["path"], "rounds": len(ref["losses"]), **kw}
+        want[label] = ref
 
-    for shape, layers in TP_QWEN_MESHES:
-        if layers not in refs:
-            refs[layers] = tp_reference(lm_config(layers), f"qwen{layers}")
-        add(f"{LM_ARCH} {shape}", shape, lm_config(layers), False, refs[layers])
+    for shape, layers, rounds in TP_QWEN_MESHES:
+        if (layers, rounds) not in refs:
+            refs[layers, rounds] = tp_reference(lm_config(layers), f"qwen{layers}x{rounds}",
+                                                rounds)
+        add(f"{LM_ARCH} {shape}", shape, lm_config(layers), False, refs[layers, rounds])
     print(f"  [65]'s single-device run, {MOE_ARCH} at {TP_MOE_LAYERS} layer; reduced: "
           f"{TP_MOE_REDUCED}")
     moe_cfg = moe_serve_config(TP_MOE_LAYERS, dtype="float32")
@@ -5648,25 +5716,42 @@ def phase_tp_slice(kernels: list, rng) -> list:
     moe_labels = [f"{MOE_ARCH} {name} (1, 2)" for name in ("tp", "ep")]
     for label, ep in zip(moe_labels, (False, True)):
         add(label, (1, 2), moe_cfg, ep, refs["moe"])
+    print(f"  [70]'s single-device run, {LM_ARCH} at {SP_LAYERS} layer on the row-sparse "
+          "transport")
+    refs["sparse"] = tp_reference(lm_config(SP_LAYERS), "qwen_sparse", sparse=True)
+    sp_labels = [f"{LM_ARCH} sparse {shape}" for shape in SP_MESHES]
+    for label, shape in zip(sp_labels, SP_MESHES):
+        add(label, shape, lm_config(SP_LAYERS), False, refs["sparse"], sparse=True,
+            capture=shape == SP_K1_MESH)
+    # one spawn of 4: a (1, 2) job runs on one of the world's two (1, 2)
+    # meshes, two at a time where their peaks fit on the card together
+    # (Qwen2.5's two do, ~55 GB; Mixtral's two would take ~80)
+    q12, s12 = f"{LM_ARCH} (1, 2)", f"{LM_ARCH} sparse (1, 2)"
+    spawn = [jobs[label] for label in jobs if math.prod(jobs[label]["shape"]) == 4]
+    spawn += [{"shape": (1, 2), "blocks": [jobs[q12], jobs[s12]]}]
+    spawn += [{"shape": (1, 2), "blocks": [jobs[label], None]} for label in moe_labels]
     try:
-        ranks = {world: run_tp(world, js) for world, js in jobs.items()}
+        world = run_tp(4, spawn)
     finally:
         for ref in refs.values():
             Path(ref["path"]).unlink(missing_ok=True)
+    ranks = {label: [per for per in world if label in per] for label in jobs}
     tp = {}
 
     def held(label: str) -> None:
-        world, ref = want[label]
-        tp[label] = dict(check_tp(label, ranks[world], ref), ranks=ranks[world])
+        tp[label] = dict(check_tp(label, ranks[label], want[label]), ranks=ranks[label])
 
     for label in want:
-        if label not in moe_labels:
+        if label not in moe_labels + sp_labels:
             held(label)
-    print(f"  [64] took {time.perf_counter() - t0:.1f} s (with [65]'s runs)")
+    sp_s = refs["sparse"]["s"] + sum(max(per[label]["s"] for per in ranks[label])
+                                     for label in sp_labels)
+    print(f"  [64] took {time.perf_counter() - t0:.1f} s (with [65]'s runs, and [70]'s "
+          f"{sp_s:.1f} s)")
 
     print(f"[65] {MOE_ARCH} at its widths, {TP_MOE_LAYERS} layer, f32: the tensor-parallel "
           "baseline and expert parallelism on (1, 2) against one device (run in [64]'s "
-          "spawn of 2 ranks)")
+          "spawn, on one of its (1, 2) meshes)")
     for label in moe_labels:
         held(label)
 
@@ -5674,21 +5759,13 @@ def phase_tp_slice(kernels: list, rng) -> list:
           "mesh; K3 and its backward at the ranks' shapes")
     t0 = time.perf_counter()
     for label, got in tp.items():
-        for r, per in enumerate(got["ranks"]):
-            run = per[label]
-            check(all(c == run["budget"] for c in run["counters"]),
-                  f"{label} rank {r}: counters {run['counters'][-1]} against the budget "
-                  f"{run['budget']}")
-        b = got["ranks"][0][label]["budget"]
-        print(f"  {label}: every rank's counters equal the budget each round; per rank per "
-              f"round {sum(c['bytes'] for c in b['model'].values()) / 1e6:.2f} MB over "
-              f"'model' in {len(b['model'])} tags, "
-              f"{sum(c['bytes'] for c in b['data'].values()) / 1e6:.2f} MB over 'data'")
+        check_budget(label, got["ranks"])
     tp_nccl(get_config(LM_ARCH).replace(**serve_mod.SCALES[TP_NCCL_SCALE]))
     rows = []
     for name, shape, mesh_shape in TP_K3_CASES:
         fwd, bwd = train_attention_timing(shape, SEED + 64, f"rank of {mesh_shape}")
         per_rank = tp[f"{LM_ARCH} {mesh_shape}"]["launches"]
+        rounds = tp[f"{LM_ARCH} {mesh_shape}"]["ranks"][0][f"{LM_ARCH} {mesh_shape}"]["rounds"]
         for kernel, timed, source in (
                 ("flash_attention", fwd, ("flash_attention.cu",
                                           "src/repro/kernels/flash_attention.py:100")),
@@ -5700,10 +5777,26 @@ def phase_tp_slice(kernels: list, rng) -> list:
                                  f"{name})", "route": "cuda",
                          "source": f"src/repro_torch/kernels/csrc/{source[0]}",
                          "replaces": source[1], "launches": per_rank[kernel],
-                         "launches_per_round": per_rank[kernel] // TP_ROUNDS, **timed})
+                         "launches_per_round": per_rank[kernel] // rounds, **timed})
     check(all(r["launches"] > 0 for r in rows), "[64]: a rank's shape was not launched")
     print(f"  [66] took {time.perf_counter() - t0:.1f} s")
-    return rows
+    sparse = {"ref": refs["sparse"], "s": sp_s,
+              "jobs": {label: ranks[label] for label in sp_labels}}
+    return rows, sparse
+
+
+def check_budget(label: str, ranks: list) -> None:
+    """[66]/[70]: every rank's counters of every round equal the budget."""
+    for r, per in enumerate(ranks):
+        run = per[label]
+        check(all(c == run["budget"] for c in run["counters"]),
+              f"{label} rank {r}: counters {run['counters'][-1]} against the budget "
+              f"{run['budget']}")
+    b = ranks[0][label]["budget"]
+    print(f"  {label}: every rank's counters equal the budget each round; per rank per "
+          f"round {sum(c['bytes'] for c in b['model'].values()) / 1e6:.2f} MB over "
+          f"'model' in {len(b['model'])} tags, "
+          f"{sum(c['bytes'] for c in b['data'].values()) / 1e6:.2f} MB over 'data'")
 
 
 # ---------------------------------------------------------------------------
@@ -6173,6 +6266,55 @@ def phase_serve_tp_slice(kernels: list, rng) -> list:
     return sv_checks(sv, ranks)
 
 
+# ---------------------------------------------------------------------------
+# [70]: the row-sparse transport on a vocabulary split over model
+# ---------------------------------------------------------------------------
+
+
+def phase_sparse_tp(kernels: list, sparse: dict) -> list:
+    """[70]: the sparse jobs that rode [64]'s spawn, held to one device
+    (``check_tp``: losses, parameters, updates, whole leaves, ``sub_rows``,
+    uplink bytes, K3's and K1's launches) and to ``tp_collective_budget``;
+    K1 at the (2, 2) rank's slice shape against its plain version and
+    timed. Returns K1's row at that shape."""
+    print(f"[70] {LM_ARCH} at its widths, f32, fedsubavg on the row-sparse transport, "
+          f"{TP_ROUNDS} rounds of {TP_RUN}, the vocabulary split over 'model' on "
+          f"{', '.join(str(m) for m in SP_MESHES)} (gloo ranks sharing the card, run in "
+          "[64]'s spawn) against one device")
+    t0 = time.perf_counter()
+    print(f"  reduced: {SP_REDUCED}")
+    ref = sparse["ref"]
+    print(f"  one device: sub_rows {ref['sub_rows']}, uplink {ref['bytes_up']} B a round")
+    per_rank = {}
+    for label, ranks in sparse["jobs"].items():
+        per_rank[label] = check_tp(label, ranks, ref)["launches"]["union_segsum"]
+        check_budget(label, ranks)
+        check(per_rank[label] == TP_ROUNDS, f"{label}: K1 launched {per_rank[label]} times "
+              f"a rank, want one a round")
+    label = f"{LM_ARCH} sparse {SP_K1_MESH}"
+    got = next(per[label] for per in sparse["jobs"][label] if "k1_args" in per[label])
+    ids, rows, heat, total, cap, v = (a.to(DEV) if isinstance(a, torch.Tensor) else a
+                                      for a in got["k1_args"])
+    args, scale = (ids, rows, heat, total, cap, v), got["k1_kw"]["scale"]
+    union = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    err = check_k1(f"union_segsum[{label} slice]", args, scale, union)
+    print(f"  K1 at the slice of a {SP_K1_MESH} rank: V/m={v} T={ids.numel()} "
+          f"D={rows.shape[-1]} cap={cap} union={union} max_abs_err={err:.3g}")
+    timed = time_k1_k2(args, scale, f"[{SP_K1_MESH} slice]", keys=("k1",), profile=False)
+    k1 = next(e for e in kernels if e["name"] == "union_segsum")
+    k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    del args, ids, rows, heat
+    print(f"  [70] took {sparse['s'] + time.perf_counter() - t0:.1f} s ({sparse['s']:.1f} s "
+          f"of it its runs within [64]; {card_line()})")
+    return [{"name": f"union_segsum (Qwen2.5-14B sparse round, slice of a {SP_K1_MESH} rank, "
+                     f"{timed['shape']})", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/union_segsum.cu",
+             "replaces": "src/repro/kernels/union_segsum.py:170",
+             "launches": per_rank[label], "launches_per_round": per_rank[label] // TP_ROUNDS,
+             "max_abs_err": err, **{k: timed["k1"][k] for k in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}]
+
+
 def sv_nccl(cfg) -> None:
     """[68] (b): a 1-rank NCCL ``(1, 1)`` mesh in this process serving as
     one device does, its counters the budget's."""
@@ -6434,8 +6576,10 @@ def main() -> int:
     kernels += phase_rec_slice(kernels, rng)
     kernels += phase_whisper_slice(kernels, rng)
     phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
-    kernels += phase_tp_slice(kernels, rng)
+    tp_rows, sparse = phase_tp_slice(kernels, rng)
+    kernels += tp_rows
     kernels += phase_serve_tp_slice(kernels, rng)
+    kernels += phase_sparse_tp(kernels, sparse)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -52,6 +52,7 @@ from repro_torch.core.algorithms import (ServerAlgorithm, ServerState,
 from repro_torch.federated.client import (cohort_deltas, cohort_submodel_deltas,
                                           make_local_trainer,
                                           make_submodel_local_trainer)
+from repro_torch.sharding.context import get_rules
 from repro_torch.sparse.aggregate import (aggregate_rowsparse_partial, apply_rowsparse,
                                           combine_rowsparse_partials, correct_rowsparse,
                                           pick_combine, sparse_cohort_aggregate)
@@ -259,11 +260,19 @@ class CohortSharding:
     reduction: ``"psum"`` (densify and all-reduce), ``"union"`` (all-gather
     the partial unions and segment-sum them again) or ``"auto"`` (by bytes,
     ``repro_torch.sparse.aggregate.pick_combine``).
+
+    ``shapes`` are the parameters' global shapes where the rank holds its
+    part of them: on a ``(data, model)`` mesh, ``mesh`` its data axis and
+    the rules installed (``sharding.context.set_rules``), the step reads
+    from them which leaves the rules split over ``model`` and the table's
+    whole vocabulary. A model axis above 1 needs them on the sparse
+    transport and for telemetry.
     """
 
     mesh: object
     axis: str = "data"
     combine: str = "auto"
+    shapes: Optional[Dict[str, Tuple[int, ...]]] = None
 
     def __post_init__(self):
         if self.axis not in self.mesh.axis_names:
@@ -451,13 +460,24 @@ def round_collective_budget(plan: RoundPlan, axes: Dict[str, Tuple],
 
 
 def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None,
-                         remat: bool = True) -> Dict:
+                         remat: bool = True, sparse: bool = False,
+                         combine: str = "auto") -> Dict:
     """Per-rank collectives of one FedSGD round of a transformer on a
     ``(data, model)`` :class:`~repro_torch.launch.mesh.DeviceMesh`.
 
     The round step's on the ``data`` axis (``CohortSharding``'s flat shard,
     dense transport): the ``loss`` all-reduce (4 B) and ``dense_tree``, an
-    all-reduce of every leaf of the rank's gradient. The model's on the
+    all-reduce of every leaf of the rank's gradient. On the row-sparse
+    transport (``sparse``) instead, over the rank's union capacity ``R =
+    round_capacity(V, T)`` and the table's rows ``V'`` on the rank (``V /
+    model`` where the vocabulary is split): ``dense_leaves`` (the other
+    leaves in f32), ``combine:<table>`` (``pick_combine(V', d, combine)``:
+    an all-reduce of the f32 ``(V', d)`` slice, or an all-gather of every
+    data rank's R ids and f32 rows) and ``used_ids`` (an all-gather of R
+    ids); on ``model``, where the table is split, ``sub_rows:<table>`` (the
+    gathered ``(R, d)`` sub-table in the model's dtype) in place of
+    ``embed``: the loss looks the tokens up in the whole sub-table. The
+    model's on the
     ``model`` axis, under the rules' split (``transformer.model_split``),
     per layer and pass over ``T = B / data`` ranks' tokens of width ``d`` in
     the model's dtype:
@@ -497,7 +517,8 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
     finally:
         set_rules(*installed)
     b, s = (int(n) for n in batch["tokens"].shape)
-    t = b // int(mesh.shape.get("data", 1)) * s
+    ndata = int(mesh.shape.get("data", 1))
+    t = b // ndata * s
     d, a = cfg.d_model, torch.empty((), dtype=model_dtype(cfg)).element_size()
     axes: Dict[str, Dict[str, Dict]] = {name: {} for name in mesh.axis_names}
 
@@ -508,8 +529,22 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
 
     shapes = local_shapes(cfg, mesh, rules)
     add("data", "loss", "all-reduce", 4)
-    add("data", "dense_tree", "all-reduce",
-        sum(math.prod(shape) * size for shape, size in shapes.values()))
+    if not sparse:
+        add("data", "dense_tree", "all-reduce",
+            sum(math.prod(shape) * size for shape, size in shapes.values()))
+    else:
+        cap = round_capacity(cfg.vocab_size, t)
+        rows = shapes["embedding"][0][0]
+        add("data", "dense_leaves", "all-reduce",
+            sum(math.prod(shape) * 4 for name, (shape, _) in shapes.items()
+                if name != "embedding"))
+        if pick_combine(rows, d, combine) == "psum":
+            add("data", "combine:embedding", "all-reduce", rows * d * 4)
+        else:
+            add("data", "combine:embedding", "all-gather", ndata * cap * (4 + d * 4))
+        add("data", "used_ids", "all-gather", ndata * cap * 4)
+        if split.vocab is not None:
+            add("model", "sub_rows:embedding", "all-reduce", cap * d * a)
     nl = cfg.num_layers
     g = cfg.remat_groups
     per = nl // g if remat and g > 1 and nl % g == 0 else 1
@@ -539,7 +574,8 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
                 add("model", "router_logits", "all-gather", fwd * t * cfg.num_experts * a)
                 add("model", "router_in", "all-reduce", t * d * a)
     if split.vocab is not None:
-        add("model", "embed", "all-reduce", t * d * a)
+        if not sparse:
+            add("model", "embed", "all-reduce", t * d * a)
         add("model", "xent_in", "all-reduce", t * d * a)
         add("model", "xent_max", "all-reduce", t * 4)
         add("model", "xent_sum", "all-reduce", 2 * t * 4)
@@ -751,7 +787,11 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
     static_heat = heat_counts is not None
     debug = bool(plan.debug_checks) and sparse     # dense plans: nothing to check
     table_paths = [name for name, _ in sparse_table_paths(heat_spec)]
-    vocabs = sorted({int(params_template[p].shape[0]) for p in table_paths})
+    given = plan.sharding.shapes if plan.sharding is not None else None
+    # the leaves' global shapes: a rank on a model split holds its part
+    shapes = ({name: tuple(given[name]) for name in params_template} if given
+              else {name: tuple(t.shape) for name, t in params_template.items()})
+    vocabs = sorted({int(shapes[p][0]) for p in table_paths})
     vocab = vocabs[-1] if vocabs else 0
     if isinstance(local, SubmodelReplicatedLocal):
         if not table_paths:
@@ -846,22 +886,55 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         return used_ids, dropped, mass, None
 
     def assemble_tel(data, used_ids, agg, counts, pre_sq, post_sq,
-                     shard_union_sizes=None) -> RoundTelemetry:
+                     shard_union_sizes=None, vocab_split=None) -> RoundTelemetry:
+        """``vocab_split``: the model axis the table and its heat are split
+        over. The heat histogram is then each slice's over the union ids in
+        it, and the aggregate's rows each slice's, both summed over it."""
         device = pre_sq.device
         union, dropped, mass, per_client = cohort_drop_tel(data, used_ids, device)
         union_size = ((union >= 0).sum(dtype=torch.int32) if union is not None
                       else torch.zeros((), dtype=torch.int32, device=device))
         hv = counts.get(heat_space) if (counts and heat_space) else None
-        hist = (heat_histogram(hv, union) if union is not None and hv is not None
-                else torch.zeros(HEAT_BUCKETS, dtype=torch.float32, device=device))
+        if union is None or hv is None:
+            hist = torch.zeros(HEAT_BUCKETS, dtype=torch.float32, device=device)
+        elif vocab_split is None:
+            hist = heat_histogram(hv, union)
+        else:
+            local = union - vocab_split.rank * hv.shape[0]
+            mine = (union >= 0) & (local >= 0) & (local < hv.shape[0])
+            hist = vocab_split.psum(heat_histogram(hv, torch.where(mine, local, -1)),
+                                    "telemetry:hist")
+        agg_rows = tree_agg_rows(agg) if agg is not None else None
+        if agg_rows is not None and vocab_split is not None:
+            agg_rows = vocab_split.psum(agg_rows, "telemetry:rows")
         dens = (union_size.to(torch.float32) / vocab if vocab
                 else torch.zeros((), dtype=torch.float32, device=device))
         return RoundTelemetry(
             dropped_ids=dropped, dropped_mass=mass, dropped_per_client=per_client,
-            union_size=union_size,
-            agg_rows=tree_agg_rows(agg) if agg is not None else None,
+            union_size=union_size, agg_rows=agg_rows,
             shard_union_sizes=shard_union_sizes, delta_norm_pre=torch.sqrt(pre_sq),
             delta_norm_post=torch.sqrt(post_sq), heat_hist=hist, density=dens)
+
+    def model_parts() -> Tuple[Optional[object], frozenset]:
+        """The model axis of the installed rules' mesh and the leaves they
+        split over it, on a sharded step; ``(None, {})`` off a model split."""
+        mesh, rules = get_rules()
+        if plan.sharding is None or mesh is None or int(mesh.shape.get("model", 1)) == 1:
+            return None, frozenset()
+        if not given:
+            raise ValueError(
+                "a model axis above 1 needs the parameters' global shapes: pass "
+                "CohortSharding(shapes=...)")
+        from repro_torch.launch.shardings import param_specs
+        specs = param_specs(axes, shapes, mesh, rules)
+        return mesh.axis("model"), frozenset(
+            name for name, spec in specs.items()
+            if any("model" in ((p,) if isinstance(p, str) else p or ()) for p in spec))
+
+    def table_split(table: str):
+        """The model axis the rows of ``table`` are split over, or None."""
+        model, split = model_parts()
+        return model if table in split else None
 
     # run_local(params, data, sub_ids) -> (update, loss | None, used_ids | None, data)
     if isinstance(local, FedSgdLocal) and sparse:
@@ -874,7 +947,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
                 require_tables_for_ids()
                 sub_ids = derive_flat_ids(data)
             loss, grads = submodel_value_and_grad(loss_fn, params, data, table,
-                                                  feature_keys, sub_ids)
+                                                  feature_keys, sub_ids,
+                                                  split=table_split(table))
             return _scale_tree_f32(grads, -cfg.lr), loss, sub_ids, data
     elif isinstance(local, FedSgdLocal):
         nmb = max(local.microbatches, 1)
@@ -941,7 +1015,7 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
     if plan.sharding is not None:
         return _sharded_step(
             plan, loss_fn, heat_spec, n_total, vocab, debug, telemetry, run_local,
-            check_ids, batch_counts, assemble_tel, apply_sparse, apply_dense)
+            check_ids, batch_counts, assemble_tel, apply_sparse, apply_dense, model_parts)
 
     def step(state: ServerState, batch: Dict[str, torch.Tensor],
              sub_ids: Optional[torch.Tensor] = None):
@@ -1021,10 +1095,30 @@ def _mask_clients(tree: Dict, wmask: torch.Tensor) -> Dict:
             if is_rowsparse(leaf) else m(leaf) for name, leaf in tree.items()}
 
 
+def refuse_sharded_transport(plan: RoundPlan) -> None:
+    """The reference's refusals of a transport under ``CohortSharding``
+    (int8 rows; top-k on the flat path), raised before any collective."""
+    transport = plan.transport
+    if not transport.sparse or plan.sharding is None:
+        return
+    if transport.int8:
+        raise ValueError(
+            "CohortSharding does not compose with int8 transport yet: the "
+            "stochastic-rounding noise is drawn over the full cohort stack and "
+            "would not reproduce the single-device stream per shard")
+    if transport.topk and isinstance(plan.local, FedSgdLocal):
+        raise ValueError(
+            "CohortSharding does not compose with top-k on the flat fused-gradient "
+            "sparse path: top-k there selects rows of the whole-cohort union, which "
+            "no per-shard selection reproduces; use a replicated local (per-client "
+            "top-k shards exactly)")
+
+
 def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_total: float,
                   vocab: int, debug: bool, telemetry: bool, run_local: Callable,
                   check_ids: Callable, batch_counts: Callable, assemble_tel: Callable,
-                  apply_sparse: Callable, apply_dense: Callable) -> Callable:
+                  apply_sparse: Callable, apply_dense: Callable,
+                  model_parts: Callable) -> Callable:
     """The round step of a plan with ``CohortSharding``, run by every rank.
 
     Every rank is handed the full cohort batch and the replicated state. A
@@ -1042,23 +1136,32 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
     derives are checked on that rank. The aggregate is the same on every
     rank: the ``psum`` combine's by construction; the ``union`` combine's
     as long as every rank sums the gathered rows in the same order.
+
+    On a ``(data, model)`` mesh under installed rules (``model_parts``: the
+    model axis and the leaves split over it), a rank's table rows and heat
+    are its slice of the vocabulary, and the combine over ``mesh`` runs on
+    the slice. ``sub_rows`` and ``density`` stay global; telemetry's norms
+    add each split leaf's squares over the model axis.
     """
     local, transport, server = plan.local, plan.transport, plan.server
     sharding = plan.sharding
     mesh, ndev = sharding.mesh, sharding.num_shards
     sparse = transport.sparse
     feature_keys = tuple(plan.feature_keys)
-    if sparse and transport.int8:
-        raise ValueError(
-            "CohortSharding does not compose with int8 transport yet: the "
-            "stochastic-rounding noise is drawn over the full cohort stack and "
-            "would not reproduce the single-device stream per shard")
-    if sparse and transport.topk and isinstance(local, FedSgdLocal):
-        raise ValueError(
-            "CohortSharding does not compose with top-k on the flat fused-gradient "
-            "sparse path: top-k there selects rows of the whole-cohort union, which "
-            "no per-shard selection reproduces; use a replicated local (per-client "
-            "top-k shards exactly)")
+    refuse_sharded_transport(plan)
+
+    def sq_sum(tree: Dict, parts) -> torch.Tensor:
+        """``tree_sq_sum`` of the global tree: the squares of each leaf
+        split over the model axis summed over it, the whole leaves' once."""
+        model, split = parts
+        if model is None:
+            return tree_sq_sum(tree)
+        own = {name: leaf for name, leaf in tree.items() if name in split}
+        whole = {name: leaf for name, leaf in tree.items() if name not in split}
+        total = model.psum(tree_sq_sum(own), "telemetry:norms") if own else None
+        if whole:
+            total = tree_sq_sum(whole) if total is None else total + tree_sq_sum(whole)
+        return total
 
     def combine(leaf, name, counts, scale):
         space = heat_spec.leaf_spaces.get(name)
@@ -1072,7 +1175,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             return mean
         return correct_dense_leaf(mean, heat_spec.leaf_spaces.get(name), counts, n_total)
 
-    def stacked_shard(params, data, sub_ids, wmask, counts, k_real):
+    def stacked_shard(params, data, sub_ids, wmask, counts, k_real, parts):
         """This rank's clients: local steps, the partial, the combine.
         Returns the replicated aggregate, the loss, the sub-row count and
         telemetry's parts."""
@@ -1107,8 +1210,8 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
         if not telemetry:
             return agg, loss, sub_rows, None
         # norms over the real clients only (the pads are cyclic repeats)
-        tel = {"pre": mesh.psum(tree_sq_sum(_mask_clients(raw, wmask)), "telemetry:norms"),
-               "post": mesh.psum(tree_sq_sum(update), "telemetry:norms")}
+        tel = {"pre": mesh.psum(sq_sum(_mask_clients(raw, wmask), parts), "telemetry:norms"),
+               "post": mesh.psum(sq_sum(update, parts), "telemetry:norms")}
         if sparse:
             masked = torch.where((wmask > 0)[:, None], used_ids, -1)
             tel["used_ids"] = mesh.all_gather(masked, "telemetry:ids").flatten(0, 1)
@@ -1116,7 +1219,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
                                                  "telemetry:ids")
         return agg, loss, sub_rows, tel
 
-    def flat_shard(params, data, sub_ids, counts):
+    def flat_shard(params, data, sub_ids, counts, parts):
         """This rank's examples of the pooled batch. Exact when ``loss_fn``
         is a uniform mean over the batch: the cohort gradient is then the
         mean of equal-sized shard gradients."""
@@ -1138,7 +1241,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             return agg, loss, sub_rows, None
         # the flat path never compresses under sharding, so pre == post:
         # the L2 of the replicated aggregate
-        sq = tree_sq_sum(agg)
+        sq = sq_sum(agg, parts)
         tel = {"pre": sq, "post": sq}
         if sparse:
             tel["used_ids"] = gathered
@@ -1155,6 +1258,14 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
         if debug and sub_ids is not None and vocab:
             sanitize.check_union_ids(sub_ids, vocab, name="sub_ids")
         r = mesh.rank
+        # read first: a refusal raises before the round's first collective
+        parts = model_parts() if (sparse or telemetry) else (None, frozenset())
+        table = next((name for name in params if sparse and name in parts[1]
+                      and sparse_eligible(heat_spec.leaf_spaces.get(name))), None)
+        if table is not None and local.stacked:
+            raise NotImplementedError(
+                "a stacked local on a vocabulary split over 'model': the per-client "
+                "submodels gather whole rows; use FedSgdLocal")
         if local.stacked:
             k_real = int(data[feature_keys[0]].shape[0])
             ks = -(-k_real // ndev)
@@ -1166,7 +1277,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             agg, loss, sub_rows, tel = stacked_shard(
                 params, {k: v.index_select(0, idx) for k, v in data.items()},
                 None if sub_ids is None else sub_ids.index_select(0, idx), wmask, counts,
-                k_real)
+                k_real, parts)
         else:
             bleaf = feature_keys[0] if feature_keys[0] in data else next(iter(data))
             bsz = int(data[bleaf].shape[0])
@@ -1186,7 +1297,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             mesh.reset_counters()
             agg, loss, sub_rows, tel = flat_shard(
                 params, {k: v if v.dim() == 0 else v.narrow(batch_axis(k), r * b, b)
-                         for k, v in data.items()}, sub_ids, counts)
+                         for k, v in data.items()}, sub_ids, counts, parts)
         tel_out = None
         if telemetry:
             used = None
@@ -1196,7 +1307,8 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             # read before the stateless apply writes the tables in place
             tel_out = assemble_tel(data, used, agg if sparse else None, counts,
                                    tel["pre"], tel["post"],
-                                   shard_union_sizes=tel.get("shard_union"))
+                                   shard_union_sizes=tel.get("shard_union"),
+                                   vocab_split=parts[0] if table is not None else None)
         new_state = apply_sparse(state, agg) if sparse else apply_dense(state, agg, counts)
         metrics = {"loss": loss}
         if sparse and vocab:

@@ -72,6 +72,15 @@ def local_part(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
     return x
 
 
+def own_part(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
+    """``local_part`` in storage of its own where it is a part: a slice of
+    leading rows is already contiguous, and as a view it would keep the
+    whole tensor alive (and share its writes). A whole ``x`` is returned as
+    it is."""
+    part = local_part(x, mesh, spec)
+    return x if part is x else part.clone(memory_format=torch.contiguous_format)
+
+
 def param_specs(axes: Mapping[str, Sequence], shapes: Mapping[str, Sequence[int]], mesh,
                 rules) -> Dict[str, Spec]:
     """Each leaf's fitted spec: ``rules.param_rules`` (whole heads per rank)
@@ -103,7 +112,7 @@ def shard_params(flat: Mapping[str, torch.Tensor], axes: Mapping[str, Sequence],
     tensor passed in)."""
     flat, axes = boxed_like(flat, axes)
     specs = param_specs(axes, {n: t.shape for n, t in flat.items()}, mesh, rules)
-    return {name: local_part(t, mesh, specs[name]).contiguous() for name, t in flat.items()}
+    return {name: own_part(t, mesh, specs[name]) for name, t in flat.items()}
 
 
 def unshard_params(local: Mapping[str, torch.Tensor], full_shapes: Mapping[str, Sequence],
@@ -214,7 +223,7 @@ def local_cache(cache, mesh, rules):
     """This rank's part of the whole ``cache`` under ``cache_specs`` (a
     contiguous copy of each split tensor)."""
     specs = cache_specs(mesh, rules, cache)
-    local = _map_cache(lambda t, spec: local_part(t, mesh, spec).contiguous(), cache, specs)
+    local = _map_cache(lambda t, spec: own_part(t, mesh, spec), cache, specs)
     return _with_slice(local, cache, mesh, specs)
 
 

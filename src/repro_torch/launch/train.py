@@ -35,11 +35,17 @@ the full model from the seed and keeps its part (``shard_params``), the
 round step splits the cohort batch over ``data`` (``CohortSharding``) and
 the layers over ``model`` (``transformer.model_split``; ``--expert-parallel``
 splits the experts instead of their columns), and the heat is each rank's
-slice of ``heat_vocab``. ``--ckpt`` gathers the parameters whole
-(``unshard_params``) and rank 0 writes them. One process per rank:
+slice of ``heat_vocab``. On the row-sparse transport (``--sparse``) each
+model rank gathers the union rows of its slice of the embedding, one
+all-reduce over ``model`` makes the sub-table whole for the loss, and the
+rank corrects and combines over ``data`` only the rows of its slice (K1 on
+the slice under the ``union`` combine). ``--topk`` and ``--int8`` refuse a
+mesh, as the reference's sharded step refuses them. ``--ckpt`` gathers the
+parameters whole (``unshard_params``) and rank 0 writes them. One process
+per rank:
 
     torchrun --nproc_per_node=4 -m repro_torch.launch.train --arch qwen2_5_14b \
-        --scale tiny --model-parallel 2 [--expert-parallel]
+        --scale tiny --model-parallel 2 [--expert-parallel] [--sparse]
 
 On the card each rank takes ``cuda:LOCAL_RANK`` (NCCL); ``--device cpu``
 runs gloo ranks on the host.
@@ -61,7 +67,7 @@ from repro_torch.configs.base import FedConfig, ModelConfig, get_config
 from repro_torch.data.synthetic import make_lm_federated
 from repro_torch.federated.plan import (CohortSharding, DenseTransport, FedSgdLocal,
                                         RoundPlan, RowSparseTransport, ServerUpdate,
-                                        plan_comm_meta)
+                                        plan_comm_meta, refuse_sharded_transport)
 from repro_torch.federated.simulation import make_round_step
 from repro_torch.launch.serve import SCALES, default_frames
 from repro_torch.launch.shardings import shard_batch, shard_params, unshard_params
@@ -99,13 +105,14 @@ class TrainResult:
 
 
 def make_plan(algorithm: str = "fedsubavg", sparse: bool = False, topk: int = 0,
-              int8: bool = False, mesh=None) -> RoundPlan:
+              int8: bool = False, mesh=None, shapes=None) -> RoundPlan:
     """``FedSgdLocal`` on the dense transport, or on the row-sparse one
     (``topk`` and ``int8`` imply it), under ``ServerUpdate(algorithm)``;
-    with ``mesh``, its cohort split over the ``data`` axis."""
+    with ``mesh``, its cohort split over the ``data`` axis, ``shapes``
+    the parameters' global shapes."""
     sparse = sparse or topk > 0 or int8
     transport = RowSparseTransport(topk=topk, int8=int8) if sparse else DenseTransport()
-    sharding = None if mesh is None else CohortSharding(mesh.axis("data"))
+    sharding = None if mesh is None else CohortSharding(mesh.axis("data"), shapes=shapes)
     return RoundPlan(FedSgdLocal(), transport, ServerUpdate(algorithm), sharding=sharding)
 
 
@@ -144,11 +151,9 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     is called after each round."""
     rules = None
     if mesh is not None:
-        if (sparse or topk or int8) and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "the row-sparse transport on a vocabulary split over 'model' is not "
-                "ported yet: train on the dense transport")
         rules = mesh_rules(cfg, mesh, expert_parallel)
+        # before the model is drawn: the reference's refusals on a mesh
+        refuse_sharded_transport(make_plan(algorithm, sparse, topk, int8, mesh))
         device = mesh.device
     dev = resolve_device(device)
     api = build_model(cfg)
@@ -161,7 +166,7 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
                            samples_per_client=4, zipf_a=zipf_a)
     fed = FedConfig(num_clients=ds.num_clients, clients_per_round=cohort, lr=lr,
                     algorithm=algorithm)
-    plan = make_plan(algorithm, sparse, topk, int8, mesh)
+    plan = make_plan(algorithm, sparse, topk, int8, mesh, full_shapes)
     step = make_round_step(functools.partial(api.loss, remat=remat), params, axes, fed,
                            mode=plan)
     extra = {k: v.to(dev) for k, v in (inputs or {}).items()}
@@ -170,7 +175,10 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     heat = torch.as_tensor(ds.heat.counts, dtype=torch.float32).to(dev)
     if mesh is not None:
         heat = shard_batch({"heat_vocab": heat}, mesh, rules)["heat_vocab"]
-    meta = plan_comm_meta(params, axes) if plan.transport.sparse else None
+    # the uplink is one device's: priced from the whole shapes, not the rank's
+    meta = (plan_comm_meta({name: torch.empty(full_shapes[name], dtype=t.dtype, device="meta")
+                            for name, t in params.items()}, axes)
+            if plan.transport.sparse else None)
     tokens = ds.client_data["tokens"]
     rng = np.random.default_rng(0)
     # the result takes the parameters at the end: holding the initial ones

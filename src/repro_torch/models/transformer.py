@@ -60,7 +60,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
-from repro_torch.sharding.context import constrain, get_rules, split_mesh
+from repro_torch.sharding.context import constrain, get_rules, is_whole, split_mesh
 from repro_torch.sharding.logical import axes_tree, unbox
 from repro_torch.sharding.parallel import (copy_to_model, gather_from_model, max_from_model,
                                            merge_decode_partials, reduce_from_model)
@@ -338,8 +338,9 @@ class Split(NamedTuple):
     kv: object = None            # wk's and wv's columns: whole KV heads
     ffn: object = None           # the MLP's (or each expert's) d_ff
     experts: object = None       # whole experts, and the router's columns
-    vocab: object = None         # the embedding's rows, lm_head's columns
+    vocab: object = None         # lm_head's columns
     batch: object = None         # the data axis, for the MoE's whole-batch routing
+    embed: object = None         # the embedding's rows
 
 
 NO_SPLIT = Split()
@@ -349,7 +350,9 @@ def model_split(cfg: ModelConfig) -> Split:
     """The split of ``cfg``'s layers under the installed rules (none off the
     mesh). It follows ``rules.param_rules`` as ``launch.shardings`` does,
     so it is the split of the rank's parameters: KV heads only with query
-    heads, each only where its count divides the model axis."""
+    heads, each only where its count divides the model axis. The
+    embedding's rows split with the vocabulary, except where the sparse
+    transport hands the loss a whole sub-table (``context.whole_leaves``)."""
     mesh, rules = get_rules()
     if mesh is None:
         return NO_SPLIT
@@ -360,11 +363,12 @@ def model_split(cfg: ModelConfig) -> Split:
         if tuple(rules.get("batch") or ()) != ("data",):
             raise NotImplementedError(f"the MoE's batch over {rules.get('batch')}")
         batch = mesh.axis("data")
+    vocab = split_mesh("vocab", cfg.vocab_size)
     return Split(heads=heads,
                  kv=split_mesh("kv", cfg.num_kv_heads * hd) if heads is not None else None,
                  ffn=split_mesh("ffn", cfg.d_ff),
                  experts=split_mesh("experts", cfg.num_experts) if cfg.is_moe else None,
-                 vocab=split_mesh("vocab", cfg.vocab_size), batch=batch)
+                 vocab=vocab, batch=batch, embed=None if is_whole("embedding") else vocab)
 
 
 def _copied(p, mesh, tag: str):
@@ -462,14 +466,14 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
     """Token embeddings scaled by sqrt(d_model); with ``patch_embeds``
     ``(B, P, d)`` and ``cfg.num_patches > 0`` (early fusion) the first P
     positions take the patch embeddings instead, unscaled, in x's dtype.
-    Split over the vocabulary, each rank looks up the tokens in its rows,
-    zeroes the others, and the ranks' rows are summed (exact: one term is
-    not zero)."""
+    Split over the vocabulary (``split.embed``), each rank looks up the
+    tokens in its rows, zeroes the others, and the ranks' rows are summed
+    (exact: one term is not zero)."""
     emb = params["embedding"]
     # sqrt(d_model) in f32, then rounded to the table's dtype, as the
     # reference scales it (in bf16, sqrt(5120) = 71.55 becomes 71.5)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    mesh = split.vocab
+    mesh = split.embed
     if mesh is None:
         x = emb[tokens] * float(scale.to(emb.dtype))
     else:

@@ -15,6 +15,7 @@ a local shape that the spec does not give raises.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -37,6 +38,26 @@ def clear_rules():
 
 def get_rules():
     return getattr(_state, "mesh", None), getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def whole_leaves(*names: str):
+    """Within the block, the parameters ``names`` are whole on every rank
+    whatever the rules say: the sparse transport hands the loss a table's
+    gathered sub-table, all of its rows on every model rank
+    (``sparse.encode.submodel_value_and_grad``), so the model must not
+    split its lookup again. Nests; thread-local as the rules are."""
+    before = getattr(_state, "whole", frozenset())
+    _state.whole = before | frozenset(names)
+    try:
+        yield
+    finally:
+        _state.whole = before
+
+
+def is_whole(name: str) -> bool:
+    """Whether ``whole_leaves`` holds ``name`` whole here."""
+    return name in getattr(_state, "whole", frozenset())
 
 
 def spec_for_axes(axes, rules) -> Spec:

@@ -153,7 +153,10 @@ def sharded_combine_bytes(meta: CommMeta, vocab: int, union_capacity: int,
     rows); ``count_gather_ids`` adds the flat path's ``used_ids``
     all-gather. The dense non-table leaves ride an all-reduce; payloads are
     priced as f32. The loss and sub-row scalars (4 B each) are not priced:
-    the drift check's absolute tolerance absorbs them.
+    the drift check's absolute tolerance absorbs them. On a vocabulary
+    split over ``model`` a rank combines its slice: ``vocab`` is then the
+    slice's rows and ``meta`` the rank's parameters (the ``data`` axis of
+    ``plan.tp_collective_budget(sparse=True)``, less its loss).
     """
     out = {"all-reduce": 0.0, "all-gather": 0.0}
     row_bytes = float(meta.row_elems) * 4.0

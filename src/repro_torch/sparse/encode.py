@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core.aggregate import HeatSpec
+from repro_torch.sharding.context import whole_leaves
 from repro_torch.sparse.rowsparse import (RowSparse, is_rowsparse, remap_ids,
                                           unique_ids_padded)
 
@@ -66,7 +67,8 @@ def remap_to_rows(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
                             batch: Dict[str, torch.Tensor], table: str,
-                            feature_keys: Sequence[str], ids: torch.Tensor):
+                            feature_keys: Sequence[str], ids: torch.Tensor,
+                            split=None):
     """Loss and gradients with the table ``table`` never densified.
 
     ``ids`` is the sorted, -1-padded union of the batch's feature ids. The
@@ -75,9 +77,25 @@ def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
     autodiff runs over the gathered ``(R, ...)`` rows and the other leaves
     apart: the table itself is not an argument, so only the row gradient
     exists. Returns ``(loss, grads)`` with a ``RowSparse`` at ``table``.
+
+    ``split`` (the model axis's ``CohortMesh``) says the rank holds rows
+    ``[rank * V/m, (rank + 1) * V/m)`` of the table. Each model rank then
+    gathers the union rows of its slice, zeros for the others, and one
+    all-reduce over ``split`` (tagged ``sub_rows:<table>``) hands every rank
+    the whole sub-table, which the loss looks up unsplit
+    (``context.whole_leaves``). The loss is the same on every model rank,
+    and so is the row gradient; the rank keeps the rows of its slice, as a
+    ``RowSparse`` of ``V/m`` rows on slice-local ids.
     """
     num_rows = params[table].shape[0]
-    rows0 = params[table][torch.clamp(ids, min=0).long()]
+    if split is None:
+        rows0 = params[table][torch.clamp(ids, min=0).long()]
+    else:
+        local = ids.long() - split.rank * num_rows
+        mine = (ids >= 0) & (local >= 0) & (local < num_rows)
+        rows0 = params[table][torch.where(mine, local, 0)]
+        mask = mine.reshape((-1,) + (1,) * (rows0.dim() - 1))
+        rows0 = split.psum(torch.where(mask, rows0, 0.0), f"sub_rows:{table}")
     sub_batch = dict(batch)
     for k in feature_keys:
         sub_batch[k] = remap_to_rows(batch[k], ids)
@@ -86,12 +104,33 @@ def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
     def joint_loss(rows, p):
         return loss_fn({**p, table: rows}, sub_batch)
 
-    (row_grad, rest_grad), loss = grad_and_value(joint_loss, argnums=(0, 1))(rows0, rest)
+    # the gathered rows are the whole sub-table on every rank
+    with whole_leaves(table):
+        (row_grad, rest_grad), loss = grad_and_value(joint_loss, argnums=(0, 1))(rows0, rest)
     valid = (ids >= 0).reshape((-1,) + (1,) * (row_grad.dim() - 1))
     grads = dict(rest_grad)
     grads[table] = RowSparse(ids.to(torch.int32), row_grad * valid.to(row_grad.dtype),
                              num_rows)
+    if split is not None:
+        grads[table] = slice_rows(grads[table], split.rank * num_rows, num_rows)
     return loss, {name: grads[name] for name in params}
+
+
+def slice_rows(rs: RowSparse, start: int, num_rows: int) -> RowSparse:
+    """The rows of an unbatched ``RowSparse`` (sorted ids, -1 pads trailing)
+    whose ids lie in ``[start, start + num_rows)``, on slice-local ids: a
+    ``RowSparse`` of ``num_rows`` rows at the same capacity, its ids moved
+    to the front in their order and -1 after them."""
+    ids, cap = rs.ids.long(), rs.capacity
+    lo = ((ids >= 0) & (ids < start)).sum()
+    src = torch.clamp(torch.arange(cap, device=ids.device) + lo, max=max(cap - 1, 0))
+    cand = ids[src] - start
+    keep = (torch.arange(cap, device=ids.device) + lo < cap) & (ids[src] >= 0) & \
+        (cand >= 0) & (cand < num_rows)
+    rows = rs.rows[src]
+    mask = keep.reshape((-1,) + (1,) * (rows.dim() - 1))
+    return RowSparse(torch.where(keep, cand, -1).to(torch.int32),
+                     torch.where(mask, rows, 0.0).to(rows.dtype), num_rows)
 
 
 def flat_feature_ids(batch: Dict[str, torch.Tensor],

@@ -510,6 +510,18 @@ def test_train_refuses_the_other_families_on_a_mesh():
             mesh_rules(get_config(arch), _stand_in_mesh((1, 2)))
 
 
+@pytest.mark.parametrize("flags", [dict(sparse=True), dict(topk=4), dict(int8=True)])
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "zamba2_1_2b", "xlstm_350m"])
+def test_train_refuses_the_other_families_on_the_sparse_transport(arch, flags):
+    """``train(mesh=...)`` refuses Whisper, Zamba2 and xLSTM (item 9.9) on
+    the row-sparse transport too, before it draws the model: the stand-in
+    mesh has no process group, so a collective would raise otherwise."""
+    from repro_torch.launch.train import train
+    with pytest.raises(NotImplementedError, match="does not train on a mesh"):
+        train(get_config(arch).replace(**ranks.SCALES["tiny"]), rounds=1, device="cpu",
+              mesh=_stand_in_mesh((1, 2)), **flags)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--jax-tp"]:
         sys.path.insert(0, str(ROOT / "tests"))
