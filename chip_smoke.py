@@ -436,7 +436,8 @@ from repro_torch.federated.plan import (CohortSharding, FedSgdLocal,  # noqa: E4
                                         RoundPlan, RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal, build_round_step,
                                         resolve_plan, round_collective_budget)
-from repro_torch.launch.mesh import make_cohort_mesh, make_device_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import (CohortMesh, make_cohort_mesh,  # noqa: E402
+                                     make_device_mesh, spawn_ranks)
 from repro_torch.launch.shardings import local_part, param_specs  # noqa: E402
 from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
@@ -1673,6 +1674,8 @@ INT8_SUBMODEL = RoundPlan(SubmodelReplicatedLocal(), RowSparseTransport(int8=Tru
                           ServerUpdate("fedsubavg"))
 
 #: [25]: make_round_step's modes on the LSTM; K1 launches expected per step
+#: [25]: steps of each mode
+ROUND_STEP_STEPS = 2
 ROUND_STEP_MODES = (("fedsgd", "fedsgd", {}, False, 0),
                     ("fedsgd 4 microbatches", "fedsgd", dict(microbatches=4), False, 0),
                     ("sparse", "sparse", {}, False, 0),
@@ -1685,12 +1688,12 @@ ROUND_STEP_MODES = (("fedsgd", "fedsgd", {}, False, 0),
 
 
 def phase_round_steps(ds) -> dict:
-    """[25]: 3 steps of each mode from the same initial parameters (the
-    sparse modes update their table in place, so each mode takes a copy);
-    loss finite, K1 counted per step, held to its plain version on the
-    int8 plan's last step, then a fourth step profiled (device ops and
-    device time, the busy share against the median host time of the
-    three). Then ``debug_checks``
+    """[25]: ``ROUND_STEP_STEPS`` steps of each mode from the same initial
+    parameters (the sparse modes update their table in place, so each mode
+    takes a copy); loss finite, K1 counted per step, held to its plain
+    version on the int8 plan's last step, then one step more profiled
+    (device ops and device time, the busy share against the median host
+    time of the steps). Then ``debug_checks``
     on and off in ``sparse`` mode (no K1: its atomics' order would differ
     between any two runs), a planted unsorted ``sub_ids``, and gather before
     backward at V = 2^22."""
@@ -1706,7 +1709,7 @@ def phase_round_steps(ds) -> dict:
         losses, ms, per_step, captured = [], [], [], {}
         ctx = capture_k1(captured) if mode is INT8_SUBMODEL else contextlib.nullcontext()
         with ctx:
-            for _ in range(3):
+            for _ in range(ROUND_STEP_STEPS):
                 batch = lstm_inputs(ds, rng, stacked)
                 torch.cuda.synchronize()
                 union_segsum.launches = 0
@@ -1718,7 +1721,8 @@ def phase_round_steps(ds) -> dict:
         launches = sum(per_step)
         out["launches"][label] = launches
         check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
-        check(per_step == [want] * 3, f"{label}: K1 launched {per_step} times in the 3 "
+        check(per_step == [want] * ROUND_STEP_STEPS, f"{label}: K1 launched {per_step} times "
+              f"in the {ROUND_STEP_STEPS} "
               f"steps, want {want} each")
         if captured:
             args, scale = captured["args"], captured["kw"]["scale"]
@@ -1750,7 +1754,7 @@ def phase_round_steps(ds) -> dict:
             step = make_round_step(loss_fn, params0, axes, cfg, mode=plan)
             params = {k: v.clone() for k, v in params0.items()}
             losses = []
-            for _ in range(3):
+            for _ in range(ROUND_STEP_STEPS):
                 params, metrics = step(params, lstm_inputs(ds, rng, False))
                 losses.append(float(metrics["loss"]))
             results.append((losses, params))
@@ -1758,7 +1762,8 @@ def phase_round_steps(ds) -> dict:
         torch.use_deterministic_algorithms(False)
     (l1, p1), (l2, p2) = results
     same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
-    print(f"  debug_checks on and off, sparse mode, 3 steps: equal bit for bit: {same}")
+    print(f"  debug_checks on and off, sparse mode, {ROUND_STEP_STEPS} steps: equal bit for "
+          f"bit: {same}")
     check(same, "debug_checks changed the sparse step's losses or parameters")
     step = build_round_step(dataclasses.replace(plain_plan, debug_checks=True), loss_fn,
                             axes, params0, cfg)
@@ -2373,7 +2378,7 @@ def phase_async_card_vs_host(small) -> None:
 # ---------------------------------------------------------------------------
 
 #: the join of a spawned mesh: a rank stuck in a collective fails the run
-MESH_TIMEOUT_S = 300.0
+MESH_TIMEOUT_S = 480.0
 #: [33]: make_round_step's modes on the mesh (label, mode, stacked, K, debug)
 MESH_STEP_MODES = (("fedsgd", "fedsgd", False, 100, False),
                    ("sparse", "sparse", False, 100, False),
@@ -2485,12 +2490,28 @@ def mesh_steps_job(mesh, job: dict) -> dict:
 MESH_JOBS = {"trainer": mesh_trainer_job, "steps": mesh_steps_job}
 
 
+def probe_mesh(mesh) -> None:
+    """The backend's all-reduce and all-gather take the device's tensors."""
+    rank, world = mesh.rank, mesh.size
+    x = torch.full((3,), float(rank + 1), device=mesh.device)
+    s, g = mesh.psum(x, "probe"), mesh.all_gather(x.to(torch.int32), "probe:gather")
+    check(s.device == mesh.device
+          and torch.equal(s.cpu(), torch.full((3,), world * (world + 1) / 2)),
+          f"rank {rank}: all-reduce of a {mesh.device} tensor gave {s}")
+    check(torch.equal(g[:, 0].cpu(), torch.arange(1, world + 1, dtype=torch.int32)),
+          f"rank {rank}: all-gather of a {mesh.device} tensor gave {g}")
+
+
 def mesh_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
               jobs: list, device: str) -> None:
     """One rank of a cohort mesh spawned on this host: every rank on the
-    parent's device (the one card); checks that the backend's all-reduce
-    and all-gather take the device's tensors, runs ``jobs`` and saves its
-    results for the parent."""
+    parent's device (the one card). A job runs on the mesh of the first
+    ``job["world"]`` ranks (a group of its own below the whole world), and
+    ranks past it skip it. Checks that the backend's all-reduce and
+    all-gather take the device's tensors on each mesh, runs ``jobs`` and
+    saves its results for the parent, by world size."""
+    import torch.distributed as dist
+
     global DEV
     DEV = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2498,22 +2519,27 @@ def mesh_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     mesh = make_cohort_mesh(device=DEV, backend=backend, init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        x = torch.full((3,), float(rank + 1), device=mesh.device)
-        s, g = mesh.psum(x, "probe"), mesh.all_gather(x.to(torch.int32), "probe:gather")
-        check(s.device == mesh.device
-              and torch.equal(s.cpu(), torch.full((3,), world * (world + 1) / 2)),
-              f"rank {rank}: all-reduce of a {mesh.device} tensor gave {s}")
-        check(torch.equal(g[:, 0].cpu(), torch.arange(1, world + 1, dtype=torch.int32)),
-              f"rank {rank}: all-gather of a {mesh.device} tensor gave {g}")
-        results = {job["label"]: MESH_JOBS[job["kind"]](mesh, job) for job in jobs}
+        meshes = {world: mesh}
+        for w in sorted({job["world"] for job in jobs} - {world}):
+            group = dist.new_group(list(range(w)))
+            if rank < w:
+                meshes[w] = CohortMesh(rank=rank, size=w, device=mesh.device, group=group)
+        results: dict = {}
+        for w, m in sorted(meshes.items()):
+            probe_mesh(m)
+        for job in jobs:
+            if rank < job["world"]:
+                results.setdefault(job["world"], {})[job["label"]] = MESH_JOBS[job["kind"]](
+                    meshes[job["world"]], job)
         torch.save(results, Path(out_dir) / f"rank{rank}.pt")
         mesh.barrier()
     finally:
         mesh.destroy()
 
 
-def run_mesh(world: int, backend: str, jobs: list) -> list:
-    """Spawn ``world`` ranks of ``mesh_rank`` on the card; their results by rank."""
+def run_mesh(world: int, backend: str, jobs: list) -> dict:
+    """Spawn ``world`` ranks of ``mesh_rank`` on the card; each job's world
+    size's ranks' results (``{world: [rank 0's, rank 1's, ...]}``)."""
     out_dir = Path(tempfile.mkdtemp(prefix=f"mesh{world}_", dir=ROOT / "build"))
     t0 = time.perf_counter()
     try:
@@ -2523,9 +2549,25 @@ def run_mesh(world: int, backend: str, jobs: list) -> list:
         res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    print(f"  {world} rank(s), {backend}: spawned, ran and joined in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return res
+    print(f"  {world} rank(s), {backend}, meshes of {sorted({j['world'] for j in jobs})} "
+          f"ranks: spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
+    return {w: [r[w] for r in res[:w]] for w in sorted({j["world"] for j in jobs})}
+
+
+def run_mesh_here(jobs: list) -> list:
+    """A 1-rank NCCL mesh in this process: the jobs' results (as a rank's)."""
+    store = Path(tempfile.mkdtemp(prefix="nccl_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    mesh = make_cohort_mesh(device=DEV, backend="nccl", init_method=f"file://{store / 's'}",
+                            rank=0, world_size=1)
+    try:
+        probe_mesh(mesh)
+        results = {job["label"]: MESH_JOBS[job["kind"]](mesh, job) for job in jobs}
+    finally:
+        mesh.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"  1 rank, nccl, in this process: ran in {time.perf_counter() - t0:.1f} s")
+    return [results]
 
 
 def rank_spread(ranks: list, key: str) -> float:
@@ -2538,10 +2580,11 @@ MESH_LR_ROUNDS, MESH_DIN_ROUNDS = 20, 10
 
 
 def phase_mesh_runs(lr_ds, din_ds, lstm_ds) -> tuple:
-    """[31]-[33]'s runs: the unsharded trainers on the card, then one spawn
-    per world size: 1 rank on NCCL (LR), 2 ranks on gloo (LR, DIN and the
-    round steps of [33]) and 4 on gloo (LR), every rank on the one card.
-    Returns the unsharded runs and the ranks' results by world size."""
+    """[31]-[33]'s runs: the unsharded trainers on the card, then 1 rank
+    on NCCL in this process (LR) and one spawn of 4 gloo ranks: 2 of them
+    (LR, DIN and the round steps of [33]), then all 4 (LR), every rank on
+    the one card. Returns the unsharded runs and the ranks' results by
+    world size."""
     plain = {f"lr {alg}": mesh_drive(make_trainer(lr_ds, alg, DEV), MESH_LR_ROUNDS)
              for alg in ("fedsubavg", "fedavg")}
     plain["din fedsubavg"] = mesh_drive(make_trainer(din_ds, "fedsubavg", DEV),
@@ -2553,8 +2596,11 @@ def phase_mesh_runs(lr_ds, din_ds, lstm_ds) -> tuple:
     more = [dict(kind="trainer", label="din fedsubavg auto", ds=din_ds, alg="fedsubavg",
                  combine="auto", rounds=MESH_DIN_ROUNDS),
             dict(kind="steps", label="steps", ds=lstm_ds)]
-    ranks = {1: run_mesh(1, "nccl", lr_jobs[:2]), 2: run_mesh(2, "gloo", lr_jobs + more),
-             4: run_mesh(4, "gloo", lr_jobs)}
+    # one spawn of 4 gloo ranks: the 2-rank jobs on its first two, then the
+    # LR jobs on all four; the 1-rank NCCL mesh in this process
+    gloo = run_mesh(4, "gloo", [dict(job, world=2) for job in lr_jobs + more]
+                    + [dict(job, world=4) for job in lr_jobs])
+    ranks = {1: run_mesh_here(lr_jobs[:2]), **gloo}
     return plain, ranks
 
 
@@ -4329,7 +4375,15 @@ REC_HOST_PROMPT, REC_HOST_GEN, REC_HOST_TOL = 256, 8, 1e-4
 #: [53] (a): both models at their published widths in f32, remat on; at 512
 #: tokens both scans carry their state across two chunks of 256
 REC_TRAIN = dict(clients=256, cohort=8, seq=512, zipf_a=1.3)
-REC_TRAIN_ROUNDS = 5
+REC_TRAIN_ROUNDS = 2
+#: [53] (b): xLSTM's smoke steps are held to the nearest of the host's step
+#: and this many steps from its inputs nudged by 2^-24. Its step is
+#: discontinuous: where |n . q| < 1 the mLSTM's output scales with exp(-m),
+#: its stabiliser m a max over the keys' log weights (the sLSTM's likewise
+#: past max(n, 1)), so the gradient jumps where two of them tie within
+#: rounding. On an H100 its step 2 once parted card from host by 0.0038040,
+#: where the host's own first nudge parted by 0.0038039: the same jump
+REC_STEP_BAND = 4
 
 
 def phase_rec_shapes(rng) -> dict:
@@ -4503,16 +4557,16 @@ def phase_rec_card_vs_host() -> dict:
     return out
 
 
-def host_spread(step, before: dict, after: dict, batch: dict) -> float:
+def host_spread(step, before: dict, after: dict, batch: dict, seed: int = SEED) -> tuple:
     """How far the host's own step moves when its parameters move by f32's
     unit roundoff: the largest |parameter| gap between ``after`` (the step
     from ``before``) and the step from ``before`` times (1 + 2^-24 N(0, 1)),
-    elementwise, from seed ``SEED``."""
-    gen = torch.Generator().manual_seed(SEED)
+    elementwise, from ``seed``; and that nudged step's parameters."""
+    gen = torch.Generator().manual_seed(seed)
     nudged = {k: v * (1 + 2.0 ** -24 * torch.randn(v.shape, generator=gen))
               for k, v in before.items()}
     moved, _ = step(nudged, batch)
-    return max(float((moved[k] - after[k]).abs().max()) for k in after)
+    return max(float((moved[k] - after[k]).abs().max()) for k in after), moved
 
 
 def phase_rec_training() -> dict:
@@ -4534,8 +4588,9 @@ def phase_rec_training() -> dict:
     loss within ``LM_STEP_TOL``; each leaf's update within ``LM_UPDATE_TOL``
     in relative norm ([36]'s bound) and each parameter within
     ``LM_STEP_TOL`` plus ``LM_UPDATE_TOL`` of the leaf's largest update
-    element. K1 once a step, held to its plain version on the last step's
-    inputs."""
+    element; xLSTM's of the nearest of the host's step and ``REC_STEP_BAND``
+    nudged ones. K1 once a step, held to its plain version on the last
+    step's inputs."""
     out = {}
     for arch in (ZAMBA_ARCH, XLSTM_ARCH):
         cfg = get_config(arch).replace(dtype="float32")
@@ -4566,20 +4621,26 @@ def phase_rec_training() -> dict:
     out["k1_err"] = 0.0
     for arch in (ZAMBA_ARCH, XLSTM_ARCH):
         got = smoke_steps_card_vs_host(get_smoke_config(arch).replace(dtype="float32"),
-                                       "sparse_replicated", "[53] (b)")
+                                       "sparse_replicated", "[53] (b)",
+                                       band=REC_STEP_BAND if arch == XLSTM_ARCH else 0)
         out["k1_err"] = max(out["k1_err"], got["k1_err"])
         out[f"{arch} smoke"] = {"launches": got["launches"]}
     return out
 
 
 def smoke_steps_card_vs_host(cfg, mode: str, label: str, extra=None, steps: int = 3,
-                             cohort: int = 4, clients: int = 64) -> dict:
+                             cohort: int = 4, clients: int = 64, band: int = 0) -> dict:
     """``make_round_step`` in ``mode`` on ``cfg`` (a smoke config, f32), card
     against host step by step ([53] (b)): each host step starts from the
     card's parameters before that step; the loss within ``LM_STEP_TOL``,
     each leaf's update within ``LM_UPDATE_TOL`` in relative norm and each
     parameter within ``LM_STEP_TOL`` plus ``LM_UPDATE_TOL`` of the leaf's
-    largest update element. ``extra(lead)`` gives numpy leaves to add to a
+    largest update element. With ``band``, each parameter is held to that
+    tolerance of the nearest of the host's step and ``band`` steps from its
+    inputs nudged by 2^-24 (``host_spread``, seeds ``SEED`` on), and each
+    leaf's update to the nearest of their updates: where a step is
+    discontinuous, each side of the jump is the host's own answer.
+    ``extra(lead)`` gives numpy leaves to add to a
     batch whose tokens lead with the axes ``lead``. On a ``sparse`` mode K1
     once a step, held to its plain version on the last step's inputs; on a
     dense one none. Returns the launches and K1's error."""
@@ -4604,29 +4665,46 @@ def smoke_steps_card_vs_host(cfg, mode: str, label: str, extra=None, steps: int 
             params, m = card_step(params, {k: v.to(DEV) for k, v in hb.items()})
         launches = lm_counts()
         h_params, hm = host_step({k: v.clone() for k, v in before.items()}, hb)
-        spread = host_spread(host_step, before, h_params, hb)
+        runs, spreads = [h_params], []
+        for j in range(max(band, 1)):
+            spread, moved = host_spread(host_step, before, h_params, hb, SEED + j)
+            spreads.append(spread)
+            if band:
+                runs.append(moved)
+        spread = spreads[0]
         check(lm_counts() == launches, f"{label} {cfg.name}: the host step launched a kernel")
         losses.append(float(m["loss"]))
         check(math.isclose(losses[-1], float(hm["loss"]), rel_tol=LM_STEP_TOL,
                            abs_tol=LM_STEP_TOL),
               f"{label} {cfg.name}: card loss {losses[-1]} against host {float(hm['loss'])}")
-        step_err = max(float((params[k].cpu() - h_params[k]).abs().max()) for k in h_params)
-        check(all(torch.allclose(params[k].cpu(), h_params[k], rtol=0, atol=LM_STEP_TOL
-                                 + LM_UPDATE_TOL * float((h_params[k] - before[k]).abs().max()))
+        card = {k: params[k].cpu() for k in h_params}
+        step_err = max(float((card[k] - h_params[k]).abs().max()) for k in h_params)
+        # each element's distance to the nearest of the host's runs
+        near = {k: torch.stack([(card[k] - run[k]).abs() for run in runs]).amin(0)
+                for k in h_params}
+        band_err = max(float(near[k].max()) for k in h_params)
+        band_line = (f", {band_err} from the nearest of it and its {band} nudged steps"
+                     if band else "")
+        check(all(bool((near[k] <= LM_STEP_TOL + LM_UPDATE_TOL
+                        * float((h_params[k] - before[k]).abs().max())).all())
                   for k in h_params),
-              f"{label} {cfg.name} step {i}: card and host parameters differ by {step_err}, "
-              f"the host's own spread {spread}")
+              f"{label} {cfg.name} step {i}: card and host parameters differ by "
+              f"{step_err}{band_line}, the host's own spread {spreads}")
         # the mLSTM's input-gate bias has an exact gradient of 0 (the
         # stabilised cell is invariant to a per-head shift of log i): its
-        # update is rounding noise on either side, held by the parameters
-        upd = max(float(torch.linalg.vector_norm((params[k].cpu() - h_params[k]).double())
-                        / torch.linalg.vector_norm((h_params[k] - before[k]).double())
-                        .clamp(min=1e-30)) for k in h_params
+        # update is rounding noise on either side, held by the parameters.
+        # Each leaf's update against the nearest of the host's runs
+        upd = max(min(float(torch.linalg.vector_norm((card[k] - run[k]).double())
+                            / torch.linalg.vector_norm((run[k] - before[k]).double())
+                            .clamp(min=1e-30)) for run in runs) for k in h_params
                   if not (torch.equal(h_params[k], before[k]) or k.endswith(".b_i")))
         check(upd <= LM_UPDATE_TOL, f"{label} {cfg.name} step {i}: an update differs by {upd} "
               "in relative norm")
-        lines.append(f"step {i}: |param diff| {step_err:.3g} (host's own spread "
-                     f"{spread:.3g}), update {upd:.3g} in relative norm")
+        spread_line = (f"nudged steps' spreads {[float(f'{x:.3g}') for x in spreads]}, "
+                       f"nearest {band_err:.3g}" if band else f"host's own spread {spread:.3g}")
+        lines.append(f"step {i}: |param diff| {step_err:.3g} ({spread_line}), update "
+                     f"{upd:.3g} in relative norm")
+        del runs, near
     sparse = "sparse" in mode
     check(launches["union_segsum"] == (steps if sparse else 0),
           f"{label} {cfg.name}: K1 launched {launches['union_segsum']} times in {steps} steps")
@@ -4639,10 +4717,12 @@ def smoke_steps_card_vs_host(cfg, mode: str, label: str, extra=None, steps: int 
                           captured["kw"]["scale"], union)
         k1_line = f"K1 at the last step V={v} T={ids.numel()} union={union} " \
                   f"max_abs_err={k1_err:.3g}"
+    held = f" of the nearest of the host's step and {band} nudged ones" if band else ""
     print(f"  {label} {cfg.name} {mode}, {steps} steps: loss "
           f"{[round(x, 4) for x in losses]}, launches {launches}; {k1_line}; card against "
           f"host, step by step (parameters within {LM_STEP_TOL} + {LM_UPDATE_TOL} of the "
-          f"update, updates within {LM_UPDATE_TOL} in relative norm): " + "; ".join(lines))
+          f"update{held}, updates within {LM_UPDATE_TOL} in relative norm): "
+          + "; ".join(lines))
     del params, h_params
     return {"launches": launches, "k1_err": k1_err}
 
@@ -4724,7 +4804,7 @@ WH_K4_CASES = (("whisper self step", WH_BATCH, WH_PROMPT + WH_GEN),
 #: [57]: the corpus, cohort and rounds; [54]'s backward cases at its shapes
 #: (name, Sq, Sk, causal), B = the cohort
 WH_TRAIN = dict(clients=256, cohort=8, seq=448, zipf_a=1.3)
-WH_TRAIN_ROUNDS = 5
+WH_TRAIN_ROUNDS = 3
 WH_BWD_CASES = (("whisper encoder training", 1500, 1500, False),
                 ("whisper cross-attention training", WH_TRAIN["seq"], 1500, False),
                 ("whisper decoder training", WH_TRAIN["seq"], WH_TRAIN["seq"], True))
@@ -5196,6 +5276,20 @@ SECTION6_BOUNDS = (
     ("K4's log-sum-exp instance at Qwen2.5-14B's rank slice, m = 4", "flash_decode",
      dict(b=4, h=40, kv=8, hd=128, n_valid=1032, slots=1032, dtype="bf16", lse=True),
      "bound_ms", 0.0051, "bytes"),
+    ("K3 at Whisper's encoder, a (1, 2) rank's training heads", "flash_attention",
+     dict(b=4, sq=1500, h=10, kv=10, hd=64, keys=1500, pairs=1500 * 1500, dtype="f32"),
+     "bound_ms", 0.3439, "operations"),
+    ("K3's backward at Whisper's encoder, a (1, 2) rank's heads, on its route",
+     "flash_attention_bwd",
+     dict(b=4, sq=1500, h=10, kv=10, hd=64, keys=1500, pairs=1500 * 1500, dtype="f32"),
+     "route_ms", 0.3491, "operations"),
+    ("K3 at Whisper's encoder prefill, a (1, 4) rank's heads", "flash_attention",
+     dict(b=2, sq=1500, h=5, kv=5, hd=64, keys=1500, pairs=1500 * 1500, dtype="bf16"),
+     "bound_ms", 0.0058, "operations"),
+    ("K4's log-sum-exp instance at Whisper's cross cache, a (1, 2) rank's slice",
+     "flash_decode",
+     dict(b=2, h=20, kv=20, hd=64, n_valid=750, slots=750, dtype="bf16", lse=True),
+     "bound_ms", 0.0023, "bytes"),
     ("K1 at the heavy shape, f32", "union_segsum",
      dict(t=512000, d=18, cap=512000, n_union=258137, dtype="f32"), "bound_ms", 0.0235,
      "bytes"),
@@ -5449,40 +5543,59 @@ def record_routes(out: list):
         layers_mod.moe_route = inner
 
 
-def tp_reference(cfg, label: str, rounds: int = TP_ROUNDS, sparse: bool = False) -> dict:
-    """The single-device run a mesh is held to: ``train`` on the card from
-    the seed's weights, ``rounds`` rounds of ``TP_RUN`` (on the row-sparse
-    transport with ``sparse``). Its final parameters go to a file under
-    ``build/`` that the ranks map; each leaf's update norm, its losses,
-    K3's counts, the MoE's routing, and on the sparse transport each
-    round's ``sub_rows`` and uplink bytes stay here."""
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    p0, axes = lm_params(cfg, DEV)
+def tp_reference_run(cfg, rounds: int, sparse: bool, run: dict, device,
+                     keep_first: bool = False) -> dict:
+    """``train`` on one device from the seed's weights, ``rounds`` rounds of
+    ``run`` (on the row-sparse transport with ``sparse``): its final
+    parameters (``"params"``, on ``device``) and with ``keep_first`` those
+    after the first round (``"first"``), each leaf's update norm, its
+    losses, K3's counts, the MoE's routing, and on the sparse transport
+    each round's ``sub_rows`` and uplink bytes."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    p0, axes = lm_params(cfg, device)
     lm_zero_counts()
     subs: list = []
+    add_sub = sub_rows_into(subs)
+    first: dict = {}
+
+    def on_round(r, params, metrics):
+        add_sub(r, params, metrics)
+        if keep_first and r == 0:
+            first.update({n: t.clone() for n, t in params.items()})
+
     with record_routes([]) as routes:
-        res = train_mod.train(cfg, rounds=rounds, device=DEV, params=dict(p0), axes=axes,
-                              log_every=0, sparse=sparse, on_round=sub_rows_into(subs),
-                              **TP_RUN)
+        res = train_mod.train(cfg, rounds=rounds, device=device, params=dict(p0), axes=axes,
+                              log_every=0, sparse=sparse, on_round=on_round, **run)
     launches = lm_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     update = {n: float((res.params[n] - p0[n]).float().norm()) for n in p0}
     del p0
+    check(all(math.isfinite(x) for x in res.losses), f"{cfg.name}: a loss is not finite")
+    return {"params": res.params, "first": first or None, "losses": res.losses,
+            "ms": res.ms_per_round, "update": update, "launches": launches, "routes": routes,
+            "peak_gb": peak / 1e9, "sparse": sparse, "sub_rows": subs,
+            "bytes_up": res.bytes_up_sparse}
+
+
+def tp_reference(cfg, label: str, rounds: int = TP_ROUNDS, sparse: bool = False) -> dict:
+    """The single-device run a mesh is held to (``tp_reference_run`` on the
+    card, ``TP_RUN``'s rounds). Its final parameters go to a file under
+    ``build/`` that the ranks map; the rest stays here."""
+    t0 = time.perf_counter()
+    out = tp_reference_run(cfg, rounds, sparse, TP_RUN, DEV)
+    params = out.pop("params")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     path = OUT_DIR / f"tp_reference_{label}.pt"
-    torch.save({n: t.cpu() for n, t in res.params.items()}, path)
-    check(all(math.isfinite(x) for x in res.losses), f"{label}: a loss is not finite")
+    torch.save({n: t.cpu() for n, t in params.items()}, path)
+    del params
     print(f"  one device, {cfg.name} {cfg.num_layers} layer(s): loss "
-          f"{[round(x, 6) for x in res.losses]}, ms/round {[round(x, 1) for x in res.ms_per_round]}"
-          f", peak {peak / 1e9:.2f} GB, launches {launches} ({card_line()})")
-    out = {"path": str(path), "losses": res.losses, "ms": res.ms_per_round, "update": update,
-           "launches": launches, "routes": routes, "peak_gb": peak / 1e9, "sparse": sparse,
-           "sub_rows": subs, "bytes_up": res.bytes_up_sparse}
-    del res
+          f"{[round(x, 6) for x in out['losses']]}, ms/round "
+          f"{[round(x, 1) for x in out['ms']]}, peak {out['peak_gb']:.2f} GB, launches "
+          f"{out['launches']} ({card_line()})")
     torch.cuda.empty_cache()
-    out["s"] = time.perf_counter() - t0
+    out.update(path=str(path), s=time.perf_counter() - t0)
     return out
 
 
@@ -5503,9 +5616,17 @@ def tp_job(mesh, job: dict) -> dict:
     the single-device run's (``job["ref"]``, mapped from its file). A
     ``sparse`` job runs the row-sparse transport and adds each round's
     ``sub_rows`` and uplink bytes; with ``capture`` the mesh's first rank
-    keeps the inputs of its last K1 call."""
+    keeps the inputs of its last K1 call. An ``inline`` job makes its
+    single-device run here, on the rank's device before the mesh's (nothing
+    written to disk), and returns its numbers as ``"ref"``; the rank's
+    parameters after the first round are then held to its (``err1``) and
+    the second round starts from their part: the chaotic families' rounds
+    are each held from a common start."""
     t0 = time.perf_counter()
     cfg, sparse, rounds = job["cfg"], job.get("sparse", False), job.get("rounds", TP_ROUNDS)
+    run = job.get("run", TP_RUN)
+    inline = (tp_reference_run(cfg, rounds, sparse, run, mesh.device, keep_first=True)
+              if job.get("inline") else None)
     rules = train_mod.mesh_rules(cfg, mesh, job["ep"])
     meta = build_model(cfg).abstract_params()
     full = {n: tuple(t.shape) for n, t in meta.state_dict().items()}
@@ -5517,11 +5638,18 @@ def tp_job(mesh, job: dict) -> dict:
     subs: list = []
     add_sub = sub_rows_into(subs)
 
+    err1: dict = {}
+
     def on_round(r, local, metrics):
         add_sub(r, local, metrics)
         if model.size > 1:
             same.append(all(bool((g == g[0]).all()) for g in (
                 model.all_gather(local[n], "check") for n in whole)))
+        if inline is not None and r == 0:
+            for n, t in local.items():
+                want = local_part(inline["first"][n], mesh, specs[n])
+                err1[n] = float((t - want).abs().max())
+                t.copy_(want)
 
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -5531,13 +5659,14 @@ def tp_job(mesh, job: dict) -> dict:
     with record_routes([]) as routes, capture_k1(captured):
         res = train_mod.train(cfg, rounds=rounds, device=mesh.device, mesh=mesh,
                               expert_parallel=job["ep"], log_every=0, on_round=on_round,
-                              sparse=sparse, **TP_RUN)
+                              sparse=sparse, **run)
     launches = lm_counts()
     peak = torch.cuda.max_memory_allocated() if mesh.device.type == "cuda" else 0
     budget = plan_mod.tp_collective_budget(
-        cfg, mesh, {"tokens": torch.zeros(TP_RUN["cohort"], TP_RUN["seq"])}, rules=res.rules,
+        cfg, mesh, {"tokens": torch.zeros(run["cohort"], run["seq"])}, rules=res.rules,
         sparse=sparse)
-    ref = torch.load(job["ref"], mmap=True, weights_only=True)
+    ref = (inline.pop("params") if inline is not None
+           else torch.load(job["ref"], mmap=True, weights_only=True))
     err, sq = {}, {}
     for n, got in res.params.items():
         want = local_part(ref[n], mesh, specs[n]).to(mesh.device)
@@ -5548,7 +5677,10 @@ def tp_job(mesh, job: dict) -> dict:
            "launches": launches, "counters": res.counters, "budget": budget["axes"],
            "same": same, "routes": routes, "err": err, "sq": sq, "coords": mesh.coords,
            "data": mesh.shape["data"], "split": sorted(n for n in specs if n not in whole),
-           "sub_rows": subs, "bytes_up": res.bytes_up_sparse, "rounds": rounds}
+           "sub_rows": subs, "bytes_up": res.bytes_up_sparse, "rounds": rounds,
+           "err1": err1}
+    if inline is not None:
+        out["ref"] = {k: v for k, v in inline.items() if k != "first"}
     if job.get("capture") and mesh.rank == mesh.ranks[0] and "args" in captured:
         out["k1_args"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                                for a in captured["args"])
@@ -5608,7 +5740,8 @@ def check_tp(label: str, ranks: list, ref: dict) -> dict:
     """[64]/[65]'s checks of one job on every rank: losses and every leaf
     within ``LM_HOST_TOL`` of the single-device run, each leaf's update
     within ``LM_UPDATE_TOL`` in relative norm (the squared differences of
-    one data row's model ranks summed), K3 and its backward as often per
+    one data row's model ranks summed; the mLSTM's ``b_i`` is held by its
+    parameters alone), K3 and its backward as often per
     rank as on one device, whole leaves the same bits on every model rank,
     and the routing the single device's."""
     first = ranks[0][label]
@@ -5619,6 +5752,10 @@ def check_tp(label: str, ranks: list, ref: dict) -> dict:
         worst = max(got["err"].values())
         check(worst <= LM_HOST_TOL, f"{label} rank {r}: a parameter is {worst:.3g} from one "
               "device's")
+        if got.get("err1"):
+            worst1 = max(got["err1"].values())
+            check(worst1 <= LM_HOST_TOL, f"{label} rank {r}: after the first round a "
+                  f"parameter is {worst1:.3g} from one device's")
         want = dict(ref["launches"])
         if ref["sparse"]:
             # one device's flat round calls no K1; the union combine calls it
@@ -5636,6 +5773,11 @@ def check_tp(label: str, ranks: list, ref: dict) -> dict:
             check(got["routes"] == ref["routes"], f"{label} rank {r}: routing differs")
     rel = {}
     for n, norm in ref["update"].items():
+        # the mLSTM's input-gate bias has an exact gradient of 0 (as in
+        # smoke_steps_card_vs_host): its update is rounding noise on either
+        # side, held by the parameters
+        if n.endswith(".b_i"):
+            continue
         sq = sum(per[label]["sq"][n] for per in ranks if per[label]["coords"][0] == 0)
         if n not in first["split"]:
             sq = first["sq"][n]
@@ -5684,12 +5826,13 @@ def tp_nccl(cfg) -> None:
           f"{res.counters[-1]} equal the budget; {card_line()}")
 
 
-def phase_tp_slice(kernels: list, rng) -> tuple:
+def phase_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
     """[64]-[66], each timed; adds the errors of K3 and its backward at the
     ranks' shapes to their entries and returns their rows: K3 and its
     backward at [64]'s per-rank shapes, each with its launches per rank.
     [70]'s single-device run is made here and its jobs ride [64]'s spawn;
-    their results are returned for [70]."""
+    their results are returned for [70]. ``extra`` spawn entries ([71]'s
+    jobs) ride it too; the world's results are returned for them."""
     by_name = {e["name"]: e for e in kernels}
     print(f"[64] {LM_ARCH} at its widths, f32, fedsubavg, rounds of "
           f"{TP_RUN}: one device, then (data, model) meshes of gloo ranks sharing the card; "
@@ -5730,6 +5873,7 @@ def phase_tp_slice(kernels: list, rng) -> tuple:
     spawn = [jobs[label] for label in jobs if math.prod(jobs[label]["shape"]) == 4]
     spawn += [{"shape": (1, 2), "blocks": [jobs[q12], jobs[s12]]}]
     spawn += [{"shape": (1, 2), "blocks": [jobs[label], None]} for label in moe_labels]
+    spawn += list(extra)
     try:
         world = run_tp(4, spawn)
     finally:
@@ -5782,7 +5926,7 @@ def phase_tp_slice(kernels: list, rng) -> tuple:
     print(f"  [66] took {time.perf_counter() - t0:.1f} s")
     sparse = {"ref": refs["sparse"], "s": sp_s,
               "jobs": {label: ranks[label] for label in sp_labels}}
-    return rows, sparse
+    return rows, sparse, world
 
 
 def check_budget(label: str, ranks: list) -> None:
@@ -5879,7 +6023,9 @@ def serve_job(mesh, job: dict) -> dict:
     prefill and of each step and ``serve_collective_budget``, times, peak
     memory while serving (``ServeResult.peak_bytes``: the rank's part of the
     weights, its cache and the activations, not the whole model's draw), the
-    cache's bytes and K3's and K4's launches."""
+    cache's bytes and K3's and K4's launches. With ``swap`` (a leaf and
+    its split dim), the rank also serves one step from a broken split and
+    returns its prefill logits' distance from one device's."""
     cfg = job["cfg"]
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -5901,6 +6047,11 @@ def serve_job(mesh, job: dict) -> dict:
     rows = slice(d * b, (d + 1) * b) if b < job["batch"] else slice(None)
     err = [float((got.cpu() - want[rows]).abs().max())
            for got, want in zip(res.logits, ref["logits"])]
+    # the largest |got - want| - SV_HOST_TOL |want| of each step: allclose's
+    # rtol and atol of SV_HOST_TOL hold where it is at most SV_HOST_TOL
+    excess = [float(((got.cpu() - want[rows]).abs() - SV_HOST_TOL * want[rows].abs()).max())
+              for got, want in zip(res.logits, ref["logits"])]
+    scale = max(float(want[rows].abs().max()) for want in ref["logits"])
     rel_f32 = None
     if job.get("ref_f32"):
         f32 = torch.load(job["ref_f32"], weights_only=True)
@@ -5908,7 +6059,8 @@ def serve_job(mesh, job: dict) -> dict:
                                   [lg[rows] for lg in f32["logits"]], f32["tokens"][rows])
     rel_one = first_steps_rel([lg.cpu() for lg in res.logits[:2]], res.tokens.cpu(),
                               [lg[rows] for lg in ref["logits"][:2]], ref["tokens"][rows])
-    out = {"err": err, "rel_one": rel_one, "rel_f32": rel_f32, "tokens": res.tokens.cpu(),
+    out = {"err": err, "excess": excess, "scale": scale, "rel_one": rel_one,
+           "rel_f32": rel_f32, "tokens": res.tokens.cpu(),
            "want_tokens": ref["tokens"][rows],
            "prefill_ms": res.prefill_ms, "step_ms": res.decode_ms_per_token,
            "peak_gb": res.peak_bytes / 1e9, "cache_bytes": res.cache_bytes,
@@ -5917,7 +6069,23 @@ def serve_job(mesh, job: dict) -> dict:
            "counters_prefill": res.counters_prefill, "counters_steps": res.counters_steps,
            "budget": budget, "finite": all(bool(torch.isfinite(lg).all()) for lg in res.logits),
            "coords": mesh.coords}
-    del res, ref
+    del res
+    if job.get("swap"):
+        # a broken split for the bound to catch: one leaf's blocks over
+        # ``model`` reversed, so each rank computes with another's block;
+        # its prefill's logits against one device's
+        name, dim = job["swap"]
+        api = build_model(cfg)
+        flat, axes = serve_mod.train_params(
+            api.init(torch.Generator(device=mesh.device).manual_seed(SEED), mesh.device))
+        flat[name] = torch.cat(flat[name].chunk(mesh.shape["model"], dim)[::-1], dim)
+        bad = serve_mod.serve(cfg, **dict(kw, gen=1, params=(flat, axes)))
+        del flat
+        got, want = bad.logits[0].cpu(), ref["logits"][0][rows]
+        out["swapped"] = {"err": float((got - want).abs().max()),
+                          "excess": float(((got - want).abs() - SV_HOST_TOL * want.abs()).max())}
+        del bad
+    del ref
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -6077,11 +6245,13 @@ def phase_k4_lse(rng) -> float:
     return worst
 
 
-def check_serve(label: str, per_rank: list, tol: float = 0.0, f32_bound=None) -> dict:
+def check_serve(label: str, per_rank: list, tol: float = 0.0, f32_bound=None,
+                relative: bool = False) -> dict:
     """[68]/[69]'s checks of one job on every rank that ran it: the logits
-    within ``tol`` of one device's and the same greedy tokens, or (bf16,
-    ``f32_bound``) the prefill's and first step's logits no further from
-    the f32 run's than ``f32_bound`` each."""
+    within ``tol`` of one device's (``relative``: plus ``SV_HOST_TOL`` of
+    one device's logit, as ``torch.allclose``) and the same greedy tokens,
+    or (bf16, ``f32_bound``) the prefill's and first step's logits no
+    further from the f32 run's than ``f32_bound`` each."""
     runs = [r[label] for r in per_rank if label in r]
     check(runs, f"{label}: no rank ran it")
     for i, run in enumerate(runs):
@@ -6095,8 +6265,9 @@ def check_serve(label: str, per_rank: list, tol: float = 0.0, f32_bound=None) ->
                       f"{label} rank {i}: the {what}'s logits are {got:.4g} from the f32 "
                       f"run's in relative norm, one bf16 device {bound / SV_BF16_SLACK:.4g}")
         else:
-            check(max(run["err"]) <= tol, f"{label} rank {i}: logits {max(run['err']):.3g} "
-                  "from one device's")
+            worst = max(run["excess"] if relative else run["err"])
+            check(worst <= tol, f"{label} rank {i}: logits {max(run['err']):.3g} from one "
+                  f"device's{f' ({worst:.3g} past {SV_HOST_TOL} of its logit)' if relative else ''}")
             check(torch.equal(run["tokens"], run["want_tokens"]),
                   f"{label} rank {i}: greedy tokens differ from one device's")
         check(run["counters_prefill"] == run["budget"]["prefill"],
@@ -6248,22 +6419,23 @@ def sv_checks(prep: dict, ranks: list) -> list:
     return rows
 
 
-def phase_serve_tp_slice(kernels: list, rng) -> list:
+def phase_serve_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
     """[67]-[69]: [67]'s kernel checks and the single-device runs, one spawn
-    of 4 gloo ranks for every serving job, then the checks; K4's
-    log-sum-exp rows."""
+    of 4 gloo ranks for every serving job (and the ``extra`` entries,
+    [72]'s jobs), then the checks; K4's log-sum-exp rows and the world's
+    results."""
     t0 = time.perf_counter()
     sv = sv_prepare(rng)
     k3 = next(e for e in kernels if e["name"] == "flash_attention")
     k3["max_abs_err"] = max([k3["max_abs_err"]] + [t["max_abs_err"] for t in sv["k3"].values()])
     try:
-        ranks = run_tp(4, sv["spawn"])
+        ranks = run_tp(4, sv["spawn"] + list(extra))
     finally:
         for ref in sv["refs"]:
             Path(ref["path"]).unlink(missing_ok=True)
     print(f"  [68]-[69]'s single-device runs and the spawn took "
           f"{time.perf_counter() - t0:.1f} s")
-    return sv_checks(sv, ranks)
+    return sv_checks(sv, ranks), ranks
 
 
 # ---------------------------------------------------------------------------
@@ -6313,6 +6485,324 @@ def phase_sparse_tp(kernels: list, sparse: dict) -> list:
              "launches": per_rank[label], "launches_per_round": per_rank[label] // TP_ROUNDS,
              "max_abs_err": err, **{k: timed["k1"][k] for k in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}]
+
+
+# ---------------------------------------------------------------------------
+# [71]-[73]: Whisper, Zamba2 and xLSTM trained and served on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: the families at their published widths, their depth cut for time (the
+#: kinds of layer kept): key -> (arch, overrides, the cut)
+FAM_MODELS = {
+    "zamba2": (ZAMBA_ARCH, dict(num_layers=6),
+               "Mamba2 layers 38 -> 6, keeping its one shared-attention site (attn_every 6)"),
+    "xlstm": (XLSTM_ARCH, dict(num_layers=8),
+              "blocks 24 -> 8 (the pattern's first 8: its sLSTM block at index 4)"),
+    "whisper": (WH_ARCH, dict(num_layers=2, encoder_layers=2),
+                "encoder 32 -> 2 and decoder 32 -> 2 layers, encoder_seq 1,500"),
+}
+#: [71]'s corpus, cohort and rounds: 4 sequences of 128 tokens, so that a
+#: (1, 2) rank's Whisper encoder runs K3 at B 4 x 1,500 frames
+FAM_RUN = dict(clients=64, cohort=4, seq=128, zipf_a=1.3, lr=LM_LR, algorithm="fedsubavg")
+FAM_ROUNDS = 2
+#: [71]'s jobs of each family: the dense and the row-sparse transport at
+#: once on the world's two (1, 2) meshes, then the row-sparse on (2, 2)
+FAM_TRAIN_JOBS = (((1, 2), False), ((1, 2), True), ((2, 2), True))
+#: [72]: each family served in f32 and bf16 on these meshes, 2 prompts of
+#: 128 tokens (xLSTM's prefill takes up to its 256-token chunk) and 4
+#: greedy steps
+FAM_SV_BATCH, FAM_SV_PROMPT, FAM_SV_GEN = 2, 128, 4
+FAM_SV_MESHES = ((1, 2), (1, 4))
+#: [72]: the ranks' bf16 logits are held to the f32 run no further than
+#: this times one bf16 device's distance from it ([69]'s slack for
+#: Whisper's attention layers). Through the recurrent mixers a bf16 run
+#: that rounds in another order (a rank's row-parallel partials are
+#: rounded before their sum) lands farther from f32 or nearer: on an H100
+#: at 128-token prompts Zamba2's (1, 2) ranks were 0.0633 / 0.0365 (prefill
+#: / first step) from it and its (1, 4) ranks 0.0879 / 0.0436, against one
+#: device's 0.0416 / 0.0338 (2.11x at most); xLSTM's 0.0860-0.0898 /
+#: 0.0652-0.0703 against 0.0791 / 0.0684 (PERF.md §6). A split that broke
+#: the arithmetic would land ~1 away
+FAM_BF16_SLACK = {"whisper": SV_BF16_SLACK, "zamba2": 2.5, "xlstm": 2.5}
+#: [72]: a broken split that the f32 bound must fail, served once on the
+#: ranks of this job: the first Mamba2 layer's ``out_proj`` with its row
+#: blocks over ``model`` swapped (each rank's heads meet the other's rows)
+FAM_SV_SWAP = ("zamba2 f32 (1, 2)", "mamba.0.out_proj", 0)
+#: [73]: K3 and its backward at [71]'s ranks' training shapes (label, (B,
+#: S, H, KV, hd), keys or None, causal, the job whose ranks launch it)
+FAM_K3_TRAIN = (
+    ("Whisper encoder, rank of (1, 2)", (4, 1500, 10, 10, 64), None, False,
+     "whisper dense (1, 2)"),
+    ("Whisper cross-attention, rank of (1, 2)", (4, 128, 10, 10, 64), 1500, False,
+     "whisper dense (1, 2)"),
+    ("Zamba2 shared attention, rank of (2, 2)", (2, 128, 16, 16, 64), None, True,
+     "zamba2 sparse (2, 2)"),
+)
+#: [73]: K3 in bf16 at [72]'s ranks' prefill shapes (label, (B, Sq, Sk, H,
+#: KV, hd), causal, the job)
+FAM_K3_SERVE = (
+    ("Whisper encoder prefill, rank of (1, 4)", (2, 1500, 1500, 5, 5, 64), False,
+     "whisper bf16 (1, 4)"),
+    ("Zamba2 prefill, rank of (1, 2)", (2, 128, 128, 16, 16, 64), True,
+     "zamba2 bf16 (1, 2)"),
+)
+#: [73]: K4's log-sum-exp instance in bf16 at hd 64 on [72]'s ranks'
+#: slices (label, B, H, KV, slots of the slice, positions valid in it, the
+#: job)
+FAM_K4 = (
+    ("Whisper cross-attention, rank slice of (1, 2)", 2, 20, 20, 750, 750, "whisper bf16 (1, 2)"),
+    ("Whisper self-attention, rank slice of (1, 4)", 2, 20, 20, 33, 33, "whisper bf16 (1, 4)"),
+    ("Zamba2 shared attention, rank slice of (1, 2)", 2, 32, 32, 66, 66,
+     "zamba2 bf16 (1, 2)"),
+)
+
+
+def fam_config(key: str, dtype: str = "float32"):
+    arch, over, _ = FAM_MODELS[key]
+    cfg = get_config(arch).replace(dtype=dtype, **over)
+    if cfg.family == "ssm":
+        cfg = cfg.replace(block_pattern=cfg.block_pattern[:cfg.num_layers])
+    return cfg
+
+
+def fam_train_prepare() -> dict:
+    """[71]'s jobs for [64]'s spawn: each family on each transport, its
+    single-device run made by each rank before its mesh run (``tp_job``'s
+    ``inline``: the references are never written to disk)."""
+    print(f"[71] Whisper, Zamba2 and xLSTM at their published widths, f32, fedsubavg, "
+          f"{FAM_ROUNDS} rounds of {FAM_RUN}: on "
+          f"{[f'{s} ' + ('sparse' if sp else 'dense') for s, sp in FAM_TRAIN_JOBS]} meshes "
+          "of gloo ranks sharing the card, in [64]'s spawn, each rank first making the "
+          "single-device run; each mesh's second round starts from one device's "
+          "first-round parameters")
+    jobs, spawn = {}, []
+    for key, (_, _, cut) in FAM_MODELS.items():
+        cfg = fam_config(key)
+        print(f"  {key} reduced: {cut}")
+        for shape, sparse in FAM_TRAIN_JOBS:
+            label = f"{key} {'sparse' if sparse else 'dense'} {shape}"
+            jobs[label] = {"label": label, "shape": shape, "cfg": cfg, "ep": False,
+                           "inline": True, "rounds": FAM_ROUNDS, "sparse": sparse,
+                           "run": FAM_RUN, "key": key}
+        spawn.append({"shape": (1, 2), "blocks": [jobs[f"{key} dense (1, 2)"],
+                                                  jobs[f"{key} sparse (1, 2)"]]})
+        spawn.append(jobs[f"{key} sparse (2, 2)"])
+    return {"jobs": jobs, "spawn": spawn}
+
+
+def phase_fam_train(fam: dict, world: list) -> dict:
+    """[71]'s checks of the jobs that rode [64]'s spawn: each held to the
+    single-device run its ranks made (``check_tp``: losses and every leaf
+    after each round, updates, whole leaves, ``sub_rows`` and uplink
+    bytes, K3's, its backward's and K1's launches per rank) and to
+    ``tp_collective_budget``. Returns each job's launches per rank."""
+    print("[71] the families' sharded rounds against one device (their ranks ran in "
+          "[64]'s spawn)")
+    t0 = time.perf_counter()
+    launches = {}
+    for label, job in fam["jobs"].items():
+        ranks = [per for per in world if label in per]
+        # each rank's parameters are held to its own single-device run; two
+        # such runs differ in the embedding gradient's unordered adds
+        ref = ranks[0][label]["ref"]
+        for r, per in enumerate(ranks):
+            check(np.allclose(per[label]["ref"]["losses"], ref["losses"], rtol=LM_HOST_TOL,
+                              atol=LM_HOST_TOL),
+                  f"{label} rank {r}: its single-device run's losses "
+                  f"{per[label]['ref']['losses']} against rank 0's {ref['losses']}")
+        print(f"  {label}, one device: loss {[round(x, 6) for x in ref['losses']]}, ms/round "
+              f"{[round(x, 1) for x in ref['ms']]}, peak {ref['peak_gb']:.2f} GB, launches "
+              f"{ref['launches']}")
+        got = check_tp(label, ranks, ref)
+        check_budget(label, ranks)
+        err1 = max(max(per[label]["err1"].values()) for per in ranks)
+        job_s = max(per[label]["s"] for per in ranks)
+        print(f"    after the first round, max |param diff| {err1:.3g}; the job took "
+              f"{job_s:.1f} s a rank (its single-device run included)")
+        if job["sparse"]:
+            check(got["launches"]["union_segsum"] == FAM_ROUNDS,
+                  f"{label}: K1 launched {got['launches']['union_segsum']} times a rank, "
+                  "want one a round")
+        launches[label] = got["launches"]
+    print(f"  [71] checks took {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return launches
+
+
+def fam_rank_cache_bytes(cfg, one: int, m: int) -> int:
+    """A rank's cache bytes on a (1, m) mesh, from one device's: 1/m of
+    it, but xLSTM's stabilisers, which ``cache_specs`` keeps whole."""
+    whole = 0
+    if cfg.family == "ssm":
+        whole = cfg.block_pattern.count("m") * FAM_SV_BATCH * cfg.ssm_heads * 4
+    return (one - whole) // m + whole
+
+
+def fam_sv_launches(cfg) -> tuple:
+    """K3's launches per prefill and K4's log-sum-exp instance's per step
+    on a rank whose caches are split by sequence."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    if cfg.family == "hybrid":
+        sites = cfg.num_layers // cfg.attn_every
+        return sites, sites
+    return 0, 0
+
+
+def fam_serve_prepare() -> dict:
+    """[72]'s single-device runs, each family in f32 and bf16, and its jobs
+    for [67]'s spawn."""
+    print(f"[72] Whisper, Zamba2 and xLSTM served at their published widths (the depths of "
+          f"[71]), f32 and bf16, {FAM_SV_BATCH} x {FAM_SV_PROMPT} + {FAM_SV_GEN} greedy "
+          f"steps: one device (here), then {list(FAM_SV_MESHES)} meshes in [67]'s spawn")
+    t0 = time.perf_counter()
+    refs, jobs, spawn, bound = {}, {}, [], {}
+    for key in FAM_MODELS:
+        for dtype in ("float32", "bfloat16"):
+            refs[key, dtype] = sv_reference(f"fam {key} {dtype}", fam_config(key, dtype),
+                                            FAM_SV_BATCH, FAM_SV_PROMPT, FAM_SV_GEN)
+        one = [torch.load(refs[key, d]["path"], weights_only=True)
+               for d in ("bfloat16", "float32")]
+        rel = first_steps_rel(one[0]["logits"][:2], one[0]["tokens"], one[1]["logits"],
+                              one[1]["tokens"])
+        bound[key] = {"one": rel, "bound": [None if x is None else FAM_BF16_SLACK[key] * x
+                                            for x in rel]}
+        for shape in FAM_SV_MESHES:
+            for dtype in ("float32", "bfloat16"):
+                label = f"{key} {'f32' if dtype == 'float32' else 'bf16'} {shape}"
+                jobs[label] = {"kind": "serve", "label": label, "shape": shape,
+                               "cfg": fam_config(key, dtype), "ep": False,
+                               "batch": FAM_SV_BATCH, "prompt": FAM_SV_PROMPT,
+                               "gen": FAM_SV_GEN, "ref": refs[key, dtype]["path"],
+                               "ref_f32": (refs[key, "float32"]["path"]
+                                           if dtype == "bfloat16" else None),
+                               "key": key, "dtype": dtype}
+                if label == FAM_SV_SWAP[0]:
+                    jobs[label]["swap"] = FAM_SV_SWAP[1:]
+        spawn.append({"shape": (1, 2), "blocks": [jobs[f"{key} f32 (1, 2)"],
+                                                  jobs[f"{key} bf16 (1, 2)"]]})
+        spawn += [jobs[f"{key} f32 (1, 4)"], jobs[f"{key} bf16 (1, 4)"]]
+    s = time.perf_counter() - t0
+    print(f"  [72]'s single-device runs took {s:.1f} s")
+    return {"refs": list(refs.values()), "refs_by": refs, "jobs": jobs, "spawn": spawn,
+            "bound": bound, "s": s}
+
+
+def phase_fam_serve(fam: dict, world: list) -> dict:
+    """[72]'s checks of the jobs that rode [67]'s spawn: f32 logits within
+    ``SV_HOST_TOL`` plus ``SV_HOST_TOL`` of one device's logit (as [52])
+    and the same greedy tokens, and ``FAM_SV_SWAP``'s broken split outside
+    that bound; bf16 held to the f32 run as [69] holds it,
+    with ``FAM_BF16_SLACK``; counters equal
+    ``serve_collective_budget``; K3 and K4's log-sum-exp instance on every
+    rank; each rank's cache 1/m of one device's where its dims divide.
+    Returns each job's launches per rank."""
+    print("[72] the families served on (1, 2) and (1, 4) against one device (their ranks "
+          "ran in [67]'s spawn)")
+    t0 = time.perf_counter()
+    launches = {}
+    for label, job in fam["jobs"].items():
+        key, dtype, cfg = job["key"], job["dtype"], job["cfg"]
+        ref = fam["refs_by"][key, dtype]
+        if dtype == "float32":
+            # as [52] holds these models' full-width f32 logits card against
+            # host: within 1e-4 plus 1e-4 of the logit
+            runs = check_serve(label, world, SV_HOST_TOL, relative=True)["runs"]
+        else:
+            runs = check_serve(label, world, f32_bound=fam["bound"][key]["bound"])["runs"]
+        k3, k4 = fam_sv_launches(cfg)
+        m = job["shape"][1]
+        want_bytes = fam_rank_cache_bytes(cfg, ref["cache_bytes"], m)
+        for i, run in enumerate(runs):
+            check(run["launches_prefill"]["flash_attention"] == k3,
+                  f"{label} rank {i}: K3 {run['launches_prefill']} per prefill, want {k3}")
+            check(run["launches_decode"]["flash_decode_lse"] == k4 * FAM_SV_GEN
+                  and run["launches_decode"]["flash_decode"] == 0,
+                  f"{label} rank {i}: K4 {run['launches_decode']} over the steps, want {k4} "
+                  "of its log-sum-exp instance a step")
+            check(run["cache_bytes"] == want_bytes,
+                  f"{label} rank {i}: cache {run['cache_bytes']} B, want {want_bytes} (one "
+                  f"device's {ref['cache_bytes']})")
+        if dtype == "float32":
+            held = (f"max |logit diff| {max(max(r['err']) for r in runs):.3g} (past 1e-4 of "
+                    f"the logit by at most {max(max(r['excess']) for r in runs):.3g}; max "
+                    f"|logit| {max(r['scale'] for r in runs):.3g}); tokens identical")
+            if job.get("swap"):
+                bad = [r["swapped"] for r in runs]
+                check(all(b["excess"] > SV_HOST_TOL for b in bad),
+                      f"{label}: a split with {job['swap'][0]}'s blocks swapped passed the "
+                      f"bound ({bad})")
+                held += (f"; with {job['swap'][0]}'s blocks swapped, the prefill's max |logit "
+                         f"diff| {max(b['err'] for b in bad):.3g} (past 1e-4 of the logit by "
+                         f"{min(b['excess'] for b in bad):.3g} or more)")
+        else:
+            held = (f"prefill and first step against the f32 run {[r['rel_f32'] for r in runs]}"
+                    f" (one bf16 device {fam['bound'][key]['one']})")
+        print(f"  {label}: {held}; prefill {[round(r['prefill_ms'], 1) for r in runs]} ms, "
+              f"{[round(r['step_ms'], 2) for r in runs]} ms/step by rank (one device "
+              f"{ref['prefill_ms']:.1f} / {ref['step_ms']:.2f}); cache "
+              f"{runs[0]['cache_bytes'] / 1e6:.2f} MB a rank (one device "
+              f"{ref['cache_bytes'] / 1e6:.2f}); K3 {k3} per prefill, K4 {k4} per step on "
+              f"every rank; counters equal the budget; {card_line()}")
+        launches[label] = {"flash_attention": runs[0]["launches_prefill"]["flash_attention"],
+                           "flash_decode_lse": runs[0]["launches_decode"]["flash_decode_lse"]}
+    print(f"  [72] checks took {time.perf_counter() - t0:.1f} s ({fam['s']:.1f} s of "
+          "single-device runs before [67])")
+    return launches
+
+
+def phase_fam_kernels(kernels: list, launches: dict) -> list:
+    """[73]: K3 and its backward at [71]'s ranks' training shapes, K3 in
+    bf16 at [72]'s ranks' prefill shapes and K4's log-sum-exp instance at
+    hd 64 on their slices, each held to its plain version (``compare``:
+    2e-5 f32, 2e-2 bf16) and timed beside it, SDPA and its bound. Returns
+    their rows, each with its launches per rank in the job that runs it."""
+    print("[73] K3, its backward and K4's log-sum-exp instance at the families' per-rank "
+          "shapes")
+    t0 = time.perf_counter()
+    by_name = {e["name"]: e for e in kernels}
+    rows = []
+    for i, (label, shape, sk, causal, job) in enumerate(FAM_K3_TRAIN):
+        fwd, bwd = train_attention_timing(shape, SEED + 73 + i, label, sk=sk, causal=causal)
+        per_rank = launches[job]
+        for kernel, timed, source in (
+                ("flash_attention", fwd, ("flash_attention.cu",
+                                          "src/repro/kernels/flash_attention.py:100")),
+                ("flash_attention_bwd", bwd, ("flash_attention_bwd.cu",
+                                              "src/repro/models/layers.py:154"))):
+            by_name[kernel]["max_abs_err"] = max(by_name[kernel]["max_abs_err"],
+                                                 timed["max_abs_err"])
+            rows.append({"name": f"{kernel} ({label}, {job} training)", "route": "cuda",
+                         "source": f"src/repro_torch/kernels/csrc/{source[0]}",
+                         "replaces": source[1], "launches": per_rank[kernel],
+                         "launches_per_round": per_rank[kernel] // FAM_ROUNDS, **timed})
+    g = torch.Generator(device=DEV).manual_seed(SEED + 73)
+    for label, (b, sq, sk, h, kvh, hd), causal, job in FAM_K3_SERVE:
+        q = torch.randn(b, sq, h, hd, generator=g, device=DEV).to(torch.bfloat16)
+        k, v = (torch.randn(b, sk, kvh, hd, generator=g, device=DEV).to(torch.bfloat16)
+                for _ in range(2))
+        timed = wh_k3_timing(q, k, v, causal, label)
+        by_name["flash_attention"]["max_abs_err"] = max(by_name["flash_attention"]["max_abs_err"],
+                                                        timed["max_abs_err"])
+        rows.append({"name": f"flash_attention ({label}, {job} serving)", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:100",
+                     "launches": launches[job]["flash_attention"], **timed})
+    for label, b, h, kvh, slots, valid, job in FAM_K4:
+        q = torch.randn(b, h, 64, generator=g, device=DEV).to(torch.bfloat16)
+        kc, vc = (torch.randn(b, kvh, slots, 64, generator=g, device=DEV).to(torch.bfloat16)
+                  for _ in range(2))
+        kpos = torch.arange(slots, dtype=torch.int32, device=DEV)
+        kpos = torch.where(kpos < valid, kpos, -1).to(torch.int32)
+        timed = k4_lse_timing(q, kc, vc, kpos, slots, label)
+        n = launches[job]["flash_decode_lse"]
+        rows.append({"name": f"flash_decode return_lse ({label}, {job} serving)",
+                     "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "replaces": "src/repro/kernels/flash_decode.py:88", "launches": n,
+                     "launches_per_step": n // FAM_SV_GEN, **timed})
+    check(all(r["launches"] > 0 for r in rows), "[73]: a kernel was not launched on the main "
+          "path at a family's per-rank shape")
+    print(f"  [73] took {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return rows
 
 
 def sv_nccl(cfg) -> None:
@@ -6430,7 +6920,7 @@ def main() -> int:
     k1["launches_by_path"] = {"lr": launches_k1}
     for task, (ds, runs, launches, cap, err) in deep.items():
         prof = phase_profile(ds, runs["fedsubavg"]["steady_ms_per_round"],
-                             n=3 if task == "lstm" else 5)
+                             n=2 if task == "lstm" else 3)
         timed = time_k1_k2(cap["args"], cap["kw"]["scale"], f"{task} round", keys=("k1",),
                            profiled={"k1": (prof["k1_device_ops_per_round"],
                                             prof["k1_device_ms_per_round"])})
@@ -6576,10 +7066,20 @@ def main() -> int:
     kernels += phase_rec_slice(kernels, rng)
     kernels += phase_whisper_slice(kernels, rng)
     phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
-    tp_rows, sparse = phase_tp_slice(kernels, rng)
+    fam_train = fam_train_prepare()
+    tp_rows, sparse, tp_world = phase_tp_slice(kernels, rng, fam_train["spawn"])
     kernels += tp_rows
-    kernels += phase_serve_tp_slice(kernels, rng)
+    fam_serve = fam_serve_prepare()
+    try:
+        sv_rows, sv_world = phase_serve_tp_slice(kernels, rng, fam_serve["spawn"])
+    finally:
+        for ref in fam_serve["refs"]:
+            Path(ref["path"]).unlink(missing_ok=True)
+    kernels += sv_rows
     kernels += phase_sparse_tp(kernels, sparse)
+    fam_launches = phase_fam_train(fam_train, tp_world)
+    fam_launches.update(phase_fam_serve(fam_serve, sv_world))
+    kernels += phase_fam_kernels(kernels, fam_launches)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

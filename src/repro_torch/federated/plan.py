@@ -462,7 +462,7 @@ def round_collective_budget(plan: RoundPlan, axes: Dict[str, Tuple],
 def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None,
                          remat: bool = True, sparse: bool = False,
                          combine: str = "auto") -> Dict:
-    """Per-rank collectives of one FedSGD round of a transformer on a
+    """Per-rank collectives of one FedSGD round of any LLM family on a
     ``(data, model)`` :class:`~repro_torch.launch.mesh.DeviceMesh`.
 
     The round step's on the ``data`` axis (``CohortSharding``'s flat shard,
@@ -497,6 +497,30 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
     - outside the layers, split over the vocabulary: ``embed`` (T x d,
       forward), ``xent_in`` (T x d, backward), and per sequence chunk
       ``xent_max`` (f32 B x c) and ``xent_sum`` (f32 2 x B x c).
+
+    The other families, each forward pass counted as above (Whisper's
+    encoder layers always twice: the reference always rematerialises them):
+
+    - Whisper: per encoder layer an attention and the MLP over its ``Te =
+      B / data * encoder_seq`` frames, per decoder layer two attentions and
+      the MLP, its cross-attention's keys' input under ``cross_in`` (Te x
+      d); ``attn_kv`` counts ``wv``'s bias, as ``wk`` has none;
+    - Zamba2: per Mamba2 layer split by SSM heads ``ssm_proj`` and
+      ``ssm_conv`` (all-gathers of T x the fused projection's and the
+      conv's widths), ``ssm_norm`` (f32 T, also in the backward),
+      ``ssm_out`` (T x d); in the backward ``ssm_in`` (T x d), the two
+      gathers' gradients (``ssm_proj_grad``, ``ssm_conv_grad``) and
+      ``ssm_leaves`` (f32 ``a_log``, ``dt_bias``, ``d_skip`` and
+      ``out_norm``'s scale); per attention site the shared block's
+      attention and MLP;
+    - xLSTM: per mLSTM block ``mlstm_up`` (T x inner dim), ``mlstm_gate``
+      (``w_i`` and ``w_f``, 2 x inner x heads), ``mlstm_norm`` (f32 T, also
+      in the backward), ``mlstm_out`` (T x d), and in the backward
+      ``mlstm_in`` (T x d), ``mlstm_up_grad``, ``mlstm_gate_grad`` and
+      ``mlstm_leaves`` (f32 ``b_i``, ``b_f`` and ``out_norm``'s scale); per
+      sLSTM block ``slstm_pre`` (f32 T x 4d), ``slstm_up`` (T x 2d),
+      ``slstm_out`` (T x d), and in the backward ``slstm_in`` and
+      ``slstm_hs`` (T x d) and ``slstm_up_grad`` (T x 2d).
 
     ``batch`` is the round's whole batch (its ``tokens`` give B and S).
     ``rules`` default to the installed ones. Returns ``{"axes": {axis: {tag:
@@ -545,24 +569,79 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
         add("data", "used_ids", "all-gather", ndata * cap * 4)
         if split.vocab is not None:
             add("model", "sub_rows:embedding", "all-reduce", cap * d * a)
-    nl = cfg.num_layers
+    def attention(fwd, tq, tkv=0, kv_biases=2 if cfg.qkv_bias else 0):
+        # tkv: the tokens of a cross-attention's keys (their input's own tag)
+        if split.heads is None:
+            return
+        add("model", "attn_out", "all-reduce", fwd * tq * d * a)
+        add("model", "attn_in", "all-reduce", tq * d * a)
+        if tkv:
+            add("model", "cross_in", "all-reduce", tkv * d * a)
+        if split.kv is None:
+            kv = cfg.num_kv_heads * cfg.head_dim
+            add("model", "attn_kv", "all-reduce", (2 * d * kv + kv_biases * kv) * a)
+        if cfg.qk_norm:
+            add("model", "qk_norm", "all-reduce", 2 * cfg.head_dim * 4)
+
+    def mlp(fwd, tt):
+        if split.ffn is not None:
+            add("model", "mlp_out", "all-reduce", fwd * tt * d * a)
+            add("model", "mlp_in", "all-reduce", tt * d * a)
+
+    fwd1 = 2 if remat else 1
+    if cfg.family == "audio":
+        # the encoder is always rematted in grad mode, as the reference's
+        te = b // ndata * cfg.encoder_seq
+        for _ in range(cfg.encoder_layers):
+            attention(2, te, kv_biases=1)
+            mlp(2, te)
+        for _ in range(cfg.num_layers):
+            attention(fwd1, t, kv_biases=1)
+            attention(fwd1, t, te, kv_biases=1)
+            mlp(fwd1, t)
+    elif cfg.family == "hybrid":
+        di, n, h = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_heads
+        proj, conv = 2 * di + 2 * n + h, di + 2 * n
+        for i in range(cfg.num_layers):
+            if split.ssm is not None:
+                add("model", "ssm_proj", "all-gather", fwd1 * t * proj * a)
+                add("model", "ssm_conv", "all-gather", fwd1 * t * conv * a)
+                add("model", "ssm_norm", "all-reduce", (fwd1 + 1) * t * 4)
+                add("model", "ssm_out", "all-reduce", fwd1 * t * d * a)
+                add("model", "ssm_in", "all-reduce", t * d * a)
+                add("model", "ssm_proj_grad", "all-reduce", t * proj * a)
+                add("model", "ssm_conv_grad", "all-reduce", t * conv * a)
+                add("model", "ssm_leaves", "all-reduce", (3 * h + di) * 4)
+            if (i + 1) % cfg.attn_every == 0:
+                attention(fwd1, t)
+                mlp(fwd1, t)
+    elif cfg.family == "ssm":
+        di, h = cfg.ssm_expand * d, cfg.ssm_heads
+        for kind in cfg.block_pattern:
+            if kind == "m" and split.mlstm is not None:
+                add("model", "mlstm_up", "all-gather", fwd1 * t * di * a)
+                add("model", "mlstm_gate", "all-gather", fwd1 * 2 * di * h * a)
+                add("model", "mlstm_norm", "all-reduce", (fwd1 + 1) * t * 4)
+                add("model", "mlstm_out", "all-reduce", fwd1 * t * d * a)
+                add("model", "mlstm_in", "all-reduce", t * d * a)
+                add("model", "mlstm_up_grad", "all-reduce", t * di * a)
+                add("model", "mlstm_gate_grad", "all-reduce", 2 * di * h * a)
+                add("model", "mlstm_leaves", "all-reduce", (2 * h + di) * 4)
+            if kind == "s" and split.slstm is not None:
+                add("model", "slstm_pre", "all-gather", fwd1 * t * 4 * d * 4)
+                add("model", "slstm_up", "all-gather", fwd1 * t * 2 * d * a)
+                add("model", "slstm_out", "all-reduce", fwd1 * t * d * a)
+                add("model", "slstm_in", "all-reduce", t * d * a)
+                add("model", "slstm_hs", "all-reduce", t * d * a)
+                add("model", "slstm_up_grad", "all-reduce", t * 2 * d * a)
+    nl = cfg.num_layers if cfg.family in ("dense", "moe", "vlm") else 0
     g = cfg.remat_groups
     per = nl // g if remat and g > 1 and nl % g == 0 else 1
     for i in range(nl):
         fwd = 1 if not remat else 2 + (per > 1 and i % per != per - 1)
-        if split.heads is not None:
-            add("model", "attn_out", "all-reduce", fwd * t * d * a)
-            add("model", "attn_in", "all-reduce", t * d * a)
-            if split.kv is None:
-                kv = cfg.num_kv_heads * cfg.head_dim
-                add("model", "attn_kv", "all-reduce",
-                    2 * (d * kv + (kv if cfg.qkv_bias else 0)) * a)
-            if cfg.qk_norm:
-                add("model", "qk_norm", "all-reduce", 2 * cfg.head_dim * 4)
+        attention(fwd, t)
         if not cfg.is_moe:
-            if split.ffn is not None:
-                add("model", "mlp_out", "all-reduce", fwd * t * d * a)
-                add("model", "mlp_in", "all-reduce", t * d * a)
+            mlp(fwd, t)
         if split.batch is not None:
             add("data", "moe_counts", "all-gather", fwd * split.batch.size * cfg.num_experts * 4)
             add("data", "moe_aux", "all-reduce", fwd * 2 * cfg.num_experts * 4)
@@ -613,6 +692,26 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
       ``moe_counts`` (an all-gather of int32 counts per expert) and
       ``moe_aux`` (f32 2 x E) on ``data``, in the prefill and in each step.
 
+    The other families:
+
+    - Whisper: the prefill's encoder layers an attention and the MLP over
+      ``Te = b * encoder_seq`` frames; per decoder layer the self-attention,
+      the cross-attention (its ``prefill_kv`` of 2 x Te x KV x hd; in a step
+      no K/V gather, and the merge where the frames' slots are split) and
+      the MLP;
+    - Zamba2: per Mamba2 layer split by SSM heads ``ssm_proj`` and
+      ``ssm_conv`` (all-gathers of T x the fused projection's and the
+      conv's widths), ``ssm_norm`` (f32 T) and ``ssm_out`` (T x d, f32 in a
+      step); per attention site the shared block's attention and MLP;
+    - xLSTM: per mLSTM block ``mlstm_up`` (T x inner dim), ``mlstm_gate``
+      (2 x inner x heads), ``mlstm_norm`` (f32 T), ``mlstm_out`` (T x d),
+      in the prefill ``mlstm_state`` (f32: the cache's layout gathered into
+      the rank's heads, ``c`` and ``n``, and back, ``c``, ``n`` and ``m``),
+      in a step ``mlstm_qkv`` (3 x b x inner) and ``mlstm_merge`` (f32 b x
+      heads x (head dim + 1)); per sLSTM block ``slstm_pre`` (f32 T x 4d),
+      ``slstm_state`` (f32 4 x b x d), ``slstm_up`` (T x 2d) and
+      ``slstm_out`` (T x d).
+
     ``rules`` default to the installed ones. Returns ``{"prefill": {axis:
     {tag: {"op", "bytes"}}}, "step": ...}``, laid out as
     ``DeviceMesh.counters`` after a prefill and after a step that each
@@ -649,22 +748,74 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
             c = axes[axis].setdefault(tag, {"op": op, "bytes": 0.0})
             c["bytes"] += float(nbytes)
 
-        if split.vocab is not None:
-            add("model", "embed", "all-reduce", t * d * a)
-        for _ in range(cfg.num_layers):
+        def attention(tq, tkv, merge, self_kv=True):
+            # tkv: the prefill's key tokens; merge: the slots are split
             if split.heads is not None:
                 if step:
                     add("model", "decode_q", "all-gather", b * cfg.num_heads * hd * a)
-                add("model", "attn_out", "all-reduce", t * d * a)
-            if split.kv is not None:
+                add("model", "attn_out", "all-reduce", tq * d * a)
+            if split.kv is not None and (self_kv or not step):
                 add("model", "decode_kv" if step else "prefill_kv", "all-gather",
-                    2 * t * cfg.num_kv_heads * hd * a)
-            if step and seq:
+                    2 * tkv * cfg.num_kv_heads * hd * a)
+            if step and merge:
                 add("model", "decode_max", "all-reduce", b * cfg.num_heads * 4)
                 add("model", "decode_merge", "all-reduce", b * cfg.num_heads * (hd + 1) * 4)
+
+        def mlp(tt):
+            if split.ffn is not None:
+                add("model", "mlp_out", "all-reduce", tt * d * a)
+
+        if split.vocab is not None:
+            add("model", "embed", "all-reduce", t * d * a)
+        if cfg.family == "audio":
+            te = b * cfg.encoder_seq
+            cross = m > 1 and _fit_spec(mesh, (kv_seq,), (cfg.encoder_seq,))[0] == "model"
+            if not step:
+                for _ in range(cfg.encoder_layers):
+                    attention(te, 0, False)
+                    mlp(te)
+            for _ in range(cfg.num_layers):
+                attention(t, t, seq)
+                attention(t, te, cross, self_kv=False)
+                mlp(t)
+        elif cfg.family == "hybrid":
+            di, n, h = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_heads
+            for i in range(cfg.num_layers):
+                if split.ssm is not None:
+                    add("model", "ssm_proj", "all-gather", t * (2 * di + 2 * n + h) * a)
+                    add("model", "ssm_conv", "all-gather", t * (di + 2 * n) * a)
+                    add("model", "ssm_norm", "all-reduce", t * 4)
+                    # a step's SSM output is f32 (ssm.mamba2_block), and so is
+                    # out_proj's product in any model dtype
+                    add("model", "ssm_out", "all-reduce", t * d * (4 if step else a))
+                if (i + 1) % cfg.attn_every == 0:
+                    attention(t, t, seq)
+                    mlp(t)
+        elif cfg.family == "ssm":
+            di, h = cfg.ssm_expand * d, cfg.ssm_heads
+            hm = di // h
+            for kind in cfg.block_pattern:
+                if kind == "m" and split.mlstm is not None:
+                    add("model", "mlstm_up", "all-gather", t * di * a)
+                    add("model", "mlstm_gate", "all-gather", 2 * di * h * a)
+                    if step:
+                        add("model", "mlstm_qkv", "all-gather", 3 * b * di * a)
+                        add("model", "mlstm_merge", "all-reduce", b * h * (hm + 1) * 4)
+                    else:
+                        # the cache's layout to the rank's heads and back
+                        add("model", "mlstm_state", "all-gather",
+                            (2 * b * h * hm * hm + 2 * b * h * hm + b * h) * 4)
+                    add("model", "mlstm_norm", "all-reduce", t * 4)
+                    add("model", "mlstm_out", "all-reduce", t * d * a)
+                if kind == "s" and split.slstm is not None:
+                    add("model", "slstm_pre", "all-gather", t * 4 * d * 4)
+                    add("model", "slstm_state", "all-gather", 4 * b * d * 4)
+                    add("model", "slstm_up", "all-gather", t * 2 * d * a)
+                    add("model", "slstm_out", "all-reduce", t * d * a)
+        for _ in range(cfg.num_layers if cfg.family in ("dense", "moe", "vlm") else 0):
+            attention(t, t, seq)
             if not cfg.is_moe:
-                if split.ffn is not None:
-                    add("model", "mlp_out", "all-reduce", t * d * a)
+                mlp(t)
                 continue
             if split.batch is not None:
                 add("data", "moe_counts", "all-gather", split.batch.size * e * 4)

@@ -219,7 +219,13 @@ REGISTRY = (
                     dict(B=4, Sq=1024, Sk=1024, H=40, KV=8, hd=128, causal=True), "PERF.md §6, [12]"),
          AuditShape("Whisper encoder",
                     dict(B=4, Sq=1500, Sk=1500, H=20, KV=20, hd=64, causal=False),
-                    "PERF.md §6, [54]")),
+                    "PERF.md §6, [54]"),
+         AuditShape("Whisper encoder prefill, rank of (1, 4)",
+                    dict(B=2, Sq=1500, Sk=1500, H=5, KV=5, hd=64, causal=False),
+                    "PERF.md §6, [73]"),
+         AuditShape("Zamba2 prefill, rank of (1, 2)",
+                    dict(B=2, Sq=128, Sk=128, H=16, KV=16, hd=64, causal=True),
+                    "PERF.md §6, [73]")),
         _attention_bf16_instances),
     KernelEntry(
         "flash_attention_f32", "flash_attention", "src/repro/kernels/flash_attention.py:100",
@@ -231,7 +237,13 @@ REGISTRY = (
                     "src/repro/kernels/introspect.py:135"),
          AuditShape("training shape",
                     dict(B=16, Sq=128, Sk=128, H=40, KV=8, hd=128, causal=True),
-                    "PERF.md §6, [38]")),
+                    "PERF.md §6, [38]"),
+         AuditShape("Whisper encoder training, rank of (1, 2)",
+                    dict(B=4, Sq=1500, Sk=1500, H=10, KV=10, hd=64, causal=False),
+                    "PERF.md §6, [73]"),
+         AuditShape("Zamba2 shared attention training, rank of (2, 2)",
+                    dict(B=2, Sq=128, Sk=128, H=16, KV=16, hd=64, causal=True),
+                    "PERF.md §6, [73]")),
         _attention_f32_instances),
     KernelEntry(
         "flash_attention_bwd", "flash_attention_bwd",
@@ -247,7 +259,13 @@ REGISTRY = (
                     "PERF.md §6, [38]"),
          AuditShape("Whisper encoder training",
                     dict(B=8, Sq=1500, Sk=1500, H=20, KV=20, hd=64, causal=False, dtype="f32"),
-                    "PERF.md §6, [54]")),
+                    "PERF.md §6, [54]"),
+         AuditShape("Whisper encoder training, rank of (1, 2)",
+                    dict(B=4, Sq=1500, Sk=1500, H=10, KV=10, hd=64, causal=False, dtype="f32"),
+                    "PERF.md §6, [73]"),
+         AuditShape("Zamba2 shared attention training, rank of (2, 2)",
+                    dict(B=2, Sq=128, Sk=128, H=16, KV=16, hd=64, causal=True, dtype="f32"),
+                    "PERF.md §6, [73]")),
         _attention_bwd_instances),
     KernelEntry(
         "flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:88",
@@ -268,7 +286,13 @@ REGISTRY = (
                     "PERF.md §6, [69]"),
          AuditShape("Qwen2.5-14B rank slice, m = 4",
                     dict(B=4, H=40, KV=8, S=1032, hd=128, dtype="bf16", lse=True),
-                    "PERF.md §6, [69]")),
+                    "PERF.md §6, [69]"),
+         AuditShape("Whisper cross rank slice, m = 2",
+                    dict(B=2, H=20, KV=20, S=750, hd=64, dtype="bf16", lse=True),
+                    "PERF.md §6, [73]"),
+         AuditShape("Zamba2 rank slice, m = 2",
+                    dict(B=2, H=32, KV=32, S=66, hd=64, dtype="bf16", lse=True),
+                    "PERF.md §6, [73]")),
         _decode_instances),
 )
 

@@ -23,7 +23,7 @@ body, for callers that want its numbers.
 
 On a mesh (``serve(..., mesh=...)``, or ``--model-parallel m`` under
 torchrun: ``make_host_mesh(m)``, a ``(ranks / m, m)`` mesh of axes
-``("data", "model")``) the transformer families serve as the reference's
+``("data", "model")``) every family serves as the reference's
 launcher serves them under ``set_rules(mesh, make_rules("decode"))``
 (``src/repro/launch/serve.py:38-39``), the rules completed for the
 architecture: every rank draws the same weights and prompts, keeps its part
@@ -35,14 +35,18 @@ rather than their columns. One process per rank:
     torchrun --nproc_per_node=4 -m repro_torch.launch.serve --arch qwen2_5_14b \
         --scale tiny --model-parallel 2 [--expert-parallel] --device cpu
 
-Whisper, Zamba2 and xLSTM serve on one device only (ROADMAP item 9.9).
+Whisper, Zamba2 and xLSTM serve the same way: their caches' parts are
+``launch.shardings.cache_specs``' (Whisper's frames' cache split by
+sequence as its self-attention cache is; Zamba2's SSM and conv states by
+heads and channels; xLSTM's states on their inner dims), and Whisper's
+frames are split over ``data`` with the batch.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -193,10 +197,6 @@ def decode_mrope_pos(mrope_pos: torch.Tensor, gen: int) -> torch.Tensor:
 def serve_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
     """``make_rules("decode")`` completed for ``cfg`` on ``mesh``'s model
     axis, as the reference's serving launcher and dry run install them."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not serve on a mesh yet (ROADMAP "
-            "item 9.9); the transformer families (dense, MoE, VLM) do")
     return complete_rules(cfg, make_rules("decode", expert_parallel=expert_parallel),
                           int(mesh.shape["model"]))
 
@@ -206,7 +206,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
           patch_embeds: Optional[torch.Tensor] = None,
           mrope_pos: Optional[torch.Tensor] = None,
           frames: Optional[torch.Tensor] = None, mesh=None,
-          expert_parallel: bool = False) -> ServeResult:
+          expert_parallel: bool = False,
+          on_step: Optional[Callable[[int, object], None]] = None) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens, then ``gen``
     greedy decode steps. ``params`` (on ``device``) skips the random init;
     ``patch_embeds``, ``mrope_pos`` and ``frames`` replace the launcher's own
@@ -215,7 +216,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
     ``mesh`` (a ``launch.mesh.DeviceMesh``, its device the run's) serves on
     it, as the module docstring says, with ``expert_parallel`` choosing the
     MoE's split; ``params`` are then whole (the module, or the flat dict
-    with its ``axes`` as ``(flat, axes)``) and each rank keeps its part."""
+    with its ``axes`` as ``(flat, axes)``) and each rank keeps its part.
+    ``on_step(i, cache)`` is called with the (rank's) cache after the
+    prefill (``i`` 0) and after each decode step ``i``."""
     rules = None
     if mesh is not None:
         rules = serve_rules(cfg, mesh, expert_parallel)
@@ -257,6 +260,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
         after_prefill = _launches()
         if mesh is not None:
             res.counters_prefill = mesh.counters
+        if on_step is not None:
+            on_step(0, cache)
 
         out_logits, out_toks = [logits], []
         t0 = time.perf_counter()
@@ -270,6 +275,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
             logits, cache = api.decode_step(params, cache, step)
             if mesh is not None:
                 res.counters_steps.append(mesh.counters)
+            if on_step is not None:
+                on_step(i + 1, cache)
             out_logits.append(logits)
             out_toks.append(nxt)
         _sync(dev)

@@ -15,8 +15,8 @@ axis, Zamba2's and xLSTM's states over ``model``), fitted as the reference
 fits it; ``local_cache`` cuts a rank's part of a whole cache and
 ``shard_cache`` makes it directly, zeros of the local shapes. A KV cache
 split by sequence remembers its whole capacity and its slice's first slot
-(``layers.KVCache.slots``/``start``). Sharded serving runs the transformer
-families' cache; the other families' layouts are here for their own slice.
+(``layers.KVCache.slots``/``start``; Zamba2's and Whisper's caches
+likewise). Sharded serving runs every family's cache.
 """
 from __future__ import annotations
 
@@ -208,10 +208,10 @@ def _map_cache(fn, cache, specs):
 
 
 def _with_slice(local, whole, mesh, specs):
-    """A KV cache's part that knows its whole capacity and its first slot."""
-    from repro_torch.models.layers import KVCache
-
-    if not isinstance(local, KVCache):
+    """A KV cache's part (``layers.KVCache``, or Zamba2's or Whisper's
+    cache, whose ``k`` and ``v`` are the KV cache) that knows its whole
+    capacity and its first slot; xLSTM's states need neither."""
+    if "slots" not in getattr(local, "_fields", ()):
         return local
     names = specs.k[3]
     cap = whole.k.shape[3]

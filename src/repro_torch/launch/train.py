@@ -28,14 +28,15 @@ callers that want its numbers.
 
 On a mesh (``train(..., mesh=...)``, or ``--model-parallel m`` under
 torchrun: ``make_host_mesh(m)``, a ``(ranks / m, m)`` mesh of axes
-``("data", "model")``) the transformer families train as the reference's
+``("data", "model")``) every family trains as the reference's
 launcher trains them under ``set_rules(mesh, make_rules("train"))``: the
 rules completed for the architecture (``complete_rules``), every rank draws
 the full model from the seed and keeps its part (``shard_params``), the
 round step splits the cohort batch over ``data`` (``CohortSharding``) and
 the layers over ``model`` (``transformer.model_split``; ``--expert-parallel``
-splits the experts instead of their columns), and the heat is each rank's
-slice of ``heat_vocab``. On the row-sparse transport (``--sparse``) each
+splits the experts instead of their columns; Whisper's ``frames`` split over
+``data`` with the batch), and the heat is each rank's slice of
+``heat_vocab``. On the row-sparse transport (``--sparse``) each
 model rank gathers the union rows of its slice of the embedding, one
 all-reduce over ``model`` makes the sub-table whole for the loss, and the
 rank corrects and combines over ``data`` only the rows of its slice (K1 on
@@ -119,10 +120,6 @@ def make_plan(algorithm: str = "fedsubavg", sparse: bool = False, topk: int = 0,
 def mesh_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
     """``make_rules("train")`` completed for ``cfg`` on ``mesh``'s model
     axis, as the reference's launcher and dry run install them."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train on a mesh yet; the "
-            "transformer families (dense, MoE, VLM) do")
     return complete_rules(cfg, make_rules("train", expert_parallel=expert_parallel),
                           int(mesh.shape["model"]))
 

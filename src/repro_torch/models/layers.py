@@ -36,7 +36,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention import NEG_INF, FlashAttention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.sharding.parallel import (copy_to_model, gather_from_model, mean_over,
-                                           reduce_from_model)
+                                           reduce_from_model, sum_over_model)
 
 
 class ParamTree(nn.Module):
@@ -77,6 +77,22 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"]).to(x.dtype)
+
+
+def rmsnorm_split(p, x: torch.Tensor, eps: float, mesh, tag: str, leaves_tag: str
+                  ) -> torch.Tensor:
+    """``rmsnorm`` over a last dim split contiguously over the model ranks:
+    ``x`` is this rank's slice. The sum of squares is summed over the ranks
+    (``sum_over_model``, counted under ``tag``) and divided by the whole
+    dim. The scale is whole on every rank (its axes are ``("embed",)``);
+    the rank uses its slice, so its gradient is summed over the ranks
+    (``copy_to_model`` under ``leaves_tag``)."""
+    xf = x.float()
+    w = x.shape[-1]
+    ss = sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True), mesh, tag)
+    y = xf * torch.rsqrt(ss / (w * mesh.size) + eps)
+    scale = copy_to_model(p["scale"], mesh, leaves_tag).narrow(0, mesh.rank * w, w)
+    return (y * scale).to(x.dtype)
 
 
 def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

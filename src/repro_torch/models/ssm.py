@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import _make_rmsnorm
+from repro_torch.sharding.parallel import copy_to_model, gather_for_model, reduce_from_model
 
 NEG = -1e30     # the reference's mask value; stays finite in f32
 
@@ -156,46 +157,83 @@ def ssd_chunked(x: torch.Tensor, a_log_dt: torch.Tensor, b_mat: torch.Tensor,
 
 
 def mamba2_block(cfg: ModelConfig, mp, x: torch.Tensor, *, chunk: int = 256,
-                 state: Optional[SSDState] = None, single_step: bool = False
-                 ) -> Tuple[torch.Tensor, SSDState]:
+                 state: Optional[SSDState] = None, single_step: bool = False,
+                 mesh=None) -> Tuple[torch.Tensor, SSDState]:
     """The Mamba2 mixer. x: (B, S, d). Returns (out in x's dtype, the new
-    state). ``single_step``: the O(1) decode update of one token."""
+    state). ``single_step``: the O(1) decode update of one token.
+
+    ``mesh`` (the model axis, ``transformer.Split.ssm``): the rank holds a
+    contiguous block of ``in_proj``'s columns ``[z | x | B | C | dt]``, of
+    the conv's channels ``[x | B | C]`` and of ``out_proj``'s rows, which
+    are its SSM heads; the blocks of the first two are not its heads'. So
+    the rank's columns of ``x @ in_proj`` are gathered whole over ``model``
+    (``ssm_proj``), the depthwise conv runs on the rank's channels (with its
+    part of the conv state) and its output is gathered whole (``ssm_conv``),
+    and the rank then takes its heads of x, z and dt, and B and C whole. The
+    scan runs on its heads (its part of the SSM state), ``out_norm`` over
+    the split inner dim (``layers.rmsnorm_split``), and ``out_proj``'s
+    partial products are summed (``ssm_out``). The whole f32 leaves
+    (``a_log``, ``dt_bias``, ``d_skip``) are read at the rank's heads, their
+    gradients summed over the ranks (``ssm_leaves``)."""
     di = cfg.ssm_expand * cfg.d_model
     n, h = cfg.ssm_state, cfg.ssm_heads
     p_dim = di // h
     bsz, s, _ = x.shape
-
-    zxbcdt = x @ mp["in_proj"]
+    out_dtype = x.dtype
+    a_log, dt_bias, d_skip = mp["a_log"], mp["dt_bias"], mp["d_skip"]
+    conv_state = state.conv if state is not None else None
+    if mesh is None:
+        hl, h0 = h, 0
+        zxbcdt = x @ mp["in_proj"]
+    else:
+        hl = h // mesh.size
+        h0 = mesh.rank * hl
+        x = copy_to_model(x, mesh, "ssm_in")
+        zxbcdt = gather_for_model(x @ mp["in_proj"], mesh, "ssm_proj")
+        a_log, dt_bias, d_skip = (copy_to_model(t, mesh, "ssm_leaves").narrow(0, h0, hl)
+                                  for t in (a_log, dt_bias, d_skip))
     z, xbc, dt = _split_proj(cfg, zxbcdt)
-    xbc, new_conv = _causal_conv(xbc, mp["conv_w"], mp["conv_b"],
-                                 state.conv if state is not None else None)
-    xs = xbc[..., :di].reshape(bsz, s, h, p_dim)
+    if mesh is None:
+        xbc, new_conv = _causal_conv(xbc, mp["conv_w"], mp["conv_b"], conv_state)
+    else:
+        cw = mp["conv_w"].shape[1]
+        out, new_conv = _causal_conv(xbc.narrow(-1, mesh.rank * cw, cw), mp["conv_w"],
+                                     mp["conv_b"], conv_state)
+        xbc = gather_for_model(out, mesh, "ssm_conv")
+    cols = slice(h0 * p_dim, (h0 + hl) * p_dim)
+    xs = xbc[..., cols].reshape(bsz, s, hl, p_dim)
     b_mat = xbc[..., di:di + n]
     c_mat = xbc[..., di + n:]
+    z, dt = z[..., cols], dt[..., h0:h0 + hl]
 
     # jax.nn.softplus has no threshold; F.softplus returns x above 20, where
     # the two differ by log1p(exp(-20)) < 2.1e-9
-    dt = F.softplus(dt.float() + mp["dt_bias"])                          # (B,S,H) f32
-    a = -torch.exp(mp["a_log"])                                          # (H,) negative
+    dt = F.softplus(dt.float() + dt_bias)                                # (B,S,H) f32
+    a = -torch.exp(a_log)                                                # (H,) negative
     a_log_dt = a * dt                                                    # log decay
     x_in = xs * dt[..., None].to(xs.dtype)
 
     if single_step:
         # S' = exp(a dt) S + dt x (outer) B, all in f32
         prev = state.state if state is not None else torch.zeros(
-            (bsz, h, p_dim, n), dtype=torch.float32, device=x.device)
+            (bsz, hl, p_dim, n), dtype=torch.float32, device=x.device)
         decay = torch.exp(a_log_dt[:, 0])                                # (B,H)
         contrib = torch.einsum("bn,bhp->bhpn", b_mat[:, 0].float(), x_in[:, 0].float())
         new_s = decay[..., None, None] * prev + contrib
         y = torch.einsum("bhpn,bn->bhp", new_s, c_mat[:, 0].float())
-        y = y.reshape(bsz, 1, h, p_dim)                                  # f32
+        y = y.reshape(bsz, 1, hl, p_dim)                                 # f32
     else:
         y, new_s = ssd_chunked(x_in, a_log_dt, b_mat.float(), c_mat.float(), chunk,
                                state.state if state is not None else None)
 
     # decode's y is f32 and promotes what follows to f32, as JAX does
-    y = y + xs * mp["d_skip"][None, None, :, None].to(xs.dtype)
-    y = y.reshape(bsz, 1 if single_step else s, di)
-    y = L.rmsnorm(mp["out_norm"], y * F.silu(z), cfg.norm_eps)
-    out = y @ mp["out_proj"].to(y.dtype)
-    return out.to(x.dtype), SSDState(new_s.float(), new_conv)
+    y = y + xs * d_skip[None, None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, 1 if single_step else s, hl * p_dim)
+    if mesh is None:
+        y = L.rmsnorm(mp["out_norm"], y * F.silu(z), cfg.norm_eps)
+        out = y @ mp["out_proj"].to(y.dtype)
+    else:
+        y = L.rmsnorm_split(mp["out_norm"], y * F.silu(z), cfg.norm_eps, mesh, "ssm_norm",
+                            "ssm_leaves")
+        out = reduce_from_model(y @ mp["out_proj"].to(y.dtype), mesh, "ssm_out")
+    return out.to(out_dtype), SSDState(new_s.float(), new_conv)

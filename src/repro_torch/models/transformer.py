@@ -341,9 +341,27 @@ class Split(NamedTuple):
     vocab: object = None         # lm_head's columns
     batch: object = None         # the data axis, for the MoE's whole-batch routing
     embed: object = None         # the embedding's rows
+    ssm: object = None           # Mamba2: in_proj's, conv_w's and conv_b's columns and
+    #                              out_proj's rows, so whole SSM heads (ssm.mamba2_block)
+    mlstm: object = None         # the mLSTM's inner dim: up_z's, up_x's, wq's, wk's and
+    #                              wv's columns, w_i's, w_f's and down's rows, so whole
+    #                              mLSTM heads (xlstm.mlstm_block)
+    slstm: object = None         # the sLSTM's d: w_in's, b's and up's columns and down's
+    #                              rows (xlstm.slstm_block)
 
 
 NO_SPLIT = Split()
+
+
+def _all_or_none(what: str, meshes: Mapping[str, object]):
+    """The one mesh of ``meshes`` when every dim splits, None when none
+    does; a partial split is refused (no configuration has one)."""
+    got = {m is None for m in meshes.values()}
+    if len(got) > 1:
+        raise NotImplementedError(
+            f"{what}: the rules split {sorted(k for k, m in meshes.items() if m is not None)} "
+            f"over 'model' but not {sorted(k for k, m in meshes.items() if m is None)}")
+    return next(iter(meshes.values()))
 
 
 def model_split(cfg: ModelConfig) -> Split:
@@ -352,23 +370,45 @@ def model_split(cfg: ModelConfig) -> Split:
     so it is the split of the rank's parameters: KV heads only with query
     heads, each only where its count divides the model axis. The
     embedding's rows split with the vocabulary, except where the sparse
-    transport hands the loss a whole sub-table (``context.whole_leaves``)."""
+    transport hands the loss a whole sub-table (``context.whole_leaves``).
+    Zamba2's Mamba2 layers split by whole SSM heads where every fused dim
+    divides the model axis (``ssm``); xLSTM's blocks by their inner dims
+    (``mlstm``, ``slstm``), and it has no attention or MLP to split."""
     mesh, rules = get_rules()
     if mesh is None:
         return NO_SPLIT
     hd = cfg.head_dim
+    vocab = split_mesh("vocab", cfg.vocab_size)
+    embed = None if is_whole("embedding") else vocab
+    if cfg.family == "ssm":
+        d = cfg.d_model
+        di = cfg.ssm_expand * d
+        m = int(mesh.shape.get("model", 1))
+        mlstm = _all_or_none("the mLSTM", {
+            "ffn": split_mesh("ffn", di), "heads": split_mesh("heads", di),
+            "ssm_heads": split_mesh("heads", di) if cfg.ssm_heads % m == 0 else None})
+        slstm = _all_or_none("the sLSTM", {
+            f"ffn {n}d": split_mesh("ffn", n * d) for n in (1, 2, 4)})
+        return Split(vocab=vocab, embed=embed, mlstm=mlstm, slstm=slstm)
     heads = split_mesh("heads", cfg.num_heads * hd)
     batch = None
     if cfg.is_moe and int(mesh.shape.get("data", 1)) > 1:
         if tuple(rules.get("batch") or ()) != ("data",):
             raise NotImplementedError(f"the MoE's batch over {rules.get('batch')}")
         batch = mesh.axis("data")
-    vocab = split_mesh("vocab", cfg.vocab_size)
+    ssm = None
+    if cfg.family == "hybrid":
+        di, n, h = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.ssm_heads
+        m = int(mesh.shape.get("model", 1))
+        ssm = _all_or_none("Mamba2", {
+            "in_proj": split_mesh("ffn", 2 * di + 2 * n + h),
+            "conv": split_mesh("ffn", di + 2 * n), "out_proj": split_mesh("ffn", di),
+            "ssm heads": split_mesh("ffn", di) if h % m == 0 else None})
     return Split(heads=heads,
                  kv=split_mesh("kv", cfg.num_kv_heads * hd) if heads is not None else None,
                  ffn=split_mesh("ffn", cfg.d_ff),
                  experts=split_mesh("experts", cfg.num_experts) if cfg.is_moe else None,
-                 vocab=vocab, batch=batch, embed=None if is_whole("embedding") else vocab)
+                 vocab=vocab, batch=batch, embed=embed, ssm=ssm)
 
 
 def _copied(p, mesh, tag: str):
@@ -752,25 +792,17 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def refuse_sharded_serving(cfg: ModelConfig, what: str) -> None:
-    """Raise under installed rules for a family whose serving is not split
-    over a mesh yet (Whisper, Zamba2, xLSTM: ROADMAP item 9.9)."""
-    if get_rules()[0] is not None:
-        raise NotImplementedError(
-            f"{what}: sharded serving of the {cfg.family} family ({cfg.name}) is not ported "
-            "yet (ROADMAP item 9.9); serve it on one device, with no rules installed "
-            "(sharding.clear_rules())")
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> L.KVCache:
     cap = min(cfg.sliding_window, max_seq) if cfg.sliding_window > 0 else max_seq
     return L.make_kv_cache(cfg.num_layers, batch, cfg.num_kv_heads, cap, cfg.head_dim,
                            dtype=model_dtype(cfg), device=resolve_device(device))
 
 
-def _seq_mesh(cache: L.KVCache):
-    """The model axis's mesh when the cache is this rank's slice of a cache
-    split by sequence (``launch.shardings.local_cache``), else None."""
+def _seq_mesh(cache):
+    """The model axis's mesh when the cache (a ``layers.KVCache``, or
+    Zamba2's or Whisper's, whose ``k`` and ``v`` are the KV cache) is this
+    rank's slice of a cache split by sequence
+    (``launch.shardings.local_cache``), else None."""
     if cache.k.shape[3] == cache.capacity:
         return None
     mesh = get_rules()[0]
@@ -778,6 +810,54 @@ def _seq_mesh(cache: L.KVCache):
         raise ValueError(f"a slice of {cache.k.shape[3]} of a {cache.capacity}-slot cache "
                          "with no mesh installed")
     return mesh.axis("model")
+
+
+def decode_attend(q: torch.Tensor, k_layer: torch.Tensor, v_layer: torch.Tensor,
+                  slot_pos: torch.Tensor, pos: int, split: Split, seq, window: int = 0
+                  ) -> torch.Tensor:
+    """One token's attention through K4: ``q`` ``(B, heads, hd)`` the rank's
+    query heads (all of them off the mesh), the cache layer ``(B, KV, S,
+    hd)`` this rank's slice. Split, q is gathered over ``model``
+    (``decode_q``), K4 runs on every head against the slice with its
+    log-sum-exp out where ``seq`` (the model axis) splits the slots, the
+    ranks' partials are merged (``merge_decode_partials``), and the rank's
+    heads of the result are returned."""
+    hl = q.shape[1]
+    heads = split.heads
+    if heads is not None:
+        q = gather_from_model(q, heads, "decode_q", dim=1)
+    if seq is None:
+        o = L.decode_attention(q, k_layer, v_layer, slot_pos, pos, window=window)
+    else:
+        o, lse = L.decode_attention(q, k_layer, v_layer, slot_pos, pos, window=window,
+                                    return_lse=True)
+        o = merge_decode_partials(o, lse, seq, k_layer.dtype)
+    if heads is not None:
+        o = o[:, heads.rank * hl:(heads.rank + 1) * hl]
+    return o
+
+
+def decode_kv(k: torch.Tensor, v: torch.Tensor, split: Split):
+    """One token's K and V ``(B, KV, hd)`` of every KV head: gathered over
+    ``model`` where the KV heads are split (``decode_kv``)."""
+    if split.kv is None:
+        return k, v
+    return gather_from_model(torch.stack([k, v]), split.kv, "decode_kv", dim=2).unbind(0)
+
+
+def write_prefill_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, split: Split, start: int) -> None:
+    """A layer's prefill K and V ``(B, S, KV, hd)`` (the rank's KV heads)
+    into its cache layer ``(B, KV, slots, hd)``, this rank's slice of slots
+    from ``start``: the KV heads gathered over ``model`` where they are
+    split (``prefill_kv``); slots the prompt does not reach stay."""
+    if split.kv is not None:
+        k, v = gather_from_model(torch.stack([k, v]), split.kv, "prefill_kv", dim=3).unbind(0)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    hi = min(start + cache_k.shape[2], k.shape[2])
+    if hi > start:
+        cache_k[:, :, :hi - start] = k[:, :, start:hi]
+        cache_v[:, :, :hi - start] = v[:, :, start:hi]
 
 
 def _whole_logits(p, hidden: torch.Tensor, split: Split) -> torch.Tensor:
@@ -864,24 +944,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: L.KVCache,
         ap = lp["attn"]
         q, k, v = _project_qkv(cfg, ap, L.rmsnorm(ap["norm"], x, cfg.norm_eps), positions,
                                mrope_pos, split)
-        q, k, v = q[:, 0], k[:, 0], v[:, 0]
-        hl = q.shape[1]
-        if heads is not None:
-            q = gather_from_model(q, heads, "decode_q", dim=1)
-        if split.kv is not None:
-            k, v = gather_from_model(torch.stack([k, v]), split.kv, "decode_kv",
-                                     dim=2).unbind(0)
+        k, v = decode_kv(k[:, 0], v[:, 0], split)
         k_layer, v_layer = L.cache_write(cache.k[i], cache.v[i], pos, k, v, ring,
                                          cache.slots, cache.start)
-        if seq is None:
-            o = L.decode_attention(q, k_layer, v_layer, slot_pos, pos,
-                                   window=cfg.sliding_window)
-        else:
-            o, lse = L.decode_attention(q, k_layer, v_layer, slot_pos, pos,
-                                        window=cfg.sliding_window, return_lse=True)
-            o = merge_decode_partials(o, lse, seq, k_layer.dtype)
-        if heads is not None:
-            o = o[:, heads.rank * hl:(heads.rank + 1) * hl]
+        o = decode_attend(q[:, 0], k_layer, v_layer, slot_pos, pos, split, seq,
+                          cfg.sliding_window)
         x = x + L.linear(ap["wo"], o.reshape(b, -1), reduce=heads, tag="attn_out")[:, None]
         # decode's MoE is drop-free: one token per sequence, capacity B * k
         f, _ = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),

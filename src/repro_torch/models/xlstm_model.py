@@ -8,7 +8,10 @@ kernel: the cells are plain PyTorch.
 The parameters are a ``layers.ModelTree``: ``embedding``, per layer
 ``runs.{r}.{m|s}.{i}.*``, ``final_norm`` and ``lm_head``, with ``axes``. ``transformer.stack_layers``
 stacks each run into the reference's ``runs.{r}.{m|s}.*`` and
-``unstack_layers`` takes it back. With remat each layer is a
+``unstack_layers`` takes it back. Under installed rules the mLSTM blocks
+split by whole heads and the sLSTM's projections by columns
+(``xlstm.mlstm_block``'s and ``slstm_block``'s ``mesh``), and the states
+are the rank's parts of the cache (``launch.shardings.cache_specs``). With remat each layer is a
 ``transformer._Remat``.
 """
 from __future__ import annotations
@@ -95,21 +98,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> XLSTM
 
 
 def _block(cfg: ModelConfig, kind: str, lp, x: torch.Tensor, st=None,
-           single_step: bool = False):
+           single_step: bool = False, split: T.Split = T.NO_SPLIT):
     """One layer: ``(x + block(x), the block's new state)``."""
     if kind == "m":
         h, new = X.mlstm_block(cfg, lp, L.rmsnorm(lp["norm"], x, cfg.norm_eps),
                                chunk=min(cfg.query_chunk, 256), state=st,
-                               single_step=single_step)
+                               single_step=single_step, mesh=split.mlstm)
     else:
-        h, new = X.slstm_block(cfg, lp, x, state=st, single_step=single_step)
-    return x + h, new
+        h, new = X.slstm_block(cfg, lp, x, state=st, single_step=single_step,
+                               mesh=split.slstm)
+    return T.constrain(x + h, ("batch", None, None), (None, x.shape[1], cfg.d_model)), new
 
 
-def _remat_layer(cfg: ModelConfig, kind: str, names: Tuple[str, ...]):
-    """``_Remat``'s function of one layer of ``kind`` from the zero state."""
+def _remat_layer(cfg: ModelConfig, kind: str, names: Tuple[str, ...],
+                 split: T.Split = T.NO_SPLIT):
+    """``_Remat``'s function of one layer of ``kind`` from the zero state;
+    ``split`` taken when the layer is built, as ``transformer._layer_fn``
+    takes it."""
     def run(x, positions, mrope_pos, *tensors):
-        return (_block(cfg, kind, T.FlatParams(dict(zip(names, tensors))), x)[0],)
+        return (_block(cfg, kind, T.FlatParams(dict(zip(names, tensors))), x,
+                       split=split)[0],)
     return run
 
 
@@ -120,15 +128,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat: bool = Tru
     states (none under remat).
     ``cache`` gives each layer's starting state (else the zero state with
     the -1e30 stabiliser); ``remat`` (in grad mode, without a cache, not
-    single-step) keeps only each layer's input for the backward."""
+    single-step) keeps only each layer's input for the backward. Under
+    installed rules the blocks split by their inner dims
+    (``transformer.model_split``) and the states are the cache's parts."""
     p = T.as_tree(params)
-    x = T.embed_tokens(cfg, p, tokens)
+    split = T.model_split(cfg)
+    x = T.embed_tokens(cfg, p, tokens, split=split)
     rematted = remat and not single_step and cache is None and torch.is_grad_enabled()
     new = {"m": [], "s": []}
     for r, (kind, n) in enumerate(pattern_runs(cfg.block_pattern)):
         run = p["runs"][r][kind]
         if rematted:
-            layer_fn = functools.partial(_remat_layer, cfg, kind)
+            layer_fn = functools.partial(_remat_layer, cfg, kind, split=split)
             for i in range(n):
                 names, ts = T._layer_leaves(run[i])
                 x = T._Remat.apply(layer_fn, (tuple(names),), x, None, None, *ts)[0]
@@ -138,7 +149,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat: bool = Tru
         states = []
         for i in range(n):
             st = type(stacked)(*(t[i] for t in stacked)) if stacked is not None else None
-            x, st = _block(cfg, kind, run[i], x, st, single_step)
+            x, st = _block(cfg, kind, run[i], x, st, single_step, split)
             states.append(st)
         new[kind].append(states)
     hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
@@ -150,7 +161,7 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = True) -> torch.Tensor
     ``transformer.lm_targets``."""
     tokens, targets, mask = T.lm_targets(batch)
     hidden, _ = forward(cfg, params, tokens, remat=remat)
-    return T.chunked_xent(cfg, params, hidden, targets, mask)
+    return T.chunked_xent(cfg, params, hidden, targets, mask, split=T.model_split(cfg))
 
 
 def _write(cache: XLSTMCache, new) -> None:
@@ -163,25 +174,25 @@ def _write(cache: XLSTMCache, new) -> None:
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: L.ModelTree, tokens: torch.Tensor, cache: XLSTMCache
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: XLSTMCache
             ) -> Tuple[torch.Tensor, XLSTMCache]:
     """Run the prompt from the cache's states, write the new ones into it
-    (in place); return last-token logits (f32) and the cache at ``S``."""
-    T.refuse_sharded_serving(cfg, "prefill")
+    (in place); return last-token logits (f32) and the cache at ``S``.
+    Under installed rules the cache is the rank's part
+    (``launch.shardings.local_cache``) before and after."""
     hidden, new = forward(cfg, params, tokens, remat=False, cache=cache)
     _write(cache, new)
-    logits = (hidden[:, -1] @ params.lm_head).float()
-    return logits, cache._replace(pos=tokens.shape[1])
+    return (T._whole_logits(T.as_tree(params), hidden[:, -1], T.model_split(cfg)),
+            cache._replace(pos=tokens.shape[1]))
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: L.ModelTree, cache: XLSTMCache, tokens: torch.Tensor
+def decode_step(cfg: ModelConfig, params, cache: XLSTMCache, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, XLSTMCache]:
     """One decode step: tokens (B,), each layer's single-step update; the
     cache updated in place; returns f32 logits and the cache at ``pos + 1``."""
-    T.refuse_sharded_serving(cfg, "decode_step")
     hidden, new = forward(cfg, params, tokens[:, None], remat=False, cache=cache,
                           single_step=True)
     _write(cache, new)
-    logits = (hidden[:, 0] @ params.lm_head).float()
-    return logits, cache._replace(pos=cache.pos + 1)
+    return (T._whole_logits(T.as_tree(params), hidden[:, 0], T.model_split(cfg)),
+            cache._replace(pos=cache.pos + 1))

@@ -10,7 +10,10 @@ and K4 at decode, on the card.
 The parameters are a ``layers.ModelTree``: ``embedding``, ``mamba.{i}.*``
 per layer, ``shared_attn.*``, ``final_norm`` and ``lm_head``, with
 ``axes``, so ``transformer.train_params`` and the round plans take it
-unchanged. The reference's ``lax.scan`` over
+unchanged. Under installed rules the Mamba2 layers split by whole SSM
+heads (``ssm.mamba2_block``'s ``mesh``), the shared block as the
+transformer's layers, and the KV cache by sequence as
+``transformer.decode_step``'s. The reference's ``lax.scan`` over
 the layers becomes a Python loop and its ``lax.cond`` on the site a Python
 ``if`` on the layer index. With remat each layer is a
 ``transformer._Remat``; a site's layer takes the shared block's tensors as
@@ -74,13 +77,22 @@ def is_site(cfg: ModelConfig, i: int) -> bool:
 
 class ZambaCache(NamedTuple):
     """Per-layer SSM and conv states and per-site KV caches. ``pos``: tokens
-    already written, a host int as ``layers.KVCache`` keeps it."""
+    already written, a host int as ``layers.KVCache`` keeps it. On a mesh
+    (``launch.shardings.local_cache``) a rank holds its SSM heads and conv
+    channels and, where the rules split the slots, slots ``[start, start +
+    S_local)`` of a KV cache of ``slots``, as ``layers.KVCache`` does."""
 
     ssm_state: torch.Tensor      # (L, B, H, p, n) f32
     conv_state: torch.Tensor     # (L, B, W-1, conv_dim)
     k: torch.Tensor              # (sites, B, KV, S, hd)
     v: torch.Tensor
     pos: int
+    slots: int = 0
+    start: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.slots or self.k.shape[3]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> ZambaCache:
@@ -98,33 +110,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Zamba
         torch.zeros(kv, dtype=dt, device=dev), torch.zeros(kv, dtype=dt, device=dev), 0)
 
 
-def _shared_attn_apply(cfg: ModelConfig, sp, x: torch.Tensor, positions: torch.Tensor):
-    h, kv = T.attention_block(cfg, sp, L.rmsnorm(sp["norm"], x, cfg.norm_eps), positions)
+def _shared_attn_apply(cfg: ModelConfig, sp, x: torch.Tensor, positions: torch.Tensor,
+                       split: T.Split = T.NO_SPLIT):
+    h, kv = T.attention_block(cfg, sp, L.rmsnorm(sp["norm"], x, cfg.norm_eps), positions,
+                              split=split)
     x = x + h
-    x = x + L.mlp(sp["ffn"], L.rmsnorm(sp["ffn_norm"], x, cfg.norm_eps))
+    x = x + L.mlp(sp["ffn"], L.rmsnorm(sp["ffn_norm"], x, cfg.norm_eps), mesh=split.ffn)
     return x, kv
 
 
-def _layer(cfg: ModelConfig, mp, sp, x: torch.Tensor, positions: torch.Tensor):
+def _layer(cfg: ModelConfig, mp, sp, x: torch.Tensor, positions: torch.Tensor,
+           split: T.Split = T.NO_SPLIT):
     """One Mamba2 layer, then the shared block when ``sp`` is given:
     ``(x, SSDState, (k, v) or None)``."""
     h, st = S.mamba2_block(cfg, mp, L.rmsnorm(mp["norm"], x, cfg.norm_eps),
-                           chunk=min(cfg.query_chunk, 256))
-    x = x + h
+                           chunk=min(cfg.query_chunk, 256), mesh=split.ssm)
+    x = T.constrain(x + h, ("batch", None, None), (None, x.shape[1], cfg.d_model))
     kv = None
     if sp is not None:
-        x, kv = _shared_attn_apply(cfg, sp, x, positions)
+        x, kv = _shared_attn_apply(cfg, sp, x, positions, split)
     return x, st, kv
 
 
-def _remat_layer(cfg: ModelConfig, names: Tuple[str, ...]):
+def _remat_layer(cfg: ModelConfig, names: Tuple[str, ...], split: T.Split = T.NO_SPLIT):
     """``_Remat``'s function of one layer whose tensors are named ``mamba.*``
-    and, at a site, ``shared_attn.*``."""
+    and, at a site, ``shared_attn.*``. ``split`` is taken when the layer is
+    built, as ``transformer._layer_fn`` takes it."""
     site = any(n.startswith("shared_attn.") for n in names)
 
     def run(x, positions, mrope_pos, *tensors):
         p = T.FlatParams(dict(zip(names, tensors)))
-        return (_layer(cfg, p["mamba"], p["shared_attn"] if site else None, x, positions)[0],)
+        return (_layer(cfg, p["mamba"], p["shared_attn"] if site else None, x, positions,
+                       split)[0],)
     return run
 
 
@@ -139,19 +156,22 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat: bool = Tru
             ) -> ForwardOut:
     """Full-sequence forward (train / prefill) over the module or the flat
     training dict. ``remat`` (in grad mode, without ``collect_cache``)
-    keeps only each layer's input for the backward."""
+    keeps only each layer's input for the backward. Under installed rules
+    the Mamba2 layers split by SSM heads and the shared block as the
+    transformer's layers (``transformer.model_split``)."""
     p = T.as_tree(params)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = T.embed_tokens(cfg, p, tokens)
+    split = T.model_split(cfg)
+    x = T.embed_tokens(cfg, p, tokens, split=split)
     sp = p["shared_attn"]
     states = [] if collect_cache else None
     kvs = [] if collect_cache else None
     if remat and not collect_cache and torch.is_grad_enabled():
         shared_names, shared = T._layer_leaves(sp)
         shared_names = tuple(f"shared_attn.{n}" for n in shared_names)
-        layer_fn = functools.partial(_remat_layer, cfg)
+        layer_fn = functools.partial(_remat_layer, cfg, split=split)
         for i in range(cfg.num_layers):
             names, ts = T._layer_leaves(p["mamba"][i])
             names = tuple(f"mamba.{n}" for n in names)
@@ -161,7 +181,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat: bool = Tru
     else:
         for i in range(cfg.num_layers):
             x, st, kv = _layer(cfg, p["mamba"][i], sp if is_site(cfg, i) else None, x,
-                               positions)
+                               positions, split)
             if collect_cache:
                 states.append(st)
                 if kv is not None:
@@ -174,57 +194,69 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = True) -> torch.Tensor
     ``transformer.lm_targets``."""
     tokens, targets, mask = T.lm_targets(batch)
     out = forward(cfg, params, tokens, remat=remat)
-    return T.chunked_xent(cfg, params, out.hidden, targets, mask)
+    return T.chunked_xent(cfg, params, out.hidden, targets, mask, split=T.model_split(cfg))
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: L.ModelTree, tokens: torch.Tensor, cache: ZambaCache
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: ZambaCache
             ) -> Tuple[torch.Tensor, ZambaCache]:
     """Run the prompt; write each layer's SSM and conv states and each
     site's K and V from slot 0 into the cache (in place); return last-token
-    logits (f32) and the cache at position ``S``."""
-    T.refuse_sharded_serving(cfg, "prefill")
+    logits (f32) and the cache at position ``S``. Under installed rules the
+    rank's states are its heads' and channels' as the split computes them,
+    and it keeps its slice of each site's slots (``transformer.prefill``)."""
+    p = T.as_tree(params)
+    split = T.model_split(cfg)
     s = tokens.shape[1]
     out = forward(cfg, params, tokens, remat=False, collect_cache=True)
     for i, st in enumerate(out.states):
         cache.ssm_state[i].copy_(st.state)
         cache.conv_state[i].copy_(st.conv)
     for j, (k, v) in enumerate(out.kv):
-        cache.k[j, :, :, :s] = k.transpose(1, 2)
-        cache.v[j, :, :, :s] = v.transpose(1, 2)
-    logits = (out.hidden[:, -1] @ params.lm_head).float()
-    return logits, cache._replace(pos=s)
+        T.write_prefill_kv(cache.k[j], cache.v[j], k, v, split, cache.start)
+    return T._whole_logits(p, out.hidden[:, -1], split), cache._replace(pos=s)
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: L.ModelTree, cache: ZambaCache, tokens: torch.Tensor
+def decode_step(cfg: ModelConfig, params, cache: ZambaCache, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, ZambaCache]:
     """One decode step: tokens (B,) at position ``cache.pos``. Each layer's
     single-step Mamba2 update; at each site the token's K and V written into
     that site's cache before attending through K4. The cache is updated in
-    place; returns f32 logits and the cache at ``pos + 1``."""
-    T.refuse_sharded_serving(cfg, "decode_step")
+    place; returns f32 logits and the cache at ``pos + 1``. Under installed
+    rules each site attends as ``transformer.decode_step`` does (K4 on the
+    rank's slice of the slots, merged over ``model``)."""
+    p = T.as_tree(params)
+    split = T.model_split(cfg)
+    seq = T._seq_mesh(cache)
     b = tokens.shape[0]
     pos = cache.pos
     dev = tokens.device
-    x = T.embed_tokens(cfg, params, tokens[:, None])
-    sp = params.shared_attn
+    x = T.embed_tokens(cfg, p, tokens[:, None], split=split)
+    sp = p["shared_attn"]
     positions = torch.full((b, 1), pos, device=dev)
-    slot_pos = L.cache_slot_positions(pos + 1, cache.k.shape[3], False, dev)
-    for i, mp in enumerate(params.mamba):
+    width = cache.k.shape[3]
+    slot_pos = L.cache_slot_positions(pos + 1, cache.capacity, False, dev)
+    slot_pos = slot_pos[cache.start:cache.start + width].contiguous()
+    for i in range(cfg.num_layers):
+        mp = p["mamba"][i]
         h, st = S.mamba2_block(cfg, mp, L.rmsnorm(mp["norm"], x, cfg.norm_eps),
                                state=S.SSDState(cache.ssm_state[i], cache.conv_state[i]),
-                               single_step=True)
+                               single_step=True, mesh=split.ssm)
         cache.ssm_state[i].copy_(st.state)
         cache.conv_state[i].copy_(st.conv)
         x = x + h
         if is_site(cfg, i):
             site = (i + 1) // cfg.attn_every - 1
-            q, k, v = T._project_qkv(cfg, sp, L.rmsnorm(sp["norm"], x, cfg.norm_eps), positions)
-            kc, vc = L.cache_write(cache.k[site], cache.v[site], pos, k[:, 0], v[:, 0], False)
-            o = L.decode_attention(q[:, 0], kc, vc, slot_pos, pos)
-            x = x + L.linear(sp["wo"], o.reshape(b, -1))[:, None]
-            x = x + L.mlp(sp["ffn"], L.rmsnorm(sp["ffn_norm"], x, cfg.norm_eps))
-    hidden = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = (hidden[:, 0] @ params.lm_head).float()
-    return logits, cache._replace(pos=pos + 1)
+            q, k, v = T._project_qkv(cfg, sp, L.rmsnorm(sp["norm"], x, cfg.norm_eps), positions,
+                                     split=split)
+            k, v = T.decode_kv(k[:, 0], v[:, 0], split)
+            kc, vc = L.cache_write(cache.k[site], cache.v[site], pos, k, v, False, cache.slots,
+                                   cache.start)
+            o = T.decode_attend(q[:, 0], kc, vc, slot_pos, pos, split, seq)
+            x = x + L.linear(sp["wo"], o.reshape(b, -1), reduce=split.heads,
+                             tag="attn_out")[:, None]
+            x = x + L.mlp(sp["ffn"], L.rmsnorm(sp["ffn_norm"], x, cfg.norm_eps),
+                          mesh=split.ffn)
+    hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return T._whole_logits(p, hidden[:, 0], split), cache._replace(pos=pos + 1)

@@ -18,6 +18,16 @@ parallelism does:
                        unchanged: a statistic of the whole batch (the MoE's
                        load-balance means) on ranks that each hold part of
                        it, under a round step that averages their gradients
+``gather_for_model``   ``copy_to_model`` of ``gather_from_model``: the
+                       gradient, which each rank holds in part, all-reduced
+                       whole, then this rank's slice: columns that every
+                       rank gathers whole and then uses in part (Mamba2's
+                       fused projection and conv output, each rank taking
+                       its SSM heads; the mLSTM's up projection)
+``sum_over_model``     ``copy_to_model`` of ``reduce_from_model``, an
+                       all-reduce forward and backward: a sum that every
+                       rank then uses in part (the sum of squares of an
+                       RMSNorm over a dim split over ``model``)
 
 and, for serving with the KV cache split by sequence over ``model``,
 ``merge_decode_partials``: the ranks' K4 partials ``(o, lse)`` over their
@@ -130,6 +140,21 @@ def gather_from_model(x: torch.Tensor, mesh, tag: str, dim: int = -1) -> torch.T
     """Every model rank's ``x`` concatenated on ``dim`` in rank order; the
     gradient of this rank's part is its slice."""
     return _GatherFromModel.apply(x, mesh, tag, dim % x.dim())
+
+
+def gather_for_model(x: torch.Tensor, mesh, tag: str, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated on ``dim`` in rank order, for
+    ranks that each use a different part of it: the gradient is summed over
+    the ranks (an all-reduce counted under ``tag + "_grad"``) and this
+    rank's slice of it taken."""
+    return copy_to_model(gather_from_model(x, mesh, tag, dim), mesh, f"{tag}_grad")
+
+
+def sum_over_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """The sum of every model rank's ``x``, for ranks that each use it in
+    part: the gradient is summed over the ranks too (both counted under
+    ``tag``)."""
+    return copy_to_model(reduce_from_model(x, mesh, tag), mesh, tag)
 
 
 def max_from_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:

@@ -516,7 +516,7 @@ def test_plans_cover_their_work_at_every_audit_shape():
             assert kernel_audit.plan_coverage(e, a.shape, introspect.launches(e, a.shape)) == [], (
                 e.name, a.name)
             n += 1
-    assert n == 20
+    assert n == 28
     k4 = introspect.entry("flash_decode")
     shape = dict(B=2, H=4, KV=2, S=4096, hd=128, dtype="f32")
     for split in ((3, 1024), (64, 96)):            # too few slices; not whole tiles

@@ -56,7 +56,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import _flatten
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_torch
 from repro_torch.launch.mesh import CohortMesh, DeviceMesh, spawn_ranks
-from repro_torch.launch.serve import SCALES, serve_rules
+from repro_torch.launch.serve import SCALES
 from repro_torch.launch.shardings import cache_specs, local_cache, shard_cache
 from repro_torch.models import layers
 from repro_torch.models.api import build_model
@@ -352,28 +352,26 @@ def test_cache_write_reaches_only_the_owner_of_the_slot():
 
 def test_registry_launches_the_log_sum_exp_merge_at_a_rank_slice():
     """The audit registry's K4 entry holds the merge's log-sum-exp instance
-    at the ranks' slices: ``flash_decode_instance`` index 16 + 4 * bf16 +
-    the head dim's, and its cost model prices the f32 o and the lse."""
+    at the ranks' slices (Qwen2.5-14B's at hd 128, Whisper's and Zamba2's
+    at hd 64): ``flash_decode_instance`` index 16 + 4 * bf16 + the head
+    dim's, and its cost model prices the f32 o and the lse."""
     from repro_torch.analysis.kernel_audit import cost_model, plan_coverage
     from repro_torch.kernels import introspect
 
     k4 = introspect.entry("flash_decode")
     slices = [a for a in k4.shapes if a.shape.get("lse")]
-    assert [a.shape["S"] for a in slices] == [2064, 1032]
+    assert [(a.shape["S"], a.shape["hd"]) for a in slices] == [(2064, 128), (1032, 128),
+                                                               (750, 64), (66, 64)]
     for a in slices:
         split, merge = introspect.launches(k4, a.shape)
-        assert (merge.index, merge.label) == (23, "merge_kernel<__nv_bfloat16, 128, true>")
+        hd = a.shape["hd"]
+        assert (merge.index, merge.label) == (
+            {128: 23, 64: 22}[hd], f"merge_kernel<__nv_bfloat16, {hd}, true>")
         assert plan_coverage(k4, a.shape, (split, merge)) == []
     base = dict(b=4, h=40, kv=8, hd=128, n_valid=2064, slots=2064, dtype="bf16")
     extra = cost_model("flash_decode", lse=True, **base).bytes - cost_model(
         "flash_decode", **base).bytes
     assert extra == 4 * 40 * (128 * 4 + 4) - 4 * 40 * 128 * 2
-
-
-def test_serving_rules_refuse_the_other_families():
-    for arch in ("whisper_large_v3", "zamba2_1_2b", "xlstm_350m"):
-        with pytest.raises(NotImplementedError, match="9.9"):
-            serve_rules(get_config(arch), _stand_in_mesh((1, 2)))
 
 
 # ---------------------------------------------------------------------------

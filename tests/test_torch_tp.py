@@ -477,22 +477,6 @@ def test_boxed_like_checks_names_and_ranks():
     assert port_unbox(params) == params
 
 
-@pytest.mark.parametrize("arch", ["whisper_large_v3", "zamba2_1_2b", "xlstm_350m"])
-def test_other_families_refuse_serving_under_installed_rules(arch):
-    """The transformer families serve on a mesh (``tests/test_torch_serve_tp.py``);
-    Whisper, Zamba2 and xLSTM refuse installed rules before touching their
-    inputs (ROADMAP item 9.9)."""
-    api = build_model(get_config(arch).replace(**ranks.SCALES["tiny"]))
-    set_rules(_stand_in_mesh((1, 2)), make_rules("decode"))
-    try:
-        with pytest.raises(NotImplementedError, match="item 9.9"):
-            api.prefill(None, {"tokens": None, "frames": None}, None)
-        with pytest.raises(NotImplementedError, match="item 9.9"):
-            api.decode_step(None, None, {"tokens": None})
-    finally:
-        clear_rules()
-
-
 def test_production_mesh_needs_its_world(monkeypatch):
     assert production_mesh_shape() == ((16, 16), ("data", "model"))
     assert production_mesh_shape(multi_pod=True) == ((2, 16, 16), ("pod", "data", "model"))
@@ -503,21 +487,16 @@ def test_production_mesh_needs_its_world(monkeypatch):
         make_production_mesh(multi_pod=True, device="cpu")
 
 
-def test_train_refuses_the_other_families_on_a_mesh():
-    from repro_torch.launch.train import mesh_rules
-    for arch in ("whisper_large_v3", "zamba2_1_2b", "xlstm_350m"):
-        with pytest.raises(NotImplementedError, match="does not train on a mesh"):
-            mesh_rules(get_config(arch), _stand_in_mesh((1, 2)))
-
-
-@pytest.mark.parametrize("flags", [dict(sparse=True), dict(topk=4), dict(int8=True)])
+@pytest.mark.parametrize("flags", [dict(topk=4), dict(int8=True)])
 @pytest.mark.parametrize("arch", ["whisper_large_v3", "zamba2_1_2b", "xlstm_350m"])
 def test_train_refuses_the_other_families_on_the_sparse_transport(arch, flags):
-    """``train(mesh=...)`` refuses Whisper, Zamba2 and xLSTM (item 9.9) on
-    the row-sparse transport too, before it draws the model: the stand-in
-    mesh has no process group, so a collective would raise otherwise."""
+    """``train(mesh=...)`` takes Whisper, Zamba2 and xLSTM on the row-sparse
+    transport (``tests/test_torch_family_tp.py``) but, as for every family,
+    refuses top-k and int8 rows on a mesh, as the reference's sharded step
+    does, before it draws the model: the stand-in mesh has no process group,
+    so a collective would raise otherwise."""
     from repro_torch.launch.train import train
-    with pytest.raises(NotImplementedError, match="does not train on a mesh"):
+    with pytest.raises(ValueError, match="int8" if flags.get("int8") else "top-k"):
         train(get_config(arch).replace(**ranks.SCALES["tiny"]), rounds=1, device="cpu",
               mesh=_stand_in_mesh((1, 2)), **flags)
 
