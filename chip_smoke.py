@@ -33,10 +33,11 @@ Phases, each of which asserts; any failure exits non-zero:
    share
 8. K3 ``flash_attention`` against its plain version on the card: the
    serving prefill's shape (B 4, S 1024, H 40, KV 8, hd 128) in bf16 (the
-   tensor-core kernel) and f32 (the CUDA-core kernel), a sliding window,
-   bf16 at every other head dim (16, 32, 64), MHA at hd 64, non-causal,
-   ragged lengths, a continuation (Sq not a multiple of 128, Sk > Sq,
-   q_offset > 0) and a window whose edge falls inside a 128-row tile.
+   ``wgmma`` kernel) and f32 (the 3xTF32 ``mma.sync`` kernel), a sliding
+   window, every other head dim (16, 32; 64 in bf16, MHA at 64 in f32),
+   non-causal, ragged lengths, a continuation (Sq not a multiple of 128,
+   Sk > Sq, q_offset > 0) and a window whose edge falls inside a tile, the
+   last four in both dtypes.
    Kernel against plain version throughout: 2e-5 in f32; 2e-2 in bf16, and
    also 1e-2 in relative norm
 9. K4 ``flash_decode`` against its plain version: the decode step's shape
@@ -199,9 +200,9 @@ Phases, each of which asserts; any failure exits non-zero:
     K3 and its backward at the training shape by CUDA events beside their
     plain versions, SDPA (for the backward: autograd of
     ``scaled_dot_product_attention``, its forward subtracted) and the
-    bound; the backward's TFLOP/s on its 5 products and both its bounds
-    (the tensor-core route's, 3xTF32 at an effective 165 TFLOP/s, and the
-    f32 CUDA cores')
+    bound; the TFLOP/s of each (the backward's on its 5 products) and both
+    bounds of each (the tensor-core route's, 3xTF32 at an effective 165
+    TFLOP/s, and the f32 CUDA cores')
 39. K3 and K4 against their plain versions at the new configurations'
     attention shapes, bf16 and f32 (H 64 / KV 8 of Qwen3-32B and
     DeepSeek-67B, H 96 / KV 8 of Mistral Large 123B at 4 x 1,024; Mixtral's
@@ -1133,14 +1134,17 @@ def normal(rng, shape, dtype):
 
 def phase_k3(rng) -> float:
     """K3 against its plain version, case by case (tolerance by dtype). The
-    bf16 cases run the tensor-core kernel, the f32 ones the CUDA-core one."""
+    bf16 cases run the wgmma kernel, the f32 ones the 3xTF32 mma.sync one;
+    every case runs in both."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, 0, bf),
              ("prefill", 4, 1024, 1024, 40, 8, 128, True, 0, 0, f32),
              ("window", 2, 1024, 1024, 40, 8, 128, True, 300, 0, bf),
              ("window", 2, 1024, 1024, 40, 8, 128, True, 300, 0, f32),
              ("hd16", 2, 512, 512, 16, 4, 16, True, 0, 0, bf),
+             ("hd16", 2, 512, 512, 16, 4, 16, True, 0, 0, f32),
              ("hd32", 2, 512, 512, 16, 4, 32, True, 0, 0, bf),
+             ("hd32", 2, 512, 512, 16, 4, 32, True, 0, 0, f32),
              ("hd64", 2, 512, 512, 16, 4, 64, True, 0, 0, bf),
              ("mha-hd64", 2, 512, 512, 16, 16, 64, True, 0, 0, f32),
              ("non-causal", 1, 512, 512, 40, 8, 128, False, 0, 0, bf),
@@ -1148,7 +1152,9 @@ def phase_k3(rng) -> float:
              ("ragged", 2, 1000, 1000, 40, 8, 128, True, 0, 0, bf),
              ("ragged", 1, 200, 333, 8, 2, 128, False, 0, 0, f32),
              ("continue", 2, 200, 333, 8, 2, 128, True, 0, 133, bf),
-             ("window-in", 2, 512, 512, 8, 2, 128, True, 70, 0, bf)]
+             ("continue", 2, 200, 333, 8, 2, 128, True, 0, 133, f32),
+             ("window-in", 2, 512, 512, 8, 2, 128, True, 70, 0, bf),
+             ("window-in", 2, 512, 512, 8, 2, 128, True, 70, 0, f32)]
     worst = 0.0
     for name, b, sq, sk, h, kv, hd, causal, window, off, dtype in cases:
         q, k, v = (normal(rng, (b, sq, h, hd), dtype), normal(rng, (b, sk, kv, hd), dtype),
@@ -2772,8 +2778,9 @@ def compare_lse(name, got, want, dtype) -> float:
 #: group's heads: 11 of them in a cluster of 1 at "group 11", of 2 at
 #: "group 22"). "train q x8": q scaled by 8, so the logits are 8 times
 #: larger and the softmax sharp, and the 3xTF32 split's small terms carry
-#: the result; it is held elementwise against the exact gradient
-#: (``compare_sharp``); "no valid key": rows 103-127 see no key (its output
+#: the result; its output, log-sum-exp and gradient are held elementwise
+#: against their exact values (``compare_sharp``; the forward's from
+#: ``attention_f64``); "no valid key": rows 103-127 see no key (its output
 #: there is the mean of V over masked keys in the reference and not
 #: compared; its log-sum-exp is +inf and its gradient 0)
 K3_BWD_CASES = (("train", 16, 128, 128, 40, 8, 128, True, 0, 0, "f32", 1.0),
@@ -2797,20 +2804,22 @@ K3_BWD_CASES = (("train", 16, 128, 128, 40, 8, 128, True, 0, 0, "f32", 1.0),
 K3_BWD_REPEAT = ("train", "window")
 
 
-def compare_sharp(name, got, plain, exact) -> float:
+def compare_sharp(name, got, plain, exact, parts=("dq", "dk", "dv")) -> float:
     """The sharp-softmax case, elementwise against ``exact``, the plain
     version evaluated in f64 on the same inputs. There the plain version's
     own f32 evaluation (``plain``) is further than 2e-5 + 2e-5 |exact| from
-    ``exact`` on thousands of elements (each score's f32 rounding, 8 times
-    larger, moves P), so no f32 kernel can be held to 2e-5 of it. The kernel
-    is held to be, gradient by gradient, no further from ``exact`` than the
-    plain version's f32 evaluation is: in its largest error and in its count
-    of elements outside 2e-5 + 2e-5 |exact|. Both readings are printed, and
-    the kernel's against ``plain`` beside them."""
+    ``exact`` on thousands of gradient elements (each score's f32 rounding,
+    8 times larger, moves P), so no f32 kernel can be held to 2e-5 of it;
+    its output sits ~2e-5 from ``exact``, and the 3xTF32 forward's as far
+    from it on the other side. The kernel is held to be, part by part, no
+    further from ``exact`` than the plain version's f32 evaluation is: in its
+    largest error and in its count of elements outside 2e-5 + 2e-5 |exact|.
+    Both readings are printed, and the kernel's against ``plain`` beside
+    them."""
     torch.cuda.synchronize()
     tol = TOL[torch.float32]
     worst = 0.0
-    for g, a, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+    for g, a, p, x in zip(parts, got, plain, exact):
         a, p = a.double(), p.double()
         bound = tol * (1 + x.abs())
         e_k, e_p, e_kp = (a - x).abs(), (p - x).abs(), (a - p).abs()
@@ -2818,14 +2827,34 @@ def compare_sharp(name, got, plain, exact) -> float:
         k_out, p_out = int((e_k > bound).sum()), int((e_p > bound).sum())
         kp_out = int((e_kp > tol * (1 + p.abs())).sum())
         worst = max(worst, k_max)
-        print(f"    {name}.{g} against the exact gradient: kernel max abs err {k_max:.3g}, "
+        print(f"    {name}.{g} against its exact value: kernel max abs err {k_max:.3g}, "
               f"{k_out} outside {tol:g} + {tol:g} |exact|; the plain version in f32 "
               f"{p_max:.3g}, {p_out} outside; kernel against the f32 plain version "
               f"{float(e_kp.max()):.3g}, {kp_out} outside")
         check(k_max <= p_max and k_out <= p_out,
-              f"{name}.{g}: further from the exact gradient than the plain version's f32 "
+              f"{name}.{g}: further from its exact value than the plain version's f32 "
               f"evaluation (max {k_max} against {p_max}, {k_out} against {p_out} outside)")
     return worst
+
+
+def attention_f64(q, k, v, *, causal, window, q_offset) -> tuple:
+    """K3's function in f64, unchunked: ``(o, lse)`` of the softmax of q
+    k^T * scale over each row's valid keys (the reference's scale, rounded
+    to f32 first), for rows with at least one; the exact values the sharp
+    case holds the kernel and the f32 plain version to."""
+    h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+    heads = lambda x, n: x.double().transpose(1, 2).repeat_interleave(n, dim=1)  # noqa: E731
+    s = heads(q, 1) @ heads(k, h // kvh).transpose(-1, -2) * float(np.float32(hd) ** -0.5)
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = torch.ones_like(qpos + kpos, dtype=torch.bool)
+    if causal:
+        valid &= kpos <= qpos
+    if window > 0:
+        valid &= kpos > qpos - window
+    s = s.masked_fill(~valid, -torch.inf)
+    return ((torch.softmax(s, dim=-1) @ heads(v, h // kvh)).transpose(1, 2),
+            torch.logsumexp(s, dim=-1))
 
 
 def phase_k3_bwd(rng) -> tuple:
@@ -2850,12 +2879,19 @@ def phase_k3_bwd(rng) -> tuple:
         # ``lse`` cannot pass unseen
         o, lse = flash_attention(q, k, v, **kw, return_lse=True)
         o_plain, lse_plain = flash_attention_torch(q, k, v, **kw, return_lse=True)
-        err_l = compare_lse(f"flash_attention lse[{name}]", lse, lse_plain, dtype)
-        err_f = err_l
-        if name != "no valid key":
-            err_f = max(err_f, compare(f"flash_attention[{name}]", o, o_plain, dtype))
+        if scale != 1:
+            check(not bool(torch.isinf(lse).any() or torch.isinf(lse_plain).any()),
+                  f"[34] {name}: a row without a valid key")
+            err_l = err_f = compare_sharp(f"flash_attention[{name}]", (o, lse),
+                                          (o_plain, lse_plain),
+                                          attention_f64(q, k, v, **kw), parts=("o", "lse"))
         else:
+            err_l = compare_lse(f"flash_attention lse[{name}]", lse, lse_plain, dtype)
+            err_f = err_l
+        if name == "no valid key":
             check(bool(torch.isinf(lse_plain).any()), "[34]: no row without a valid key")
+        elif scale == 1:
+            err_f = max(err_f, compare(f"flash_attention[{name}]", o, o_plain, dtype))
         worst_fwd = max(worst_fwd, err_f)
         do = normal(rng, o.shape, dtype)
         got = flash_attention_bwd(q, k, v, o, do, **kw, lse=lse)
@@ -3231,6 +3267,8 @@ def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
     work = dict(b=b, sq=s, h=h, kv=kvh, hd=hd, keys=sk, pairs=pairs, dtype=dtype)
     cf, cb = cost_model("flash_attention", **work), cost_model("flash_attention_bwd", **work)
     f_bound, f_by = cf.bound_ms, cf.bound_by
+    # the forward's route: each of its 2 products as 3 TF32 products
+    f_route, f_route_by = cf.extra["route_ms"], cf.extra["route_by"]
     # the gradient: twice the forward's bytes and the lse, 2.5 times its
     # flops; its route runs each product as 3 TF32 products (cost_model)
     b_bytes, b_ops, b_bound, b_by = cb.bytes, cb.flops, cb.bound_ms, cb.bound_by
@@ -3238,9 +3276,11 @@ def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
     mask = "causal" if causal else "non-causal"
     print(f"  K3 at the {label} B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} KV={kvh} "
           f"hd={hd} {dtype} {mask}: "
-          f"max_abs_err {err_fwd:.3g}; kernel {f1:.4f}/{f2:.4f} ms, plain {f_p1:.4f}/"
-          f"{f_p2:.4f} ms, SDPA {f_lib:.4f} ms, "
-          f"bound {f_bound:.5f} ms ({f_by})")
+          f"max_abs_err {err_fwd:.3g}; kernel {f1:.4f}/{f2:.4f} ms "
+          f"({cf.flops / min(f1, f2) / 1e9:.1f} TFLOP/s on its 2 products), plain {f_p1:.4f}/"
+          f"{f_p2:.4f} ms, SDPA {f_lib:.4f} ms; bound {f_route:.5f} ms on its route "
+          f"({f_route_by}; 3xTF32, {cf.bytes / 1e6:.1f} MB), {f_bound:.5f} ms on the f32 "
+          f"CUDA cores ({f_by})")
     print(f"  K3 backward: max_abs_err {err_bwd:.3g}; kernel {b1:.4f}/{b2:.4f} ms "
           f"({b_ops / min(b1, b2) / 1e9:.1f} TFLOP/s on its 5 products), plain {b_p1:.4f}/"
           f"{b_p2:.4f} ms, SDPA backward {b_lib:.4f} ms; bound {b_route:.5f} ms on its route "
@@ -3252,7 +3292,8 @@ def train_attention_timing(shape, seed: int, label: str, sk: int | None = None,
         shape_key.update(sk=sk, causal=causal)
     return ({**shape_key, "dtype": "float32", "ms": min(f1, f2),
              "plain_ms": min(f_p1, f_p2), "library_ms": f_lib, "bound_ms": f_bound,
-             "bound_by": f_by, "max_abs_err": err_fwd},
+             "bound_by": f_by, "bound_ms_route": f_route, "bound_by_route": f_route_by,
+             "max_abs_err": err_fwd},
             {**shape_key, "max_abs_err": err_bwd, "ms": min(b1, b2),
              "plain_ms": min(b_p1, b_p2), "bound_ms": b_bound, "bound_by": b_by,
              "bound_ms_route": b_route, "bound_by_route": b_route_by, "library_ms": b_lib})

@@ -313,7 +313,7 @@ def plan_coverage(e: KernelEntry, shape: Dict, plan: Sequence[Launch]) -> List[s
         rows = 128 if e.name == "flash_attention_bf16" else 64
         tiles = -(-shape["Sq"] // rows)
         items = tiles * (1 if rows == 64 else shape["B"] * shape["H"])
-        if rows == 64 and (ln.grid[0] != tiles or ln.grid[1:] != (shape["H"], shape["B"])):
+        if rows == 64 and ln.grid != (tiles * shape["H"] * shape["B"], 1, 1):
             f.append(f"[plan] {lab}: the grid {ln.grid} is not one block per 64 query rows, "
                      "head and batch")
         if rows == 128 and not 1 <= ln.grid[0] <= items:
@@ -572,7 +572,9 @@ def cost_model(kernel: str, hw: Dict = HW, **s) -> CostReport:
       heat at the union, the dense table written; an add per row element
       and two passes over the table.
     - ``flash_attention`` (b, sq, h, kv, hd, keys, pairs, dtype) at the
-      dtype's peak (bf16: tensor cores; f32: CUDA cores).
+      dtype's peak (bf16: tensor cores; f32: CUDA cores); for f32 also
+      ``extra["route_ms"]`` on its route, 3xTF32 on the tensor cores (each
+      product 3 TF32 products).
     - ``flash_decode`` (b, h, kv, hd, n_valid, slots, dtype, lse=False): one
       query row against ``n_valid`` slots, the ``slots`` positions read;
       ``lse``: the log-sum-exp instance, o written in f32 and the rows'
@@ -613,7 +615,11 @@ def cost_model(kernel: str, hw: Dict = HW, **s) -> CostReport:
                                      s["pairs"], esize)
     if kernel == "flash_attention":
         ms, by = roofline(fbytes, fflops, dtype, hw)
-        return CostReport(kernel, float(fbytes), float(fflops), ms, by, dtype)
+        extra = {}
+        if dtype == "f32":
+            route, route_by = roofline(fbytes, 3 * fflops, "tf32", hw)
+            extra = {"route_ms": route, "route_by": route_by, "route_rate": "3xTF32"}
+        return CostReport(kernel, float(fbytes), float(fflops), ms, by, dtype, extra)
     if kernel == "flash_attention_bwd":
         nbytes, flops = 2 * fbytes + 4 * s["b"] * s["h"] * s["sq"], 2.5 * fflops
         ms, by = roofline(nbytes, flops, dtype, hw)

@@ -30,7 +30,8 @@
 // Bound on the H100: operations. At the serving prefill (B 4, S 1024, H 40,
 // KV 8, hd 128, bf16, causal) the two products need ~4.3e10 flops against
 // ~101 MB of q, k, v and o: 0.044 ms at the 989 TFLOP/s bf16 tensor-core
-// rate. The launcher dispatches by dtype to one of two kernels:
+// rate. The launcher dispatches by dtype to one of two kernels, both on the
+// tensor cores:
 //
 // bf16: tensor cores (attention_kernel). A work item is one (query head,
 // batch, 128-row query tile), numbered with the longest causal tiles first.
@@ -81,12 +82,47 @@
 //      instruction that issued it, so they are fenced (fence_regs) until the
 //      wgmma_wait that ends it, lest the compiler reuse them.
 //
-// f32: CUDA cores (attention_kernel_f32). TF32 tensor cores keep about three
-// decimal digits and cannot meet the 2e-5 the f32 comparisons hold, so f32
-// stays on f32 FMAs: one block per (batch, head, 64-row query tile), each
-// of its 256 threads owning a 4 x 4 block of S and a 4 x (hd/16) block of
-// acc, shared-memory rows padded by one word against bank conflicts, K and
-// V taking turns in one buffer.
+// f32: tensor cores by the 3xTF32 split (attention_kernel_f32). One TF32
+// product keeps about three decimal digits, short of the 2e-5 that f32 is
+// held to; three of them on each operand's big and small halves, in
+// warp_mma.cuh's Tf32x3 policy (K3's backward's), hold it. At Whisper's
+// encoder training shape (B 8, 1,500 x 1,500, H 20, hd 64, f32,
+// non-causal) the two products are 9.2e10 flops, 3 TF32 products each:
+// 0.559 ms at the 495 TFLOP/s TF32 rate against 0.073 ms for its 246 MB:
+// bound by operations (1.376 ms on the f32 CUDA cores). A work item is one
+// (64 query rows, head, batch), a block of 4 warps of 16 rows each, items
+// numbered with the longest causal walks first over every head and batch.
+// The design, point by point:
+//   1. Products. S = Q K^T and O += P V are mma.sync.m16n8k8 TF32 on the
+//      big/small halves (small*big + big*small + big*big), each chain of
+//      kChain k-steps from a fresh accumulator folded in by an f32 add,
+//      since the tensor cores truncate as they accumulate. S takes its terms
+//      in dq_kernel's order (qk_scores), so the forward's scores, hence its
+//      log-sum-exp, are the backward's bit for bit. P stays in registers as
+//      the A operand of the PV product, split too (it lies in [0, 1]), its
+//      contraction index permuted as the backward's dQ product's
+//      (Tf32x3::a_from_acc; load_b_kn reads V's rows to match). wgmma takes
+//      TF32 only with both operands K-major, and V is MN-major: not used.
+//   2. Loads. K and V tiles stream through a two-stage cp.async ring with
+//      zero-fill past Sk; tile i + 1's copies are in flight while tile i is
+//      multiplied (one barrier a tile). Q is split once when it lands (big
+//      in place, small beside it). K and V stay f32 in the ring, and each
+//      warp splits the fragments it loads: split once for the block in
+//      shared memory, they cost two more passes over the tile and twice the
+//      bytes per fragment, and a build that did so was slower at every
+//      Whisper, Zamba2 and Qwen shape it was timed at; the shared memory
+//      that split took holds Q's halves at hd 128 instead.
+//   3. Occupancy. Shared memory per block (F32Tile): Q's halves and the
+//      ring, 16-key tiles at hd 128 (101,376 B), 32-key tiles below (69,632
+//      B at hd 64): two blocks (8 warps) an SM. Registers and spills: ptxas
+//      -v, printed by the build.
+//   4. Work. Key tiles before the window's lower edge of the block's first
+//      row or past the diagonal of its last are never read; a warp skips a
+//      tile none of its pairs needs, and builds masks only on tiles that
+//      cross the diagonal, the window edge or Sk. A row whose first tiles are
+//      all masked keeps m at -1e30 (p = 1 on those keys) until a valid key's
+//      correction wipes them, as in the reference; a skipped tile is such a
+//      tile, wiped the same way, so skipping changes no valid row's result.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -95,8 +131,11 @@
 #include <stdint.h>
 
 #include "introspect.cuh"
+#include "warp_mma.cuh"
 
 namespace {
+
+using namespace warp_mma;
 
 constexpr float kNegInf = -1e30f;
 
@@ -131,10 +170,6 @@ struct Tile {
   // tiles, 1024 bytes of alignment slack, the mbarriers
   static constexpr int kSmem = kTiles + 1024 + 8 * (4 + 4 * kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
@@ -667,158 +702,199 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: 3xTF32 mma.sync on a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int kF32BQ = 64;        // query rows per block
-constexpr int kF32BK = 64;        // keys per tile
-constexpr int kF32Threads = 256;  // 16 x 16 threads: ty picks rows, tx columns
+constexpr int kF32Rows = 64;      // query rows per block, 16 per warp
+constexpr int kF32Threads = 128;  // 4 warps
+constexpr int kF32Stages = 2;     // depth of the K/V ring
 
+// A block's shared memory, in bytes of padded rows (tile_ld): Q's 64 rows,
+// split once into their big halves (in place) and small ones, and a ring of
+// kF32Stages K and V tiles of kKeys rows in f32, which each warp splits as it
+// loads its fragments: 101,376 B at hd 128 (16-key tiles), 69,632 B at hd
+// 64 (32-key tiles), two blocks an SM at every head dim.
 template <int HD>
-constexpr int f32_smem_floats() {
-  return kF32BQ * (HD + 1) + kF32BK * (HD + 1) + kF32BQ * (kF32BK + 1);
+struct F32Tile {
+  static constexpr int kLD = tile_ld<HD, float>();
+  static constexpr int kKeys = HD == 128 ? 16 : 32;
+  static constexpr int kSmem = (2 * kF32Rows + 2 * kF32Stages * kKeys) * kLD * 4;
+};
+
+// s (16 x 8 NT) = Q (16 rows, split: big halves at q, small at q_small) .
+// K (8 NT rows of f32, split here)^T over HD. Each s[nt] takes its terms in
+// the order scores() of flash_attention_bwd.cu gives them (a fresh chain of
+// kChain k-steps, small*big, big*small, big*big, added to s), so these
+// scores are dq_kernel's bit for bit, and so is the log-sum-exp the backward
+// divides by. Each pair of K's n-tiles is loaded once for both.
+template <int HD, int LD, int NT>
+__device__ __forceinline__ void qk_scores(float (&s)[NT][4], const float* q,
+                                          const float* q_small, const float* k, int lane) {
+  using P = Tf32x3;
+  constexpr int kSteps = HD / P::kK, kC = kSteps < kChain ? kSteps : kChain;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += kC * P::kK) {
+    P::A fa[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      fa[c] = P::load_a<LD>(q + kk + c * P::kK, q_small + kk + c * P::kK, lane);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        P::B fb[2];
+        P::load_b2_nk<LD, false>(fb, k + np * 16 * LD + kk + c * P::kK, nullptr, lane);
+        P::mma(part[0], fa[c], fb[0]);
+        P::mma(part[1], fa[c], fb[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[2 * np][e] += part[0][e];
+        s[2 * np + 1][e] += part[1][e];
+      }
+    }
+  }
 }
 
+// Block i is work item i: query tile n_m - 1 - i / (h b) (the longest
+// causal walks first, over every head and batch), head i % h, batch
+// (i / h) % b.
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads, 2)
 attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int sq, int sk, int h, int kvh, float scale,
-                     int causal, int window, int q_offset) {
-  constexpr int QS = HD + 1;      // padded row stride of the Q and K/V tiles
-  constexpr int PS = kF32BK + 1;  // padded row stride of the P tile
-  constexpr int DJ = HD / 16;     // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                  // kF32BQ x QS
-  float* kvs = qs + kF32BQ * QS;     // kF32BK x QS: K, then V, of the current tile
-  float* ps = kvs + kF32BK * QS;     // kF32BQ x PS
+                     float* __restrict__ lse, int b_count, int sq, int sk, int h, int kvh,
+                     float scale, int causal, int window, int q_offset) {
+  using P = Tf32x3;
+  constexpr int LD = F32Tile<HD>::kLD, BN = F32Tile<HD>::kKeys, NT = BN / 8;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;                     // kF32Rows x LD: Q, then its big halves
+  float* q_small = qs + kF32Rows * LD;      // kF32Rows x LD: Q's small halves
+  float* ks = q_small + kF32Rows * LD;      // kF32Stages x BN x LD
+  float* vs = ks + kF32Stages * BN * LD;    // kF32Stages x BN x LD
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kF32BQ, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int per_tile = h * b_count, n_m = (sq + kF32Rows - 1) / kF32Rows;
+  const int q0 = (n_m - 1 - static_cast<int>(blockIdx.x) / per_tile) * kF32Rows;
+  const int head = blockIdx.x % h, b = blockIdx.x / h % b_count;
   const int kv_head = head / (h / kvh);
-  const int64_t q_row = static_cast<int64_t>(h) * HD;     // stride between positions
+  const int64_t q_row = static_cast<int64_t>(h) * HD;      // stride between positions
   const int64_t k_row = static_cast<int64_t>(kvh) * HD;
-  const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * HD;
-  const float* kb = k + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  const float* vb = v + (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
-  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * HD;
+  const int64_t q_base = (static_cast<int64_t>(b) * sq * h + head) * HD;
+  const int64_t k_base = (static_cast<int64_t>(b) * sk * kvh + kv_head) * HD;
 
-  for (int i = tid; i < kF32BQ * HD; i += kF32Threads) {
-    const int r = i / HD, d = i % HD, s = q0 + r;
-    qs[r * QS + d] = s < sq ? qb[s * q_row + d] : 0.f;
-  }
+  load_rows<HD, kF32Rows, kF32Threads>(qs, q + q_base, q_row, q0, sq);
 
-  const int nk = (sk + kF32BK - 1) / kF32BK;
+  // the key tiles between the window's lower edge of the block's first row
+  // and the causal diagonal of its last
+  const int nk = (sk + BN - 1) / BN;
   int kt_end = nk;
-  if (causal) kt_end = min(nk, (q_offset + min(q0 + kF32BQ, sq) - 1) / kF32BK + 1);
+  if (causal) {
+    const int last = q_offset + min(q0 + kF32Rows, sq) - 1;
+    kt_end = last < 0 ? 0 : min(nk, last / BN + 1);
+  }
   int kt_begin = 0;
   if (window > 0) {
     const int lo = q_offset + q0 - window + 1;
-    kt_begin = lo > 0 ? lo / kF32BK : 0;
+    kt_begin = lo > 0 ? lo / BN : 0;
   }
+  const int n = max(kt_end - kt_begin, 0);
+  auto fetch = [&](int i) {
+    const int st = i % kF32Stages, k0 = (kt_begin + i) * BN;
+    load_rows<HD, BN, kF32Threads>(ks + st * BN * LD, k + k_base, k_row, k0, sk);
+    load_rows<HD, BN, kF32Threads>(vs + st * BN * LD, v + k_base, k_row, k0, sk);
+  };
+  if (n > 0) fetch(0);
+  cp_async_commit();   // one group: Q and key tile 0
 
-  float m[4], l[4], acc[4][DJ];
-  int qpos[4];
+  // this warp's rows r0 + [0, 16); this thread's r0 + g and r0 + g + 8
+  const int r0 = warp * 16, q_first = q_offset + q0 + r0;
+  const int qpos[2] = {q_first + g, q_first + g + 8};
+  float acc[HD / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    qpos[i] = q_offset + q0 + ty + 16 * i;
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kF32BK;
-    __syncthreads();  // the previous tile's V and P reads are done
-    for (int i = tid; i < kF32BK * HD; i += kF32Threads) {
-      const int r = i / HD, d = i % HD, s = k0 + r;
-      kvs[r * QS + d] = s < sk ? kb[s * k_row + d] : 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kF32Stages, k0 = (kt_begin + i) * BN;
+    cp_async_wait<0>();   // tile i has landed (and Q, at i = 0)
+    __syncthreads();      // ... for every thread, and every warp is done with tile i - 1
+    if (i + 1 < n) fetch(i + 1);   // into tile i - 1's stage, under this tile's products
+    cp_async_commit();
+    if (i == 0) {
+      split_tile<HD, P, kF32Rows, kF32Threads>(qs, q_small);
+      __syncthreads();
     }
-    __syncthreads();
+    if (!any_valid<BN>(k0, q_first, sk, causal, window)) continue;   // no pair of this warp's
 
-    float s[4][4];
+    const float* kt = ks + st * BN * LD;
+    float s[NT][4];
+    qk_scores<HD, LD, NT>(s, qs + r0 * LD, q_small + r0 * LD, kt, lane);
+    // scale, and mask only where the tile crosses Sk, the diagonal or the
+    // window edge of this warp's rows
+    const bool masked = k0 + BN > sk || (causal && k0 + BN - 1 > q_first) ||
+                        (window > 0 && k0 <= q_first + 15 - window);
+    float mx[2] = {m[0], m[1]}, corr[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kvs[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < sk;
-        if (causal) ok = ok && kpos <= qpos[i];
-        if (window > 0) ok = ok && kpos > qpos[i] - window;
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale;
+        if (masked && !is_valid(k0 + nt * 8 + 2 * t + (e & 1), qpos[e / 2], sk, causal, window))
+          x = kNegInf;
+        s[nt][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
-      // the 16 threads of a row are one half-warp
+    // a row lives in the 4 lanes of a quad
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f((s[nt][e] - m[e / 2]) * kLog2e);   // p
+        rsum[e / 2] += s[nt][e];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rsum[r];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-
-    __syncthreads();  // every K read is done: V takes the buffer
-    for (int i = tid; i < kF32BK * HD; i += kF32Threads) {
-      const int r = i / HD, d = i % HD, s2 = k0 + r;
-      kvs[r * QS + d] = s2 < sk ? vb[s2 * k_row + d] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kF32BK; ++c) {
-      float pv[4], vv[DJ];
+    for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = kvs[c * QS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= corr[e / 2];
+    const float* vt = vs + st * BN * LD;
+    accumulate<P, HD, LD, false>(acc, s, vt, vt, g, t);   // acc += p V, V split here
   }
+  cp_async_wait<0>();   // no copy may land after the block has left
 
+  // out = acc / max(l, 1e-30): the row sum is spread over the quad
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* ob = o + q_base + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[s * q_row + tx + 16 * j] = acc[i][j] * inv;
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<int64_t>(blockIdx.z) * h + head) * sq + s] = row_lse(m[i], l[i]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= sq) continue;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<int64_t>(b) * h + head) * sq + row] = row_lse(m[r], l[r]);
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<float2*>(ob + row * q_row + nt * 8) =
+          make_float2(acc[nt][2 * r] / den, acc[nt][2 * r + 1] / den);
   }
 }
 
@@ -826,16 +902,18 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int b, int sq,
                int sk, int h, int kvh, float scale, int causal, int window, int q_offset,
                cudaStream_t stream) {
-  constexpr int bytes = f32_smem_floats<HD>() * sizeof(float);
+  constexpr int bytes = F32Tile<HD>::kSmem;
+  // a block may take 232,448 B; two share an SM's 233,472 B (1 KB reserved each)
+  static_assert(2 * (bytes + 1024) <= 233472, "two blocks to an SM");
   auto kernel = attention_kernel_f32<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kF32BQ - 1) / kF32BQ, h, b);
-  kernel<<<grid, kF32Threads, bytes, stream>>>(
+  const int blocks = (sq + kF32Rows - 1) / kF32Rows * h * b;
+  kernel<<<blocks, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), sq, sk, h,
-      kvh, scale, causal, window, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), b, sq, sk,
+      h, kvh, scale, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -848,7 +926,7 @@ int query_instance(bool bf16, int* out, const char** name) {
     return introspect::query(reinterpret_cast<const void*>(attention_kernel<HD>), kThreads,
                              Tile<HD>::kSmem, 1, out, name);
   return introspect::query(reinterpret_cast<const void*>(attention_kernel_f32<HD>),
-                           kF32Threads, f32_smem_floats<HD>() * sizeof(float), 1, out, name);
+                           kF32Threads, F32Tile<HD>::kSmem, 1, out, name);
 }
 
 Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
@@ -871,8 +949,8 @@ Launch pick(int hd, Launch l16, Launch l32, Launch l64, Launch l128) {
 // path passes null. Each returns the CUDA error of its launch, 0 if none.
 
 // Instance i at its launch configuration, for the kernel audit
-// (introspect.cuh): 0-3 the tensor-core kernel at hd 16, 32, 64, 128, 4-7 the
-// CUDA-core kernel at the same; arg unused.
+// (introspect.cuh): 0-3 the bf16 kernel at hd 16, 32, 64, 128, 4-7 the f32
+// (3xTF32) kernel at the same; arg unused.
 extern "C" int flash_attention_instance(int i, int arg, int* out, const char** name) {
   (void)arg;
   if (i < 0 || i >= 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -886,7 +964,7 @@ extern "C" int flash_attention_instance(int i, int arg, int* out, const char** n
   }
 }
 
-// bf16 inputs, 16-byte aligned: the tensor-core kernel
+// bf16 inputs, 16-byte aligned: wgmma on TMA-loaded tiles
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                            void* o, void* lse, int b, int sq, int sk, int h,
                                            int kvh, int hd, float scale, int causal,
@@ -897,7 +975,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const v
             static_cast<cudaStream_t>(stream));
 }
 
-// f32 inputs: the CUDA-core kernel
+// f32 inputs, 16-byte aligned: 3xTF32 mma.sync on a cp.async ring
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
                                           void* o, void* lse, int b, int sq, int sk, int h,
                                           int kvh, int hd, float scale, int causal,

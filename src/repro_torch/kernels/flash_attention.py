@@ -5,15 +5,18 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:flash_attention``
 The CUDA source is ``csrc/flash_attention.cu``: for each (head, batch,
 query tile) a block walks the key tiles between the window's lower edge and
 the causal diagonal with an online softmax in registers. It is bound by
-operations on the H100. The wrapper dispatches by dtype (``kernel_symbol``):
-bf16 runs the tensor-core kernel (``wgmma`` products on TMA-loaded tiles in
-mbarrier-guarded rings, a producer warpgroup and two consumers, one
-persistent block per SM); f32 runs the CUDA-core kernel (one TF32 product
-keeps about three decimal digits, short of the 2e-5 that f32 is held to).
-This is a dispatch by dtype, not a fallback: a failed build or launch of
-either raises. With ``return_lse`` either kernel also writes each row's
-log-sum-exp for the gradient; the serving path asks for none. The source
-note says what each design does.
+operations on the H100. The wrapper dispatches by dtype (``kernel_symbol``)
+to one of two tensor-core kernels: bf16 runs ``wgmma`` products on
+TMA-loaded tiles in mbarrier-guarded rings (a producer warpgroup and two
+consumers, one persistent block per SM); f32 runs ``mma.sync`` TF32 products
+on the 3xTF32 split (one TF32 product keeps about three decimal digits,
+short of the 2e-5 that f32 is held to; three on each operand's big and small
+halves hold it), its K and V tiles streamed through a ``cp.async`` ring,
+with the policy K3's backward uses (``csrc/warp_mma.cuh``). This is a
+dispatch by dtype, not a fallback: a failed build or launch of either
+raises. Both take 16-byte aligned q, k and v. With ``return_lse`` either
+kernel also writes each row's log-sum-exp for the gradient; the serving
+path asks for none. The source note says what each design does.
 
 ``flash_attention`` launches a kernel for CUDA tensors and runs
 ``flash_attention_torch``, the plain PyTorch version, for CPU tensors only.
@@ -119,9 +122,9 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def kernel_symbol(dtype: torch.dtype, kernels=KERNELS) -> str:
-    """The launcher that serves ``dtype``: tensor cores for bf16, CUDA cores
-    for f32 (``BWD_KERNELS``: the gradient's, tensor cores for both, f32 by
-    the 3xTF32 split)."""
+    """The launcher that serves ``dtype``, on the tensor cores for both:
+    ``wgmma`` for bf16, ``mma.sync`` on the 3xTF32 split for f32
+    (``BWD_KERNELS``: the gradient's, likewise ``mma.sync``)."""
     if dtype not in kernels:
         raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, got {dtype}")
     return kernels[dtype]
@@ -170,8 +173,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     symbol = _check_inputs("flash_attention", q, k, v)
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k.shape
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k and v must be 16-byte aligned (TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned (TMA for bf16, "
+                         "cp.async for f32)")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:

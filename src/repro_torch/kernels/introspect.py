@@ -136,8 +136,10 @@ def _attention_bf16_instances(s: Dict, max_blocks: Callable) -> Tuple[Launch, ..
 
 
 def _attention_f32_instances(s: Dict, max_blocks: Callable) -> Tuple[Launch, ...]:
+    """One block of 4 warps per (64 query rows, head, batch) in a 1-D grid,
+    the query tiles numbered from the last (the longest causal walks first)."""
     return (Launch(f"attention_kernel_f32<{s['hd']}>", 4 + _hd_index(s["hd"]),
-                   grid=(-(-s["Sq"] // 64), s["H"], s["B"])),)
+                   grid=(-(-s["Sq"] // 64) * s["H"] * s["B"], 1, 1)),)
 
 
 def _attention_bwd_instances(s: Dict, max_blocks: Callable) -> Tuple[Launch, ...]:
@@ -230,7 +232,8 @@ REGISTRY = (
     KernelEntry(
         "flash_attention_f32", "flash_attention", "src/repro/kernels/flash_attention.py:100",
         ("attention_kernel_f32",), ("flash_attention_f32_launch",),
-        "nothing: a block owns its 64 query rows of one head",
+        "nothing: a block owns its 64 query rows of one head and streams their key "
+        "tiles through its own cp.async ring",
         True,
         (AuditShape("reference",
                     dict(B=1, Sq=2048, Sk=2048, H=4, KV=2, hd=128, causal=True),

@@ -564,6 +564,35 @@ def test_cost_model_prices_k1_scratch_as_the_plan():
         kernel_audit.cost_model("matmul", b=1)
 
 
+@pytest.mark.parametrize("shape,nbytes,flops,route_ms,route_by", [
+    # [38]'s training shape: B 16, S 128, H 40 / KV 8, hd 128, causal (128 x
+    # 129 / 2 = 8,256 pairs a (batch, head)); q and o 16 x 128 x 40 rows, k
+    # and v 16 x 128 x 8, of 128 f32 each
+    (dict(b=16, sq=128, h=40, kv=8, hd=128, keys=128, pairs=8256),
+     4 * 2 * 16 * 128 * (128 * 40 + 128 * 8), 4 * 16 * 40 * 128 * 8256,
+     100_663_296 / 3.35e12 * 1e3, "bytes"),
+    # Whisper's encoder training shape: B 8, 1,500 x 1,500, H = KV = 20, hd
+    # 64, non-causal (1,500^2 pairs)
+    (dict(b=8, sq=1500, h=20, kv=20, hd=64, keys=1500, pairs=1500 * 1500),
+     4 * 2 * 8 * 64 * (1500 * 20 + 1500 * 20), 4 * 8 * 20 * 64 * 1500 * 1500,
+     3 * 9.216e10 / 495e12 * 1e3, "operations"),
+])
+def test_cost_model_prices_k3_f32_on_its_3xtf32_route(shape, nbytes, flops, route_ms, route_by):
+    """K3 in f32 runs each product as 3 TF32 products on the tensor cores:
+    its route bound is the larger of its bytes at 3.35 TB/s and 3 times its
+    flops at 495 TFLOP/s (0.0300 ms by bytes, 100.7 MB, at [38]; 0.5585 ms
+    by operations at Whisper's encoder), beside its bound on the f32 CUDA
+    cores; bf16 has no separate route."""
+    c = kernel_audit.cost_model("flash_attention", dtype="f32", **shape)
+    assert (c.bytes, c.flops) == (nbytes, flops)
+    assert c.extra["route_rate"] == "3xTF32" and c.extra["route_by"] == route_by
+    assert c.extra["route_ms"] == pytest.approx(route_ms, rel=1e-12)
+    assert round(c.extra["route_ms"], 4) == (0.0300 if route_by == "bytes" else 0.5585)
+    assert c.bound_ms == pytest.approx(max(nbytes / HW["hbm_bandwidth"],
+                                           flops / HW["peak_flops_f32"]) * 1e3, rel=1e-12)
+    assert kernel_audit.cost_model("flash_attention", dtype="bf16", **shape).extra == {}
+
+
 def test_analysis_submodules_load_lazily():
     import repro_torch.analysis as pkg
     assert set(pkg._SUBMODULES) == {"sanitize", "jaxpr_audit", "hlo_audit", "kernel_audit"}

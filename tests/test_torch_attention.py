@@ -165,8 +165,8 @@ def test_flash_decode_split_plan_at_the_serving_shape(s, want):
 
 
 def test_flash_attention_dispatches_by_dtype():
-    """bf16 runs the tensor-core kernel, f32 the CUDA-core one; nothing else
-    has a kernel."""
+    """bf16 runs the wgmma kernel, f32 the 3xTF32 mma.sync one; nothing
+    else has a kernel."""
     assert kernel_symbol(torch.bfloat16) == "flash_attention_bf16_launch"
     assert kernel_symbol(torch.float32) == "flash_attention_f32_launch"
     with pytest.raises(TypeError, match="f32 or bf16"):

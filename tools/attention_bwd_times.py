@@ -9,10 +9,11 @@ training shapes, and fingerprint its gradients.
 one card, in turns (other, this, this, other), as with
 ``tools/aggregation_times.py``. Each run prints the card's name and power
 limit and one JSON line per shape: the backward's milliseconds by CUDA
-events (two readings), with K3's forward and its log-sum-exp computed once
-beforehand, and the SHA-256 of dQ, dK and dV on inputs drawn from a fixed
-seed: two trees whose fingerprints agree give the same gradients bit for
-bit.
+events (two readings), with the forward's output and log-sum-exp computed
+once beforehand by K3's plain version (so that a fingerprint depends on the
+backward alone), and the SHA-256 of dQ, dK and dV on inputs drawn from a
+fixed seed: two trees whose fingerprints agree give the same gradients bit
+for bit.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ def main() -> int:
         print("attention_bwd_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_torch
     from tools.aggregation_times import card_line, cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -54,7 +55,8 @@ def main() -> int:
     for name, (b, s, sk, h, kvh, hd, causal, dtype) in SHAPES.items():
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                    for shape in ((b, s, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd)))
-        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        o, lse = flash_attention_torch(q, k, v, causal=causal, return_lse=True)
+        o = o.contiguous()
         do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
         bwd = lambda: flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)  # noqa: E731
         grads = bwd()
