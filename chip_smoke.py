@@ -437,9 +437,9 @@ from repro_torch.federated.plan import (CohortSharding, FedSgdLocal,  # noqa: E4
                                         RoundPlan, RowSparseTransport, ServerUpdate,
                                         SubmodelReplicatedLocal, build_round_step,
                                         resolve_plan, round_collective_budget)
-from repro_torch.launch.mesh import (CohortMesh, make_cohort_mesh,  # noqa: E402
+from repro_torch.launch.mesh import (MESH_AXES, CohortMesh, make_cohort_mesh,  # noqa: E402
                                      make_device_mesh, spawn_ranks)
-from repro_torch.launch.shardings import local_part, param_specs  # noqa: E402
+from repro_torch.launch.shardings import _index, local_part, param_specs  # noqa: E402
 from repro_torch.federated.simulation import make_round_step  # noqa: E402
 from repro_torch.core.algorithms import ServerState  # noqa: E402
 from repro_torch.sparse import compress  # noqa: E402
@@ -5564,6 +5564,22 @@ SP_LAYERS = 1
 SP_REDUCED = ("layers 48 -> 1: one layer is 1.83 B f32 parameters (7.3 GB), drawn whole by "
               "each rank before it keeps its part, and 2 or 4 ranks share the one card")
 SP_K1_MESH = (2, 2)
+#: [74]: the dry run's other layouts, jobs that ride [64]'s spawn, each held
+#: to a single-device run [64] or [70] already makes: (label, mesh shape,
+#: layout, reference: "qwen" [64]'s 1-layer run, "sparse" [70]'s). Mixtral
+#: at 1 layer under FSDP on (2, 2) does not fit: 4 ranks on the one card,
+#: each gathering its half of the experts whole (1.5 GiB a weight) and its
+#: gradient, ran out of its 80 GB; it is held on the host alone
+#: (tests/test_torch_fsdp.py)
+LY_TRAIN = (("fsdp (2, 2)", (2, 2), "fsdp", "qwen"),
+            ("tp (2, 1, 2)", (2, 1, 2), "tp", "qwen"),
+            ("fsdp sparse (2, 2)", (2, 2), "fsdp", "sparse"))
+#: [74] (c): served under FSDP on (2, 2) in [67]'s spawn, at the depth, batch
+#: and prompt of SV_F32_JOBS' "qwen (1, 4)", held to the one-device run [68]
+#: holds that job to, for its first 2 greedy steps: every step gathers each
+#: rank's weights over 'data' through gloo's host copies, 3-5 s a step on an
+#: H100 where [68]'s take 0.1 s
+LY_SERVE = ("qwen fsdp (2, 2)", (2, 2), "fsdp", "qwen (1, 4)", 2)
 
 
 @contextlib.contextmanager
@@ -5666,9 +5682,10 @@ def tp_job(mesh, job: dict) -> dict:
     t0 = time.perf_counter()
     cfg, sparse, rounds = job["cfg"], job.get("sparse", False), job.get("rounds", TP_ROUNDS)
     run = job.get("run", TP_RUN)
+    layout = job.get("layout", "tp")
     inline = (tp_reference_run(cfg, rounds, sparse, run, mesh.device, keep_first=True)
               if job.get("inline") else None)
-    rules = train_mod.mesh_rules(cfg, mesh, job["ep"])
+    rules = train_mod.mesh_rules(cfg, mesh, job["ep"], layout)
     meta = build_model(cfg).abstract_params()
     full = {n: tuple(t.shape) for n, t in meta.state_dict().items()}
     specs = param_specs(meta.axes, full, mesh, rules)
@@ -5700,9 +5717,11 @@ def tp_job(mesh, job: dict) -> dict:
     with record_routes([]) as routes, capture_k1(captured):
         res = train_mod.train(cfg, rounds=rounds, device=mesh.device, mesh=mesh,
                               expert_parallel=job["ep"], log_every=0, on_round=on_round,
-                              sparse=sparse, **run)
+                              sparse=sparse, layout=layout, **run)
     launches = lm_counts()
-    peak = torch.cuda.max_memory_allocated() if mesh.device.type == "cuda" else 0
+    # from the rank keeping its part (the whole draw freed) to the end
+    peak = res.peak_bytes
+    resident = sum(t.numel() * t.element_size() for t in res.params.values())
     budget = plan_mod.tp_collective_budget(
         cfg, mesh, {"tokens": torch.zeros(run["cohort"], run["seq"])}, rules=res.rules,
         sparse=sparse)
@@ -5717,7 +5736,9 @@ def tp_job(mesh, job: dict) -> dict:
     out = {"losses": res.losses, "ms": res.ms_per_round, "peak_gb": peak / 1e9,
            "launches": launches, "counters": res.counters, "budget": budget["axes"],
            "same": same, "routes": routes, "err": err, "sq": sq, "coords": mesh.coords,
-           "data": mesh.shape["data"], "split": sorted(n for n in specs if n not in whole),
+           "data": math.prod(mesh.shape[n] for n in rules["batch"]),
+           "axis_names": mesh.axis_names, "specs": specs, "resident_gb": resident / 1e9,
+           "split": sorted(n for n in specs if n not in whole),
            "sub_rows": subs, "bytes_up": res.bytes_up_sparse, "rounds": rounds,
            "err1": err1}
     if inline is not None:
@@ -5749,7 +5770,7 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str, jobs: list, device:
     try:
         results = {}
         for job in jobs:
-            mesh = make_device_mesh(job["shape"], device=DEV)
+            mesh = make_device_mesh(job["shape"], MESH_AXES[len(job["shape"])], device=DEV)
             if "blocks" in job:
                 job = job["blocks"][mesh.ranks[0] // len(mesh.ranks)]
                 if job is None:
@@ -5819,9 +5840,12 @@ def check_tp(label: str, ranks: list, ref: dict) -> dict:
         # side, held by the parameters
         if n.endswith(".b_i"):
             continue
-        sq = sum(per[label]["sq"][n] for per in ranks if per[label]["coords"][0] == 0)
-        if n not in first["split"]:
-            sq = first["sq"][n]
+        # one copy of each part: the ranks at 0 on every axis that does not
+        # split the leaf
+        used = {a for p in first["specs"][n] if p for a in ((p,) if isinstance(p, str) else p)}
+        sq = sum(per[label]["sq"][n] for per in ranks
+                 if all(c == 0 for a, c in zip(first["axis_names"], per[label]["coords"])
+                        if a not in used))
         rel[n] = math.sqrt(sq) / norm if norm > 0 else math.sqrt(sq)
     worst = max(rel, key=rel.get)
     check(rel[worst] <= LM_UPDATE_TOL, f"{label}: the update of {worst} is {rel[worst]:.3g} "
@@ -5907,14 +5931,24 @@ def phase_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
     for label, shape in zip(sp_labels, SP_MESHES):
         add(label, shape, lm_config(SP_LAYERS), False, refs["sparse"], sparse=True,
             capture=shape == SP_K1_MESH)
+    ly_refs = {"qwen": (refs[1, 1], lm_config(1), False),
+               "sparse": (refs["sparse"], lm_config(SP_LAYERS), True)}
+    ly_labels = []
+    for name, shape, layout, key in LY_TRAIN:
+        ref, cfg, sp = ly_refs[key]
+        label = f"{LM_ARCH} {name}"
+        add(label, shape, cfg, False, ref, sparse=sp, layout=layout)
+        ly_labels.append(label)
     # one spawn of 4: a (1, 2) job runs on one of the world's two (1, 2)
     # meshes, two at a time where their peaks fit on the card together
     # (Qwen2.5's two do, ~55 GB; Mixtral's two would take ~80)
     q12, s12 = f"{LM_ARCH} (1, 2)", f"{LM_ARCH} sparse (1, 2)"
-    spawn = [jobs[label] for label in jobs if math.prod(jobs[label]["shape"]) == 4]
+    spawn = [jobs[label] for label in jobs
+             if math.prod(jobs[label]["shape"]) == 4 and label not in ly_labels]
     spawn += [{"shape": (1, 2), "blocks": [jobs[q12], jobs[s12]]}]
     spawn += [{"shape": (1, 2), "blocks": [jobs[label], None]} for label in moe_labels]
     spawn += list(extra)
+    spawn += [jobs[label] for label in ly_labels]
     try:
         world = run_tp(4, spawn)
     finally:
@@ -5927,12 +5961,13 @@ def phase_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
         tp[label] = dict(check_tp(label, ranks[label], want[label]), ranks=ranks[label])
 
     for label in want:
-        if label not in moe_labels + sp_labels:
+        if label not in moe_labels + sp_labels + ly_labels:
             held(label)
     sp_s = refs["sparse"]["s"] + sum(max(per[label]["s"] for per in ranks[label])
                                      for label in sp_labels)
-    print(f"  [64] took {time.perf_counter() - t0:.1f} s (with [65]'s runs, and [70]'s "
-          f"{sp_s:.1f} s)")
+    ly_s = sum(max(per[label]["s"] for per in ranks[label]) for label in ly_labels)
+    print(f"  [64] took {time.perf_counter() - t0:.1f} s (with [65]'s runs, [70]'s "
+          f"{sp_s:.1f} s and [74]'s jobs' {ly_s:.1f} s)")
 
     print(f"[65] {MOE_ARCH} at its widths, {TP_MOE_LAYERS} layer, f32: the tensor-parallel "
           "baseline and expert parallelism on (1, 2) against one device (run in [64]'s "
@@ -5967,7 +6002,10 @@ def phase_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
     print(f"  [66] took {time.perf_counter() - t0:.1f} s")
     sparse = {"ref": refs["sparse"], "s": sp_s,
               "jobs": {label: ranks[label] for label in sp_labels}}
-    return rows, sparse, world
+    layouts = {"jobs": {label: ranks[label] for label in ly_labels}, "s": ly_s,
+               "refs": {label: want[label] for label in ly_labels},
+               "tp": {label: tp[label] for label in tp}}
+    return rows, sparse, world, layouts
 
 
 def check_budget(label: str, ranks: list) -> None:
@@ -6067,11 +6105,12 @@ def serve_job(mesh, job: dict) -> dict:
     cache's bytes and K3's and K4's launches. With ``swap`` (a leaf and
     its split dim), the rank also serves one step from a broken split and
     returns its prefill logits' distance from one device's."""
+    t0 = time.perf_counter()
     cfg = job["cfg"]
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
     kw = dict(batch=job["batch"], prompt=job["prompt"], gen=job["gen"], seed=SEED,
-              mesh=mesh, expert_parallel=job["ep"])
+              mesh=mesh, expert_parallel=job["ep"], layout=job.get("layout", "tp"))
     if job.get("warm"):
         # cuBLAS's handles and the kernels' first loads, at a short prompt
         serve_mod.serve(cfg, **dict(kw, prompt=min(job["prompt"], 256), gen=2))
@@ -6084,7 +6123,7 @@ def serve_job(mesh, job: dict) -> dict:
                                               job["gen"], rules=res.rules)
     ref = torch.load(job["ref"], weights_only=True)
     b = res.tokens.shape[0]
-    d = mesh.coords[0]
+    d = _index(mesh, res.rules["batch"])                  # the rank's block of the batch
     rows = slice(d * b, (d + 1) * b) if b < job["batch"] else slice(None)
     err = [float((got.cpu() - want[rows]).abs().max())
            for got, want in zip(res.logits, ref["logits"])]
@@ -6102,14 +6141,14 @@ def serve_job(mesh, job: dict) -> dict:
                               [lg[rows] for lg in ref["logits"][:2]], ref["tokens"][rows])
     out = {"err": err, "excess": excess, "scale": scale, "rel_one": rel_one,
            "rel_f32": rel_f32, "tokens": res.tokens.cpu(),
-           "want_tokens": ref["tokens"][rows],
+           "want_tokens": ref["tokens"][rows][:, :job["gen"]],
            "prefill_ms": res.prefill_ms, "step_ms": res.decode_ms_per_token,
            "peak_gb": res.peak_bytes / 1e9, "cache_bytes": res.cache_bytes,
            "launches": launches,
            "launches_prefill": res.launches_prefill, "launches_decode": res.launches_decode,
            "counters_prefill": res.counters_prefill, "counters_steps": res.counters_steps,
            "budget": budget, "finite": all(bool(torch.isfinite(lg).all()) for lg in res.logits),
-           "coords": mesh.coords}
+           "coords": mesh.coords, "resident_gb": res.params_bytes / 1e9}
     del res
     if job.get("swap"):
         # a broken split for the bound to catch: one leaf's blocks over
@@ -6129,6 +6168,7 @@ def serve_job(mesh, job: dict) -> dict:
     del ref
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -6469,8 +6509,11 @@ def phase_serve_tp_slice(kernels: list, rng, extra: list = ()) -> tuple:
     sv = sv_prepare(rng)
     k3 = next(e for e in kernels if e["name"] == "flash_attention")
     k3["max_abs_err"] = max([k3["max_abs_err"]] + [t["max_abs_err"] for t in sv["k3"].values()])
+    # [74] (c): rides this spawn, held to the one-device run of its [68] job
+    label, shape, layout, like, gen = LY_SERVE
+    ly_job = dict(sv["jobs"][like], label=label, layout=layout, shape=shape, gen=gen)
     try:
-        ranks = run_tp(4, sv["spawn"] + list(extra))
+        ranks = run_tp(4, sv["spawn"] + list(extra) + [ly_job])
     finally:
         for ref in sv["refs"]:
             Path(ref["path"]).unlink(missing_ok=True)
@@ -6870,6 +6913,106 @@ def sv_nccl(cfg) -> None:
           f"diff| {err:.3g}; tokens identical; counters equal the budget; {card_line()}")
 
 
+# ---------------------------------------------------------------------------
+# [74]: the dry run's other layouts: FSDP and the multi-pod mesh
+# ---------------------------------------------------------------------------
+
+#: [74]'s K3 and K3-backward rows, a rank's training shape no earlier row
+#: has: (label, (B, S, H, KV, hd)); [74]'s training jobs all run it
+LY_K3_CASE = ("Qwen2.5-14B, a rank of (2, 2) or (2, 1, 2)", (4, 128, 20, 4, 128))
+
+
+def phase_layouts(kernels: list, lay: dict, sv_world: list) -> list:
+    """[74]: the layout jobs that rode [64]'s and [67]'s spawns held as
+    [64], [66], [68] and [70] hold theirs (losses and parameters 1e-4,
+    updates 1e-3, whole leaves bit for bit, ``sub_rows`` and uplink,
+    launches per rank, counters equal the budgets; served f32 logits 1e-4
+    and tokens identical); each rank's resident parameter bytes and peak
+    under FSDP against TP on (2, 2); K3, its backward and K4's log-sum-exp
+    instance at the ranks' new shapes against their plain versions, timed.
+    Returns their rows."""
+    print("[74] the dry run's other layouts, gloo ranks sharing the card, against one "
+          "device: FSDP (each weight's d_model also split over 'data', gathered per layer; "
+          "its gradient reduce-scattered) and the multi-pod (pod, data, model) mesh (the "
+          "cohort over pod and data)")
+    t0 = time.perf_counter()
+    by_name = {e["name"]: e for e in kernels}
+    launches = {}
+    for label, ranks in lay["jobs"].items():
+        launches[label] = check_tp(label, ranks, lay["refs"][label])["launches"]
+        check_budget(label, ranks)
+        b = ranks[0][label]["budget"]
+        print(f"    per rank per round: "
+              f"fsdp_gather {b['data'].get('fsdp_gather', {}).get('bytes', 0) / 1e6:.1f} MB, "
+              f"fsdp_grad {b['data'].get('fsdp_grad', {}).get('bytes', 0) / 1e6:.1f} MB; "
+              + ", ".join(f"'{axis}' {sum(c['bytes'] for c in tags.values()) / 1e6:.2f} MB"
+                          for axis, tags in b.items()))
+    tp_label, fsdp_label = f"{LM_ARCH} (2, 2)", f"{LM_ARCH} fsdp (2, 2)"
+    resident = {}
+    for label, ranks in ((tp_label, lay["tp"][tp_label]["ranks"]),
+                         (fsdp_label, lay["jobs"].get(fsdp_label, []))):
+        if not ranks:
+            continue
+        resident[label] = [per[label]["resident_gb"] for per in ranks]
+        print(f"  {label}, 1 layer: each rank's resident parameters "
+              f"{[round(x, 4) for x in resident[label]]} GB, its peak from keeping its part "
+              f"(the whole draw freed) to the round's end "
+              f"{[round(per[label]['peak_gb'], 3) for per in ranks]} GB; {card_line()}")
+    if len(resident) == 2:
+        check(max(resident[fsdp_label]) < min(resident[tp_label]),
+              "[74]: an FSDP rank holds no less than a TP rank")
+    label, shape, layout, like, gen = LY_SERVE
+    runs = check_serve(label, sv_world, SV_HOST_TOL)["runs"]
+    r0 = runs[0]
+    print(f"  {label}, as [68]'s {like!r} for {gen} steps: max |logit diff| "
+          f"{max(max(r['err']) for r in runs):.3g} (tolerance {SV_HOST_TOL}); tokens "
+          f"identical; prefill {[round(r['prefill_ms'], 1) for r in runs]} ms, step "
+          f"{[round(r['step_ms'], 2) for r in runs]} ms by rank; resident parameters "
+          f"{[round(r['resident_gb'], 4) for r in runs]} GB, peak while serving "
+          f"{[round(r['peak_gb'], 3) for r in runs]} GB by rank; launches per rank "
+          f"{r0['launches']}; counters equal the budget "
+          f"({r0['budget']['step']['data']['fsdp_gather']['bytes'] / 1e6:.1f} MB gathered "
+          f"over 'data' a step); {card_line()}")
+    rows = []
+    name, k3_shape = LY_K3_CASE
+    fwd, bwd = train_attention_timing(k3_shape, SEED + 74, name)
+    for kernel, timed, source in (
+            ("flash_attention", fwd, ("flash_attention.cu",
+                                      "src/repro/kernels/flash_attention.py:100")),
+            ("flash_attention_bwd", bwd, ("flash_attention_bwd.cu",
+                                          "src/repro/models/layers.py:154"))):
+        by_name[kernel]["max_abs_err"] = max(by_name[kernel]["max_abs_err"],
+                                             timed["max_abs_err"])
+        rows.append({"name": f"{kernel} ({name}, [74]'s training jobs)", "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{source[0]}",
+                     "replaces": source[1],
+                     "launches": sum(got[kernel] for got in launches.values()), **timed})
+    # K4's log-sum-exp instance at a (2, 2) serving rank's slice, f32: B 2,
+    # (1,024 + 2) / 2 slots, rank 0's slice (every slot valid)
+    batch, prompt = next(j[5:7] for j in SV_F32_JOBS if j[0] == like)
+    b, slots = batch // shape[0], (prompt + gen) // shape[1]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 74)
+    q = torch.randn(b, 40, 128, generator=g, device=DEV)
+    kc, vc = (torch.randn(b, 8, slots, 128, generator=g, device=DEV) for _ in range(2))
+    kpos = cache_slot_positions(prompt + 1, prompt + gen, False, DEV)[:slots].contiguous()
+    timed = k4_lse_timing(q, kc, vc, kpos, prompt, f"rank slice of FSDP {shape}")
+    k4 = by_name["flash_decode"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], timed["max_abs_err"])
+    rows.append({"name": f"flash_decode return_lse (Qwen2.5-14B f32 serving, FSDP {shape} "
+                         "rank slice)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                 "replaces": "src/repro/kernels/flash_decode.py:88",
+                 "launches": r0["launches"]["flash_decode_lse"],
+                 "launches_per_step": r0["launches"]["flash_decode_lse"] // gen, **timed})
+    check(all(r["launches"] > 0 for r in rows), "[74]: a kernel was not launched on the main "
+          "path at a rank's shape")
+    sv_s = max(r["s"] for r in runs)
+    print(f"  [74] took {lay['s'] + sv_s + time.perf_counter() - t0:.1f} s ({lay['s']:.1f} s "
+          f"of it its training jobs within [64]'s spawn, {sv_s:.1f} s its serving job within "
+          f"[67]'s)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7108,7 +7251,7 @@ def main() -> int:
     kernels += phase_whisper_slice(kernels, rng)
     phase_checking_planes(kernels, lr_ds, deep["din"][0], deep["lstm"][0], mesh_drift)
     fam_train = fam_train_prepare()
-    tp_rows, sparse, tp_world = phase_tp_slice(kernels, rng, fam_train["spawn"])
+    tp_rows, sparse, tp_world, layouts = phase_tp_slice(kernels, rng, fam_train["spawn"])
     kernels += tp_rows
     fam_serve = fam_serve_prepare()
     try:
@@ -7121,6 +7264,7 @@ def main() -> int:
     fam_launches = phase_fam_train(fam_train, tp_world)
     fam_launches.update(phase_fam_serve(fam_serve, sv_world))
     kernels += phase_fam_kernels(kernels, fam_launches)
+    kernels += phase_layouts(kernels, layouts, sv_world)
     print(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

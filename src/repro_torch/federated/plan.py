@@ -36,8 +36,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -459,6 +460,46 @@ def round_collective_budget(plan: RoundPlan, axes: Dict[str, Tuple],
             "allowed_ops": sorted(by_op)}
 
 
+def _budget_axes(mesh, rules: Dict) -> Tuple[Dict[str, Dict], str, int]:
+    """The counters' empty per-axis dict of ``mesh`` (its axes, joint ones
+    too, as ``DeviceMesh.counters`` keys them), the rules' batch axes' key
+    and their shard count."""
+    from repro_torch.launch.mesh import axis_key
+
+    keys = list(getattr(mesh, "axes", None) or mesh.axis_names)
+    batch = tuple(n for n in (rules.get("batch") or ()) if n in mesh.shape) or ("data",)
+    return ({k: {} for k in keys}, axis_key(batch),
+            math.prod(int(mesh.shape.get(n, 1)) for n in batch))
+
+
+def _fsdp_leaves(cfg, shapes: Dict, split) -> Tuple[List[float], Dict[str, float], frozenset]:
+    """Under FSDP (``split.data``): the bytes one gather of each layer's
+    weights makes whole (its leaves with a ``d_model`` dim, at their local
+    shapes times the data ranks), those of ``final_norm.scale`` and
+    ``lm_head``, and the names of every leaf split over ``data`` (those and
+    the embedding, whose rows ``lookup_for_data`` gathers instead). Empty
+    off FSDP."""
+    from repro_torch.models.transformer import _TOP_EMBED_DIMS, layer_embed_dims
+
+    if split.data is None:
+        return [], {}, frozenset()
+    dims = layer_embed_dims(cfg)
+    layers = [0.0] * cfg.num_layers
+    top: Dict[str, float] = {}
+    names = set()
+    for name, (shape, size) in shapes.items():
+        whole = math.prod(shape) * size * split.data.size
+        m = re.fullmatch(r"layers\.(\d+)\.(.+)", name)
+        if m and m.group(2) in dims:
+            layers[int(m.group(1))] += whole
+        elif name in _TOP_EMBED_DIMS:
+            top[name] = whole
+        elif name != "embedding":
+            continue
+        names.add(name)
+    return layers, top, frozenset(names)
+
+
 def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None,
                          remat: bool = True, sparse: bool = False,
                          combine: str = "auto") -> Dict:
@@ -498,6 +539,22 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
       forward), ``xent_in`` (T x d, backward), and per sequence chunk
       ``xent_max`` (f32 B x c) and ``xent_sum`` (f32 2 x B x c).
 
+    Under FSDP (the rules' ``embed`` over ``data``: ``model_split``'s
+    ``data``) on ``data``: ``fsdp_gather``, per layer and forward pass (the
+    remat counts above) an all-gather of the layer's weights made whole,
+    and once each the embedding (the dense transport's; the sparse one
+    the final norm and ``lm_head``; ``fsdp_grad``, a reduce-scatter of each
+    of them, once. The embedding's rows (``lookup_for_data``): the rank's T
+    ids gathered as int32 (``fsdp_ids``, data x T x 4), their rows gathered
+    (``fsdp_gather``, data x T x d) and on the dense transport their
+    gradient reduce-scattered (``fsdp_grad``); the sparse transport looks up
+    its R union rows so, with no gradient.
+    Those leaves then leave ``dense_tree`` (``dense_leaves`` on the sparse
+    transport) and, on the multi-pod mesh, are summed over ``pod`` instead
+    (under the same tag). Every cohort collective (``loss``, ``dense_tree``,
+    the combine, ``moe_counts``) is on the rules' batch axes: ``data``, or
+    the joint ``pod+data`` of the multi-pod mesh.
+
     The other families, each forward pass counted as above (Whisper's
     encoder layers always twice: the reference always rematerialises them):
 
@@ -516,11 +573,14 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
     - xLSTM: per mLSTM block ``mlstm_up`` (T x inner dim), ``mlstm_gate``
       (``w_i`` and ``w_f``, 2 x inner x heads), ``mlstm_norm`` (f32 T, also
       in the backward), ``mlstm_out`` (T x d), and in the backward
-      ``mlstm_in`` (T x d), ``mlstm_up_grad``, ``mlstm_gate_grad`` and
+      ``mlstm_in`` (T x d), ``mlstm_up_grad``, ``mlstm_gate_grad`` (the
+      gathers' gradients, reduce-scatters of their whole width, as
+      ``ssm_proj_grad`` and ``ssm_conv_grad``) and
       ``mlstm_leaves`` (f32 ``b_i``, ``b_f`` and ``out_norm``'s scale); per
       sLSTM block ``slstm_pre`` (f32 T x 4d), ``slstm_up`` (T x 2d),
       ``slstm_out`` (T x d), and in the backward ``slstm_in`` and
-      ``slstm_hs`` (T x d) and ``slstm_up_grad`` (T x 2d).
+      ``slstm_hs`` (T x d) and ``slstm_up_grad`` (a reduce-scatter of T x
+      2d).
 
     ``batch`` is the round's whole batch (its ``tokens`` give B and S).
     ``rules`` default to the installed ones. Returns ``{"axes": {axis: {tag:
@@ -541,10 +601,9 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
     finally:
         set_rules(*installed)
     b, s = (int(n) for n in batch["tokens"].shape)
-    ndata = int(mesh.shape.get("data", 1))
+    axes, bkey, ndata = _budget_axes(mesh, rules)
     t = b // ndata * s
     d, a = cfg.d_model, torch.empty((), dtype=model_dtype(cfg)).element_size()
-    axes: Dict[str, Dict[str, Dict]] = {name: {} for name in mesh.axis_names}
 
     def add(axis, tag, op, nbytes):
         if nbytes > 0:
@@ -552,23 +611,49 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
             c["bytes"] += float(nbytes)
 
     shapes = local_shapes(cfg, mesh, rules)
-    add("data", "loss", "all-reduce", 4)
+    fsdp_layers, fsdp_top, on_data = _fsdp_leaves(cfg, shapes, split)
+    pod = "pod" if on_data and "pod" in bkey.split("+") and mesh.shape["pod"] > 1 else None
+    add(bkey, "loss", "all-reduce", 4)
     if not sparse:
-        add("data", "dense_tree", "all-reduce",
-            sum(math.prod(shape) * size for shape, size in shapes.values()))
+        add(bkey, "dense_tree", "all-reduce",
+            sum(math.prod(shape) * size for name, (shape, size) in shapes.items()
+                if name not in on_data))
+        if pod:
+            add(pod, "dense_tree", "all-reduce",
+                sum(math.prod(shape) * size for name, (shape, size) in shapes.items()
+                    if name in on_data))
+        for name, whole in fsdp_top.items():
+            add("data", "fsdp_gather", "all-gather", whole)
+            add("data", "fsdp_grad", "reduce-scatter", whole)
+        if on_data:
+            n = split.data.size
+            add("data", "fsdp_ids", "all-gather", n * t * 4)
+            add("data", "fsdp_gather", "all-gather", n * t * d * a)
+            add("data", "fsdp_grad", "reduce-scatter", n * t * d * a)
     else:
         cap = round_capacity(cfg.vocab_size, t)
         rows = shapes["embedding"][0][0]
-        add("data", "dense_leaves", "all-reduce",
+        add(bkey, "dense_leaves", "all-reduce",
             sum(math.prod(shape) * 4 for name, (shape, _) in shapes.items()
-                if name != "embedding"))
+                if name != "embedding" and name not in on_data))
+        if pod:
+            add(pod, "dense_leaves", "all-reduce",
+                sum(math.prod(shape) * 4 for name, (shape, _) in shapes.items()
+                    if name != "embedding" and name in on_data))
         if pick_combine(rows, d, combine) == "psum":
-            add("data", "combine:embedding", "all-reduce", rows * d * 4)
+            add(bkey, "combine:embedding", "all-reduce", rows * d * 4)
         else:
-            add("data", "combine:embedding", "all-gather", ndata * cap * (4 + d * 4))
-        add("data", "used_ids", "all-gather", ndata * cap * 4)
+            add(bkey, "combine:embedding", "all-gather", ndata * cap * (4 + d * 4))
+        add(bkey, "used_ids", "all-gather", ndata * cap * 4)
         if split.vocab is not None:
             add("model", "sub_rows:embedding", "all-reduce", cap * d * a)
+        for name, whole in fsdp_top.items():
+            add("data", "fsdp_gather", "all-gather", whole)
+            add("data", "fsdp_grad", "reduce-scatter", whole)
+        if on_data:
+            n = split.data.size
+            add("data", "fsdp_ids", "all-gather", n * cap * 4)
+            add("data", "fsdp_gather", "all-gather", n * cap * d * a)
     def attention(fwd, tq, tkv=0, kv_biases=2 if cfg.qkv_bias else 0):
         # tkv: the tokens of a cross-attention's keys (their input's own tag)
         if split.heads is None:
@@ -609,8 +694,8 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
                 add("model", "ssm_norm", "all-reduce", (fwd1 + 1) * t * 4)
                 add("model", "ssm_out", "all-reduce", fwd1 * t * d * a)
                 add("model", "ssm_in", "all-reduce", t * d * a)
-                add("model", "ssm_proj_grad", "all-reduce", t * proj * a)
-                add("model", "ssm_conv_grad", "all-reduce", t * conv * a)
+                add("model", "ssm_proj_grad", "reduce-scatter", t * proj * a)
+                add("model", "ssm_conv_grad", "reduce-scatter", t * conv * a)
                 add("model", "ssm_leaves", "all-reduce", (3 * h + di) * 4)
             if (i + 1) % cfg.attn_every == 0:
                 attention(fwd1, t)
@@ -624,8 +709,8 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
                 add("model", "mlstm_norm", "all-reduce", (fwd1 + 1) * t * 4)
                 add("model", "mlstm_out", "all-reduce", fwd1 * t * d * a)
                 add("model", "mlstm_in", "all-reduce", t * d * a)
-                add("model", "mlstm_up_grad", "all-reduce", t * di * a)
-                add("model", "mlstm_gate_grad", "all-reduce", 2 * di * h * a)
+                add("model", "mlstm_up_grad", "reduce-scatter", t * di * a)
+                add("model", "mlstm_gate_grad", "reduce-scatter", 2 * di * h * a)
                 add("model", "mlstm_leaves", "all-reduce", (2 * h + di) * 4)
             if kind == "s" and split.slstm is not None:
                 add("model", "slstm_pre", "all-gather", fwd1 * t * 4 * d * 4)
@@ -633,18 +718,21 @@ def tp_collective_budget(cfg, mesh, batch: Dict, *, rules: Optional[Dict] = None
                 add("model", "slstm_out", "all-reduce", fwd1 * t * d * a)
                 add("model", "slstm_in", "all-reduce", t * d * a)
                 add("model", "slstm_hs", "all-reduce", t * d * a)
-                add("model", "slstm_up_grad", "all-reduce", t * 2 * d * a)
+                add("model", "slstm_up_grad", "reduce-scatter", t * 2 * d * a)
     nl = cfg.num_layers if cfg.family in ("dense", "moe", "vlm") else 0
     g = cfg.remat_groups
     per = nl // g if remat and g > 1 and nl % g == 0 else 1
     for i in range(nl):
         fwd = 1 if not remat else 2 + (per > 1 and i % per != per - 1)
+        if fsdp_layers:
+            add("data", "fsdp_gather", "all-gather", fwd * fsdp_layers[i])
+            add("data", "fsdp_grad", "reduce-scatter", fsdp_layers[i])
         attention(fwd, t)
         if not cfg.is_moe:
             mlp(fwd, t)
         if split.batch is not None:
-            add("data", "moe_counts", "all-gather", fwd * split.batch.size * cfg.num_experts * 4)
-            add("data", "moe_aux", "all-reduce", fwd * 2 * cfg.num_experts * 4)
+            add(bkey, "moe_counts", "all-gather", fwd * split.batch.size * cfg.num_experts * 4)
+            add(bkey, "moe_aux", "all-reduce", fwd * 2 * cfg.num_experts * 4)
         if cfg.is_moe and (split.experts is not None or split.ffn is not None):
             add("model", "moe_out", "all-reduce", fwd * t * d * a)
             add("model", "moe_in", "all-reduce", t * d * a)
@@ -690,7 +778,15 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
       and ``decode_merge`` (f32 b x H x (hd + 1));
     - a MoE layer on more than one ``data`` rank routes the whole batch:
       ``moe_counts`` (an all-gather of int32 counts per expert) and
-      ``moe_aux`` (f32 2 x E) on ``data``, in the prefill and in each step.
+      ``moe_aux`` (f32 2 x E) on the rules' batch axes (``data``, or the
+      joint ``pod+data``), in the prefill and in each step;
+    - under FSDP, on ``data``: ``fsdp_gather``, each layer's weights made
+      whole once, the final norm and ``lm_head`` once, and the embedding's
+      rows (``lookup_for_data``: data x T x d, and ``fsdp_ids``, data x T x
+      4), in the prefill and in each step.
+
+    ``b`` is the batch over the rules' batch axes (``data``, or ``pod`` and
+    ``data`` on the multi-pod mesh).
 
     The other families:
 
@@ -731,8 +827,13 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
         split = model_split(cfg)
     finally:
         set_rules(*installed)
-    data, m = int(mesh.shape.get("data", 1)), int(mesh.shape.get("model", 1))
+    m = int(mesh.shape.get("model", 1))
+    empty, bkey, data = _budget_axes(mesh, rules)
     b = batch // data if batch % data == 0 else batch
+    fsdp_layers, fsdp_top = [], {}
+    if split.data is not None:
+        from repro_torch.launch.shardings import local_shapes
+        fsdp_layers, fsdp_top, _ = _fsdp_leaves(cfg, local_shapes(cfg, mesh, rules), split)
     cap = prompt + gen
     if cfg.sliding_window > 0:
         cap = min(cfg.sliding_window, cap)
@@ -742,7 +843,7 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
     hd, e = cfg.head_dim, cfg.num_experts
 
     def one(t: int, step: bool) -> Dict:
-        axes: Dict[str, Dict[str, Dict]] = {name: {} for name in mesh.axis_names}
+        axes: Dict[str, Dict[str, Dict]] = {name: {} for name in empty}
 
         def add(axis, tag, op, nbytes):
             c = axes[axis].setdefault(tag, {"op": op, "bytes": 0.0})
@@ -812,14 +913,22 @@ def serve_collective_budget(cfg, mesh, batch: int, prompt: int, gen: int, *,
                     add("model", "slstm_state", "all-gather", 4 * b * d * 4)
                     add("model", "slstm_up", "all-gather", t * 2 * d * a)
                     add("model", "slstm_out", "all-reduce", t * d * a)
-        for _ in range(cfg.num_layers if cfg.family in ("dense", "moe", "vlm") else 0):
+        for name, whole in fsdp_top.items():
+            add("data", "fsdp_gather", "all-gather", whole)
+        if fsdp_layers:
+            n = split.data.size
+            add("data", "fsdp_ids", "all-gather", n * t * 4)
+            add("data", "fsdp_gather", "all-gather", n * t * d * a)
+        for i in range(cfg.num_layers if cfg.family in ("dense", "moe", "vlm") else 0):
+            if fsdp_layers:
+                add("data", "fsdp_gather", "all-gather", fsdp_layers[i])
             attention(t, t, seq)
             if not cfg.is_moe:
                 mlp(t)
                 continue
             if split.batch is not None:
-                add("data", "moe_counts", "all-gather", split.batch.size * e * 4)
-                add("data", "moe_aux", "all-reduce", 2 * e * 4)
+                add(bkey, "moe_counts", "all-gather", split.batch.size * e * 4)
+                add(bkey, "moe_aux", "all-reduce", 2 * e * 4)
             if split.experts is not None or split.ffn is not None:
                 add("model", "moe_out", "all-reduce", t * d * a)
             if split.experts is not None:
@@ -1066,26 +1175,50 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
             shard_union_sizes=shard_union_sizes, delta_norm_pre=torch.sqrt(pre_sq),
             delta_norm_post=torch.sqrt(post_sq), heat_hist=hist, density=dens)
 
-    def model_parts() -> Tuple[Optional[object], frozenset]:
-        """The model axis of the installed rules' mesh and the leaves they
-        split over it, on a sharded step; ``(None, {})`` off a model split."""
+    def model_parts() -> MeshParts:
+        """The installed rules' split of the leaves on a sharded step
+        (``MeshParts``); nothing split off the mesh. The global shapes are
+        needed where a model axis above 1 splits what the step reads (the
+        sparse transport, telemetry), and under FSDP."""
         mesh, rules = get_rules()
-        if plan.sharding is None or mesh is None or int(mesh.shape.get("model", 1)) == 1:
-            return None, frozenset()
+        if plan.sharding is None or mesh is None:
+            return NO_PARTS
+        m = int(mesh.shape.get("model", 1))
+        fsdp = "data" in (rules.get("embed") or ()) and int(mesh.shape.get("data", 1)) > 1
+        if not fsdp and (m == 1 or not (sparse or telemetry)):
+            return NO_PARTS
         if not given:
             raise ValueError(
-                "a model axis above 1 needs the parameters' global shapes: pass "
+                "a model axis above 1 and FSDP need the parameters' global shapes: pass "
                 "CohortSharding(shapes=...)")
         from repro_torch.launch.shardings import param_specs
         specs = param_specs(axes, shapes, mesh, rules)
-        return mesh.axis("model"), frozenset(
-            name for name, spec in specs.items()
-            if any("model" in ((p,) if isinstance(p, str) else p or ()) for p in spec))
+
+        def over(axis):
+            return frozenset(name for name, spec in specs.items()
+                             if any(axis in ((p,) if isinstance(p, str) else p or ())
+                                    for p in spec))
+
+        data_leaves = over("data") if fsdp else frozenset()
+        rest = [n for n in (rules.get("batch") or ())
+                if n != "data" and int(mesh.shape.get(n, 1)) > 1]
+        if len(rest) > 1:
+            raise NotImplementedError(f"the cohort over {rules.get('batch')}")
+        return MeshParts(mesh.axis("model") if m > 1 else None,
+                         over("model") if m > 1 else frozenset(),
+                         mesh.axis("data") if data_leaves else None, data_leaves,
+                         mesh.axis(rest[0]) if rest and data_leaves else None)
 
     def table_split(table: str):
         """The model axis the rows of ``table`` are split over, or None."""
-        model, split = model_parts()
-        return model if table in split else None
+        parts = model_parts()
+        return parts.model if table in parts.model_leaves else None
+
+    def table_cols(table: str):
+        """The data axis the columns of ``table`` are split over (FSDP), or
+        None."""
+        parts = model_parts()
+        return parts.data if table in parts.data_leaves else None
 
     # run_local(params, data, sub_ids) -> (update, loss | None, used_ids | None, data)
     if isinstance(local, FedSgdLocal) and sparse:
@@ -1099,7 +1232,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
                 sub_ids = derive_flat_ids(data)
             loss, grads = submodel_value_and_grad(loss_fn, params, data, table,
                                                   feature_keys, sub_ids,
-                                                  split=table_split(table))
+                                                  split=table_split(table),
+                                                  cols=table_cols(table))
             return _scale_tree_f32(grads, -cfg.lr), loss, sub_ids, data
     elif isinstance(local, FedSgdLocal):
         nmb = max(local.microbatches, 1)
@@ -1237,6 +1371,35 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
 # ---------------------------------------------------------------------------
 
 
+class MeshParts(NamedTuple):
+    """What a sharded step needs of the installed rules' split of the
+    leaves: the model axis and the leaves split over it; under FSDP the
+    data axis, the leaves whose ``d_model`` is split over it (their
+    gradients arrive summed over ``data`` by ``gather_for_data``'s
+    reduce-scatter), and the cohort's other axis (``pod``) those still sum
+    over."""
+
+    model: Optional[object] = None
+    model_leaves: frozenset = frozenset()
+    data: Optional[object] = None
+    data_leaves: frozenset = frozenset()
+    pod: Optional[object] = None
+
+
+NO_PARTS = MeshParts()
+
+
+def _own_cols(leaf, data):
+    """This data rank's columns (axis 1) of a combined table update, dense
+    or ``RowSparse``: the combine sums whole-width rows, and the rank keeps
+    the columns of its slice of ``d_model``."""
+    if is_rowsparse(leaf):
+        w = leaf.rows.shape[1] // data.size
+        return RowSparse(leaf.ids, leaf.rows.narrow(1, data.rank * w, w), leaf.num_rows)
+    w = leaf.shape[1] // data.size
+    return leaf.narrow(1, data.rank * w, w)
+
+
 def _mask_clients(tree: Dict, wmask: torch.Tensor) -> Dict:
     """Zero the pad clients' contributions (RowSparse rows too)."""
     def m(x):
@@ -1292,7 +1455,15 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
     model axis and the leaves split over it), a rank's table rows and heat
     are its slice of the vocabulary, and the combine over ``mesh`` runs on
     the slice. ``sub_rows`` and ``density`` stay global; telemetry's norms
-    add each split leaf's squares over the model axis.
+    add each split leaf's squares over the axes that split it.
+
+    Under FSDP (the rules' ``embed`` over ``data``) a leaf whose ``d_model``
+    is split over ``data`` arrives as the sum of the data ranks' gradients
+    (``gather_for_data``'s reduce-scatter): it is summed over the cohort's
+    other axis (``pod``, multi-pod) and divided by the shard count, not
+    averaged over ``data`` again. On the sparse transport the table's rows
+    are gathered whole-width, combined over the cohort axis as ever, and
+    each rank keeps its columns. A stacked local refuses FSDP.
     """
     local, transport, server = plan.local, plan.transport, plan.server
     sharding = plan.sharding
@@ -1301,18 +1472,36 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
     feature_keys = tuple(plan.feature_keys)
     refuse_sharded_transport(plan)
 
-    def sq_sum(tree: Dict, parts) -> torch.Tensor:
+    def sq_sum(tree: Dict, parts: MeshParts) -> torch.Tensor:
         """``tree_sq_sum`` of the global tree: the squares of each leaf
-        split over the model axis summed over it, the whole leaves' once."""
-        model, split = parts
-        if model is None:
+        split over the model axis, over ``data`` (FSDP) or both summed over
+        those axes, the whole leaves' once."""
+        if parts.model is None and parts.data is None:
             return tree_sq_sum(tree)
-        own = {name: leaf for name, leaf in tree.items() if name in split}
-        whole = {name: leaf for name, leaf in tree.items() if name not in split}
-        total = model.psum(tree_sq_sum(own), "telemetry:norms") if own else None
-        if whole:
-            total = tree_sq_sum(whole) if total is None else total + tree_sq_sum(whole)
+        groups: Dict[Tuple[bool, bool], Dict] = {}
+        for name, leaf in tree.items():
+            key = (name in parts.model_leaves, name in parts.data_leaves)
+            groups.setdefault(key, {})[name] = leaf
+        total = None
+        for (on_model, on_data), group in sorted(groups.items()):
+            sq = tree_sq_sum(group)
+            if on_data:
+                sq = parts.data.psum(sq, "telemetry:norms")
+            if on_model:
+                sq = parts.model.psum(sq, "telemetry:norms")
+            total = sq if total is None else total + sq
         return total
+
+    def mean_leaf(g, name: str, parts: MeshParts, tag: str) -> torch.Tensor:
+        """The mean of a flat shard's leaf over the cohort's shards: a
+        ``pmean`` over ``mesh``, or for a leaf ``gather_for_data`` has
+        already summed over ``data``, its sum over ``pod`` (multi-pod)
+        divided by the shard count."""
+        if name not in parts.data_leaves:
+            return mesh.pmean(g, tag)
+        if parts.pod is not None:
+            g = parts.pod.psum(g, tag)
+        return g / ndev
 
     def combine(leaf, name, counts, scale):
         space = heat_spec.leaf_spaces.get(name)
@@ -1379,13 +1568,17 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
         scale = 1.0 / float(ndev)
         if sparse:
             agg = {name: combine(leaf, name, counts, scale) if is_rowsparse(leaf)
-                   else correct_dense(mesh.pmean(leaf, "dense_leaves"), name, counts)
+                   else correct_dense(mean_leaf(leaf, name, parts, "dense_leaves"), name,
+                                      counts)
                    for name, leaf in update.items()}
+            for name, leaf in update.items():
+                if is_rowsparse(leaf) and name in parts.data_leaves:
+                    agg[name] = _own_cols(agg[name], parts.data)
             gathered = mesh.all_gather(used_ids, "used_ids")
             # the single-device union count: distinct ids across the ranks
             sub_rows = count_unique_ids(gathered.reshape(-1))
         else:
-            agg = {name: mesh.pmean(g, "dense_tree") for name, g in update.items()}
+            agg = {name: mean_leaf(g, name, parts, "dense_tree") for name, g in update.items()}
             sub_rows = torch.zeros((), dtype=torch.int32, device=fwd_loss.device)
         loss = mesh.pmean(fwd_loss, "loss")
         if not telemetry:
@@ -1410,13 +1603,17 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             sanitize.check_union_ids(sub_ids, vocab, name="sub_ids")
         r = mesh.rank
         # read first: a refusal raises before the round's first collective
-        parts = model_parts() if (sparse or telemetry) else (None, frozenset())
-        table = next((name for name in params if sparse and name in parts[1]
+        parts = model_parts()
+        table = next((name for name in params if sparse and name in parts.model_leaves
                       and sparse_eligible(heat_spec.leaf_spaces.get(name))), None)
         if table is not None and local.stacked:
             raise NotImplementedError(
                 "a stacked local on a vocabulary split over 'model': the per-client "
                 "submodels gather whole rows; use FedSgdLocal")
+        if parts.data_leaves and local.stacked:
+            raise NotImplementedError(
+                "a stacked local under FSDP: the per-client steps run under vmap, which "
+                "the layers' gathers over 'data' do not support; use FedSgdLocal")
         if local.stacked:
             k_real = int(data[feature_keys[0]].shape[0])
             ks = -(-k_real // ndev)
@@ -1459,7 +1656,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             tel_out = assemble_tel(data, used, agg if sparse else None, counts,
                                    tel["pre"], tel["post"],
                                    shard_union_sizes=tel.get("shard_union"),
-                                   vocab_split=parts[0] if table is not None else None)
+                                   vocab_split=parts.model if table is not None else None)
         new_state = apply_sparse(state, agg) if sparse else apply_dense(state, agg, counts)
         metrics = {"loss": loss}
         if sparse and vocab:

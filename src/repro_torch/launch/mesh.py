@@ -25,12 +25,14 @@ output) to ``counters`` under the caller's tag, the component names of
 resets them when it starts.
 
 A :class:`DeviceMesh` is the 2-D (or, under ``multi_pod``, 3-D) mesh of the
-reference's launchers: axes ``("data", "model")``, one process group per row
-and per column, each axis a :class:`CohortMesh` (``mesh.axis("data")``) that
-``CohortSharding`` and the model-axis collectives of
-``repro_torch.sharding.parallel`` take. ``make_host_mesh`` lays it over the
-ranks of the process group, ``make_production_mesh`` at the reference's
-16x16 and 2x16x16.
+reference's launchers: axes ``("data", "model")`` (``("pod", "data",
+"model")``), one process group per row and per column, each axis a
+:class:`CohortMesh` (``mesh.axis("data")``) that ``CohortSharding`` and the
+model-axis collectives of ``repro_torch.sharding.parallel`` take. A 3-D
+mesh also joins ``pod`` and ``data`` into one axis, the multi-pod rules'
+batch axis (``mesh.axis(("pod", "data"))``, its ranks row-major over the
+two). ``make_host_mesh`` lays it over the ranks of the process group,
+``make_production_mesh`` at the reference's 16x16 and 2x16x16.
 """
 from __future__ import annotations
 
@@ -109,6 +111,19 @@ class CohortMesh:
         self._count(tag, "all-gather", out)
         return out
 
+    def reduce_scatter(self, x: torch.Tensor, tag: str, dim: int = 0) -> torch.Tensor:
+        """This rank's slice on ``dim`` of the sum of every rank's ``x``
+        (``x.shape[dim]`` a multiple of ``size``; counted as its whole
+        input, as an all-gather counts its whole output)."""
+        width = x.shape[dim] // self.size
+        buf = x.movedim(dim, 0).contiguous()
+        out = torch.empty((width,) + tuple(buf.shape[1:]), dtype=x.dtype, device=x.device)
+        # reduce_scatter_single is reduce_scatter_tensor's newer name
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        scatter(out, buf, group=self.group)
+        self._count(tag, "reduce-scatter", buf)
+        return out.movedim(0, dim)
+
     def barrier(self) -> None:
         dist.barrier(group=self.group)
 
@@ -168,6 +183,19 @@ def _join(caller: str, device, backend: Optional[str], init_method: Optional[str
     return device
 
 
+def axis_key(names) -> str:
+    """The name of an axis, or of the joint axis of several (``"pod+data"``),
+    as ``DeviceMesh.axes`` and its counters key them."""
+    return names if isinstance(names, str) else "+".join(names)
+
+
+#: the joint axes a mesh makes where it has their axes: the multi-pod
+#: rules' batch axis (``sharding.rules.make_rules(multi_pod=True)``)
+JOINT_AXES = (("pod", "data"),)
+#: the launchers' axis names by the mesh's number of axes
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
 @dataclass(eq=False)
 class DeviceMesh:
     """A mesh of ranks with named axes, laid out row-major (the last axis
@@ -176,8 +204,10 @@ class DeviceMesh:
 
     ``axis(name)`` is the :class:`CohortMesh` over the ranks that differ
     from this one on that axis alone, with this rank's coordinate as its
-    rank. ``shape`` and ``axis_names`` read as a JAX mesh's do. ``counters``
-    are each axis's, keyed by axis name.
+    rank; ``axis(("pod", "data"))`` the joint axis's (``JOINT_AXES``), its
+    rank row-major over the two. ``shape`` and ``axis_names`` read as a JAX
+    mesh's do. ``counters`` are each axis's, keyed by axis name (a joint
+    axis's by ``axis_key``: ``"pod+data"``).
     """
 
     axis_names: Tuple[str, ...]
@@ -200,10 +230,13 @@ class DeviceMesh:
             flat //= n
         return tuple(reversed(out))
 
-    def axis(self, name: str) -> CohortMesh:
-        if name not in self.axes:
-            raise ValueError(f"mesh axes are {self.axis_names}, not {name!r}")
-        return self.axes[name]
+    def axis(self, name) -> CohortMesh:
+        """The axis ``name``, or the joint axis of a tuple of names (a
+        tuple of one is that axis)."""
+        key = axis_key(name)
+        if key not in self.axes:
+            raise ValueError(f"mesh axes are {tuple(self.axes)}, not {name!r}")
+        return self.axes[key]
 
     @property
     def counters(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
@@ -227,8 +260,10 @@ def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("data", 
     rank's :class:`DeviceMesh` of ``shape``. The world is cut into
     consecutive blocks of ``prod(shape)`` ranks, each a mesh of its own
     (sub-meshes of one world: a 4-rank world holds two ``(1, 2)`` meshes);
-    it must be a whole number of them. Every rank makes every block's
-    groups, in one order, as ``dist.new_group`` asks."""
+    it must be a whole number of them. Besides each axis's groups, the
+    mesh makes one group per line of each of ``JOINT_AXES`` whose axes it
+    has. Every rank makes every block's groups, in one order, as
+    ``dist.new_group`` asks."""
     shape = tuple(int(n) for n in shape)
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names) or min(shape) < 1:
@@ -243,13 +278,18 @@ def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("data", 
     for base in range(0, world, per):
         grid = torch.arange(base, base + per).reshape(shape)
         axes = {}
-        for i, name in enumerate(axis_names):
-            lines = grid.movedim(i, -1).reshape(-1, shape[i]).tolist()
+        joints = [j for j in JOINT_AXES if all(n in axis_names for n in j)]
+        for names in [(n,) for n in axis_names] + joints:
+            dims = [axis_names.index(n) for n in names]
+            size = math.prod(shape[i] for i in dims)
+            # each line's ranks row-major over ``names``
+            lines = grid.movedim(dims, list(range(-len(dims), 0))).reshape(-1, size).tolist()
             for line in lines:
                 group = dist.new_group(line)
                 if me in line:
-                    axes[name] = CohortMesh(rank=line.index(me), size=len(line),
-                                            device=device, group=group, axis=name)
+                    key = axis_key(names)
+                    axes[key] = CohortMesh(rank=line.index(me), size=len(line),
+                                           device=device, group=group, axis=key)
         if base <= me < base + per:
             mine = DeviceMesh(axis_names, shape, tuple(range(base, base + per)), me,
                               device, axes)

@@ -40,6 +40,13 @@ Whisper, Zamba2 and xLSTM serve the same way: their caches' parts are
 sequence as its self-attention cache is; Zamba2's SSM and conv states by
 heads and channels; xLSTM's states on their inner dims), and Whisper's
 frames are split over ``data`` with the batch.
+
+``--layout fsdp`` (``serve(layout="fsdp")``) also splits each weight's
+``d_model`` over ``data`` (the dry run's FSDP rules), gathered per layer;
+``--layout auto`` takes the dry run's choice by size. ``--mesh-shape
+P,D,M`` lays a multi-pod ``(pod, data, model)`` mesh over the ranks, whose
+batch rows go over ``("pod", "data")``. The transformer families serve
+under either layout; Zamba2, xLSTM and Whisper under TP only.
 """
 from __future__ import annotations
 
@@ -58,7 +65,7 @@ from repro_torch.launch.shardings import shard_batch, shard_cache, shard_params
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import model_dtype, train_params
 from repro_torch.sharding.context import get_rules, set_rules
-from repro_torch.sharding.rules import complete_rules, make_rules
+from repro_torch.sharding.rules import LAYOUTS, complete_rules, layout_rules, make_rules
 
 SCALES = {
     # overrides applied to the arch config for CPU-runnable scales
@@ -96,7 +103,8 @@ class ServeResult:
     cache. ``peak_bytes``, on a mesh on the card: the device's peak
     allocated bytes from once the rank's parameters are cut and its cache
     made (its peak stats are reset there) to the run's end, so not the
-    whole model's draw; 0 otherwise."""
+    whole model's draw; 0 otherwise. ``params_bytes``: the bytes of the
+    (rank's part of the) parameters served."""
 
     device: torch.device
     tokens: torch.Tensor
@@ -112,6 +120,7 @@ class ServeResult:
     rules: Optional[Dict] = None
     counters_prefill: Dict = field(default_factory=dict)
     counters_steps: List[Dict] = field(default_factory=list)
+    params_bytes: int = 0
 
 
 def _bytes(cache) -> int:
@@ -194,11 +203,32 @@ def decode_mrope_pos(mrope_pos: torch.Tensor, gen: int) -> torch.Tensor:
     return steps[:, None, :, None].expand(gen, 3, mrope_pos.shape[1], 1).to(torch.int32)
 
 
-def serve_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
+def serve_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False,
+                layout: str = "tp") -> Dict:
     """``make_rules("decode")`` completed for ``cfg`` on ``mesh``'s model
-    axis, as the reference's serving launcher and dry run install them."""
-    return complete_rules(cfg, make_rules("decode", expert_parallel=expert_parallel),
-                          int(mesh.shape["model"]))
+    axis, as the reference's serving launcher and dry run install them:
+    multi-pod on a mesh with a ``pod`` axis, laid out by ``layout``
+    (``rules.layout_rules``)."""
+    rules = complete_rules(cfg, make_rules("decode", multi_pod="pod" in mesh.axis_names,
+                                           expert_parallel=expert_parallel),
+                           int(mesh.shape["model"]))
+    return layout_rules(cfg, rules, layout)
+
+
+def make_mesh(model_parallel: int = 0, mesh_shape: str = "", device=None):
+    """The CLIs' mesh over torchrun's ranks: ``mesh_shape`` ``"D,M"`` or
+    ``"P,D,M"`` (the multi-pod axes), else ``make_host_mesh(model_parallel)``;
+    None without either."""
+    from repro_torch.launch.mesh import MESH_AXES, make_device_mesh, make_host_mesh
+
+    if mesh_shape:
+        shape = tuple(int(n) for n in mesh_shape.split(","))
+        if len(shape) not in MESH_AXES:
+            raise ValueError(f"--mesh-shape {mesh_shape!r}: give 'D,M' or 'P,D,M'")
+        return make_device_mesh(shape, MESH_AXES[len(shape)], device=device)
+    if model_parallel:
+        return make_host_mesh(model_parallel, device=device)
+    return None
 
 
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
@@ -206,7 +236,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
           patch_embeds: Optional[torch.Tensor] = None,
           mrope_pos: Optional[torch.Tensor] = None,
           frames: Optional[torch.Tensor] = None, mesh=None,
-          expert_parallel: bool = False,
+          expert_parallel: bool = False, layout: str = "tp",
           on_step: Optional[Callable[[int, object], None]] = None) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt`` tokens, then ``gen``
     greedy decode steps. ``params`` (on ``device``) skips the random init;
@@ -215,13 +245,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
 
     ``mesh`` (a ``launch.mesh.DeviceMesh``, its device the run's) serves on
     it, as the module docstring says, with ``expert_parallel`` choosing the
-    MoE's split; ``params`` are then whole (the module, or the flat dict
+    MoE's split and ``layout`` the rules' (``serve_rules``); ``params`` are
+    then whole (the module, or the flat dict
     with its ``axes`` as ``(flat, axes)``) and each rank keeps its part.
     ``on_step(i, cache)`` is called with the (rank's) cache after the
     prefill (``i`` 0) and after each decode step ``i``."""
     rules = None
     if mesh is not None:
-        rules = serve_rules(cfg, mesh, expert_parallel)
+        rules = serve_rules(cfg, mesh, expert_parallel, layout)
         device = mesh.device
     dev = resolve_device(device)
     api = build_model(cfg)
@@ -247,7 +278,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt: int = 32, gen: int = 32,
     b = toks.shape[0]
     res = ServeResult(device=dev, tokens=toks[:, :0], logits=[], prefill_ms=0.0,
                       decode_ms_per_token=0.0, tok_per_s=0.0, rules=rules,
-                      cache_bytes=_bytes(cache))
+                      cache_bytes=_bytes(cache),
+                      params_bytes=_bytes(tuple(params.values() if isinstance(params, dict)
+                                                else params.parameters())))
     try:
         _sync(dev)
         if mesh is not None:
@@ -310,8 +343,14 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--model-parallel", type=int, default=0,
                     help="split the layers and the KV cache's sequence over this many "
                          "ranks of a (data, model) mesh over torchrun's ranks")
+    ap.add_argument("--mesh-shape", default="",
+                    help="the mesh over torchrun's ranks instead: 'D,M' for (data, model), "
+                         "'P,D,M' for the multi-pod (pod, data, model)")
     ap.add_argument("--expert-parallel", action="store_true",
                     help="on the mesh, split the MoE's experts rather than their columns")
+    ap.add_argument("--layout", default="tp", choices=LAYOUTS,
+                    help="on the mesh: tp, fsdp (each weight's d_model also split over "
+                         "data, gathered per layer) or auto (the dry run's choice by size)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -322,19 +361,18 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         cfg = cfg.replace(**over)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
-    mesh = None
-    if args.model_parallel:
-        from repro_torch.launch.mesh import make_host_mesh
-        mesh = make_host_mesh(args.model_parallel, device=args.device)
+    mesh = make_mesh(args.model_parallel, args.mesh_shape, args.device)
     try:
         res = serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen,
-                    device=args.device, mesh=mesh, expert_parallel=args.expert_parallel)
+                    device=args.device, mesh=mesh, expert_parallel=args.expert_parallel,
+                    layout=args.layout)
     finally:
         if mesh is not None:
             mesh.destroy()
     if mesh is not None and mesh.rank != 0:
         return res
-    where = "" if mesh is None else (f" mesh={mesh.shape} (rank 0's rows; its cache "
+    where = "" if mesh is None else (f" mesh={mesh.shape} layout={args.layout} (rank 0's "
+                                     f"rows; its cache "
                                      f"{res.cache_bytes / 1e6:.2f} MB)")
     print(f"arch={cfg.name} device={res.device} batch={args.batch} "
           f"prompt={args.prompt} gen={args.gen} prefill {res.prefill_ms:.1f} ms, "

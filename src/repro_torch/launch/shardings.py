@@ -119,17 +119,17 @@ def unshard_params(local: Mapping[str, torch.Tensor], full_shapes: Mapping[str, 
                    axes: Mapping[str, Sequence], mesh, rules,
                    tag: str = "unshard") -> Dict[str, torch.Tensor]:
     """``shard_params``' inverse: every leaf whole on every rank, gathered
-    along each split dim over its mesh axis (counted under ``tag``).
-    ``full_shapes`` are the leaves' global shapes."""
+    along each split dim over its mesh axis, or over the joint axis of a
+    dim split over several (its ranks row-major, as ``_index`` orders the
+    blocks), counted under ``tag``. ``full_shapes`` are the leaves' global
+    shapes; any layout of the rules gathers (TP, FSDP, multi-pod)."""
     specs = param_specs(axes, {n: full_shapes[n] for n in local}, mesh, rules)
     out = {}
     for name, t in local.items():
         for dim, names in enumerate(specs[name]):
             if names is None:
                 continue
-            if len(_names(names)) != 1:
-                raise NotImplementedError(f"{name}: gathering over {names}")
-            parts = mesh.axis(_names(names)[0]).all_gather(t, tag)
+            parts = mesh.axis(_names(names)).all_gather(t, tag)
             t = torch.cat(list(parts.unbind(0)), dim=dim)
         out[name] = t
     return out

@@ -50,6 +50,14 @@ per rank:
 
 On the card each rank takes ``cuda:LOCAL_RANK`` (NCCL); ``--device cpu``
 runs gloo ranks on the host.
+
+``--layout`` takes the reference dry run's layouts (``mesh_rules``):
+``tp`` (the default, the launcher's rules), ``fsdp`` (each weight's
+``d_model`` also split over ``data`` and gathered per layer; the
+transformer families only) or ``auto`` (``rules.choose_layout``).
+``--mesh-shape P,D,M`` lays the multi-pod ``(pod, data, model)`` mesh over
+the ranks instead, the cohort split over ``("pod", "data")``. ``--ckpt``
+gathers whole leaves from any of them.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ import argparse
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,12 +78,13 @@ from repro_torch.federated.plan import (CohortSharding, DenseTransport, FedSgdLo
                                         RoundPlan, RowSparseTransport, ServerUpdate,
                                         plan_comm_meta, refuse_sharded_transport)
 from repro_torch.federated.simulation import make_round_step
-from repro_torch.launch.serve import SCALES, default_frames
+from repro_torch.launch.mesh import axis_key
+from repro_torch.launch.serve import SCALES, default_frames, make_mesh
 from repro_torch.launch.shardings import shard_batch, shard_params, unshard_params
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import stack_layers, train_params
 from repro_torch.sharding.context import get_rules, set_rules
-from repro_torch.sharding.rules import complete_rules, make_rules
+from repro_torch.sharding.rules import LAYOUTS, complete_rules, layout_rules, make_rules
 
 #: examples/federated_llm.py's --smoke model (its corpus: 32 clients, 32
 #: tokens, zipf 1.3, cohort 8), with Whisper's encoder cut as ``--scale
@@ -103,25 +112,36 @@ class TrainResult:
     #: per axis (``DeviceMesh.counters``); ``params`` are then the rank's part
     rules: Optional[Dict] = None
     counters: List[Dict] = field(default_factory=list)
+    #: on a mesh on the card: the peak device bytes from the moment the rank
+    #: kept its part (the whole draw freed) to the end of the rounds
+    peak_bytes: int = 0
 
 
 def make_plan(algorithm: str = "fedsubavg", sparse: bool = False, topk: int = 0,
-              int8: bool = False, mesh=None, shapes=None) -> RoundPlan:
+              int8: bool = False, mesh=None, shapes=None,
+              batch_axes: Sequence[str] = ("data",)) -> RoundPlan:
     """``FedSgdLocal`` on the dense transport, or on the row-sparse one
     (``topk`` and ``int8`` imply it), under ``ServerUpdate(algorithm)``;
-    with ``mesh``, its cohort split over the ``data`` axis, ``shapes``
-    the parameters' global shapes."""
+    with ``mesh``, its cohort split over the rules' ``batch_axes`` (one
+    axis, or the joint ``("pod", "data")`` of the multi-pod mesh),
+    ``shapes`` the parameters' global shapes."""
     sparse = sparse or topk > 0 or int8
     transport = RowSparseTransport(topk=topk, int8=int8) if sparse else DenseTransport()
-    sharding = None if mesh is None else CohortSharding(mesh.axis("data"), shapes=shapes)
+    sharding = None if mesh is None else CohortSharding(
+        mesh.axis(batch_axes), axis=axis_key(batch_axes), shapes=shapes)
     return RoundPlan(FedSgdLocal(), transport, ServerUpdate(algorithm), sharding=sharding)
 
 
-def mesh_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False) -> Dict:
+def mesh_rules(cfg: ModelConfig, mesh, expert_parallel: bool = False,
+               layout: str = "tp") -> Dict:
     """``make_rules("train")`` completed for ``cfg`` on ``mesh``'s model
-    axis, as the reference's launcher and dry run install them."""
-    return complete_rules(cfg, make_rules("train", expert_parallel=expert_parallel),
-                          int(mesh.shape["model"]))
+    axis, as the reference's launcher and dry run install them: multi-pod
+    on a mesh with a ``pod`` axis, laid out by ``layout`` (``"tp"``, the
+    launcher's; ``"fsdp"``; ``"auto"``, the dry run's choice)."""
+    rules = complete_rules(cfg, make_rules("train", multi_pod="pod" in mesh.axis_names,
+                                           expert_parallel=expert_parallel),
+                           int(mesh.shape["model"]))
+    return layout_rules(cfg, rules, layout)
 
 
 def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int = 8,
@@ -131,7 +151,7 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
           axes: Optional[Dict[str, tuple]] = None, ckpt: str = "",
           log_every: int = 10, remat: bool = True,
           inputs: Optional[Mapping[str, torch.Tensor]] = None, mesh=None,
-          expert_parallel: bool = False,
+          expert_parallel: bool = False, layout: str = "tp",
           on_round: Optional[Callable[[int, Dict, Dict], None]] = None) -> TrainResult:
     """``rounds`` FedSGD rounds of ``cohort`` clients on ``clients`` clients'
     corpus of ``seq``-token sequences. ``params``/``axes`` (the flat training
@@ -143,14 +163,16 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
 
     ``mesh`` (a ``launch.mesh.DeviceMesh``, its device the run's) trains on
     it, as the module docstring says, with ``expert_parallel`` choosing the
-    MoE's split; the result's ``params`` are the rank's part and its
-    ``counters`` each round's collectives. ``on_round(r, params, metrics)``
+    MoE's split and ``layout`` the rules' (``mesh_rules``); the result's
+    ``params`` are the rank's part and its ``counters`` each round's
+    collectives. ``on_round(r, params, metrics)``
     is called after each round."""
     rules = None
     if mesh is not None:
-        rules = mesh_rules(cfg, mesh, expert_parallel)
+        rules = mesh_rules(cfg, mesh, expert_parallel, layout)
         # before the model is drawn: the reference's refusals on a mesh
-        refuse_sharded_transport(make_plan(algorithm, sparse, topk, int8, mesh))
+        refuse_sharded_transport(make_plan(algorithm, sparse, topk, int8, mesh,
+                                           batch_axes=rules["batch"]))
         device = mesh.device
     dev = resolve_device(device)
     api = build_model(cfg)
@@ -159,11 +181,14 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     full_shapes = {name: tuple(t.shape) for name, t in params.items()}
     if mesh is not None:
         params = shard_params(params, axes, mesh, rules)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
     ds = make_lm_federated(num_clients=clients, vocab=cfg.vocab_size, seq_len=seq,
                            samples_per_client=4, zipf_a=zipf_a)
     fed = FedConfig(num_clients=ds.num_clients, clients_per_round=cohort, lr=lr,
                     algorithm=algorithm)
-    plan = make_plan(algorithm, sparse, topk, int8, mesh, full_shapes)
+    plan = make_plan(algorithm, sparse, topk, int8, mesh, full_shapes,
+                     batch_axes=rules["batch"] if rules else ("data",))
     step = make_round_step(functools.partial(api.loss, remat=remat), params, axes, fed,
                            mode=plan)
     extra = {k: v.to(dev) for k, v in (inputs or {}).items()}
@@ -215,6 +240,8 @@ def train(cfg: ModelConfig, *, rounds: int = 50, clients: int = 128, cohort: int
     finally:
         set_rules(*installed)
     res.params = params
+    if mesh is not None and dev.type == "cuda":
+        res.peak_bytes = torch.cuda.max_memory_allocated(dev)
     if ckpt:
         whole = params if mesh is None else unshard_params(params, full_shapes, axes, mesh,
                                                            rules)
@@ -249,8 +276,15 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     ap.add_argument("--model-parallel", type=int, default=0,
                     help="split the layers over this many ranks of a (data, model) mesh "
                          "over torchrun's ranks")
+    ap.add_argument("--mesh-shape", default="",
+                    help="the mesh over torchrun's ranks instead: 'D,M' for (data, model), "
+                         "'P,D,M' for the multi-pod (pod, data, model)")
     ap.add_argument("--expert-parallel", action="store_true",
                     help="on the mesh, split the MoE's experts rather than their columns")
+    ap.add_argument("--layout", default="tp", choices=LAYOUTS,
+                    help="on the mesh: tp (weights resident on their model ranks), fsdp "
+                         "(each weight's d_model also split over data, gathered per layer) "
+                         "or auto (the dry run's choice by size)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -262,22 +296,20 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
         cfg = cfg.replace(**SCALES[args.scale])
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
-    mesh = None
-    if args.model_parallel:
-        from repro_torch.launch.mesh import make_host_mesh
-        mesh = make_host_mesh(args.model_parallel, device=args.device)
+    mesh = make_mesh(args.model_parallel, args.mesh_shape, args.device)
     try:
         res = train(cfg, rounds=args.rounds, clients=clients, cohort=cohort, seq=seq,
                     lr=args.lr, algorithm=args.algorithm, sparse=args.sparse,
                     topk=args.topk, int8=args.int8, zipf_a=zipf_a, device=args.device,
-                    ckpt=args.ckpt, mesh=mesh, expert_parallel=args.expert_parallel)
+                    ckpt=args.ckpt, mesh=mesh, expert_parallel=args.expert_parallel,
+                    layout=args.layout)
     finally:
         if mesh is not None:
             mesh.destroy()
     if mesh is not None and mesh.rank != 0:
         return res
     n = sum(p.numel() for p in res.params.values())
-    where = "" if mesh is None else f" (rank 0's part) mesh={mesh.shape}"
+    where = "" if mesh is None else f" (rank 0's part) mesh={mesh.shape} layout={args.layout}"
     print(f"arch={cfg.name} layers={cfg.num_layers} params={n / 1e6:.1f}M{where} "
           f"device={res.device} plan: {res.plan}")
     steady = res.ms_per_round[1:] or res.ms_per_round

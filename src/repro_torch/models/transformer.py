@@ -24,6 +24,16 @@ Serving (``prefill``, ``decode_step``) splits the same way under
 ``make_rules("decode")``, with the KV cache split by sequence over ``model``
 and K4's partials merged across the ranks by their log-sum-exp.
 
+FSDP (the rules' ``embed`` over ``data``: ``rules.fsdp_rules``): a rank
+also holds only its slice of every weight's ``d_model``, and gathers a
+layer's weights whole inside the layer (``gather_for_data``; the final
+norm and ``lm_head`` where they are used, and of the embedding the rows
+the batch looks up, ``lookup_for_data``). Inside ``_Remat`` the
+recompute gathers again, so at most one remat group's weights are whole at
+a time; the gradient of each gathered weight is reduce-scattered back to
+the rank's slice. The dense, MoE and VLM families run under it; Zamba2,
+xLSTM and Whisper refuse it (``model_split``).
+
 Serving: ``prefill`` and ``decode_step`` run under ``torch.no_grad`` and
 write the KV cache in place; decode's MoE is drop-free (capacity ``B * k``).
 Training: ``loss_fn`` (the causal LM loss through ``chunked_xent``, plus
@@ -60,9 +70,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
-from repro_torch.sharding.context import constrain, get_rules, is_whole, split_mesh
+from repro_torch.sharding.context import (constrain, data_mesh, get_rules, is_whole,
+                                          split_mesh)
 from repro_torch.sharding.logical import axes_tree, unbox
-from repro_torch.sharding.parallel import (copy_to_model, gather_from_model, max_from_model,
+from repro_torch.sharding.parallel import (copy_to_model, gather_for_data, gather_from_model,
+                                           lookup_for_data, max_from_model,
                                            merge_decode_partials, reduce_from_model)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -348,6 +360,8 @@ class Split(NamedTuple):
     #                              mLSTM heads (xlstm.mlstm_block)
     slstm: object = None         # the sLSTM's d: w_in's, b's and up's columns and down's
     #                              rows (xlstm.slstm_block)
+    data: object = None          # FSDP: the data axis every weight's d_model is split
+    #                              over, gathered where it is used (gather_for_data)
 
 
 NO_SPLIT = Split()
@@ -373,10 +387,20 @@ def model_split(cfg: ModelConfig) -> Split:
     transport hands the loss a whole sub-table (``context.whole_leaves``).
     Zamba2's Mamba2 layers split by whole SSM heads where every fused dim
     divides the model axis (``ssm``); xLSTM's blocks by their inner dims
-    (``mlstm``, ``slstm``), and it has no attention or MLP to split."""
+    (``mlstm``, ``slstm``), and it has no attention or MLP to split.
+    Under FSDP (``context.data_mesh``) every weight's ``d_model`` is split
+    over ``data`` too (``data``); the MoE routes the whole batch over the
+    rules' batch axes (``("data",)``, or ``("pod", "data")`` on the
+    multi-pod mesh)."""
     mesh, rules = get_rules()
     if mesh is None:
         return NO_SPLIT
+    data = data_mesh(cfg.d_model)
+    if data is not None and cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP (each weight's d_model over 'data') runs the dense, MoE "
+            f"and VLM families; the {cfg.family} family trains and serves on the mesh "
+            "with layout='tp'")
     hd = cfg.head_dim
     vocab = split_mesh("vocab", cfg.vocab_size)
     embed = None if is_whole("embedding") else vocab
@@ -392,10 +416,9 @@ def model_split(cfg: ModelConfig) -> Split:
         return Split(vocab=vocab, embed=embed, mlstm=mlstm, slstm=slstm)
     heads = split_mesh("heads", cfg.num_heads * hd)
     batch = None
-    if cfg.is_moe and int(mesh.shape.get("data", 1)) > 1:
-        if tuple(rules.get("batch") or ()) != ("data",):
-            raise NotImplementedError(f"the MoE's batch over {rules.get('batch')}")
-        batch = mesh.axis("data")
+    batch_axes = tuple(rules.get("batch") or ())
+    if cfg.is_moe and math.prod(int(mesh.shape.get(n, 1)) for n in batch_axes) > 1:
+        batch = mesh.axis(batch_axes)
     ssm = None
     if cfg.family == "hybrid":
         di, n, h = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.ssm_heads
@@ -408,7 +431,58 @@ def model_split(cfg: ModelConfig) -> Split:
                  kv=split_mesh("kv", cfg.num_kv_heads * hd) if heads is not None else None,
                  ffn=split_mesh("ffn", cfg.d_ff),
                  experts=split_mesh("experts", cfg.num_experts) if cfg.is_moe else None,
-                 vocab=vocab, batch=batch, embed=embed, ssm=ssm)
+                 vocab=vocab, batch=batch, embed=embed, ssm=ssm, data=data)
+
+
+#: the dim of ``d_model`` (the ``embed`` axis) in the leaves outside the
+#: layers that FSDP gathers whole where they are used (the embedding's rows
+#: are looked up instead: ``lookup_for_data``)
+_TOP_EMBED_DIMS = {"lm_head": 0, "final_norm.scale": 0}
+
+
+@functools.lru_cache(maxsize=32)
+def layer_embed_dims(cfg: ModelConfig) -> Dict[str, int]:
+    """The dim of ``d_model`` (the ``embed`` axis) of each of a layer's
+    leaves that has one, by its name within the layer (``attn.wq.w``: 0,
+    ``attn.wo.w``: 1), from the model's axes on ``meta``."""
+    axes = make_params(cfg.replace(num_layers=1), device="meta").axes
+    return {name[len("layers.0."):]: ax.index("embed") for name, ax in axes.items()
+            if name.startswith("layers.0.") and "embed" in ax}
+
+
+def gather_layer(cfg: ModelConfig, names, tensors, split: Split) -> tuple:
+    """A layer's parameter tensors (named within the layer) with every
+    ``d_model`` slice gathered whole over ``data`` under FSDP; as they are
+    otherwise."""
+    if split.data is None:
+        return tuple(tensors)
+    dims = layer_embed_dims(cfg)
+    return tuple(gather_for_data(t, split.data, dims[n]) if n in dims else t
+                 for n, t in zip(names, tensors))
+
+
+def _gathered_layer(cfg: ModelConfig, lp, split: Split):
+    """``lp`` (a layer's parameters) with its weights gathered whole under
+    FSDP, behind ``FlatParams``; ``lp`` as it is otherwise."""
+    if split.data is None:
+        return lp
+    names, tensors = _layer_leaves(lp)
+    return FlatParams(dict(zip(names, gather_layer(cfg, names, tensors, split))))
+
+
+def whole_leaf(p, name: str, split: Split) -> torch.Tensor:
+    """``lm_head`` or the final norm's scale (``name``), gathered whole over
+    ``data`` under FSDP where it is used; as it is otherwise."""
+    t = p[name]
+    if split.data is None:
+        return t
+    return gather_for_data(t, split.data, _TOP_EMBED_DIMS[name])
+
+
+def final_norm(p, split: Split):
+    """The final norm's parameters as ``layers.rmsnorm`` reads them."""
+    return p["final_norm"] if split.data is None else {
+        "scale": whole_leaf(p, "final_norm.scale", split)}
 
 
 def _copied(p, mesh, tag: str):
@@ -508,19 +582,27 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
     positions take the patch embeddings instead, unscaled, in x's dtype.
     Split over the vocabulary (``split.embed``), each rank looks up the
     tokens in its rows, zeroes the others, and the ranks' rows are summed
-    (exact: one term is not zero)."""
+    (exact: one term is not zero). Under FSDP the table's columns are split
+    over ``data`` and its rows are looked up whole-width through
+    ``lookup_for_data``, except where the sparse transport hands the loss
+    a whole sub-table (``context.whole_leaves``)."""
     emb = params["embedding"]
+    data = None if is_whole("embedding") else split.data
+
+    def lookup(ids):
+        return emb[ids] if data is None else lookup_for_data(emb, ids, data)
+
     # sqrt(d_model) in f32, then rounded to the table's dtype, as the
     # reference scales it (in bf16, sqrt(5120) = 71.55 becomes 71.5)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
     mesh = split.embed
     if mesh is None:
-        x = emb[tokens] * float(scale.to(emb.dtype))
+        x = lookup(tokens) * float(scale.to(emb.dtype))
     else:
         rows = emb.shape[0]
         local = tokens - mesh.rank * rows
         mine = (local >= 0) & (local < rows)
-        x = emb[torch.where(mine, local, 0)] * float(scale.to(emb.dtype))
+        x = lookup(torch.where(mine, local, 0)) * float(scale.to(emb.dtype))
         x = reduce_from_model(torch.where(mine[..., None], x, 0.0), mesh, "embed")
     constrain(x, ("batch", None, None), (None, tokens.shape[1], cfg.d_model))
     if patch_embeds is None or cfg.num_patches <= 0:
@@ -587,6 +669,7 @@ def _layer_fn(cfg: ModelConfig, names: Tuple[str, ...], split: Split = NO_SPLIT)
     when the layer is built: remat's recompute may run on autograd's
     device thread, which does not see the installed rules."""
     def run(x, positions, mrope_pos, *tensors):
+        tensors = gather_layer(cfg, names, tensors, split)
         x, aux, _ = _layer(cfg, FlatParams(dict(zip(names, tensors))), x, positions,
                            mrope_pos, split)
         return (x, aux.reshape(1)) if cfg.is_moe else (x,)
@@ -705,13 +788,14 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         aux_all = torch.cat(auxes) if auxes else None
     else:
         for i in range(nl):
-            x, aux, kv = _layer(cfg, p["layers"][i], x, positions, mrope_pos, split)
+            x, aux, kv = _layer(cfg, _gathered_layer(cfg, p["layers"][i], split), x,
+                                positions, mrope_pos, split)
             if aux is not None:
                 auxes.append(aux)
             if collect_kv:
                 kvs.append(kv)
         aux_all = torch.stack(auxes) if auxes else None
-    hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    hidden = L.rmsnorm(final_norm(p, split), x, cfg.norm_eps)
     aux_loss = (aux_all.mean() if aux_all is not None
                 else torch.zeros((), dtype=torch.float32, device=x.device))
     return ForwardOut(hidden, aux_loss, kvs)
@@ -728,7 +812,7 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     ``(B, c, V/m)`` logits; the max over the vocabulary is a max over the
     ranks, the sum of exponentials and the gold logit (from the rank that
     holds it, zero elsewhere) are summed over them in one all-reduce."""
-    head = as_tree(params)["lm_head"]
+    head = whole_leaf(as_tree(params), "lm_head", split)
     mesh = split.vocab
     if mesh is not None:
         hidden = copy_to_model(hidden, mesh, "xent_in")
@@ -863,7 +947,7 @@ def write_prefill_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tens
 def _whole_logits(p, hidden: torch.Tensor, split: Split) -> torch.Tensor:
     """f32 logits of ``hidden`` (B, d), the vocabulary whole: gathered over
     the model ranks where ``lm_head``'s columns are split."""
-    logits = (hidden @ p["lm_head"]).float()
+    logits = (hidden @ whole_leaf(p, "lm_head", split)).float()
     if split.vocab is not None:
         logits = gather_from_model(logits, split.vocab, "logits", dim=-1)
     return logits
@@ -940,7 +1024,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: L.KVCache,
     heads = split.heads
     capacity = b * cfg.experts_per_token * (split.batch.size if split.batch is not None else 1)
     for i in range(cfg.num_layers):
-        lp = p["layers"][i]
+        lp = _gathered_layer(cfg, p["layers"][i], split)
         ap = lp["attn"]
         q, k, v = _project_qkv(cfg, ap, L.rmsnorm(ap["norm"], x, cfg.norm_eps), positions,
                                mrope_pos, split)
@@ -954,5 +1038,5 @@ def decode_step(cfg: ModelConfig, params: Params, cache: L.KVCache,
         f, _ = ffn_block(cfg, lp["ffn"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps),
                          capacity=capacity, split=split)
         x = x + f
-    hidden = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    hidden = L.rmsnorm(final_norm(p, split), x, cfg.norm_eps)
     return _whole_logits(p, hidden[:, 0], split), cache._replace(pos=pos + 1)

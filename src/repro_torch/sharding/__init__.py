@@ -13,7 +13,9 @@ from repro_torch.sharding.logical import axes_tree, boxed_like, unbox  # noqa: F
 from repro_torch.sharding.rules import (  # noqa: F401
     DECODE_RULES,
     TRAIN_RULES,
+    choose_layout,
     complete_rules,
+    fsdp_rules,
     make_rules,
     param_rules,
 )

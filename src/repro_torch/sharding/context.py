@@ -139,3 +139,25 @@ def split_mesh(logical: str, size: int):
     if m == 1 or size % m:
         return None
     return mesh.axis("model")
+
+
+def data_mesh(size: int):
+    """The data axis's ``CohortMesh`` when the installed rules split the
+    ``embed`` axis (each weight's ``d_model``) over ``data`` and the axis
+    divides ``size`` (the FSDP layout: ``rules.fsdp_rules``), else None
+    (off the mesh, TP, one data rank, or a size ``_fit_spec`` leaves
+    whole)."""
+    mesh, rules = get_rules()
+    if mesh is None:
+        return None
+    names = param_rules(rules).get("embed")
+    if not names:
+        return None
+    if tuple(names) != ("data",):
+        raise NotImplementedError(
+            f"logical axis 'embed' maps to {names}: the port splits d_model over the "
+            "'data' axis only")
+    n = int(mesh.shape.get("data", 1))
+    if n == 1 or size % n:
+        return None
+    return mesh.axis("data")

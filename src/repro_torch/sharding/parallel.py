@@ -18,12 +18,19 @@ parallelism does:
                        unchanged: a statistic of the whole batch (the MoE's
                        load-balance means) on ranks that each hold part of
                        it, under a round step that averages their gradients
-``gather_for_model``   ``copy_to_model`` of ``gather_from_model``: the
-                       gradient, which each rank holds in part, all-reduced
-                       whole, then this rank's slice: columns that every
-                       rank gathers whole and then uses in part (Mamba2's
-                       fused projection and conv output, each rank taking
-                       its SSM heads; the mLSTM's up projection)
+``gather_for_model``   all-gather on a dim forward, reduce-scatter of the
+                       gradient backward (this rank's slice of the sum over
+                       the ranks): columns that every rank gathers whole
+                       and then uses in part (Mamba2's fused projection and
+                       conv output, each rank taking its SSM heads; the
+                       mLSTM's up projection)
+``gather_for_data``    the same over the ``data`` ranks, for FSDP: a
+                       weight's slice of ``d_model`` gathered whole where a
+                       layer uses it, its gradient summed over the data
+                       ranks and scattered back to each rank's slice
+``lookup_for_data``    FSDP's embedding lookup: the rows a batch uses of a
+                       table whose columns are split over ``data``, made
+                       whole-width by gathering those rows, not the table
 ``sum_over_model``     ``copy_to_model`` of ``reduce_from_model``, an
                        all-reduce forward and backward: a sum that every
                        rank then uses in part (the sum of squares of an
@@ -41,7 +48,8 @@ Each is a ``torch.autograd.Function`` with ``setup_context``, so that
 recompute) reach through it; its forward gets plain tensors, which the
 collective may read. They do not support ``vmap``. ``mesh`` is an axis's
 :class:`~repro_torch.launch.mesh.CohortMesh` (the model axis, but for the
-MoE's routing over the ``data`` ranks); each collective is counted on it
+MoE's routing over the batch's ranks and FSDP's gathers over the ``data``
+ranks); each collective is counted on it
 under ``tag``. A backward all-reduce receives the gradient the
 rank holds: every rank must run the same backward, which the round step's
 replicated loss gives.
@@ -98,6 +106,40 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.mesh.rank * ctx.width, ctx.width), None, None, None
 
 
+class _GatherScatter(torch.autograd.Function):
+    """All-gather on ``dim`` forward, reduce-scatter on ``dim`` backward."""
+
+    @staticmethod
+    def forward(x, mesh, tag, grad_tag, dim):
+        return _GatherFromModel.forward(x, mesh, tag, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, _, ctx.grad_tag, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatter.apply(g, ctx.mesh, ctx.grad_tag, ctx.dim), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """This rank's slice on ``dim`` of the sum over the ranks (the backward
+    of ``_GatherScatter``, applied as a Function so that its collective
+    reads plain tensors under ``torch.func``); its own gradient gathers."""
+
+    @staticmethod
+    def forward(g, mesh, tag, dim):
+        return mesh.reduce_scatter(g, tag, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.tag, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherScatter.apply(g, ctx.mesh, ctx.tag, ctx.tag, ctx.dim), None, None, None
+
+
 class _MaxFromModel(torch.autograd.Function):
     @staticmethod
     def forward(x, mesh, tag):
@@ -145,9 +187,36 @@ def gather_from_model(x: torch.Tensor, mesh, tag: str, dim: int = -1) -> torch.T
 def gather_for_model(x: torch.Tensor, mesh, tag: str, dim: int = -1) -> torch.Tensor:
     """Every model rank's ``x`` concatenated on ``dim`` in rank order, for
     ranks that each use a different part of it: the gradient is summed over
-    the ranks (an all-reduce counted under ``tag + "_grad"``) and this
-    rank's slice of it taken."""
-    return copy_to_model(gather_from_model(x, mesh, tag, dim), mesh, f"{tag}_grad")
+    the ranks and scattered, this rank receiving its slice (a reduce-scatter
+    counted under ``tag + "_grad"``)."""
+    return _GatherScatter.apply(x, mesh, tag, f"{tag}_grad", dim % x.dim())
+
+
+def gather_for_data(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """FSDP's gather: every data rank's slice of a weight concatenated on
+    ``dim`` (its ``d_model``) in rank order, counted under ``fsdp_gather``.
+    The gradient each rank holds for the whole weight (of its own part of
+    the batch) is summed over the data ranks and scattered back, this rank
+    receiving the sum's slice (a reduce-scatter counted under
+    ``fsdp_grad``): the round step then scales it by the number of batch
+    shards and does not average it over ``data`` again."""
+    return _GatherScatter.apply(x, mesh, "fsdp_gather", "fsdp_grad", dim % x.dim())
+
+
+def lookup_for_data(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+    """``table[ids]`` whole-width, where FSDP splits ``table``'s columns
+    (``d_model``) over the data ranks (``mesh``) and each rank looks up its
+    own ``ids``: every rank's ids are all-gathered (int32, ``fsdp_ids``),
+    each rank looks them all up in its columns, and the rows are
+    all-gathered (``gather_for_data``) and the rank's own taken, columns in
+    rank order. The gradient of the rows is reduce-scattered back
+    (``fsdp_grad``), so each rank's columns receive every rank's rows'
+    gradient, which the lookup's backward adds into its slice. A step
+    moves ``data`` times the rows it uses, not the table."""
+    # through a Function, whose forward reads plain tensors under torch.func
+    every = gather_from_model(ids.to(torch.int32)[None], mesh, "fsdp_ids", 0).long()
+    rows = gather_for_data(table[every][None], mesh, 0)[:, mesh.rank]  # (n, *ids, d / n)
+    return rows.movedim(0, -2).flatten(-2)
 
 
 def sum_over_model(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:

@@ -17,12 +17,23 @@ Baseline layout (single pod, mesh ("data","model"); multi-pod prepends "pod"):
 where the head counts divide the model axis. ``param_rules`` is the port's
 own: the rules its parameters are split by, which keep whole heads on each
 rank.
+
+The dry run's layouts (``launch/dryrun.py:67-76, 105-108``): ``"tp"`` keeps
+the rules as they are, every weight resident on its model ranks;
+``"fsdp"`` (``fsdp_rules``) also splits each weight's ``d_model`` (the
+``embed`` axis) over ``data``, and the layers gather it whole per layer;
+``"auto"`` (``choose_layout``) takes FSDP where a model-axis shard of the
+bf16 parameters would exceed the HBM budget.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 MeshAxes = Optional[Tuple[str, ...]]
+
+LAYOUTS = ("tp", "fsdp", "auto")
+#: the families whose layers gather their weights under FSDP
+FSDP_FAMILIES = ("dense", "moe", "vlm")
 
 
 def make_rules(kind: str, multi_pod: bool = False, expert_parallel: bool = False,
@@ -77,3 +88,38 @@ def param_rules(rules: Dict[str, MeshAxes]) -> Dict[str, MeshAxes]:
     return dict(rules,
                 heads=rules.get("heads") if rules.get("heads_act") else None,
                 kv=rules.get("kv") if rules.get("kv_act") else None)
+
+
+def choose_layout(cfg, hbm_budget_gib: float = 6.0) -> str:
+    """The dry run's ``"auto"`` layout: ``"tp"`` when a shard of the bf16
+    parameters over the production mesh's 16 model ranks fits
+    ``hbm_budget_gib``, ``"fsdp"`` otherwise (``launch/dryrun.py:67-76``)."""
+    shard_gib = cfg.param_counts()["total"] * 2 / 16 / 2**30
+    return "tp" if shard_gib <= hbm_budget_gib else "fsdp"
+
+
+def resolve_layout(cfg, layout: str) -> str:
+    """``layout`` as the rules take it: ``"auto"`` becomes ``choose_layout``'s
+    choice; anything but the three layouts raises."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: expected one of {LAYOUTS}")
+    return choose_layout(cfg) if layout == "auto" else layout
+
+
+def fsdp_rules(rules: Dict[str, MeshAxes]) -> Dict[str, MeshAxes]:
+    """``rules`` with every weight's ``d_model`` split over ``data``, as
+    the dry run builds its FSDP rules (``launch/dryrun.py:105-108``)."""
+    return dict(rules, embed=("data",))
+
+
+def layout_rules(cfg, rules: Dict[str, MeshAxes], layout: str) -> Dict[str, MeshAxes]:
+    """``rules`` laid out for ``cfg`` by ``layout`` (``"tp"``, ``"fsdp"`` or
+    ``"auto"``). FSDP is refused for a family whose layers do not gather
+    (``FSDP_FAMILIES``): no layout falls back to another."""
+    if resolve_layout(cfg, layout) == "tp":
+        return rules
+    if cfg.family not in FSDP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no FSDP layout in the port (its "
+            f"layers do not gather their weights over 'data'); use layout='tp'")
+    return fsdp_rules(rules)

@@ -26,6 +26,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.core.aggregate import HeatSpec
 from repro_torch.sharding.context import whole_leaves
+from repro_torch.sharding.parallel import lookup_for_data
 from repro_torch.sparse.rowsparse import (RowSparse, is_rowsparse, remap_ids,
                                           unique_ids_padded)
 
@@ -68,7 +69,7 @@ def remap_to_rows(tokens: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
                             batch: Dict[str, torch.Tensor], table: str,
                             feature_keys: Sequence[str], ids: torch.Tensor,
-                            split=None):
+                            split=None, cols=None):
     """Loss and gradients with the table ``table`` never densified.
 
     ``ids`` is the sorted, -1-padded union of the batch's feature ids. The
@@ -86,14 +87,26 @@ def submodel_value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
     (``context.whole_leaves``). The loss is the same on every model rank,
     and so is the row gradient; the rank keeps the rows of its slice, as a
     ``RowSparse`` of ``V/m`` rows on slice-local ids.
+
+    ``cols`` (the data axis's ``CohortMesh``, FSDP) says the rank holds the
+    table's columns ``[rank * d/n, (rank + 1) * d/n)``: the union rows are
+    looked up whole-width through ``lookup_for_data`` (the data ranks'
+    unions gathered, then their rows; the table is not differentiated, so
+    nothing is scattered back), and the row gradient is whole-width. The
+    round step combines it so and keeps the rank's columns of the combined
+    rows.
     """
     num_rows = params[table].shape[0]
+
+    def lookup(idx):
+        return params[table][idx] if cols is None else lookup_for_data(params[table], idx, cols)
+
     if split is None:
-        rows0 = params[table][torch.clamp(ids, min=0).long()]
+        rows0 = lookup(torch.clamp(ids, min=0).long())
     else:
         local = ids.long() - split.rank * num_rows
         mine = (ids >= 0) & (local >= 0) & (local < num_rows)
-        rows0 = params[table][torch.where(mine, local, 0)]
+        rows0 = lookup(torch.where(mine, local, 0))
         mask = mine.reshape((-1,) + (1,) * (rows0.dim() - 1))
         rows0 = split.psum(torch.where(mask, rows0, 0.0), f"sub_rows:{table}")
     sub_batch = dict(batch)
