@@ -16,13 +16,18 @@
     The Hopper kernels' launch resources, cross-block state and cost:
     ``python -m repro_torch.analysis.kernel_audit --json kernel-audit.json``.
 
+``repro_torch.analysis.lint``
+    The reference lint's rules that have a torch form (``shard-full-aggregate``
+    and ``shard-missing-psum`` over the ``shard_body`` scopes, ``donated-reuse``
+    over in-place writers), stdlib only:
+    ``python -m repro_torch.analysis.lint [src/repro_torch] [--json report.json]``.
+
 Submodules are imported lazily, as the reference's are
-(``repro/analysis/__init__.py``); the reference's ``lint`` (JAX's jit
-rules) has no counterpart.
+(``repro/analysis/__init__.py``).
 """
 from __future__ import annotations
 
-_SUBMODULES = ("jaxpr_audit", "sanitize", "hlo_audit", "kernel_audit")
+_SUBMODULES = ("jaxpr_audit", "sanitize", "hlo_audit", "kernel_audit", "lint")
 
 __all__ = list(_SUBMODULES)
 

@@ -53,6 +53,7 @@ from repro_torch.core.algorithms import (ServerAlgorithm, ServerState,
 from repro_torch.federated.client import (cohort_deltas, cohort_submodel_deltas,
                                           make_local_trainer,
                                           make_submodel_local_trainer)
+from repro_torch.launch.mesh import shard_body
 from repro_torch.sharding.context import get_rules
 from repro_torch.sparse.aggregate import (aggregate_rowsparse_partial, apply_rowsparse,
                                           combine_rowsparse_partials, correct_rowsparse,
@@ -1140,6 +1141,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         if used_ids.dim() == 2:
             d_pc, m_pc = drop_stats(stacked_feature_ids(data, feature_keys),
                                     used_ids, vocab)
+            # repro-lint: ok shard-missing-psum -- the whole cohort's sums: a sharded
+            # step passes the full batch and the ids gathered over the mesh
             return (union_ids_vec(used_ids, vocab), d_pc.sum(dtype=torch.int32),
                     m_pc.sum(), d_pc)
         dropped, mass = drop_stats(flat_feature_ids(data, feature_keys), used_ids, vocab)
@@ -1152,6 +1155,8 @@ def build_round_step(plan: RoundPlan, loss_fn: Callable,
         it, and the aggregate's rows each slice's, both summed over it."""
         device = pre_sq.device
         union, dropped, mass, per_client = cohort_drop_tel(data, used_ids, device)
+        # repro-lint: ok shard-missing-psum -- the whole cohort's union: a sharded
+        # step passes the ids gathered over the mesh
         union_size = ((union >= 0).sum(dtype=torch.int32) if union is not None
                       else torch.zeros((), dtype=torch.int32, device=device))
         hv = counts.get(heat_space) if (counts and heat_space) else None
@@ -1477,6 +1482,9 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
         split over the model axis, over ``data`` (FSDP) or both summed over
         those axes, the whole leaves' once."""
         if parts.model is None and parts.data is None:
+            # repro-lint: ok shard-missing-psum -- no leaf is split: stacked_shard
+            # psums these squares over the cohort, flat_shard passes the
+            # replicated aggregate
             return tree_sq_sum(tree)
         groups: Dict[Tuple[bool, bool], Dict] = {}
         for name, leaf in tree.items():
@@ -1515,6 +1523,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
             return mean
         return correct_dense_leaf(mean, heat_spec.leaf_spaces.get(name), counts, n_total)
 
+    @shard_body
     def stacked_shard(params, data, sub_ids, wmask, counts, k_real, parts):
         """This rank's clients: local steps, the partial, the combine.
         Returns the replicated aggregate, the loss, the sub-row count and
@@ -1559,6 +1568,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
                                                  "telemetry:ids")
         return agg, loss, sub_rows, tel
 
+    @shard_body
     def flat_shard(params, data, sub_ids, counts, parts):
         """This rank's examples of the pooled batch. Exact when ``loss_fn``
         is a uniform mean over the batch: the cohort gradient is then the
@@ -1594,6 +1604,7 @@ def _sharded_step(plan: RoundPlan, loss_fn: Callable, heat_spec: HeatSpec, n_tot
                 (used_ids >= 0).sum(dtype=torch.int32), "telemetry:ids")
         return agg, loss, sub_rows, tel
 
+    @shard_body
     def sharded_step(state: ServerState, batch: Dict[str, torch.Tensor],
                      sub_ids: Optional[torch.Tensor] = None):
         params = state.params

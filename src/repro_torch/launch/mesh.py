@@ -46,6 +46,18 @@ import torch
 import torch.distributed as dist
 
 
+def shard_body(fn: Callable) -> Callable:
+    """Mark ``fn`` as a shard body and return it unchanged.
+
+    A shard body runs on every rank with the rank's shard of the cohort,
+    the port's counterpart of a function wrapped in ``shard_map``: a
+    reduction in it covers the rank's shard only unless a collective
+    combines it. ``repro_torch.analysis.lint`` roots its shard rules at the
+    functions decorated with this (or passed to it).
+    """
+    return fn
+
+
 @dataclass(eq=False)
 class CohortMesh:
     """A 1-D mesh of ``size`` ranks over one process group.

@@ -595,10 +595,13 @@ def test_cost_model_prices_k3_f32_on_its_3xtf32_route(shape, nbytes, flops, rout
 
 def test_analysis_submodules_load_lazily():
     import repro_torch.analysis as pkg
-    assert set(pkg._SUBMODULES) == {"sanitize", "jaxpr_audit", "hlo_audit", "kernel_audit"}
+    assert set(pkg._SUBMODULES) == {"sanitize", "jaxpr_audit", "hlo_audit", "kernel_audit",
+                                    "lint"}
     assert pkg.kernel_audit is kernel_audit and pkg.hlo_audit is hlo_audit
+    import repro_torch.analysis.lint as lint
+    assert pkg.lint is lint
     with pytest.raises(AttributeError):
-        pkg.lint
+        pkg.no_such_plane
 
 
 def test_build_keeps_ptxas_logs_beside_cached_libraries(tmp_path, monkeypatch):
